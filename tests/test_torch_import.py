@@ -1,0 +1,34 @@
+"""The port imports torch and never JAX, and nothing of the JAX package:
+the machine with the card has no JAX."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, pkgutil, sys
+import voxtracer_torch
+names = [m.name for m in pkgutil.walk_packages(voxtracer_torch.__path__,
+                                               "voxtracer_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "voxtracer."))
+             or m == "voxtracer")
+print(len(names), bad)
+assert "jax" not in sys.modules, bad
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax():
+    # the probe computes nothing; two threads, as the other port tests
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    n_modules = int(res.stdout.split()[0])
+    assert n_modules >= 20  # every module of the port was imported

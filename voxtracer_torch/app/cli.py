@@ -1,0 +1,153 @@
+"""voxtracer_torch command-line interface.
+
+Subcommands, with the flags and defaults of ``voxtracer/app/cli.py``:
+
+* ``render --mode path`` — render one path-traced frame to PNG and/or EXR.
+* ``headless`` — the day-cycle batch job: N samples per frame, EXR dump,
+  sun schedule, throughput prints (main.rs:112-145).
+* ``combine`` — average frames/*.exr across iters into movie/*.png
+  (main.rs:312-370).
+
+``render`` and ``headless`` run on the CUDA card and refuse to start
+without one; the library's ``Renderer(..., device="cpu")`` is the CPU path.
+
+Run: ``python -m voxtracer_torch.app.cli headless --max-frames 1``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def _add_common(p):
+    p.add_argument("--log2-size", type=int, default=10,
+                   help="world edge = 2^log2_size voxels (reference: 13)")
+    p.add_argument("--seed-scale", type=lambda s: int(s, 0),
+                   default=0xAFE29979, help="scale-noise seed")
+    p.add_argument("--seed-noise", type=lambda s: int(s, 0),
+                   default=0x1C766E2E, help="fBm noise seed")
+    p.add_argument("--width", type=int, default=853)
+    p.add_argument("--height", type=int, default=480)
+    p.add_argument("--pos", type=float, nargs=3, default=None,
+                   help="camera position (default: reference pose scaled "
+                        "to world size)")
+    p.add_argument("--yaw", type=float, default=-5.3800497)
+    p.add_argument("--pitch", type=float, default=0.21999985)
+    p.add_argument("--sun", type=float, nargs=3, default=(0.8, 10.2743, 3.7))
+    p.add_argument("--max-bounces", type=int, default=24)
+    p.add_argument("--fog-steps", type=int, default=64)
+    p.add_argument("--seed", type=int, default=0)
+
+
+def _device():
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false: the CLI "
+                           "renders on a CUDA card")
+    return "cuda"
+
+
+def _build_world(args, log=print):
+    from voxtracer_torch.world import worldgen
+
+    t0 = time.monotonic()
+    space = worldgen.generate(log2_size=args.log2_size,
+                              seed_scale=args.seed_scale,
+                              seed_noise=args.seed_noise,
+                              device=_device())
+    log(f"worldgen total {time.monotonic() - t0:.2f}s")
+    return space
+
+
+def _camera(args):
+    from voxtracer_torch.core import camera as vcam
+
+    if args.pos is None:
+        s = (1 << args.log2_size) / 8192.0
+        pos = tuple(np.asarray(vcam.DEFAULT_POSE.pos) * s)
+    else:
+        pos = tuple(args.pos)
+    return vcam.Camera(pos=pos, yaw=args.yaw, pitch=args.pitch)
+
+
+def _renderer(args, space):
+    from voxtracer_torch.render.driver import Renderer
+
+    return Renderer(space.serialize(), args.width, args.height,
+                    max_bounces=args.max_bounces, fog_steps=args.fog_steps,
+                    seed=args.seed, device=_device())
+
+
+def cmd_render(args):
+    space = _build_world(args)
+    cam = _camera(args)
+    r = _renderer(args, space)
+    t0 = time.monotonic()
+    r.render(cam, np.asarray(args.sun, np.float64), args.spp)
+    dt = time.monotonic() - t0
+    print(f"{args.spp} spp in {dt:.2f}s = "
+          f"{args.spp * args.width * args.height / dt / 1e6:.2f} Mpaths/s")
+    if args.out:
+        r.save_png(args.out)
+        print("wrote", args.out)
+    if args.exr:
+        r.save_exr(args.exr)
+        print("wrote", args.exr)
+
+
+def cmd_headless(args):
+    from voxtracer_torch.render.driver import headless_run
+
+    space = _build_world(args)
+    cam = _camera(args)
+    r = _renderer(args, space)
+    headless_run(r, cam, out_dir=args.frames_dir,
+                 frame_samples=args.frame_samples,
+                 sun_start=np.asarray(args.sun, np.float64),
+                 max_iters=args.iters, max_frames=args.max_frames)
+
+
+def cmd_combine(args):
+    from voxtracer_torch.render.driver import combine
+
+    combine(args.frames_dir, args.movie_dir)
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(prog="voxtracer_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("render", help="render one path-traced frame")
+    _add_common(p)
+    p.add_argument("--mode", choices=("path",), default="path")
+    p.add_argument("--spp", type=int, default=16)
+    p.add_argument("--out", default="frame.png")
+    p.add_argument("--exr", default=None)
+    p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("headless", help="day-cycle batch render")
+    _add_common(p)
+    p.add_argument("--frames-dir", default="frames")
+    p.add_argument("--frame-samples", type=int, default=1000)
+    p.add_argument("--iters", type=int, default=1)
+    p.add_argument("--max-frames", type=int, default=None)
+    p.set_defaults(fn=cmd_headless)
+
+    p = sub.add_parser("combine", help="frames/*.exr -> movie/*.png")
+    p.add_argument("--frames-dir", default="frames")
+    p.add_argument("--movie-dir", default="movie")
+    p.set_defaults(fn=cmd_combine)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,60 @@
+"""Small vector-math helpers over trailing-axis-3 float32 tensors.
+
+Sums over the three components are written out left to right, so the
+rounding is the same on every device: a reduction kernel is free to
+choose its own order.
+
+Division by a constant goes through ``div``/``rdiv``: PyTorch computes
+``x / c`` for a Python number c as ``x * (1/c)`` on a card, and ``c / x``
+as ``x.reciprocal() * c`` everywhere, each two roundings where the JAX
+package and the CUDA kernels do one correctly rounded division.
+"""
+
+from __future__ import annotations
+
+import torch
+
+EPS = 1.0e-6  # direction clamp epsilon (reference: raytrace.wgsl:53)
+
+
+def div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c as one correctly rounded division on every device."""
+    return torch.div(x, torch.tensor(c, dtype=x.dtype, device=x.device))
+
+
+def rdiv(c: float, x: torch.Tensor) -> torch.Tensor:
+    """c / x as one correctly rounded division on every device."""
+    return torch.div(torch.tensor(c, dtype=x.dtype, device=x.device), x)
+
+
+def dot(a, b):
+    """Batched dot product over the trailing axis, keepdims=False."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def cross(a, b):
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
+                        ax * by - ay * bx], dim=-1)
+
+
+def normalize(a):
+    return a / torch.sqrt(dot(a, a))[..., None]
+
+
+def hmax(a):
+    """Horizontal max over the trailing axis (reference: raytrace.wgsl:56-58)."""
+    return torch.amax(a, dim=-1)
+
+
+def hmin(a):
+    """Horizontal min over the trailing axis (reference: raytrace.wgsl:60-62)."""
+    return torch.amin(a, dim=-1)
+
+
+def to_bits(v):
+    """Pack a (..., 3) boolean octant mask into an integer: bit0 = x,
+    bit1 = y, bit2 = z (raytrace.wgsl:64-66, svo.rs:89-91)."""
+    v = v.to(torch.int32)
+    return v[..., 0] | (v[..., 1] << 1) | (v[..., 2] << 2)

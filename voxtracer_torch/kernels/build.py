@@ -1,0 +1,98 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) as one shared
+library with a plain C interface, bound with ctypes.
+
+The library is compiled by ``nvcc`` at first use into
+``voxtracer_torch/_build/``, named by a hash of the sources and the flags,
+written under a temporary name and renamed into place, so concurrent
+builders never load a half-written file. There is no prebuilt fallback:
+without ``nvcc`` the first launch on a CUDA tensor raises.
+
+Flags: ``-gencode arch=compute_90a,code=sm_90a`` for Hopper, ``-O3``, and
+``--fmad=false``: nvcc contracts ``a*b+c`` into one fused multiply-add by
+default, which rounds differently from the plain PyTorch version (each op
+rounded on its own) and flips edge-graze tie-breaks in the traversal.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+SOURCES = ("fog_march.cu", "svo_cast.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argtypes; each returns cudaGetLastError()
+SIGNATURES = {
+    # start, dir, density, y0, code, t, n, n_steps, planet_r, planet_r2,
+    # fog_r2, fog_factor, stream
+    "voxt_fog_march": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
+    # table, root, height, start, dir, distance, active, skip_t0,
+    # hit, t, node, normal, voxel, n, stream
+    "voxt_svo_cast": (_P, _I, _I, _P, _P, _P, _P, _I,
+                      _P, _P, _P, _P, _P, _I, _P),
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "source at first use and need the CUDA toolkit")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the sources unless a library for this exact source hash
+    exists; return its path."""
+    out = BUILD_DIR / f"libvoxt_{_source_hash()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / s) for s in SOURCES)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str):
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

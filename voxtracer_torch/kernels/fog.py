@@ -1,0 +1,133 @@
+"""The atmosphere march: CUDA kernel K1 (csrc/fog_march.cu) and its plain
+PyTorch version.
+
+Counterpart of ``voxtracer/kernels/pallas/fog.py:fog_march``. The
+wrapper takes the kernel for CUDA tensors and the plain version for CPU
+tensors; there is no fallback between them.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from voxtracer_torch.core.vecmath import div
+from voxtracer_torch.kernels import build
+
+PLANET_RADIUS = 6371000.0  # raytrace.wgsl:262
+FOG_HALFLIFE = 10400.0 / math.log(2.0)  # raytrace.wgsl:263
+FOG_RADIUS = PLANET_RADIUS + 10.0 * FOG_HALFLIFE  # raytrace.wgsl:264
+FOG_FACTOR = math.log(2.0) / FOG_HALFLIFE  # raytrace.wgsl:265
+
+# float32 constants, each folded in double and rounded once (what JAX's
+# weak typing does with the same Python expressions)
+_F32 = lambda v: float(np.float32(v))  # noqa: E731
+PLANET_R_F = _F32(PLANET_RADIUS)
+PLANET_R2_F = _F32(PLANET_RADIUS * PLANET_RADIUS)
+FOG_R2_F = _F32(FOG_RADIUS * FOG_RADIUS)
+FOG_FACTOR_F = _F32(FOG_FACTOR)
+
+launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+
+
+def fog_march(start, direction, density, y0, n_steps: int = 64):
+    """March B rays through the atmosphere.
+
+    start/direction: (B, 3) float32; density/y0: (B,) float32.
+    Returns (code (B,) int32 [0 miss / 1 planet / 2 fog], t (B,) float32).
+    """
+    global launches
+    if start.device.type == "cpu":
+        return fog_march_plain(start, direction, density, y0, n_steps)
+    if start.device.type != "cuda":
+        raise ValueError(f"fog_march: unsupported device {start.device}")
+    B = start.shape[0]
+    for name, x, shape in (("start", start, (B, 3)),
+                           ("direction", direction, (B, 3)),
+                           ("density", density, (B,)), ("y0", y0, (B,))):
+        if x.device != start.device or x.dtype != torch.float32 \
+                or tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"fog_march: {name} must be a contiguous float32 "
+                             f"{shape} tensor on {start.device}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    code = torch.empty((B,), dtype=torch.int32, device=start.device)
+    t = torch.empty((B,), dtype=torch.float32, device=start.device)
+    if B == 0:
+        return code, t
+    lib = build.library()
+    with torch.cuda.device(start.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.voxt_fog_march(
+            start.data_ptr(), direction.data_ptr(), density.data_ptr(),
+            y0.data_ptr(), code.data_ptr(), t.data_ptr(), B, int(n_steps),
+            PLANET_R_F, PLANET_R2_F, FOG_R2_F, FOG_FACTOR_F, stream)
+    build.check(err, "fog_march")
+    launches += 1
+    return code, t
+
+
+def _sphere_span(start, direction):
+    """Shell entry/exit (t0, t1 clipped at the planet), valid and surf
+    masks, and the planet-centred origin; shared with
+    ``atmosphere.transmittance_to_escape``."""
+    px, py, pz = start[..., 0], start[..., 1], start[..., 2]
+    dx, dy, dz = direction[..., 0], direction[..., 1], direction[..., 2]
+    pyr = py + PLANET_RADIUS
+    pp = px * px + pyr * pyr + pz * pz
+    b = 2.0 * (px * dx + pyr * dy + pz * dz)
+    c = pp - FOG_RADIUS * FOG_RADIUS
+    det = b * b - 4.0 * c
+    sq = torch.sqrt(torch.clamp_min(det, 0.0))
+    t0 = torch.clamp_min((-b - sq) / 2.0, 0.0)
+    t1 = (-b + sq) / 2.0
+    valid = (det >= 0.0) & (t1 >= 0.0)
+
+    c_pl = pp - PLANET_RADIUS * PLANET_RADIUS
+    det_pl = b * b - 4.0 * c_pl
+    sq_pl = torch.sqrt(torch.clamp_min(det_pl, 0.0))
+    t0_pl = (-b - sq_pl) / 2.0
+    surf = valid & (det_pl >= 0.0) & (t0_pl > 0.0)
+    t1 = torch.where(surf, t0_pl, t1)
+    return t0, t1, valid, surf, (px, pyr, pz)
+
+
+def _segment(i: int, n: int, t0, t1):
+    """Segment i of n, marched from the far end: (t_s0, t_s1)."""
+    a1 = np.float32(i + 1) / np.float32(n)
+    a0 = np.float32(i) / np.float32(n)
+    t_s0 = float(a0) * t0 + float(np.float32(1.0) - a0) * t1
+    t_s1 = float(a1) * t0 + float(np.float32(1.0) - a1) * t1
+    return t_s0, t_s1
+
+
+def _altitude(p, direction, t):
+    px, pyr, pz = p
+    sx = px + direction[..., 0] * t
+    sy = pyr + direction[..., 1] * t
+    sz = pz + direction[..., 2] * t
+    return torch.sqrt(sx * sx + sy * sy + sz * sz) - PLANET_RADIUS
+
+
+def fog_march_plain(start, direction, density, y0, n_steps: int = 64):
+    """Plain PyTorch version of K1, on any device, same arithmetic."""
+    t0, t1, valid, surf, p = _sphere_span(start, direction)
+    density_scaled = div(t1 - t0, float(n_steps)) * density
+    y = y0
+    found = torch.zeros_like(valid)
+    t_sc = torch.zeros_like(t1)
+    for i in range(n_steps):
+        t_s0, t_s1 = _segment(i, n_steps, t0, t1)
+        alt = _altitude(p, direction, t_s1)
+        d_seg = density_scaled * torch.exp(-alt * FOG_FACTOR)
+        scatter = ~found & (y < d_seg)
+        frac = torch.where(d_seg > 0, y / torch.clamp_min(d_seg, 1e-30), 0.0)
+        t_new = frac * t_s0 + (1.0 - frac) * t_s1
+        t_sc = torch.where(scatter, t_new, t_sc)
+        found = found | scatter
+        y = torch.where(found, y, y - d_seg)
+    found = found & valid
+    code = torch.where(found, 2, torch.where(surf, 1, 0)).to(torch.int32)
+    t = torch.where(found, t_sc, torch.where(surf, t1, 0.0))
+    return code, t

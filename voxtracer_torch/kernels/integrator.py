@@ -1,0 +1,192 @@
+"""The spectral path-tracing integrator, SVO engine.
+
+Per bounce, as ``voxtracer/kernels/integrator.py:trace_paths``
+(behavioural reference raytrace.wgsl:329-413):
+
+1. cast planet/fog (atmosphere.raycast_planet) and the SVO capped at the
+   fog event distance; the nearer event wins, compared here because the
+   traversal's cap is advisory (raytrace.wgsl:342-347),
+2. on a miss, primary rays looking into the sun cone add the sun; every
+   missing ray ends (raytrace.wgsl:349-355),
+3. next-event estimation toward the sun disk: one planet cast and a
+   two-stage shadow cast (a cast capped at NEE_NEAR, then a full cast for
+   the lanes it left open) (raytrace.wgsl:362-383),
+4. emissive rule: a hit whose rgba == (1,1,1,1) adds light*10*rgb*a
+   (raytrace.wgsl:386-389),
+5. cosine-hemisphere bounce, light *= albedo * brdf * pi
+   (raytrace.wgsl:390-397),
+6. Russian roulette below throughput 0.5 (raytrace.wgsl:401-409).
+
+Every bounce draws 11 random3 values per lane, masks or not:
+raycast_planet 3 + sample_sun 2 + raycast_planet 3 + cos_hemisphere 2 +
+roulette 1 (integrator.py:548-553 of the JAX package).
+
+The bounce loop is masked, as the JAX package's uncompacted loop: every
+lane runs every bounce, the ``alive`` mask gates what a finished path
+may change, and the loop ends early once no lane is alive.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from voxtracer_torch.core import camera as vcam
+from voxtracer_torch.core import rng as vrng
+from voxtracer_torch.core import sampling
+from voxtracer_torch.core.sampling import (COS_SUN_RADIUS, PI, SUN_COLOR,
+                                           SUN_WEIGHT)
+from voxtracer_torch.core.spectra import fog_density, spectral_throughput
+from voxtracer_torch.core.vecmath import dot
+from voxtracer_torch.kernels import atmosphere
+from voxtracer_torch.kernels.traverse import FAR, leaf_rgb, svo_raycast
+
+# most blocked shadow rays block within a few voxels (terrain self-shadow;
+# voxtracer/kernels/integrator.py:176-181), so a cast capped here settles
+# them cheaply and only the open lanes take the full cast
+NEE_NEAR = 8.0
+RR_THRESHOLD = 0.5
+
+
+def trace_paths(table, root: int, height: int, lut, start, direction,
+                wavelength, sun, state, max_bounces: int = 24,
+                fog_steps: int = 64):
+    """Trace one spectral path per ray; returns (state, radiance (..., 3)).
+
+    table/root/height: the node table (kernels.traverse conventions);
+    lut: (L, 3) wavelength -> linear RGB; start: (..., 3) ray origins
+    (broadcasts); direction: (..., 3) unit directions; wavelength: (...,)
+    in [0, 1); sun: (3,) unit sun direction; state: (..., 3) int64 RNG
+    state.
+    """
+    density = fog_density(wavelength)
+    light = spectral_throughput(lut, wavelength)
+    color = torch.zeros_like(light)
+    alive = torch.ones(wavelength.shape, dtype=torch.bool,
+                       device=wavelength.device)
+    pos = start.expand(direction.shape).to(torch.float32)
+    d = direction
+
+    def cast(p, dr, distance, active):
+        return svo_raycast(table, root, height, p, dr, distance=distance,
+                           active=active)
+
+    for i in range(max_bounces):
+        state, planet = atmosphere.raycast_planet(state, pos, d, density,
+                                                  n_steps=fog_steps)
+        cap = torch.where(planet["hit"], planet["t"], FAR)
+        svo = cast(pos, d, cap, alive)
+        use_svo = svo["hit"] & (svo["t"] <= cap)
+        svo_rgb = leaf_rgb(table, svo["node"])
+        hit_any = planet["hit"] | use_svo
+        rgba = torch.where(
+            use_svo[..., None],
+            torch.cat([svo_rgb, torch.ones_like(svo_rgb[..., :1])], dim=-1),
+            planet["rgba"],
+        )
+        t_hit = torch.where(use_svo, svo["t"], planet["t"])
+        normal = torch.where(use_svo[..., None], svo["normal"],
+                             planet["normal"])
+        live_hit = alive & hit_any
+
+        # miss: primary rays see the sun disk directly
+        if i == 0:
+            sun_disk = dot(d, sun) > COS_SUN_RADIUS
+            color = color + torch.where((alive & ~hit_any & sun_disk)[..., None],
+                                        light * SUN_COLOR, 0.0)
+
+        pos = torch.where(live_hit[..., None], pos + d * t_hit[..., None], pos)
+
+        # next-event estimation toward the sun
+        state, sun_dir = sampling.sample_sun(state, sun)
+        facing = dot(sun_dir, normal) > 0.0
+        state, sun_planet = atmosphere.raycast_planet(state, pos, sun_dir,
+                                                      density,
+                                                      n_steps=fog_steps)
+        nee_act = live_hit & facing & ~sun_planet["hit"]
+        blocked = cast(pos, sun_dir, NEE_NEAR, nee_act)["hit"]
+        blocked = blocked | cast(pos, sun_dir, FAR, nee_act & ~blocked)["hit"]
+        sun_visible = ~sun_planet["hit"] & ~blocked
+        nee = (
+            SUN_COLOR
+            * rgba[..., :3]
+            * sampling.brdf(d, sun_dir, normal)
+            * (dot(normal, sun_dir) * 2.0 * PI * SUN_WEIGHT)[..., None]
+        )
+        color = color + torch.where((live_hit & facing & sun_visible)[..., None],
+                                    light * nee, 0.0)
+
+        # emissive (pure-white placed blocks)
+        emissive = torch.all(rgba == 1.0, dim=-1)
+        color = color + torch.where(
+            (live_hit & emissive)[..., None],
+            light * 10.0 * rgba[..., :3] * rgba[..., 3:4],
+            0.0,
+        )
+
+        # indirect bounce
+        state, ind_dir = sampling.cos_hemisphere(state, normal)
+        light = torch.where(
+            live_hit[..., None],
+            light * rgba[..., :3] * (sampling.brdf(d, ind_dir, normal) * PI),
+            light,
+        )
+        d = torch.where(live_hit[..., None], ind_dir, d)
+
+        # Russian roulette
+        state, rr = vrng.random3(state)
+        rr_active = live_hit & torch.all(light < RR_THRESHOLD, dim=-1)
+        survive = rr[..., 0] < RR_THRESHOLD
+        light = torch.where((rr_active & survive)[..., None],
+                            light * (1.0 / RR_THRESHOLD), light)
+        alive = live_hit & (~rr_active | survive)
+        if not bool(alive.any()):
+            break
+    return state, color
+
+
+def _primary(cam_pos, cam_basis, frame_seed, width_px, height_px, device):
+    """Seeded per-pixel state, jittered camera rays and wavelengths."""
+    py, px = vcam.pixel_grid(width_px, height_px, device)
+    state = vrng.seed_pixels(frame_seed, px, py)
+    state, rnd = vrng.random3(state)
+    ld = vcam.pixel_ndc(px, py, width_px, height_px)
+    d = vcam.ray_directions(cam_basis, ld, jitter=rnd[..., :2],
+                            height=height_px)
+    return state, d, rnd[..., 2]
+
+
+def render_sample(table, root: int, height: int, lut, cam_pos, cam_basis,
+                  sun, frame_seed, width_px: int, height_px: int,
+                  max_bounces: int = 24, fog_steps: int = 64):
+    """One progressive sample, 1 spectral path per pixel
+    (raytrace.wgsl:415-430): seed from (frame_seed, pixel), draw jitter
+    and wavelength, trace. Returns the (H, W, 3) radiance on the table's
+    device."""
+    dev = table.device
+    state, d, wavelength = _primary(cam_pos, cam_basis, frame_seed, width_px,
+                                    height_px, dev)
+    pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
+    _, radiance = trace_paths(table, root, height, lut, pos, d, wavelength,
+                              sun.to(dev), state, max_bounces, fog_steps)
+    return radiance
+
+
+def render_samples(table, root: int, height: int, lut, cam_pos, cam_basis,
+                   sun, frame_seeds, width_px: int, height_px: int,
+                   max_bounces: int = 24, fog_steps: int = 64):
+    """k samples traced as one batch of k*H*W paths; returns the (H, W, 3)
+    radiance SUM, added sample by sample in order, so it equals k
+    render_sample calls summed in sequence, bit for bit."""
+    dev = table.device
+    parts = [_primary(cam_pos, cam_basis, s, width_px, height_px, dev)
+             for s in frame_seeds]
+    state = torch.stack([p[0] for p in parts])
+    d = torch.stack([p[1] for p in parts])
+    wavelength = torch.stack([p[2] for p in parts])
+    pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
+    _, r = trace_paths(table, root, height, lut, pos, d, wavelength,
+                       sun.to(dev), state, max_bounces, fog_steps)
+    acc = r[0]
+    for k in range(1, r.shape[0]):
+        acc = acc + r[k]
+    return acc

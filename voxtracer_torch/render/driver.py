@@ -1,0 +1,216 @@
+"""Frame drivers: progressive rendering, the headless day-cycle batch job
+and the movie combine job (behavioural reference main.rs:112-145,
+312-370; the JAX package's ``voxtracer/render/driver.py``).
+
+* headless cadence: every ``frame_samples`` samples, write
+  ``frames/{iter:04}-{seq:03}.exr``, rotate the sun one day-cycle step,
+  print paths/px/sec, start a new iter when the sun sets (sun.y < -0.3),
+  stop after ``max_iters`` cycles.
+* sun schedule: rotation about the arc from (0.8, 1.0, 3.7) to
+  (0.8, 0.0, 3.7), stepped by 0.0025 rad per frame (main.rs:115-122).
+* combine: group ``frames/*.exr`` by seq, average in linear space,
+  sRGB-encode, write ``movie/{seq}.png``.
+"""
+
+from __future__ import annotations
+
+import random
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from voxtracer_torch.core import camera as vcam
+from voxtracer_torch.core import rng as vrng
+from voxtracer_torch.core.color import srgb_encode
+from voxtracer_torch.core.spectra import build_wl_to_rgb_lut
+from voxtracer_torch.kernels.integrator import render_sample, render_samples
+from voxtracer_torch.render import film
+from voxtracer_torch.render.accumulator import Accumulator
+from voxtracer_torch.world.svo import upload
+
+SUN_ARC_FROM = np.array([0.8, 1.0, 3.7])
+SUN_ARC_TO = np.array([0.8, 0.0, 3.7])
+SUN_START = np.array([0.8, 10.2743, 3.7])  # main.rs:381
+DAY_STEP = 0.0025  # main.rs:120
+
+
+def _rotation_arc_axis_angle(a, b):
+    a = a / np.linalg.norm(a)
+    b = b / np.linalg.norm(b)
+    axis = np.cross(a, b)
+    s = np.linalg.norm(axis)
+    angle = float(np.arctan2(s, np.dot(a, b)))
+    return axis / max(s, 1e-12), angle
+
+
+def rotate_sun(sun: np.ndarray, step: float = DAY_STEP) -> np.ndarray:
+    """One sun step: rotate by ``step * sign(arc angle)`` about the day
+    axis (Rodrigues rotation; the reference uses a quaternion)."""
+    axis, angle = _rotation_arc_axis_angle(SUN_ARC_FROM, SUN_ARC_TO)
+    th = step * np.sign(angle)
+    k = axis
+    v = np.asarray(sun, np.float64)
+    return (v * np.cos(th) + np.cross(k, v) * np.sin(th)
+            + k * np.dot(k, v) * (1 - np.cos(th)))
+
+
+class Renderer:
+    """Progressive spectral path tracer over an SVO world on ``device``.
+
+    Uses the SVO engine only (every world cast is ``svo_raycast``); the
+    JAX ``Renderer``'s faster engines (rasterized primaries, heightfield
+    walk, skyline) are tested bit-identical in radiance to that engine,
+    so for the same world, pose, sun and seed this renderer's radiance
+    equals the JAX one's up to float rounding. The world table and LUT
+    are uploaded once; per sample only the frame seed crosses from the
+    host.
+    """
+
+    def __init__(self, device_svo, width: int, height: int,
+                 max_bounces: int = 24, fog_steps: int = 64,
+                 seed: int | None = None, device="cpu"):
+        """``device_svo``: any object with numpy ``.table/.root/.height``
+        (this package's ``DeviceSvo`` or the JAX package's)."""
+        self.device = torch.device(device)
+        self.width = width
+        self.height = height
+        self.max_bounces = max_bounces
+        self.fog_steps = fog_steps
+        self.lut = torch.from_numpy(build_wl_to_rgb_lut()).to(self.device)
+        self.acc = Accumulator(width, height, self.device)
+        self.host_rng = random.Random(seed)
+        self.update_space(device_svo)
+
+    def update_space(self, device_svo):
+        """Upload a (re)serialized world; the accumulation restarts."""
+        self.world = upload(device_svo.table, device_svo.root,
+                            device_svo.height, self.device)
+        self.acc.invalidate()
+
+    def _begin(self, cam: vcam.Camera, sun):
+        sun = np.asarray(sun, np.float64)
+        sun_unit = (sun / np.linalg.norm(sun)).astype(np.float32)
+        self.acc.begin_sample(cam.pos, cam.yaw, cam.pitch, sun_unit)
+        return torch.from_numpy(sun_unit).to(self.device)
+
+    def _args(self, cam: vcam.Camera):
+        w = self.world
+        return (w.table, w.root, w.height, self.lut,
+                np.asarray(cam.pos, np.float32), cam.basis())
+
+    def sample(self, cam: vcam.Camera, sun: np.ndarray):
+        """One progressive step: 1 spectral path per pixel."""
+        sun_t = self._begin(cam, sun)
+        seed = vrng.host_frame_seed(self.host_rng)
+        radiance = render_sample(
+            *self._args(cam), sun_t, seed, self.width, self.height,
+            max_bounces=self.max_bounces, fog_steps=self.fog_steps)
+        self.acc.add(radiance)
+
+    def sample_batch(self, cam: vcam.Camera, sun: np.ndarray, k: int):
+        """Accumulate k samples traced as one batch."""
+        sun_t = self._begin(cam, sun)
+        seeds = np.stack([vrng.host_frame_seed(self.host_rng)
+                          for _ in range(k)])
+        total = render_samples(
+            *self._args(cam), sun_t, seeds, self.width, self.height,
+            max_bounces=self.max_bounces, fog_steps=self.fog_steps)
+        self.acc.add(total, k)
+
+    def render(self, cam, sun, spp: int, batch: int = 8):
+        done = 0
+        while done < spp:
+            k = min(batch, spp - done)
+            if k == 1:
+                self.sample(cam, sun)
+            else:
+                self.sample_batch(cam, sun, k)
+            done += k
+        return self.acc.mean()
+
+    def save_exr(self, path):
+        film.save_exr(path, self.acc.mean())
+
+    def save_png(self, path):
+        film.save_png(path, self.acc.mean())
+
+
+def headless_run(renderer: Renderer, cam: vcam.Camera, out_dir="frames",
+                 frame_samples: int = 1000, sun_start=SUN_START,
+                 max_iters: int = 1, max_frames: int | None = None,
+                 batch: int = 1, log=print):
+    """Day-cycle batch render (main.rs:112-145, 402-408).
+
+    A sample that raises is retried (the in-flight frame restarts) up to
+    three times, then the error propagates. ``batch`` > 1 traces that many
+    samples per call (Renderer.sample_batch); each sample's radiance is
+    the same either way."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    sun = np.asarray(sun_start, np.float64)
+    sun = sun / np.linalg.norm(sun)
+    seq, it = 0, 0
+    frames_done = 0
+    frame_start = time.monotonic()
+    while True:
+        done_samples = 0
+        retries = 0
+        while done_samples < frame_samples:
+            try:
+                k = min(batch, frame_samples - renderer.acc.samples)
+                if k > 1:
+                    renderer.sample_batch(cam, sun, k)
+                else:
+                    renderer.sample(cam, sun)
+            except Exception as e:  # device failure: restart the frame
+                retries += 1
+                log(f"sample failed ({type(e).__name__}: {e}); retry {retries}")
+                if retries > 3:
+                    raise
+                renderer.acc.invalidate()
+                continue
+            done_samples = renderer.acc.samples
+        renderer.save_exr(out / f"{it:04d}-{seq:03d}.exr")
+        seq += 1
+        sun = rotate_sun(sun, DAY_STEP)
+        now = time.monotonic()
+        log(f"{frame_samples / (now - frame_start):>7.1f} paths/px/sec"
+            f"    iter {it:>2} frame {seq:>3}")
+        frame_start = now
+        frames_done += 1
+        if max_frames is not None and frames_done >= max_frames:
+            return
+        if sun[1] < -0.3:
+            it += 1
+            sun = SUN_START / np.linalg.norm(SUN_START)
+            seq = 0
+            log(f"Finished iter {it - 1}")
+            if it >= max_iters:
+                return
+
+
+def combine(frames_dir="frames", movie_dir="movie", log=print):
+    """Average frames across iters per seq, tonemap, write movie PNGs
+    (main.rs:312-370)."""
+    from PIL import Image
+
+    frames = Path(frames_dir)
+    movie = Path(movie_dir)
+    movie.mkdir(parents=True, exist_ok=True)
+    groups: dict[int, list[Path]] = {}
+    for p in sorted(frames.glob("*.exr")):
+        seq = int(p.stem.split("-")[1])
+        groups.setdefault(seq, []).append(p)
+    for seq, paths in sorted(groups.items()):
+        acc = None
+        for p in paths:
+            img = film.load_exr(p)[..., :3].astype(np.float64)
+            acc = img if acc is None else acc + img
+        mean = acc / len(paths)
+        lin = np.clip(mean, 0.0, 1.0).astype(np.float32)
+        enc = srgb_encode(torch.from_numpy(lin)).numpy()
+        u8 = np.clip(enc * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        Image.fromarray(u8).save(movie / f"{seq}.png")
+        log(f"movie/{seq}.png <- {len(paths)} frames")

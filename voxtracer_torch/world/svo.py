@@ -1,0 +1,230 @@
+"""Hash-consed sparse voxel octree (SVO/DAG) and its device upload.
+
+The host-side builder/editor is the port's own copy of
+``voxtracer/world/svo.py`` (numpy only; behavioural reference src/svo.rs):
+identical subtrees share one node, nodes are reference-counted, point
+edits path-copy the spine. ``serialize`` flattens it to a uint32
+``[capacity, 8]`` table: interior rows hold 8 child slots (EMPTY for an
+absent octant), leaf rows hold the RGB albedo as three float32 bit
+patterns. Octant child index: bit0 = x, bit1 = y, bit2 = z.
+
+``upload`` turns any object with numpy ``.table/.root/.height`` — this
+module's ``DeviceSvo`` or the JAX package's — into a ``DeviceWorld`` on a
+torch device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+EMPTY = 0xFFFFFFFF  # empty-octant / no-node sentinel in the device table
+
+_BLOCK = 0  # cell kinds
+_CHILDREN = 1
+
+
+def _f32_bits(v: float) -> int:
+    return int(np.float32(v).view(np.uint32))
+
+
+def _bits_f32(b: int) -> float:
+    return float(np.uint32(b).view(np.float32))
+
+
+class SvoSpace:
+    """Mutable hash-consed SVO. Node ids are slot indices (freed slots are
+    reused), so ``capacity`` — the device-table length — stays compact."""
+
+    def __init__(self):
+        self._intern = {}  # cell key -> node id
+        self._kind = []  # node id -> _BLOCK | _CHILDREN | None (free)
+        self._payload = []  # node id -> (r,g,b) u32 bits | tuple of 8 child ids
+        self._refcount = []
+        self._level = []
+        self._free = []
+        self.root: Optional[int] = None
+
+    def _alloc(self, kind, payload, level) -> int:
+        if self._free:
+            nid = self._free.pop()
+            self._kind[nid] = kind
+            self._payload[nid] = payload
+            self._refcount[nid] = 0
+            self._level[nid] = level
+        else:
+            nid = len(self._kind)
+            self._kind.append(kind)
+            self._payload.append(payload)
+            self._refcount.append(0)
+            self._level.append(level)
+        return nid
+
+    def create_block(self, rgb) -> int:
+        """Intern a leaf node with the given RGB albedo (float32 exact)."""
+        key = (_BLOCK, _f32_bits(rgb[0]), _f32_bits(rgb[1]), _f32_bits(rgb[2]))
+        nid = self._intern.get(key)
+        if nid is None:
+            nid = self._alloc(_BLOCK, key[1:], 0)
+            self._intern[key] = nid
+        return nid
+
+    def create_children(self, children) -> Optional[int]:
+        """Intern an interior node; all-empty children collapse to None
+        (svo.rs:47-49). Child refcounts are bumped on first insert."""
+        children = tuple(children)
+        assert len(children) == 8
+        if all(c is None for c in children):
+            return None
+        key = (_CHILDREN, children)
+        nid = self._intern.get(key)
+        if nid is None:
+            level = 0
+            for c in children:
+                if c is not None:
+                    self._refcount[c] += 1
+                    level = max(level, self._level[c] + 1)
+            nid = self._alloc(_CHILDREN, children, level)
+            self._intern[key] = nid
+        return nid
+
+    def _decr(self, nid: int):
+        self._refcount[nid] -= 1
+        if self._refcount[nid] == 0:
+            if self._kind[nid] == _BLOCK:
+                key = (_BLOCK,) + self._payload[nid]
+            else:
+                key = (_CHILDREN, self._payload[nid])
+            del self._intern[key]
+            kind, payload = self._kind[nid], self._payload[nid]
+            self._kind[nid] = None
+            self._payload[nid] = None
+            self._free.append(nid)
+            if kind == _CHILDREN:
+                for c in payload:
+                    if c is not None:
+                        self._decr(c)
+
+    def set_root(self, node: Optional[int]):
+        if node is not None:
+            self._refcount[node] += 1
+        if self.root is not None:
+            self._decr(self.root)
+        self.root = node
+
+    def height(self) -> int:
+        return 0 if self.root is None else self._level[self.root]
+
+    def capacity(self) -> int:
+        return len(self._kind)
+
+    def num_nodes(self) -> int:
+        return len(self._kind) - len(self._free)
+
+    def get(self, p):
+        """Point query: colour of the voxel at integer coords p, or None."""
+        x, y, z = int(p[0]), int(p[1]), int(p[2])
+        node = self.root
+        for level in range(self.height() - 1, -1, -1):
+            if node is None:
+                return None
+            c = 1 << level
+            idx = (x >= c) | ((y >= c) << 1) | ((z >= c) << 2)
+            node = self._payload[node][idx]
+            x -= c if x >= c else 0
+            y -= c if y >= c else 0
+            z -= c if z >= c else 0
+        if node is None:
+            return None
+        r, g, b = self._payload[node]
+        return (_bits_f32(r), _bits_f32(g), _bits_f32(b))
+
+    def set(self, p, rgb: Optional[tuple]):
+        """Path-copying point edit: place a block (rgb) or clear (None)
+        inside [0, 2^height)^3 (svo.rs:102-144)."""
+        x, y, z = int(p[0]), int(p[1]), int(p[2])
+        n = 1 << self.height()
+        if not (0 <= x < n and 0 <= y < n and 0 <= z < n):
+            raise ValueError(f"voxel {(x, y, z)} outside [0, {n})^3")
+        stack = []
+        node = self.root
+        for level in range(self.height() - 1, -1, -1):
+            c = 1 << level
+            idx = (x >= c) | ((y >= c) << 1) | ((z >= c) << 2)
+            stack.append((node, idx))
+            if node is not None:
+                node = self._payload[node][idx]
+            x -= c if x >= c else 0
+            y -= c if y >= c else 0
+            z -= c if z >= c else 0
+        if node is not None:
+            if rgb is not None and self._payload[node] == tuple(
+                    _f32_bits(v) for v in rgb):
+                return
+        elif rgb is None:
+            return
+        new_node = self.create_block(rgb) if rgb is not None else None
+        while stack:
+            nd, idx = stack.pop()
+            children = list(self._payload[nd]) if nd is not None else [None] * 8
+            children[idx] = new_node
+            new_node = self.create_children(children)
+        if new_node is not None:
+            self._refcount[new_node] += 1
+        if self.root is not None:
+            self._decr(self.root)
+        self.root = new_node
+
+    def serialize(self) -> "DeviceSvo":
+        """Flatten to the uint32 node table (fragment.rs:274-290): leaves
+        write float32 RGB bit patterns into columns 0..3, interior nodes
+        child slots with EMPTY for absent octants, dead slots stay EMPTY."""
+        cap = max(self.capacity(), 1)
+        table = np.full((cap, 8), EMPTY, dtype=np.uint32)
+        for nid, kind in enumerate(self._kind):
+            if kind == _BLOCK:
+                table[nid, :3] = self._payload[nid]
+            elif kind == _CHILDREN:
+                for i, c in enumerate(self._payload[nid]):
+                    if c is not None:
+                        table[nid, i] = c
+        root = EMPTY if self.root is None else self.root
+        return DeviceSvo(table=table, root=root, height=self.height())
+
+    def mem_usage(self) -> int:
+        """Rough bytes estimate (table + intern map), for worldgen logs."""
+        return self.capacity() * 8 * 4 + len(self._intern) * 96
+
+
+@dataclass
+class DeviceSvo:
+    """Flat SVO on the host: ``table`` uint32[capacity, 8], ``root`` slot
+    index or EMPTY, ``height`` tree height (world edge = 2^height)."""
+
+    table: np.ndarray
+    root: int
+    height: int
+
+
+@dataclass
+class DeviceWorld:
+    """The node table on a torch device: int32 (N, 8), EMPTY = -1, leaf
+    columns 0..3 holding float32 RGB bits; ``root`` -1 for an empty world."""
+
+    table: torch.Tensor
+    root: int
+    height: int
+
+
+def upload(table_u32: np.ndarray, root: int, height: int, device) -> DeviceWorld:
+    """Copy a serialized uint32 table to ``device`` as int32 rows."""
+    table = np.ascontiguousarray(np.asarray(table_u32, np.uint32)).view(np.int32)
+    root = int(root)
+    return DeviceWorld(
+        table=torch.from_numpy(table.copy()).to(device),
+        root=-1 if root == EMPTY else root,
+        height=int(height),
+    )
