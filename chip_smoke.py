@@ -7,18 +7,29 @@ Phases, each printing its lines; any failure exits non-zero:
 
 1. card: fails unless torch sees a CUDA device; prints nvidia-smi's name
    and power limit.
-2. build: compiles kernels K1 (fog march) and K2 (SVO cast) from
-   voxtracer_torch/kernels/csrc with nvcc and loads them.
+2. build: compiles kernels K1 (fog march), K2 (SVO cast) and K3 (resolve
+   fold) from voxtracer_torch/kernels/csrc with nvcc, one process per
+   source, and loads them.
 3. kernels against their plain PyTorch versions, on the card, at the main
    path's shapes, every output bit for bit: K1 at 409,440 rays (one
-   853x480 sample) and at ragged sizes, K2 on a 1024^3 world with camera
-   rays, random rays with random caps, and a random active mask. Times
-   both with CUDA events.
-4. golden: the 64^3 fixed-seed path sample of tests/test_golden.py,
-   rendered on the card, against tests/golden/path_sample_64w.npy.
-5. main path: worldgen at 1024^3, Renderer at 853x480 and headless_run
-   for 2 frames x 16 samples in batches of 8. Both kernels' launch counts
-   in that run must be > 0, and no sample may be retried.
+   853x480 sample) and at ragged sizes; K2 on a 1024^3 world with camera
+   rays, random rays with random caps, and a random active mask; K3 on
+   the 1024^3 world's raster bins at 853x480 (R = 64 pixel-center rays
+   and R = 512, 8 jittered samples, K = 16), a widen-shaped call (512
+   tiles x K = 1024), the near pre-pass's shared list, and random records
+   with invalid rows around a camera inside a box. Times both with CUDA
+   events; each kernel's bound is computed from this run's inputs.
+4. goldens: the 64^3 scene of tests/test_golden.py on the card:
+   primary_64w and shadow_64w through the SVO cast, primary_64w through
+   the rasterizer, and the fixed-seed path sample.
+5. shaded frame at 1024^3, 853x480: the rasterizer against the per-ray
+   SVO cast; fails above EDGE_GRAZE_BUDGET differing pixels.
+6. main path: Renderer at 853x480 (rasterized primaries, the default)
+   and headless_run for 2 frames x 16 samples in batches of 8. All three
+   kernels' launch counts in that run must be > 0, and no sample may be
+   retried. Then a shorter run keeps the SVO-primary path driven
+   (use_soup=False, 1 frame x 8 samples), and ms/sample at batch 1 and 8
+   with rasterized and SVO primaries, from the same process.
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -43,6 +54,19 @@ RAYS = WIDTH * HEIGHT  # 409,440 paths per sample
 # golden contract (tests/test_torch_integrator.py): fraction of values
 # beyond 1e-3, and the relative difference of the image means
 GOLDEN_FRAC, GOLDEN_MEAN_REL = 5e-3, 1e-3
+# the card's published peaks (H100 SXM data sheet): device memory rate
+# and float32 rate outside the tensor cores
+HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
+# float operations per unit of each kernel's work (counted in the .cu
+# sources): K1 per ray setup and per marched segment, K2 per loop step of
+# a lane, K3 per (ray, candidate) slab test
+K1_SETUP_OPS, K1_STEP_OPS, K2_STEP_OPS, K3_PAIR_OPS = 30, 30, 30, 27
+# shaded 1024^3 frame: pixels where the rasterizer's image may differ from
+# the per-ray SVO cast's. Edge grazes flip winners only at degenerate
+# cameras (integer positions, axis-aligned views); the smoke pose is not
+# one, both engines round every operation alike, and its first run found
+# 0 of 409,440 (PERF.md)
+EDGE_GRAZE_BUDGET = 0
 
 
 def _ms(fn, reps: int) -> float:
@@ -60,6 +84,21 @@ def _ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _bound(nbytes: float, ops: float):
+    """The least time the card could take: (ms, "bytes" | "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _smoke_camera(log2_size):
+    from voxtracer_torch.core import camera as vcam
+
+    s = (1 << log2_size) / 8192.0
+    return vcam.Camera(pos=tuple(np.asarray(vcam.DEFAULT_POSE.pos) * s),
+                       yaw=vcam.DEFAULT_POSE.yaw, pitch=vcam.DEFAULT_POSE.pitch)
 
 
 def phase_card():
@@ -99,6 +138,30 @@ def _fog_inputs(rng, B, dev):
     return t(start), t(d), fog_density(wl).contiguous(), t(y0)
 
 
+def _fog_segments(start, d, density, y0, n_steps):
+    """Segments K1 marches for these rays: none for a ray that misses the
+    shell, else up to and including its scatter event."""
+    import torch
+
+    from voxtracer_torch.core.vecmath import div
+    from voxtracer_torch.kernels import fog
+
+    t0, t1, valid, _, p = fog._sphere_span(start, d)
+    density_scaled = div(t1 - t0, float(n_steps)) * density
+    y = y0
+    live = valid.clone()
+    total = 0
+    for i in range(n_steps):
+        total += int(live.sum())
+        _, t_s1 = fog._segment(i, n_steps, t0, t1)
+        d_seg = density_scaled * torch.exp(-fog._altitude(p, d, t_s1)
+                                           * fog.FOG_FACTOR)
+        scatter = live & (y < d_seg)
+        y = torch.where(live & ~scatter, y - d_seg, y)
+        live = live & ~scatter
+    return total
+
+
 def phase_fog(rng, dev):
     """K1 against fog_march_plain; returns the JSON record fields."""
     import torch
@@ -127,7 +190,14 @@ def phase_fog(rng, dev):
             plain_ms = _ms(lambda: fog.fog_march_plain(*args, n_steps=steps), 3)
             line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
             if steps == 64:  # the production march
-                rec.update(ms=ms, plain_ms=plain_ms)
+                segs = _fog_segments(*args, n_steps=steps)
+                bound_ms, bound_by = _bound(
+                    B * (12 + 12 + 4 + 4 + 4 + 4),
+                    B * K1_SETUP_OPS + segs * K1_STEP_OPS)
+                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None)
+                line += (f", {segs} segments marched, bound {bound_ms:.4f} "
+                         f"ms ({bound_by})")
         print(line)
     return rec
 
@@ -188,32 +258,180 @@ def phase_svo(rng, world, dev):
             err = float((k[key] - p[key]).abs().max())
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
         ms = _ms(kernel, 10)
+        before = traverse.plain_lane_steps
         plain_ms = _ms(plain, 1)
+        # _ms runs the plain version twice (warm-up and timed)
+        steps = (traverse.plain_lane_steps - before) // 2
         hits = float(p["hit"].float().mean())
+        nbytes = (RAYS * (12 + 12 + 4 + (0 if active is None else 1)
+                          + 1 + 4 + 4 + 12 + 12)
+                  + world.table.numel() * 4)
+        bound_ms, bound_by = _bound(nbytes, steps * K2_STEP_OPS)
         print(f"svo_cast {name} ({RAYS} rays, {hits:.3f} hit): all five "
-              f"outputs equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"outputs equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"{steps} lane-steps, bound {bound_ms:.4f} ms ({bound_by})")
         if name == "random":  # incoherent capped rays, like bounce casts
-            rec.update(ms=ms, plain_ms=plain_ms)
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=None)
     return rec
 
 
+def _random_fold_case(rng, dev, N, R, K):
+    """Random records (a fifth invalid) around a camera inside the first
+    box of every tile, and a carry that holds some hits."""
+    import torch
+
+    lo = rng.integers(0, 1000, (N, K, 3))
+    size = rng.integers(1, 17, (N, K, 3))
+    lo[:, 0], size[:, 0] = 500, 16
+    rows = np.zeros((N, K, 8), np.int32)
+    rows[..., 1] = rng.integers(0, 1 << 20, (N, K))
+    rows[..., 2] = lo[..., 0] | (lo[..., 1] << 16)
+    rows[..., 3] = lo[..., 2] | (size[..., 0] << 16)
+    rows[..., 4] = size[..., 1] | (size[..., 2] << 16)
+    rows[..., 5:8] = rng.random((N, K, 3), np.float32).view(np.int32)
+    d = rng.normal(size=(N, R, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t0 = np.where(rng.random((N, R)) < 0.3, rng.random((N, R)) * 900,
+                  np.inf).astype(np.float32)
+    g = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731,E501
+    carry = (g(t0), g(np.where(np.isfinite(t0), 8, -1).astype(np.int32)),
+             g(np.zeros((N, R, 3), np.float32)))
+    return carry, g(rows), g(rng.random((N, K)) >= 0.2), g(d), \
+        np.float32([507.5, 505.25, 508.75])
+
+
+def phase_resolve(rng, soup_t, dev):
+    """K3 against resolve_fold_plain on the 1024^3 world's bins, every
+    output bit for bit; returns the JSON record fields (the main path's
+    batch-8 shape: R = 512 rays per tile, K = 16)."""
+    import torch
+
+    from voxtracer_torch.core import camera as vcam
+    from voxtracer_torch.kernels import raster, resolve
+
+    cam = _smoke_camera(LOG2_SIZE)
+    op = np.asarray(cam.pos, np.float32)
+    basis = cam.basis().to(dev)
+    bins = raster.raster_bins(*soup_t, op, basis, LOG2_SIZE, WIDTH, HEIGHT)
+    binsj = raster.raster_bins(*soup_t, op, basis, LOG2_SIZE, WIDTH, HEIGHT,
+                               jittered=True)
+    DB = bins["dmin_bits"]
+    d64, _, _ = raster.tile_rays(basis, WIDTH, HEIGHT)
+    py, px = vcam.pixel_grid(WIDTH, HEIGHT, dev)
+    ld = vcam.pixel_ndc(px, py, WIDTH, HEIGHT)
+    jit = torch.as_tensor(rng.random((8, HEIGHT, WIDTH, 2), np.float32),
+                          device=dev)
+    dirs8 = torch.stack([vcam.ray_directions(basis, ld, jitter=j,
+                                             height=HEIGHT) for j in jit])
+    d512, _, _ = raster.tile_rays(basis, WIDTH, HEIGHT, dirs8)
+    NT = d64.shape[0]
+    tix = torch.arange(NT, dtype=torch.int32, device=dev)
+
+    def fresh(n, r):
+        return (torch.full((n, r), torch.inf, device=dev),
+                torch.full((n, r), -1, dtype=torch.int32, device=dev),
+                torch.zeros((n, r, 3), device=dev))
+
+    def valid(rows, tiles):
+        return (rows[..., 0] >> DB) == tiles[:, None]
+
+    wt = torch.as_tensor(np.sort(rng.choice(NT, min(512, NT), replace=False)),
+                         dtype=torch.int32, device=dev)
+    wrows = raster._seg_rows(binsj["spairs"], binsj["seg_start"][wt] + 16,
+                             1024)
+    shared = binsj["spairs"][:64]
+    rnd = _random_fold_case(rng, dev, 512, 64, 256)
+    cases = [
+        ("main R=64 K=16", fresh(NT, 64), bins["cand_rows"],
+         valid(bins["cand_rows"], tix), d64, op),
+        ("main R=512 K=16", fresh(NT, 512), binsj["cand_rows"],
+         valid(binsj["cand_rows"], tix), d512, op),
+        ("widen 512 tiles R=512 K=1024", fresh(wt.numel(), 512), wrows,
+         valid(wrows, wt), d512[wt.long()], op),
+        ("near shared list R=512 K=64", fresh(NT, 512), shared,
+         torch.ones(64, dtype=torch.bool, device=dev), d512, op),
+        ("random records, camera inside a box, R=64 K=256", *rnd),
+    ]
+    rec = dict(max_abs_err=0.0)
+    for name, carry, rows, vld, d, cam_pos in cases:
+        args = (*carry, rows, vld, d, cam_pos, LOG2_SIZE, 1.0e12)
+        k = resolve.resolve_fold(*args)
+        p = resolve.resolve_fold_plain(*args)
+        torch.cuda.synchronize()
+        for key, a, b in zip(("t", "pl", "rgb"), k, p):
+            if not torch.equal(a, b):
+                raise AssertionError(f"resolve_fold {name}: {key} differs in "
+                                     f"{int((a != b).sum())} values")
+        fin = torch.isfinite(p[0])
+        err = float((k[0][fin] - p[0][fin]).abs().max()) if fin.any() else 0.0
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        ms = _ms(lambda: resolve.resolve_fold(*args), 20)
+        plain_ms = _ms(lambda: resolve.resolve_fold_plain(*args), 2)
+        N, R = carry[0].shape
+        K = rows.shape[-2]
+        nbytes = N * R * (12 + 20 + 20) + (1 if rows.dim() == 2 else N) * K * 33
+        bound_ms, bound_by = _bound(nbytes, N * R * K * K3_PAIR_OPS)
+        hits = float(torch.isfinite(p[0]).float().mean())
+        print(f"resolve_fold {name} ({N} tiles, {hits:.3f} hit): t, pl, rgb "
+              f"equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        if name == "main R=512 K=16":
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=None)
+    print(f"raster bins at {WIDTH}x{HEIGHT}: {int(bins['n_pair'])} pairs "
+          f"({int(binsj['n_pair'])} jittered), tiers {bins['n_tier']}")
+    return rec
+
+
+def _golden_close(name, img, atol=2e-5):
+    """tests/test_golden.py:46-60's contract: fewer than 1e-4 of the
+    values beyond atol."""
+    want = np.load(REPO / "tests" / "golden" / f"{name}.npy")
+    frac = float((np.abs(img - want) > atol).mean())
+    ok = img.shape == want.shape and np.isfinite(img).all() and frac < 1e-4
+    return ok, frac
+
+
 def phase_golden(dev):
-    """tests/test_golden.py's path sample, rendered on the card."""
+    """tests/test_golden.py's scene on the card: primary_64w and
+    shadow_64w through the SVO cast, primary_64w through the rasterizer,
+    and the fixed-seed path sample."""
     import torch
 
     from voxtracer_torch.core import camera as vcam
     from voxtracer_torch.core.spectra import build_wl_to_rgb_lut
+    from voxtracer_torch.kernels import raster, shade
     from voxtracer_torch.kernels.integrator import render_sample
-    from voxtracer_torch.world import svo, worldgen
+    from voxtracer_torch.world import boxes, svo, worldgen
 
     dev_svo = worldgen.generate(log2_size=6, verbose=False,
                                 device=dev).serialize()
     w = svo.upload(dev_svo.table, dev_svo.root, dev_svo.height, dev)
-    s = 64 / 8192
-    cam = vcam.Camera(pos=tuple(np.asarray(vcam.DEFAULT_POSE.pos) * s),
-                      yaw=vcam.DEFAULT_POSE.yaw, pitch=vcam.DEFAULT_POSE.pitch)
+    cam = _smoke_camera(6)
     sun = np.asarray([0.8, 10.2743, 3.7])
-    sun = torch.as_tensor((sun / np.linalg.norm(sun)).astype(np.float32))
+    sun = torch.as_tensor((sun / np.linalg.norm(sun)).astype(np.float32),
+                          device=dev)
+    o, d = vcam.generate_rays(cam, 96, 56, device=dev)
+    soup = boxes.extract_boxes(dev_svo)
+    soup_t = raster.soup_to_device(soup.lo, soup.size, soup.leaf, soup.rgb,
+                                   dev)
+    frames = [
+        ("primary_64w", "svo", shade.svo_primary_frame(
+            w.table, w.root, w.height, o, d, sun)),
+        ("shadow_64w", "svo", shade.svo_shadow_frame(
+            w.table, w.root, w.height, o, d, sun)),
+        ("primary_64w", "raster", raster.raster_primary_frame(
+            *soup_t, w.height, np.asarray(cam.pos, np.float32), cam.basis(),
+            sun, 96, 56, table=w.table, root=w.root)),
+    ]
+    for name, engine, img in frames:
+        ok, frac = _golden_close(name, img.cpu().numpy())
+        print(f"golden {name} ({engine}) on the card: {frac:.6f} of values "
+              f"beyond 2e-5 (limit 1e-4)")
+        if not ok:
+            raise AssertionError(f"golden {name} ({engine}) not reproduced")
+
     lut = torch.as_tensor(build_wl_to_rgb_lut(256), device=dev)
     img = render_sample(w.table, w.root, w.height, lut,
                         np.asarray(cam.pos, np.float32), cam.basis(), sun,
@@ -230,32 +448,73 @@ def phase_golden(dev):
         raise AssertionError("golden path sample not reproduced on the card")
 
 
-def phase_main(space, dev):
-    """The headless day-cycle at 1024^3, 853x480; returns launch counts."""
+def phase_shaded(soup_t, world, dev):
+    """The shaded frame at 1024^3, 853x480: rasterizer against the
+    per-ray SVO cast (K2), both on the card."""
     import torch
 
     from voxtracer_torch.core import camera as vcam
-    from voxtracer_torch.kernels import fog, traverse
-    from voxtracer_torch.render import film
-    from voxtracer_torch.render.driver import Renderer, headless_run
+    from voxtracer_torch.core.vecmath import dot
+    from voxtracer_torch.kernels import raster, shade
 
-    s = (1 << LOG2_SIZE) / 8192.0
-    cam = vcam.Camera(pos=tuple(np.asarray(vcam.DEFAULT_POSE.pos) * s),
-                      yaw=vcam.DEFAULT_POSE.yaw, pitch=vcam.DEFAULT_POSE.pitch)
-    renderer = Renderer(space.serialize(), WIDTH, HEIGHT, seed=0, device=dev)
+    cam = _smoke_camera(LOG2_SIZE)
+    op = np.asarray(cam.pos, np.float32)
+    basis = cam.basis().to(dev)
+    sun = np.asarray([0.8, 10.2743, 3.7])
+    sun = torch.as_tensor((sun / np.linalg.norm(sun)).astype(np.float32),
+                          device=dev)
+    o, d = vcam.generate_rays(cam, WIDTH, HEIGHT, device=dev)
+    w = (world.table, world.root, world.height)
+    r = raster.raster_cast(*soup_t, op, basis, LOG2_SIZE, WIDTH, HEIGHT)
+    fb_rays = int(r["fb_need"].sum())
+    ex = raster.apply_fallback(r, *w, op, basis, WIDTH, HEIGHT) \
+        if r["n_fallback"] else r
+    img_r = ex["rgb"] * (dot(sun, ex["normal"]) / 2.0 + 1.0)[..., None] \
+        * ex["hit"][..., None]
+    img_s = shade.svo_primary_frame(*w, o, d, sun)
+    same = torch.equal(img_r, raster.raster_primary_frame(
+        *soup_t, LOG2_SIZE, op, basis, sun, WIDTH, HEIGHT, table=w[0],
+        root=w[1]))
+    diff = int((img_r != img_s).any(-1).sum())
+    bins_ms = _ms(lambda: raster.raster_bins(*soup_t, op, basis, LOG2_SIZE,
+                                             WIDTH, HEIGHT), 3)
+    raster_ms = _ms(lambda: raster.raster_primary_frame(
+        *soup_t, LOG2_SIZE, op, basis, sun, WIDTH, HEIGHT, table=w[0],
+        root=w[1]), 3)
+    svo_ms = _ms(lambda: shade.svo_primary_frame(*w, o, d, sun), 5)
+    print(f"shaded frame 1024^3 {WIDTH}x{HEIGHT}: {soup_t[0].shape[0]} boxes, "
+          f"{int(r['n_pair'])} pairs, near {r['n_near']}, widen demand "
+          f"{r['n_widen']}, fallback {r['n_fallback']} tiles / {fb_rays} rays, "
+          f"{diff} of {RAYS} pixels differ from the SVO cast (budget "
+          f"{EDGE_GRAZE_BUDGET}); raster {raster_ms:.3f} ms/frame (bins "
+          f"{bins_ms:.3f} ms), SVO cast {svo_ms:.3f} ms/frame")
+    if not same or not torch.isfinite(img_r).all():
+        raise AssertionError("raster_primary_frame disagrees with its parts")
+    if diff > EDGE_GRAZE_BUDGET:
+        raise AssertionError(f"{diff} pixels differ, budget {EDGE_GRAZE_BUDGET}")
+
+
+def _headless(renderer, cam, frames, frame_samples, batch, name):
+    """One headless_run with every launch count set to 0 just before and
+    read just after; checks the EXRs; returns the counts."""
+    import torch
+
+    from voxtracer_torch.kernels import fog, resolve, traverse
+    from voxtracer_torch.render import film
+    from voxtracer_torch.render.driver import headless_run
+
     lines = []
-    frames, frame_samples, batch = 2, 16, 8
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fog.launches = 0
-        traverse.launches = 0
+        fog.launches = traverse.launches = resolve.launches = 0
         t0 = time.monotonic()
         headless_run(renderer, cam, out_dir=tmp, frame_samples=frame_samples,
                      max_frames=frames, batch=batch, log=lines.append)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        counts = dict(fog_march=fog.launches, svo_cast=traverse.launches)
+        counts = dict(fog_march=fog.launches, svo_cast=traverse.launches,
+                      resolve_fold=resolve.launches)
         peak = torch.cuda.max_memory_allocated()
         exrs = sorted(Path(tmp).glob("*.exr"))
         imgs = [film.load_exr(p)[..., :3] for p in exrs]
@@ -263,10 +522,10 @@ def phase_main(space, dev):
         print(f"  headless: {line.strip()}")
     retries = sum("sample failed" in line for line in lines)
     samples = frames * frame_samples
-    print(f"main path: {frames} frames x {frame_samples} samples at "
-          f"{WIDTH}x{HEIGHT}, 1024^3: {samples / wall:.3f} paths/px/s, "
-          f"{1e3 * wall / samples:.2f} ms/sample (wall, EXR writes "
-          f"included), peak {peak / 2**20:.1f} MiB, launches {counts}")
+    print(f"{name}: {frames} frames x {frame_samples} samples at "
+          f"{WIDTH}x{HEIGHT}, 1024^3, batch {batch}: {samples / wall:.3f} "
+          f"paths/px/s, {1e3 * wall / samples:.2f} ms/sample (wall, EXR "
+          f"writes included), peak {peak / 2**20:.1f} MiB, launches {counts}")
     if retries:
         raise AssertionError(f"{retries} samples were retried")
     if len(imgs) != frames:
@@ -277,10 +536,92 @@ def phase_main(space, dev):
             raise AssertionError(f"{p.name}: shape {img.shape}, finite "
                                  f"{np.isfinite(img).all()}, mean {img.mean()}")
         print(f"  {p.name}: finite, mean radiance {img.mean():.6f}")
+    return counts
+
+
+def phase_main(space, dev):
+    """The headless day-cycle at 1024^3, 853x480 with rasterized primaries
+    (the default Renderer); returns its launch counts. Then the
+    SVO-primary path, driven the same way but shorter."""
+    from voxtracer_torch.render.driver import Renderer
+
+    cam = _smoke_camera(LOG2_SIZE)
+    renderer = Renderer(space.serialize(), WIDTH, HEIGHT, seed=0, device=dev)
+    if not renderer.soup_world:
+        raise AssertionError("the terrain world did not take the soup path")
+    counts = _headless(renderer, cam, 2, 16, 8, "main path")
     for name, n in counts.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
-    return counts
+    svo = Renderer(space.serialize(), WIDTH, HEIGHT, seed=0, device=dev,
+                   use_soup=False)
+    svo_counts = _headless(svo, cam, 1, 8, 8, "SVO-primary path")
+    if svo_counts["fog_march"] <= 0 or svo_counts["svo_cast"] <= 0 \
+            or svo_counts["resolve_fold"] != 0:
+        raise AssertionError(f"SVO-primary path launches {svo_counts}")
+    return counts, renderer, svo
+
+
+def phase_primaries(soup_r, svo_r):
+    """ms/sample at batch 1 and 8 with rasterized and with SVO primaries,
+    in turns (raster, SVO, SVO, raster), and the share of a batch-8 sample
+    that its rasterized primaries take (bins, resolve and fallback)."""
+    import torch
+
+    from voxtracer_torch.core import rng as vrng
+    from voxtracer_torch.kernels import integrator, raster
+
+    cam = _smoke_camera(LOG2_SIZE)
+    sun = np.asarray([0.8, 10.2743, 3.7])
+
+    def per_sample(r, k):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        if k == 1:
+            r.sample(cam, sun)
+        else:
+            r.sample_batch(cam, sun, k)
+        torch.cuda.synchronize()
+        return 1e3 * (time.monotonic() - t0) / k
+
+    out = {}
+    for k, reps in ((1, 3), (8, 2)):
+        runs = {"raster": [], "svo": []}
+        for name, r in (("raster", soup_r), ("svo", svo_r), ("svo", svo_r),
+                        ("raster", soup_r)):
+            runs[name] += [per_sample(r, k) for _ in range(reps)]
+        out[k] = runs
+        print(f"batch {k}: ms/sample rasterized primaries "
+              f"{sorted(runs['raster'])}, SVO primaries {sorted(runs['svo'])}")
+
+    basis = cam.basis()
+    soup = soup_r._get_soup()
+    dev = soup[0].device
+
+    def make_bins():
+        return raster.raster_bins(*soup, np.asarray(cam.pos, np.float32),
+                                  basis, LOG2_SIZE, WIDTH, HEIGHT,
+                                  jittered=True)
+
+    bins = make_bins()
+    bins_ms = _ms(make_bins, 3)
+    seeds = [vrng.host_frame_seed(soup_r.host_rng) for _ in range(8)]
+    d = torch.stack([integrator._primary(np.asarray(cam.pos, np.float32),
+                                         basis, s, WIDTH, HEIGHT, dev)[1]
+                     for s in seeds])
+    w = soup_r.world
+
+    def primaries():
+        integrator._raster_primary(w.table, w.root, w.height,
+                                   np.asarray(cam.pos, np.float32), basis, d,
+                                   WIDTH, HEIGHT, soup, bins)
+
+    prim_ms = _ms(primaries, 3)
+    batch8 = float(np.median(out[8]["raster"])) * 8
+    print(f"rasterized primaries of a batch-8 sample: bins {bins_ms:.3f} ms "
+          f"per pose, resolve + fallback {prim_ms:.3f} ms per batch of 8, "
+          f"= {100 * prim_ms / batch8:.2f}% of the batch's {batch8:.1f} ms "
+          f"(bins once per pose: {100 * bins_ms / batch8:.2f}% if per batch)")
 
 
 def main() -> int:
@@ -291,19 +632,27 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(20261016)
 
-    from voxtracer_torch.world import svo, worldgen
+    from voxtracer_torch.kernels import raster
+    from voxtracer_torch.world import boxes, svo, worldgen
 
     t0 = time.monotonic()
     space = worldgen.generate(log2_size=LOG2_SIZE, verbose=False, device=dev)
     dev_svo = space.serialize()
     world = svo.upload(dev_svo.table, dev_svo.root, dev_svo.height, dev)
-    print(f"worldgen 1024^3: {time.monotonic() - t0:.1f} s, "
-          f"{dev_svo.table.shape[0]} nodes")
+    t1 = time.monotonic()
+    soup = boxes.extract_boxes(dev_svo)
+    soup_t = raster.soup_to_device(soup.lo, soup.size, soup.leaf, soup.rgb,
+                                   dev)
+    print(f"worldgen 1024^3: {t1 - t0:.1f} s, {dev_svo.table.shape[0]} nodes; "
+          f"box soup {len(soup)} boxes in {time.monotonic() - t1:.1f} s")
 
     fog_rec = phase_fog(rng, dev)
     svo_rec = phase_svo(rng, world, dev)
+    res_rec = phase_resolve(rng, soup_t, dev)
     phase_golden(dev)
-    counts = phase_main(space, dev)
+    phase_shaded(soup_t, world, dev)
+    counts, soup_r, svo_r = phase_main(space, dev)
+    phase_primaries(soup_r, svo_r)
 
     kernels = [
         dict(name="fog_march", route="cuda",
@@ -314,6 +663,10 @@ def main() -> int:
              source="voxtracer_torch/kernels/csrc/svo_cast.cu",
              replaces="voxtracer/kernels/traverse.py:117",
              launches=counts["svo_cast"], **svo_rec),
+        dict(name="resolve_fold", route="cuda",
+             source="voxtracer_torch/kernels/csrc/resolve_fold.cu",
+             replaces="voxtracer/kernels/pallas/resolve.py:44",
+             launches=counts["resolve_fold"], **res_rec),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

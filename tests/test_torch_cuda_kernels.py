@@ -1,5 +1,5 @@
-"""CUDA kernels K1 (fog march) and K2 (SVO cast) against their plain
-PyTorch versions, on the card. Every test skips when torch sees no CUDA
+"""CUDA kernels K1 (fog march), K2 (SVO cast) and K3 (resolve fold)
+against their plain PyTorch versions, on the card. Every test skips when torch sees no CUDA
 device (decided inside the fixture, not at import).
 
 Run on the card from the repository root:
@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from voxtracer_torch.core.spectra import fog_density
-from voxtracer_torch.kernels import fog, traverse
+from voxtracer_torch.kernels import fog, resolve, traverse
 from voxtracer_torch.world import svo, worldgen
 
 torch.set_num_threads(2)
@@ -81,3 +81,47 @@ def test_svo_cast_matches_plain_bit_for_bit(cuda, world, kind):
     for key in ("hit", "t", "node", "normal", "voxel"):
         assert torch.equal(k[key], p[key]), key
     assert k["hit"].any()
+
+
+@pytest.mark.parametrize("R,K", [(64, 16), (512, 16), (64, 104), (512, 256),
+                                 (64, 1024), (512, 1024), (64, 1500)])
+def test_resolve_fold_matches_plain_bit_for_bit(cuda, R, K):
+    """Random records (a fifth invalid), a carry holding some hits and a
+    camera inside the first box of every tile, capped and not. K = 1024
+    fills one shared-memory stage of the kernel; K = 1500 takes two."""
+    rng = np.random.default_rng(R + K)
+    N = 48
+    lo = rng.integers(0, 120, (N, K, 3))
+    size = rng.integers(1, 9, (N, K, 3))
+    lo[:, 0], size[:, 0] = 60, 8
+    rows = np.zeros((N, K, 8), np.int32)
+    rows[..., 1] = rng.integers(0, 1 << 20, (N, K))
+    rows[..., 2] = lo[..., 0] | (lo[..., 1] << 16)
+    rows[..., 3] = lo[..., 2] | (size[..., 0] << 16)
+    rows[..., 4] = size[..., 1] | (size[..., 2] << 16)
+    rows[..., 5:8] = rng.random((N, K, 3), np.float32).view(np.int32)
+    d = rng.normal(size=(N, R, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t0 = np.where(rng.random((N, R)) < 0.3, rng.random((N, R)) * 90,
+                  np.inf).astype(np.float32)
+    g = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=cuda)  # noqa: E731,E501
+    args = (g(t0), g(np.where(np.isfinite(t0), 8, -1).astype(np.int32)),
+            g(np.zeros((N, R, 3), np.float32)), g(rows),
+            g(rng.random((N, K)) >= 0.2), g(d))
+    cam = np.float32([63.5, 61.25, 64.75])
+    for dist in (1.0e12, 40.0):
+        before = resolve.launches
+        k = resolve.resolve_fold(*args, cam, 7, dist)
+        assert resolve.launches == before + 1
+        p = resolve.resolve_fold_plain(*args, cam, 7, dist)
+        torch.cuda.synchronize()
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
+        assert (k[0] < args[0]).any()
+    # the shared-list form (near pre-pass): tile stride 0
+    k = resolve.resolve_fold(*args[:3], args[3][0], args[4][0], args[5], cam,
+                             7, 1.0e12)
+    p = resolve.resolve_fold_plain(*args[:3], args[3][0], args[4][0],
+                                   args[5], cam, 7, 1.0e12)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)

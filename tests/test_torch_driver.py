@@ -20,7 +20,7 @@ torch.set_num_threads(2)
 
 
 def _renderer(seed=0):
-    space = tgen.generate(log2_size=5, verbose=False)
+    space = tgen.generate(log2_size=5, verbose=False, device="cpu")
     cam = tcam.Camera(pos=(12.0, 14.0, 6.0), yaw=0.4, pitch=0.5)
     r = tdrv.Renderer(space.serialize(), 32, 16, max_bounces=3, fog_steps=8,
                       seed=seed, device="cpu")
@@ -61,7 +61,8 @@ def test_batch_equals_single_samples():
 def test_renderer_takes_jax_world_and_restarts_on_update(tmp_path):
     jdev = jgen.generate(log2_size=5, verbose=False, backend="python").serialize()
     space, cam, r = _renderer()
-    r2 = tdrv.Renderer(jdev, 32, 16, max_bounces=3, fog_steps=8, seed=0)
+    r2 = tdrv.Renderer(jdev, 32, 16, max_bounces=3, fog_steps=8, seed=0,
+                       device="cpu")
     sun = np.array([0.8, 10.2743, 3.7])
     r.sample(cam, sun)
     r2.sample(cam, sun)
@@ -105,13 +106,16 @@ def test_cli_headless_combine_render(tmp_path, monkeypatch):
     CPU headless run wrote."""
     monkeypatch.chdir(tmp_path)
     for argv in (["render", "--mode", "path"], ["headless"],
+                 ["render", "--mode", "shaded", "--engine", "ray"],
+                 ["render", "--mode", "shadow"],
                  ["combine", "--frames-dir", "x", "--movie-dir", "y"]):
         assert callable(build_parser().parse_args(argv).fn)
     common = ["--log2-size", "5", "--width", "24", "--height", "16",
               "--max-bounces", "2", "--fog-steps", "4"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for argv in (["headless", *common, "--max-frames", "1"],
-                 ["render", *common, "--spp", "1"]):
+                 ["render", *common, "--spp", "1"],
+                 ["render", *common, "--mode", "shaded"]):
         with pytest.raises(RuntimeError, match="CUDA card"):
             main(argv)
     _, cam, r = _renderer()
@@ -120,3 +124,96 @@ def test_cli_headless_combine_render(tmp_path, monkeypatch):
     main(["combine", "--frames-dir", str(tmp_path / "frames"),
           "--movie-dir", str(tmp_path / "movie")])
     assert (tmp_path / "movie" / "0.png").exists()
+
+
+def test_entry_points_default_to_the_card():
+    """Renderer, generate and heightmap run on the card unless the caller
+    asks for the CPU."""
+    import inspect
+
+    for fn in (tdrv.Renderer.__init__, tgen.generate, tgen.heightmap):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_soup_built_once_bins_once_per_pose(monkeypatch):
+    """A terrain world rasterizes its primaries: the soup is extracted
+    once, the bins once per pose, and a pose change rebuilds the bins."""
+    calls = {"soup": 0, "bins": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(tdrv.boxes, "extract_boxes",
+                        counted("soup", tdrv.boxes.extract_boxes))
+    monkeypatch.setattr(tdrv.raster, "raster_bins",
+                        counted("bins", tdrv.raster.raster_bins))
+    space, cam, r = _renderer()
+    assert r.soup_world
+    sun = np.array([0.8, 10.2743, 3.7])
+    r.sample(cam, sun)
+    r.sample_batch(cam, sun, 2)
+    assert calls == {"soup": 1, "bins": 1}
+    cam2 = tcam.Camera(pos=(12.5, 14.0, 6.0), yaw=0.4, pitch=0.5)
+    r.sample(cam2, sun)
+    assert calls == {"soup": 1, "bins": 2}
+    img = r.preview_frame(cam2, sun)
+    assert img.shape == (16, 32, 3) and torch.isfinite(img).all()
+    assert calls == {"soup": 1, "bins": 2} and img.max() > 0
+    # an edit leaves no exact heightmap: primaries go back to the SVO cast
+    space.set((12, 13, 6), (1.0, 1.0, 1.0))
+    r.update_space(space.serialize())
+    assert not r.soup_world and r.preview_frame(cam, sun) is None
+    r.sample(cam, sun)
+    assert calls == {"soup": 1, "bins": 2}
+
+
+def test_dense_world_keeps_svo_primaries():
+    """A JAX from_dense world has no heightmap: decided up front, its
+    primaries stay on the SVO cast, and the radiance equals a renderer
+    told not to rasterize."""
+    from voxtracer.world.svo import from_dense
+
+    rng = np.random.default_rng(3)
+    solid = np.zeros((32, 32, 32), bool)
+    solid[:, :6] = rng.random((32, 6, 32)) < 0.7
+    dev = from_dense(solid, np.full((32, 32, 32, 3), 0.5,
+                                    np.float32)).serialize()
+    cam = tcam.Camera(pos=(12.0, 14.0, 6.0), yaw=0.4, pitch=0.5)
+    sun = np.array([0.8, 10.2743, 3.7])
+    a = tdrv.Renderer(dev, 32, 16, max_bounces=3, fog_steps=8, seed=1,
+                      device="cpu")
+    b = tdrv.Renderer(dev, 32, 16, max_bounces=3, fog_steps=8, seed=1,
+                      device="cpu", use_soup=False)
+    assert not a.soup_world and a._get_soup() is None
+    a.sample(cam, sun)
+    b.sample(cam, sun)
+    assert np.array_equal(a.acc.mean(), b.acc.mean())
+
+
+def test_soup_and_svo_primaries_agree():
+    """The default renderer (rasterized primaries) and use_soup=False
+    accumulate the same radiance on a terrain world."""
+    sun = np.array([0.8, 10.2743, 3.7])
+    space, cam, a = _renderer(seed=5)
+    b = tdrv.Renderer(space.serialize(), 32, 16, max_bounces=3, fog_steps=8,
+                      seed=5, device="cpu", use_soup=False)
+    a.sample_batch(cam, sun, 2)
+    b.sample_batch(cam, sun, 2)
+    assert a.soup_world and not b.soup_world
+    assert np.array_equal(a.acc.mean(), b.acc.mean())
+
+
+def test_headless_frames_take_whole_batches(tmp_path):
+    """Every frame is traced in calls of ``batch`` samples: a new frame
+    does not start with a single sample."""
+    _, cam, r = _renderer()
+    calls = []
+    orig = r.sample_batch
+    r.sample = lambda *a: calls.append(1)
+    r.sample_batch = lambda c, s, k: (calls.append(k), orig(c, s, k))
+    tdrv.headless_run(r, cam, out_dir=tmp_path, frame_samples=4,
+                      max_frames=2, batch=2, log=lambda line: None)
+    assert calls == [2, 2, 2, 2]

@@ -1,5 +1,5 @@
-"""The port imports torch and never JAX, and nothing of the JAX package:
-the machine with the card has no JAX."""
+"""The port and chip_smoke.py import torch and never JAX, and nothing of
+the JAX package: the machine with the card has no JAX."""
 
 import os
 import subprocess
@@ -15,6 +15,8 @@ names = [m.name for m in pkgutil.walk_packages(voxtracer_torch.__path__,
                                                "voxtracer_torch.")]
 for name in names:
     importlib.import_module(name)
+sys.path.insert(0, ".")
+import chip_smoke  # noqa: F401
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "voxtracer."))
              or m == "voxtracer")

@@ -146,3 +146,60 @@ def test_emissive_white_block(rng):
                                   fog_steps=8)
         means.append(float(col.mean()))
     assert means[0] > 0.0 and means[1] == 0.0
+
+
+@pytest.fixture(scope="module")
+def soup(scene):
+    """The scene's box soup, extracted by the JAX package and carried
+    across."""
+    from voxtracer.world.boxes import extract_boxes
+
+    from voxtracer_torch.kernels import raster
+
+    s = extract_boxes(scene[0])
+    return s, raster.soup_to_device(s.lo, s.size, s.leaf, s.rgb, "cpu")
+
+
+def _soup_sample(scene, soup, seed):
+    _, w, _, cam, sun, lut = scene
+    return tint.render_sample(w.table, w.root, w.height, torch.from_numpy(lut),
+                              np.asarray(cam.pos, np.float32), cam.basis(),
+                              torch.from_numpy(sun), seed, W, H,
+                              max_bounces=4, fog_steps=16, soup=soup[1])
+
+
+def test_rasterized_primaries_match_svo_primaries_and_jax(scene, soup):
+    """Rasterized primaries give the first hit of the SVO cast: on the
+    golden scene the sample equals the port's SVO-primary sample bit for
+    bit, and so the golden sample and the JAX package's
+    render_sample(soup=...) under the golden contract (the JAX side
+    differs from the jittered camera ray on, module doc)."""
+    dev, _, cam, _, sun, lut = scene
+    seed = np.array([101, 202, 303], np.uint32)
+    img = _soup_sample(scene, soup, seed).numpy()
+    _close(img, np.load(GOLDEN))
+    assert np.array_equal(img, _port_sample(scene, seed).numpy())
+    from voxtracer.kernels.raster import pack_box_attr
+
+    s = soup[0]
+    want = np.asarray(jint.render_sample(
+        jnp.asarray(dev.table.view(np.int32)), np.int32(dev.root), dev.height,
+        jnp.asarray(lut), np.asarray(cam.pos, np.float32), cam.basis(),
+        jnp.asarray(sun), jnp.asarray(seed), W, H, max_bounces=4,
+        fog_steps=16, soup=(jnp.asarray(s.lo), jnp.asarray(s.size),
+                            jnp.asarray(pack_box_attr(s)))))
+    _close(img, want)
+
+
+def test_render_samples_with_soup_is_serial_sum(scene, soup):
+    """One k-batched resolve of two samples equals two render_sample
+    calls with the soup, summed, bit for bit."""
+    _, w, _, cam, sun, lut = scene
+    seeds = np.array([[1, 2, 3], [4, 5, 6]], np.uint32)
+    total = tint.render_samples(w.table, w.root, w.height,
+                                torch.from_numpy(lut),
+                                np.asarray(cam.pos, np.float32), cam.basis(),
+                                torch.from_numpy(sun), seeds, W, H,
+                                max_bounces=4, fog_steps=16, soup=soup[1])
+    a, b = (_soup_sample(scene, soup, s) for s in seeds)
+    assert torch.equal(total, a + b)

@@ -1,0 +1,258 @@
+"""Port vs JAX: the box rasterizer (voxtracer_torch/kernels/raster.py,
+plain resolve) against voxtracer/kernels/raster.py and against the port's
+own SVO cast.
+
+Parity bar (tests/test_raster.py:32-58): hit, normal and rgb exact, t
+within rtol 1e-4 / atol 1e-3, winners flipping only at degenerate
+edge-grazes, which get a budget on degenerate cameras. JAX soups are
+carried across as numpy arrays (raster.soup_to_device).
+
+Where XLA differs: on the CPU it contracts ``a*b + c`` into fused
+multiply-adds inside a jit. That moves the last bit of (1) the
+camera-to-box distance (jnp.linalg.norm, a fused chain of squares) and
+so a quantized sort key (about one key in eight at the 64^3 reference
+pose, by a quantum or two), and (2) the jitted pixel-center
+ray directions and so the last bit of a hit's t. The port rounds every
+operation on its own, as its kernels do; the bins test bounds (1) to the
+pairs whose box distance the fused chain changes, and the frame tests
+hold (2) to the t tolerance above.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from voxtracer.core import camera as jcam
+from voxtracer.kernels import raster as jraster
+from voxtracer.world import worldgen as jgen
+from voxtracer.world.boxes import extract_boxes as jextract
+from voxtracer.world.svo import from_dense
+from voxtracer_torch.core import camera as tcam
+from voxtracer_torch.kernels import raster as traster
+from voxtracer_torch.kernels import traverse as ttrav
+from voxtracer_torch.world import svo as tsvo
+
+torch.set_num_threads(2)
+S64 = 64 / 8192
+REF_POSE = dict(pos=tuple(np.asarray(jcam.DEFAULT_POSE.pos) * S64),
+                yaw=jcam.DEFAULT_POSE.yaw, pitch=jcam.DEFAULT_POSE.pitch)
+
+
+def _world(space):
+    """A JAX world carried across: its soup and node table as tensors."""
+    dev = space.serialize()
+    soup = jextract(dev)
+    return dict(dev=dev, soup=soup,
+                args=traster.soup_to_device(soup.lo, soup.size, soup.leaf,
+                                            soup.rgb, "cpu"),
+                w=tsvo.upload(dev.table, dev.root, dev.height, "cpu"))
+
+
+@pytest.fixture(scope="module")
+def terrain():
+    return _world(jgen.generate(log2_size=6, verbose=False, backend="python"))
+
+
+@pytest.fixture(scope="module")
+def clutter():
+    rng = np.random.default_rng(5)
+    n = 32
+    solid = rng.random((n, n, n)) < 0.2
+    rgb = rng.random((n, n, n, 3)).astype(np.float32)
+    rgb[~solid] = 0
+    return _world(from_dense(solid, rgb))
+
+
+def _check(world, pos, yaw, pitch, W=64, H=40, graze_budget=0):
+    w = world["w"]
+    cam = tcam.Camera(pos=pos, yaw=yaw, pitch=pitch)
+    op = np.asarray(pos, np.float32)
+    rb = traster.raster_cast_exact(*world["args"], op, cam.basis(), w.height,
+                                   W, H, table=w.table, root=w.root)
+    _, d = tcam.generate_rays(cam, W, H)
+    rr = ttrav.svo_raycast(w.table, w.root, w.height, torch.from_numpy(op), d)
+    hb, hr = rb["hit"].numpy(), rr["hit"].numpy()
+    both = hb & hr
+    same_t = np.isclose(rb["t"].numpy(), rr["t"].numpy(), rtol=1e-4,
+                        atol=1e-3)
+    same_n = (rb["normal"].numpy() == rr["normal"].numpy()).all(-1)
+    want_rgb = ttrav.leaf_rgb(w.table, rr["node"]).numpy()
+    same_c = (rb["rgb"].numpy() == want_rgb).all(-1)
+    agree = (hb == hr) & (~both | (same_t & same_n & same_c))
+    assert int((~agree).sum()) <= graze_budget
+    assert hb.any()
+    return rb
+
+
+def test_raster_clutter_generic(clutter):
+    _check(clutter, (16.21, 17.13, -9.37), 0.11, 0.23)
+
+
+def test_raster_clutter_inside(clutter):
+    # camera inside the cloud: the near pre-pass handles straddling boxes
+    rb = _check(clutter, (15.8, 16.2, 16.4), 2.3, -0.4)
+    assert rb["n_near"] > 0
+
+
+def test_raster_clutter_degenerate(clutter):
+    # integer camera, axis-aligned view: rays through exact lattice corners
+    _check(clutter, (16.0, 16.0, -10.0), 0.0, 0.0, graze_budget=80)
+
+
+def test_raster_terrain_reference_pose(terrain):
+    _check(terrain, REF_POSE["pos"], REF_POSE["yaw"], REF_POSE["pitch"],
+           W=96, H=56)
+
+
+def test_raster_terrain_looking_down(terrain):
+    _check(terrain, (32.3, 70.7, 31.9), 0.37, 1.2)
+
+
+def test_raster_behind_and_outside_culls(terrain):
+    # camera above the world looking straight up: sky everywhere
+    cam = tcam.Camera(pos=(32.0, 80.0, 32.0), yaw=0.0, pitch=-1.5707)
+    rb = traster.raster_cast(*terrain["args"], np.asarray(cam.pos, np.float32),
+                             cam.basis(), terrain["w"].height, 32, 24)
+    assert not rb["hit"].any() and rb["n_tier"] == [0] * 11
+
+
+def test_raster_distance_cap(clutter):
+    """The rasterizer's cap is strict, the traversal's advisory: within the
+    cap both agree; every traversal hit the rasterizer lacks leaked past."""
+    w = clutter["w"]
+    cam = tcam.Camera(pos=(16.21, 17.13, -9.37), yaw=0.11, pitch=0.23)
+    op = np.asarray(cam.pos, np.float32)
+    cap = 12.0
+    rb = traster.raster_cast_exact(*clutter["args"], op, cam.basis(), w.height,
+                                   64, 40, distance=cap, table=w.table,
+                                   root=w.root)
+    _, d = tcam.generate_rays(cam, 64, 40)
+    rr = ttrav.svo_raycast(w.table, w.root, w.height, torch.from_numpy(op), d,
+                           distance=cap)
+    hb, hr, rt = rb["hit"].numpy(), rr["hit"].numpy(), rr["t"].numpy()
+    in_cap = hr & (rt <= cap)
+    assert (hb == in_cap).all() and hb.any()
+    assert (rt[hr & ~hb] > cap).all()
+    assert np.allclose(rb["t"].numpy()[hb], rt[hb], rtol=1e-4, atol=1e-3)
+
+
+def _jitter_dirs(cam, W, H, seeds):
+    py, px = tcam.pixel_grid(W, H)
+    ld = tcam.pixel_ndc(px, py, W, H)
+    out = []
+    for s in seeds:
+        jit = torch.from_numpy(np.random.default_rng(s).random((H, W, 2),
+                                                               np.float32))
+        out.append(tcam.ray_directions(cam.basis(), ld, jitter=jit, height=H))
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("KS", [2, 3])
+def test_k_batched_equals_separate_casts(terrain, KS):
+    """KS jitter samples of one pose in one resolve (r = sample*64 +
+    intile) equal KS separate casts, bit for bit, widen rounds and the
+    fallback included."""
+    w = terrain["w"]
+    cam = tcam.Camera(pos=(30.0, 34.0, 12.0), yaw=0.9, pitch=-0.3)
+    op = np.asarray(cam.pos, np.float32)
+    W, H = 64, 48
+    ds = _jitter_dirs(cam, W, H, range(KS))
+    bins = traster.raster_bins(*terrain["args"], op, cam.basis(), w.height, W,
+                               H, jittered=True)
+    kw = dict(table=w.table, root=w.root, bins=bins)
+    batched = traster.raster_cast_exact(*terrain["args"], op, cam.basis(),
+                                        w.height, W, H, ray_dirs=ds, **kw)
+    for k in range(KS):
+        one = traster.raster_cast_exact(*terrain["args"], op, cam.basis(),
+                                        w.height, W, H, ray_dirs=ds[k], **kw)
+        for f in ("hit", "t", "normal", "rgb"):
+            assert torch.equal(batched[f][k], one[f]), (k, f)
+    assert batched["hit"].any()
+
+
+def _jax_bins(world, op, basis, W, H, jittered):
+    soup = world["soup"]
+    return jraster.raster_bins(
+        jnp.asarray(soup.lo), jnp.asarray(soup.size), op,
+        np.asarray(basis), world["dev"].height, W, H, near_slots=256,
+        pair_slots=(1 << 14,) * 10, jittered=jittered,
+        box_attr=jnp.asarray(jraster.pack_box_attr(soup)))
+
+
+def _fused_dmin(world, op):
+    """The camera-to-box distance as XLA evaluates jnp.linalg.norm: a
+    fused multiply-add chain, emulated in float64 and rounded once per
+    step."""
+    lo = world["soup"].lo.astype(np.float32)
+    hi = lo + world["soup"].size.astype(np.float32)
+    r = np.clip(op, lo, hi) - op
+    fma = lambda a, b, c: (a.astype(np.float64) * b + c).astype(np.float32)  # noqa: E731,E501
+    return np.sqrt(fma(r[:, 2], r[:, 2], fma(r[:, 1], r[:, 1],
+                                             r[:, 0] * r[:, 0])))
+
+
+@pytest.mark.parametrize("jittered", [False, True])
+def test_bins_equal_jax(terrain, jittered):
+    """Tier counts, the near list, every tile's segment and candidate
+    records equal the JAX package's; a sort key differs by at most one
+    quantum and only for a box whose distance XLA's fused chain moves."""
+    cam = tcam.Camera(**REF_POSE)
+    op = np.asarray(cam.pos, np.float32)
+    W, H = 96, 56
+    got = traster.raster_bins(*terrain["args"], op, cam.basis(),
+                              terrain["w"].height, W, H, jittered=jittered)
+    want = _jax_bins(terrain, op, cam.basis(), W, H, jittered)
+    assert got["n_tier"] == np.asarray(want["n_tier"]).tolist()
+    n_near = got["n_near"]
+    assert np.array_equal(got["near_idx"].numpy(),
+                          np.asarray(want["near_idx"])[:n_near])
+    assert np.array_equal(got["seg_start"].numpy(), np.asarray(want["seg_start"]))
+    n_pair = int(got["n_pair"])
+    assert n_pair == int(want["n_pair"]) > 0
+    a = got["spairs"].numpy()[:n_pair]
+    b = np.asarray(want["spairs"])[:n_pair]
+    assert np.array_equal(a[:, 1:], b[:, 1:])  # owners, geometry, albedo
+    DB = got["dmin_bits"]
+    assert np.array_equal(a[:, 0] >> DB, b[:, 0] >> DB)  # tiles
+    moved = a[:, 0] != b[:, 0]
+    # a moved key is a box whose fused distance quantizes elsewhere: the
+    # emulated fused chain gives JAX's key exactly
+    fused = _fused_dmin(terrain, op)
+    inv_q = np.float32(1) / np.float32(got["quantum"])
+    qmax = (1 << DB) - 2
+    qf = np.minimum((fused[a[moved, 1]] * inv_q).astype(np.int64), qmax)
+    assert np.array_equal(qf, b[moved, 0] & ((1 << DB) - 1))
+    # valid candidate rows and the dropped bounds follow the same keys
+    NT = got["seg_start"].shape[0]
+    gc, wc = got["cand_rows"].numpy(), np.asarray(want["cand_rows"])
+    valid = (gc[..., 0] >> DB) == np.arange(NT)[:, None]
+    assert np.array_equal(valid, (wc[..., 0] >> DB) == np.arange(NT)[:, None])
+    assert np.array_equal(gc[valid][:, 1:], wc[valid][:, 1:])
+    gd, wd = got["drop_dmin"].numpy(), np.asarray(want["drop_dmin"])
+    assert np.array_equal(np.isfinite(gd), np.isfinite(wd))
+    differ = np.nonzero(gd != wd)[0]
+    K = gc.shape[1]
+    assert moved[got["seg_start"].numpy()[differ] + K].all()
+
+
+def test_frame_equals_jax_raster_cast_exact(terrain):
+    """The exact frame against the JAX package's: hits, normals and albedo
+    equal; t to the parity tolerance (XLA's fused ray directions)."""
+    cam = tcam.Camera(**REF_POSE)
+    op = np.asarray(cam.pos, np.float32)
+    W, H = 96, 56
+    w, soup = terrain["w"], terrain["soup"]
+    got = traster.raster_cast_exact(*terrain["args"], op, cam.basis(), w.height,
+                                    W, H, table=w.table, root=w.root)
+    dev = terrain["dev"]
+    want = jraster.raster_cast_exact(
+        jnp.asarray(soup.lo), jnp.asarray(soup.size),
+        jnp.asarray(jraster.pack_box_attr(soup)), op, np.asarray(cam.basis()),
+        dev.height, W, H, table=jnp.asarray(dev.table.view(np.int32)),
+        root=np.int32(dev.root), want_voxel=False)
+    for f in ("hit", "normal", "rgb"):
+        assert np.array_equal(got[f].numpy(), np.asarray(want[f])), f
+    assert np.allclose(got["t"].numpy(), np.asarray(want["t"]), rtol=1e-4,
+                       atol=1e-3)
+    assert got["n_widen"][0] == int(np.asarray(want["n_widen"])[0])

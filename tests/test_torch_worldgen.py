@@ -34,7 +34,7 @@ def test_heights_equal(log2):
     off by 1 (a last-place noise difference at a floor() boundary), and
     none is off at these sizes."""
     want = jgen.heightmap(log2)
-    got = tgen.heightmap(log2)
+    got = tgen.heightmap(log2, device="cpu")
     assert got.dtype == np.uint32 and got.shape == want.shape
     off = want.astype(np.int64) - got
     assert np.abs(off).max() <= 1
@@ -52,14 +52,15 @@ def test_build_octree_node_identical():
 
 def test_generate_matches_jax_python_builder():
     want = jgen.generate(log2_size=6, verbose=False, backend="python")
-    got = tgen.generate(log2_size=6, verbose=False)
+    got = tgen.generate(log2_size=6, verbose=False, device="cpu")
     assert np.array_equal(want.serialize().table, got.serialize().table)
 
 
 def test_upload_of_jax_world_equals_own_table():
     space = jgen.generate(log2_size=5, verbose=False, backend="python")
     jdev = space.serialize()
-    tdev = tgen.generate(log2_size=5, verbose=False).serialize()
+    tdev = tgen.generate(log2_size=5, verbose=False,
+                        device="cpu").serialize()
     a = tsvo.upload(jdev.table, jdev.root, jdev.height, "cpu")
     b = tsvo.upload(tdev.table, tdev.root, tdev.height, "cpu")
     assert a.table.dtype == torch.int32 and a.table.shape == (len(jdev.table), 8)

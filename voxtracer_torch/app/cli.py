@@ -3,6 +3,10 @@
 Subcommands, with the flags and defaults of ``voxtracer/app/cli.py``:
 
 * ``render --mode path`` — render one path-traced frame to PNG and/or EXR.
+* ``render --mode shaded|shadow --engine raster|ray`` — one deterministic
+  shaded frame (kernels/shade.py): ``shaded`` on the box rasterizer
+  (default) or the per-ray SVO cast, ``shadow`` always on the SVO cast;
+  prints the frame's milliseconds on the card.
 * ``headless`` — the day-cycle batch job: N samples per frame, EXR dump,
   sun schedule, throughput prints (main.rs:112-145).
 * ``combine`` — average frames/*.exr across iters into movie/*.png
@@ -83,6 +87,8 @@ def _renderer(args, space):
 
 
 def cmd_render(args):
+    if args.mode != "path":
+        return _render_shaded(args)
     space = _build_world(args)
     cam = _camera(args)
     r = _renderer(args, space)
@@ -97,6 +103,56 @@ def cmd_render(args):
     if args.exr:
         r.save_exr(args.exr)
         print("wrote", args.exr)
+
+
+def _render_shaded(args):
+    """One deterministic frame; the time is that of a second call, after
+    a first one that builds the kernels and warms the allocator."""
+    from voxtracer_torch.core import camera as vcam
+    from voxtracer_torch.kernels import raster, shade
+    from voxtracer_torch.render import film
+    from voxtracer_torch.world import boxes
+    from voxtracer_torch.world.svo import upload
+
+    dev = _device()
+    space = _build_world(args)
+    cam = _camera(args)
+    sdev = space.serialize()
+    w = upload(sdev.table, sdev.root, sdev.height, dev)
+    o, d = vcam.generate_rays(cam, args.width, args.height, device=dev)
+    sun = np.asarray(args.sun, np.float64)
+    sun_t = torch.as_tensor((sun / np.linalg.norm(sun)).astype(np.float32),
+                            device=dev)
+    if args.engine == "raster" and args.mode == "shaded":
+        soup = boxes.extract_boxes(sdev)
+        print(f"box soup: {len(soup)} boxes")
+        soup_t = raster.soup_to_device(soup.lo, soup.size, soup.leaf, soup.rgb,
+                                       dev)
+
+        def frame():
+            return raster.raster_primary_frame(
+                *soup_t, w.height, np.asarray(cam.pos, np.float32),
+                cam.basis(), sun_t, args.width, args.height, table=w.table,
+                root=w.root)
+    elif args.mode == "shaded":
+        def frame():
+            return shade.svo_primary_frame(w.table, w.root, w.height, o, d,
+                                           sun_t)
+    else:  # shadow
+        def frame():
+            return shade.svo_shadow_frame(w.table, w.root, w.height, o, d,
+                                          sun_t)
+    frame()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    img = frame()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    rays = args.width * args.height * (1 if args.mode == "shaded" else 2)
+    print(f"frame in {dt * 1e3:.1f} ms = {rays / dt / 1e6:.2f} Mrays/s")
+    if args.out:
+        film.save_png(args.out, img.cpu().numpy())
+        print("wrote", args.out)
 
 
 def cmd_headless(args):
@@ -121,9 +177,12 @@ def build_parser():
     ap = argparse.ArgumentParser(prog="voxtracer_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("render", help="render one path-traced frame")
+    p = sub.add_parser("render", help="render one frame")
     _add_common(p)
-    p.add_argument("--mode", choices=("path",), default="path")
+    p.add_argument("--mode", choices=("path", "shaded", "shadow"),
+                   default="path")
+    p.add_argument("--engine", choices=("raster", "ray"), default="raster",
+                   help="primary-visibility engine for --mode shaded")
     p.add_argument("--spp", type=int, default=16)
     p.add_argument("--out", default="frame.png")
     p.add_argument("--exr", default=None)

@@ -4,7 +4,8 @@ library with a plain C interface, bound with ctypes.
 The library is compiled by ``nvcc`` at first use into
 ``voxtracer_torch/_build/``, named by a hash of the sources and the flags,
 written under a temporary name and renamed into place, so concurrent
-builders never load a half-written file. There is no prebuilt fallback:
+builders never load a half-written file. Each source compiles in its own
+``nvcc`` process, all started together, and one more links them. There is no prebuilt fallback:
 without ``nvcc`` the first launch on a CUDA tensor raises.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` for Hopper, ``-O3``, and
@@ -24,13 +25,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("fog_march.cu", "svo_cast.cu")
+SOURCES = ("fog_march.cu", "svo_cast.cu", "resolve_fold.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes; each returns cudaGetLastError()
 SIGNATURES = {
     # start, dir, density, y0, code, t, n, n_steps, planet_r, planet_r2,
@@ -40,6 +42,11 @@ SIGNATURES = {
     # hit, t, node, normal, voxel, n, stream
     "voxt_svo_cast": (_P, _I, _I, _P, _P, _P, _P, _I,
                       _P, _P, _P, _P, _P, _I, _P),
+    # t_in, pl_in, rgb_in, rows, valid, tile_stride, dir, cam_x, cam_y,
+    # cam_z, bound, distance, t_out, pl_out, rgb_out, n_tiles, rays, k,
+    # stream
+    "voxt_resolve_fold": (_P, _P, _P, _P, _P, _L, _P, _F, _F, _F, _F, _F,
+                          _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib = None
@@ -69,12 +76,27 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
+    objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in SOURCES]
+    nvcc = _nvcc()
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                               str(CSRC / s)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for s, o in zip(SOURCES, objs)]
+    errors = []
+    for s, p in zip(SOURCES, procs):
+        _, err = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"{s} ({p.returncode}):\n{err}")
+    if not errors:
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
+        if res.returncode != 0:
+            errors.append(f"link ({res.returncode}):\n{res.stderr}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if errors:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
     os.replace(tmp, out)
     return out
 

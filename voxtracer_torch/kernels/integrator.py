@@ -24,6 +24,11 @@ roulette 1 (integrator.py:548-553 of the JAX package).
 The bounce loop is masked, as the JAX package's uncompacted loop: every
 lane runs every bounce, the ``alive`` mask gates what a finished path
 may change, and the loop ends early once no lane is alive.
+
+With a box soup (``render_sample(..., soup=...)``) the first bounce takes
+its world hit from the rasterizer (``kernels/raster.raster_cast_exact``
+on the jittered camera rays) instead of an SVO cast: the same first hit,
+so the same radiance.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from voxtracer_torch.core.sampling import (COS_SUN_RADIUS, PI, SUN_COLOR,
                                            SUN_WEIGHT)
 from voxtracer_torch.core.spectra import fog_density, spectral_throughput
 from voxtracer_torch.core.vecmath import dot
-from voxtracer_torch.kernels import atmosphere
+from voxtracer_torch.kernels import atmosphere, raster
 from voxtracer_torch.kernels.traverse import FAR, leaf_rgb, svo_raycast
 
 # most blocked shadow rays block within a few voxels (terrain self-shadow;
@@ -49,14 +54,17 @@ RR_THRESHOLD = 0.5
 
 def trace_paths(table, root: int, height: int, lut, start, direction,
                 wavelength, sun, state, max_bounces: int = 24,
-                fog_steps: int = 64):
+                fog_steps: int = 64, primary=None):
     """Trace one spectral path per ray; returns (state, radiance (..., 3)).
 
     table/root/height: the node table (kernels.traverse conventions);
     lut: (L, 3) wavelength -> linear RGB; start: (..., 3) ray origins
     (broadcasts); direction: (..., 3) unit directions; wavelength: (...,)
     in [0, 1); sun: (3,) unit sun direction; state: (..., 3) int64 RNG
-    state.
+    state. ``primary``: optional uncapped first-bounce world hit (dict
+    hit/t/normal/rgb of the batch shape, e.g. rasterized); bounce 0 then
+    casts no SVO ray. An uncapped first hit nearer than the fog event is
+    what the capped cast would return.
     """
     density = fog_density(wavelength)
     light = spectral_throughput(lut, wavelength)
@@ -74,9 +82,13 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
         state, planet = atmosphere.raycast_planet(state, pos, d, density,
                                                   n_steps=fog_steps)
         cap = torch.where(planet["hit"], planet["t"], FAR)
-        svo = cast(pos, d, cap, alive)
+        if i == 0 and primary is not None:
+            svo = primary
+            svo_rgb = primary["rgb"]
+        else:
+            svo = cast(pos, d, cap, alive)
+            svo_rgb = leaf_rgb(table, svo["node"])
         use_svo = svo["hit"] & (svo["t"] <= cap)
-        svo_rgb = leaf_rgb(table, svo["node"])
         hit_any = planet["hit"] | use_svo
         rgba = torch.where(
             use_svo[..., None],
@@ -155,37 +167,70 @@ def _primary(cam_pos, cam_basis, frame_seed, width_px, height_px, device):
     return state, d, rnd[..., 2]
 
 
+def _raster_primary(table, root, height, cam_pos, cam_basis, d, width_px,
+                    height_px, soup, soup_bins):
+    """The first world hit of every jittered camera ray from the box soup
+    (one k-batched resolve when ``d`` has a leading sample axis)."""
+    pr = raster.raster_cast_exact(
+        soup[0], soup[1], soup[2], cam_pos, cam_basis, height, width_px,
+        height_px, table=table, root=root, ray_dirs=d, bins=soup_bins)
+    # a single sample comes back without its leading axis
+    lead = pr["hit"].dim()
+    return {k: pr[k].reshape(d.shape[:-1] + pr[k].shape[lead:])
+            for k in ("hit", "t", "normal", "rgb")}
+
+
 def render_sample(table, root: int, height: int, lut, cam_pos, cam_basis,
                   sun, frame_seed, width_px: int, height_px: int,
-                  max_bounces: int = 24, fog_steps: int = 64):
+                  max_bounces: int = 24, fog_steps: int = 64, soup=None,
+                  soup_bins=None):
     """One progressive sample, 1 spectral path per pixel
     (raytrace.wgsl:415-430): seed from (frame_seed, pixel), draw jitter
-    and wavelength, trace. Returns the (H, W, 3) radiance on the table's
-    device."""
+    and wavelength, trace. ``soup``: optional (box_lo, box_size,
+    box_attr) on the table's device (``raster.soup_to_device``); the
+    first bounce is then rasterized, against ``soup_bins`` (the pose's
+    jittered ``raster.raster_bins``) when given. Returns the (H, W, 3)
+    radiance on the table's device."""
     dev = table.device
     state, d, wavelength = _primary(cam_pos, cam_basis, frame_seed, width_px,
                                     height_px, dev)
+    primary = None
+    if soup is not None:
+        primary = _raster_primary(table, root, height, cam_pos, cam_basis, d,
+                                  width_px, height_px, soup, soup_bins)
     pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
     _, radiance = trace_paths(table, root, height, lut, pos, d, wavelength,
-                              sun.to(dev), state, max_bounces, fog_steps)
+                              sun.to(dev), state, max_bounces, fog_steps,
+                              primary=primary)
     return radiance
 
 
 def render_samples(table, root: int, height: int, lut, cam_pos, cam_basis,
                    sun, frame_seeds, width_px: int, height_px: int,
-                   max_bounces: int = 24, fog_steps: int = 64):
+                   max_bounces: int = 24, fog_steps: int = 64, soup=None,
+                   soup_bins=None):
     """k samples traced as one batch of k*H*W paths; returns the (H, W, 3)
     radiance SUM, added sample by sample in order, so it equals k
-    render_sample calls summed in sequence, bit for bit."""
+    render_sample calls summed in sequence, bit for bit. With a ``soup``
+    the k samples' primaries are ONE k-batched resolve against one set of
+    pose bins (``soup_bins``, or bins built here once for all k)."""
     dev = table.device
     parts = [_primary(cam_pos, cam_basis, s, width_px, height_px, dev)
              for s in frame_seeds]
     state = torch.stack([p[0] for p in parts])
     d = torch.stack([p[1] for p in parts])
     wavelength = torch.stack([p[2] for p in parts])
+    primary = None
+    if soup is not None:
+        if soup_bins is None:
+            soup_bins = raster.raster_bins(*soup, cam_pos, cam_basis, height,
+                                           width_px, height_px, jittered=True)
+        primary = _raster_primary(table, root, height, cam_pos, cam_basis, d,
+                                  width_px, height_px, soup, soup_bins)
     pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
     _, r = trace_paths(table, root, height, lut, pos, d, wavelength,
-                       sun.to(dev), state, max_bounces, fog_steps)
+                       sun.to(dev), state, max_bounces, fog_steps,
+                       primary=primary)
     acc = r[0]
     for k in range(1, r.shape[0]):
         acc = acc + r[k]

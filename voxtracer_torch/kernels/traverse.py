@@ -28,6 +28,9 @@ FAR = 1.0e12  # "no cap" distance used by the integrator (raytrace.wgsl:343)
 MAX_HEIGHT = 15  # the kernel's node stack holds height + 1 <= 16 slots
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+# loop steps summed over lanes by the plain version since the last reset:
+# the kernel takes the same steps, so this is its work for these rays
+plain_lane_steps = 0
 
 
 def _lanes(start, d, distance, active):
@@ -116,6 +119,7 @@ def svo_raycast_plain(table, root: int, height: int, start, d, distance,
     """Plain PyTorch version of K2 on flattened lanes: start/d (B, 3),
     distance (B,), active (B,) bool or None. Same arithmetic as the kernel
     and as ``voxtracer/kernels/traverse.py:_svo_cast_body``."""
+    global plain_lane_steps
     B = d.shape[0]
     dev = d.device
     H = height
@@ -163,6 +167,7 @@ def svo_raycast_plain(table, root: int, height: int, start, d, distance,
 
     while lane.numel():
         L = lane.numel()
+        plain_lane_steps += L
         rows = torch.arange(L, device=dev)
         descend = stk[rows, h] == -1
 

@@ -25,9 +25,12 @@ from voxtracer_torch.core import camera as vcam
 from voxtracer_torch.core import rng as vrng
 from voxtracer_torch.core.color import srgb_encode
 from voxtracer_torch.core.spectra import build_wl_to_rgb_lut
+from voxtracer_torch.core.vecmath import dot
+from voxtracer_torch.kernels import raster
 from voxtracer_torch.kernels.integrator import render_sample, render_samples
 from voxtracer_torch.render import film
 from voxtracer_torch.render.accumulator import Accumulator
+from voxtracer_torch.world import boxes
 from voxtracer_torch.world.svo import upload
 
 SUN_ARC_FROM = np.array([0.8, 1.0, 3.7])
@@ -59,18 +62,21 @@ def rotate_sun(sun: np.ndarray, step: float = DAY_STEP) -> np.ndarray:
 class Renderer:
     """Progressive spectral path tracer over an SVO world on ``device``.
 
-    Uses the SVO engine only (every world cast is ``svo_raycast``); the
-    JAX ``Renderer``'s faster engines (rasterized primaries, heightfield
-    walk, skyline) are tested bit-identical in radiance to that engine,
-    so for the same world, pose, sun and seed this renderer's radiance
-    equals the JAX one's up to float rounding. The world table and LUT
-    are uploaded once; per sample only the frame seed crosses from the
-    host.
+    Bounce and shadow casts are SVO casts (K2). With ``use_soup`` (the
+    default, as in the JAX ``Renderer``) a world that is unedited terrain
+    (its ``space`` carries an exact heightmap) casts every sample's
+    primaries on the box rasterizer: the terrain soup is extracted and
+    uploaded once per world and the pose-only bins are cached per pose.
+    Any other world, or ``use_soup=False``, keeps SVO-cast primaries; that
+    is decided up front from the heightmap. Both give the traversal's
+    first hit, so the radiance is the same. The world table and LUT are
+    uploaded once; per sample only the frame seed crosses from the host.
     """
 
     def __init__(self, device_svo, width: int, height: int,
                  max_bounces: int = 24, fog_steps: int = 64,
-                 seed: int | None = None, device="cpu"):
+                 seed: int | None = None, device="cuda",
+                 use_soup: bool = True):
         """``device_svo``: any object with numpy ``.table/.root/.height``
         (this package's ``DeviceSvo`` or the JAX package's)."""
         self.device = torch.device(device)
@@ -78,16 +84,50 @@ class Renderer:
         self.height = height
         self.max_bounces = max_bounces
         self.fog_steps = fog_steps
+        self.use_soup = use_soup
         self.lut = torch.from_numpy(build_wl_to_rgb_lut()).to(self.device)
         self.acc = Accumulator(width, height, self.device)
         self.host_rng = random.Random(seed)
         self.update_space(device_svo)
 
     def update_space(self, device_svo):
-        """Upload a (re)serialized world; the accumulation restarts."""
+        """Upload a (re)serialized world; the accumulation restarts and
+        the soup and bins of the old world are dropped."""
         self.world = upload(device_svo.table, device_svo.root,
                             device_svo.height, self.device)
+        self._dev = device_svo
+        self._soup = None
+        self._bins = self._bins_key = None
+        self.soup_world = (self.use_soup
+                           and boxes.terrain_heights(device_svo) is not None)
         self.acc.invalidate()
+
+    def _get_soup(self):
+        """The world's box soup on the device (extracted on first use),
+        or None when primaries stay on the SVO cast."""
+        if not self.soup_world:
+            return None
+        if self._soup is None:
+            soup = boxes.extract_boxes(self._dev)
+            if len(soup) == 0:  # a world without solid voxels
+                self.soup_world = False
+                return None
+            self._soup = raster.soup_to_device(soup.lo, soup.size, soup.leaf,
+                                               soup.rgb, self.device)
+        return self._soup
+
+    def _get_soup_bins(self, cam: vcam.Camera, soup):
+        """The pose's jittered raster bins, cached per (pos, yaw, pitch)."""
+        if soup is None:
+            return None
+        key = (tuple(np.asarray(cam.pos, np.float64).tolist()),
+               float(cam.yaw), float(cam.pitch))
+        if self._bins_key != key:
+            self._bins = raster.raster_bins(
+                *soup, np.asarray(cam.pos, np.float32), cam.basis(),
+                self.world.height, self.width, self.height, jittered=True)
+            self._bins_key = key
+        return self._bins
 
     def _begin(self, cam: vcam.Camera, sun):
         sun = np.asarray(sun, np.float64)
@@ -100,13 +140,18 @@ class Renderer:
         return (w.table, w.root, w.height, self.lut,
                 np.asarray(cam.pos, np.float32), cam.basis())
 
+    def _soup_kw(self, cam: vcam.Camera):
+        soup = self._get_soup()
+        return dict(soup=soup, soup_bins=self._get_soup_bins(cam, soup))
+
     def sample(self, cam: vcam.Camera, sun: np.ndarray):
         """One progressive step: 1 spectral path per pixel."""
         sun_t = self._begin(cam, sun)
         seed = vrng.host_frame_seed(self.host_rng)
         radiance = render_sample(
             *self._args(cam), sun_t, seed, self.width, self.height,
-            max_bounces=self.max_bounces, fog_steps=self.fog_steps)
+            max_bounces=self.max_bounces, fog_steps=self.fog_steps,
+            **self._soup_kw(cam))
         self.acc.add(radiance)
 
     def sample_batch(self, cam: vcam.Camera, sun: np.ndarray, k: int):
@@ -116,8 +161,29 @@ class Renderer:
                           for _ in range(k)])
         total = render_samples(
             *self._args(cam), sun_t, seeds, self.width, self.height,
-            max_bounces=self.max_bounces, fog_steps=self.fog_steps)
+            max_bounces=self.max_bounces, fog_steps=self.fog_steps,
+            **self._soup_kw(cam))
         self.acc.add(total, k)
+
+    def preview_frame(self, cam: vcam.Camera, sun: np.ndarray):
+        """Shaded primary-visibility frame for interactive preview
+        (software.rs:260-276 shading on the rasterized first hit), on the
+        pose's cached bins. Tiles the rasterizer cannot prove complete
+        are not re-cast (preview only; the path-traced accumulation stays
+        exact). Returns (H, W, 3) linear radiance, or None when the world
+        has no soup."""
+        soup = self._get_soup()
+        if soup is None:
+            return None
+        sun = np.asarray(sun, np.float64)
+        sun_t = torch.from_numpy(
+            (sun / np.linalg.norm(sun)).astype(np.float32)).to(self.device)
+        r = raster.raster_cast(
+            *soup, np.asarray(cam.pos, np.float32), cam.basis(),
+            self.world.height, self.width, self.height,
+            bins=self._get_soup_bins(cam, soup))
+        lighting = dot(sun_t, r["normal"]) / 2.0 + 1.0
+        return r["rgb"] * lighting[..., None] * r["hit"][..., None]
 
     def render(self, cam, sun, spp: int, batch: int = 8):
         done = 0
@@ -159,7 +225,10 @@ def headless_run(renderer: Renderer, cam: vcam.Camera, out_dir="frames",
         retries = 0
         while done_samples < frame_samples:
             try:
-                k = min(batch, frame_samples - renderer.acc.samples)
+                # sized from this frame's count: the accumulator still
+                # holds the last frame's samples until the sun step
+                # restarts it
+                k = min(batch, frame_samples - done_samples)
                 if k > 1:
                     renderer.sample_batch(cam, sun, k)
                 else:

@@ -149,6 +149,8 @@ class SvoSpace:
         n = 1 << self.height()
         if not (0 <= x < n and 0 <= y < n and 0 <= z < n):
             raise ValueError(f"voxel {(x, y, z)} outside [0, {n})^3")
+        # a worldgen heightmap no longer describes the world
+        self.heights_exact = False
         stack = []
         node = self.root
         for level in range(self.height() - 1, -1, -1):
@@ -192,7 +194,8 @@ class SvoSpace:
                     if c is not None:
                         table[nid, i] = c
         root = EMPTY if self.root is None else self.root
-        return DeviceSvo(table=table, root=root, height=self.height())
+        return DeviceSvo(table=table, root=root, height=self.height(),
+                         space=self)
 
     def mem_usage(self) -> int:
         """Rough bytes estimate (table + intern map), for worldgen logs."""
@@ -202,11 +205,14 @@ class SvoSpace:
 @dataclass
 class DeviceSvo:
     """Flat SVO on the host: ``table`` uint32[capacity, 8], ``root`` slot
-    index or EMPTY, ``height`` tree height (world edge = 2^height)."""
+    index or EMPTY, ``height`` tree height (world edge = 2^height),
+    ``space`` the ``SvoSpace`` that serialized it (world/boxes.py reads its
+    terrain heightmap)."""
 
     table: np.ndarray
     root: int
     height: int
+    space: object = None
 
 
 @dataclass

@@ -20,10 +20,11 @@ from voxtracer_torch.world.svo import SvoSpace
 SEED_SCALE = 0xAFE29979  # worldgen.rs:14
 SEED_NOISE = 0x1C766E2E  # worldgen.rs:15
 REFERENCE_LOG2_SIZE = 13  # worldgen.rs:17
+TERRAIN_RGB = (0.5, 0.5, 0.5)  # every terrain voxel (build_octree's default)
 
 
 def heightmap(log2_size: int, seed_scale: int = SEED_SCALE,
-              seed_noise: int = SEED_NOISE, device="cpu") -> np.ndarray:
+              seed_noise: int = SEED_NOISE, device="cuda") -> np.ndarray:
     """Terrain height per column, uint32[n, n] indexed [x, z], in [0, n].
 
     ``base = simplex(x/2048, z/2048) + 1``; ``height = floor((fbm(x/512,
@@ -73,7 +74,7 @@ def _ranges(lo: np.ndarray, hi: np.ndarray):
 
 
 def build_octree(mins, maxs, space: SvoSpace | None = None,
-                 rgb=(0.5, 0.5, 0.5)) -> SvoSpace:
+                 rgb=TERRAIN_RGB) -> SvoSpace:
     """Bottom-up vectorized octree build from a min/max column pyramid.
 
     Cell (cx, cy, cz) at level L (size s = 2^L) is solid iff
@@ -172,9 +173,14 @@ def build_octree(mins, maxs, space: SvoSpace | None = None,
 
 def generate(log2_size: int = REFERENCE_LOG2_SIZE, verbose: bool = True,
              seed_scale: int | None = None, seed_noise: int | None = None,
-             device="cpu") -> SvoSpace:
+             device="cuda") -> SvoSpace:
     """Full worldgen (worldgen.rs:10-59): heightmap on ``device``, then
-    the numpy pyramid and the Python octree builder on the host."""
+    the numpy pyramid and the Python octree builder on the host.
+
+    The space keeps its heightmap (``heights``, uint32 [x, z]), the
+    terrain colour and ``heights_exact``: an unedited terrain world is a
+    heightfield, which world/boxes.py turns into the raster box soup.
+    A point edit clears ``heights_exact`` (SvoSpace.set)."""
     t0 = time.monotonic()
     h = heightmap(
         log2_size,
@@ -191,4 +197,7 @@ def generate(log2_size: int = REFERENCE_LOG2_SIZE, verbose: bool = True,
         print(f"octree in {t2 - t1:.3f}s [python]")
         print(f"world size: {space.mem_usage() / 1024 / 1024:.0f} mib "
               f"({space.num_nodes()} nodes)")
+    space.heights = h
+    space.terrain_rgb = TERRAIN_RGB
+    space.heights_exact = True
     return space
