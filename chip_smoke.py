@@ -9,11 +9,18 @@ Phases, each printing its lines; any failure exits non-zero:
    and power limit.
 2. build: compiles kernels K1 (fog march), K2 (SVO cast) and K3 (resolve
    fold) from voxtracer_torch/kernels/csrc with nvcc, one process per
-   source, and loads them.
+   source, loads them, and prints ptxas's registers, stack frame and
+   spills for each.
 3. kernels against their plain PyTorch versions, on the card, at the main
    path's shapes, every output bit for bit: K1 at 409,440 rays (one
-   853x480 sample) and at ragged sizes; K2 on a 1024^3 world with camera
-   rays, random rays with random caps, and a random active mask; K3 on
+   853x480 sample) and at ragged sizes, each unmasked and with half the
+   lanes active, and at batch-8 width (3,275,520 lanes) with 1%, 10% and
+   50% of the lanes active; K2 on a 1024^3 world with camera rays, random
+   rays with random caps, and a random active mask, the three casts of a
+   main-path bounce from the camera hits (the fog-capped indirect cast of
+   cosine-hemisphere directions, the NEE cast capped at NEE_NEAR and the
+   full NEE cast toward sun-cone directions, each with its mask), and
+   random rays at batch-8 width with 1%, 10% and 50% active; K3 on
    the 1024^3 world's raster bins at 853x480 (R = 64 pixel-center rays
    and R = 512, 8 jittered samples, K = 16), a widen-shaped call (512
    tiles x K = 1024), the near pre-pass's shared list, and random records
@@ -30,6 +37,8 @@ Phases, each printing its lines; any failure exits non-zero:
    retried. Then a shorter run keeps the SVO-primary path driven
    (use_soup=False, 1 frame x 8 samples), and ms/sample at batch 1 and 8
    with rasterized and SVO primaries, from the same process.
+7. profile: one torch.profiler window over a batch-8 sample_batch call;
+   prints each kernel's device ms and launches and the device busy share.
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -51,6 +60,8 @@ REPO = Path(__file__).resolve().parent
 WIDTH, HEIGHT = 853, 480
 LOG2_SIZE = 10
 RAYS = WIDTH * HEIGHT  # 409,440 paths per sample
+WIDE = 8 * RAYS  # the lanes of a batch-8 call
+MASK_SHARES = (0.01, 0.10, 0.50)  # live lanes in the masked wide sets
 # golden contract (tests/test_torch_integrator.py): fraction of values
 # beyond 1e-3, and the relative difference of the image means
 GOLDEN_FRAC, GOLDEN_MEAN_REL = 5e-3, 1e-3
@@ -121,6 +132,12 @@ def phase_build():
     path = build.build()
     build.library()
     print(f"build: {time.monotonic() - t0:.1f} s -> {path.relative_to(REPO)}")
+    src = None
+    for line in build.ptxas_report().splitlines():
+        if line.startswith("== "):
+            src = line[3:]
+        elif "stack frame" in line or "registers" in line:
+            print(f"ptxas {src}: {line.strip()}")
 
 
 def _fog_inputs(rng, B, dev):
@@ -138,9 +155,9 @@ def _fog_inputs(rng, B, dev):
     return t(start), t(d), fog_density(wl).contiguous(), t(y0)
 
 
-def _fog_segments(start, d, density, y0, n_steps):
-    """Segments K1 marches for these rays: none for a ray that misses the
-    shell, else up to and including its scatter event."""
+def _fog_segments(start, d, density, y0, n_steps, active=None):
+    """Segments K1 marches for these rays: none for an inactive ray or one
+    that misses the shell, else up to and including its scatter event."""
     import torch
 
     from voxtracer_torch.core.vecmath import div
@@ -149,7 +166,7 @@ def _fog_segments(start, d, density, y0, n_steps):
     t0, t1, valid, _, p = fog._sphere_span(start, d)
     density_scaled = div(t1 - t0, float(n_steps)) * density
     y = y0
-    live = valid.clone()
+    live = valid.clone() if active is None else valid & active
     total = 0
     for i in range(n_steps):
         total += int(live.sum())
@@ -162,73 +179,174 @@ def _fog_segments(start, d, density, y0, n_steps):
     return total
 
 
-def phase_fog(rng, dev):
-    """K1 against fog_march_plain; returns the JSON record fields."""
+def _fog_bound(args, n_steps, active):
+    """K1's bound for these rays: (ms, by, segments). Every lane's outputs
+    (8 B) and mask byte; the inputs (40 B) and the march of active lanes."""
+    B = args[0].shape[0]
+    n_act = B if active is None else int(active.sum())
+    segs = _fog_segments(*args, n_steps=n_steps, active=active)
+    ms, by = _bound(B * (8 + (0 if active is None else 1)) + n_act * 40,
+                    n_act * K1_SETUP_OPS + segs * K1_STEP_OPS)
+    return ms, by, segs
+
+
+def _masks(rng, B, dev):
+    """Scattered random lane masks at the shares of live lanes a batch-8
+    call's later bounces see."""
     import torch
 
+    return [(f"{int(100 * f)}%", torch.as_tensor(rng.random(B) < f,
+                                                 device=dev))
+            for f in MASK_SHARES]
+
+
+def _check_fog(name, args, steps, active, rec):
+    import torch
+
+    from voxtracer_torch.kernels import fog
+
+    code_k, t_k = fog.fog_march(*args, n_steps=steps, active=active)
+    code_p, t_p = fog.fog_march_plain(*args, n_steps=steps, active=active)
+    torch.cuda.synchronize()
+    if not torch.equal(code_k, code_p):
+        n = int((code_k != code_p).sum())
+        raise AssertionError(f"fog_march {name} n={steps}: {n} codes differ")
+    # both sides build without FMA contraction and in one expression
+    # order, so t is held bit for bit, as K2's outputs are
+    err = float((t_k - t_p).abs().max())
+    if not torch.equal(t_k, t_p):
+        raise AssertionError(f"fog_march {name} n={steps}: t differs, max "
+                             f"diff {err}")
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+
+
+def phase_fog(rng, dev):
+    """K1 against fog_march_plain, unmasked and masked, at 409,440 rays,
+    at ragged sizes and at batch-8 width; returns the JSON record
+    fields."""
     from voxtracer_torch.kernels import fog
 
     rec = dict(max_abs_err=0.0)
     for B, steps in [(b, s) for b in (RAYS, 1, 100, 1000) for s in (64, 16)]:
         args = _fog_inputs(rng, B, dev)
-        code_k, t_k = fog.fog_march(*args, n_steps=steps)
-        code_p, t_p = fog.fog_march_plain(*args, n_steps=steps)
-        torch.cuda.synchronize()
-        if not torch.equal(code_k, code_p):
-            n = int((code_k != code_p).sum())
-            raise AssertionError(f"fog_march B={B} n={steps}: {n} codes differ")
-        # both sides build without FMA contraction and in one expression
-        # order, so t is held bit for bit, as K2's outputs are
-        err = float((t_k - t_p).abs().max())
-        if not torch.equal(t_k, t_p):
-            raise AssertionError(f"fog_march B={B} n={steps}: t differs, "
-                                 f"max diff {err}")
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        line = f"fog_march B={B} n_steps={steps}: codes and t equal"
-        if B == RAYS:
-            ms = _ms(lambda: fog.fog_march(*args, n_steps=steps), 20)
-            plain_ms = _ms(lambda: fog.fog_march_plain(*args, n_steps=steps), 3)
-            line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-            if steps == 64:  # the production march
-                segs = _fog_segments(*args, n_steps=steps)
-                bound_ms, bound_by = _bound(
-                    B * (12 + 12 + 4 + 4 + 4 + 4),
-                    B * K1_SETUP_OPS + segs * K1_STEP_OPS)
-                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, library_ms=None)
-                line += (f", {segs} segments marched, bound {bound_ms:.4f} "
-                         f"ms ({bound_by})")
-        print(line)
+        mask = _masks(rng, B, dev)[2][1]  # half of the lanes
+        for active in (None, mask):
+            name = f"B={B}" + ("" if active is None else " masked 50%")
+            _check_fog(name, args, steps, active, rec)
+            line = f"fog_march {name} n_steps={steps}: codes and t equal"
+            if B == RAYS:
+                ms = _ms(lambda: fog.fog_march(*args, n_steps=steps,
+                                               active=active), 20)
+                line += f", kernel {ms:.4f} ms"
+                if steps == 64:  # the production march
+                    bound_ms, bound_by, segs = _fog_bound(args, steps, active)
+                    line += (f", {segs} segments marched, bound "
+                             f"{bound_ms:.4f} ms ({bound_by})")
+                    if active is None:
+                        plain_ms = _ms(lambda: fog.fog_march_plain(
+                            *args, n_steps=steps), 3)
+                        rec.update(ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   library_ms=None)
+                        line += f", plain {plain_ms:.4f} ms"
+            print(line)
+    args = _fog_inputs(rng, WIDE, dev)
+    for share, active in _masks(rng, WIDE, dev):
+        _check_fog(f"B={WIDE} {share}", args, 64, active, rec)
+        ms = _ms(lambda: fog.fog_march(*args, n_steps=64, active=active), 10)
+        bound_ms, bound_by, segs = _fog_bound(args, 64, active)
+        print(f"fog_march B={WIDE} masked {share} n_steps=64: codes and t "
+              f"equal, kernel {ms:.4f} ms, {segs} segments marched, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
     return rec
 
 
-def _svo_sets(rng, dev):
-    """The three K2 ray sets as (name, start, d, distance, active), each
-    flat over 409,440 lanes."""
+def _svo_sets(rng, world, dev):
+    """The K2 ray sets as (name, start, d, distance, active), flat:
+    camera rays, random rays with random caps, and those with a random
+    mask, at 409,440 lanes; the casts of a main-path bounce from the
+    camera hits; and random rays at batch-8 width with sparse masks."""
     import torch
 
-    from voxtracer_torch.core import camera as vcam
-    from voxtracer_torch.kernels.traverse import FAR
+    from voxtracer_torch.core import sampling
+    from voxtracer_torch.core.spectra import fog_density
+    from voxtracer_torch.core.vecmath import dot
+    from voxtracer_torch.kernels import atmosphere
+    from voxtracer_torch.kernels.integrator import NEE_NEAR
+    from voxtracer_torch.kernels.traverse import FAR, svo_raycast
 
     n = float(1 << LOG2_SIZE)
-    s = n / 8192.0
-    cam = vcam.Camera(pos=tuple(np.asarray(vcam.DEFAULT_POSE.pos) * s),
-                      yaw=vcam.DEFAULT_POSE.yaw, pitch=vcam.DEFAULT_POSE.pitch)
-    o, d = vcam.generate_rays(cam, WIDTH, HEIGHT, device=dev)
+    cam = _smoke_camera(LOG2_SIZE)
+    o, d = _camera_rays(cam, dev)
     t = lambda a: torch.as_tensor(a, device=dev).contiguous()  # noqa: E731
     far = torch.full((RAYS,), FAR, dtype=torch.float32, device=dev)
-    start = rng.random((RAYS, 3), np.float32) * np.float32(n)
-    rd = rng.normal(size=(RAYS, 3)).astype(np.float32)
-    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
-    cap = np.where(rng.random(RAYS) < 0.25, np.float32(FAR),
-                   rng.random(RAYS, np.float32) * np.float32(2 * n))
-    active = rng.random(RAYS) < 0.5
-    rand = (t(start), t(rd), t(cap.astype(np.float32)))
-    return [
-        ("camera", t(o.reshape(-1, 3)), t(d.reshape(-1, 3)), far, None),
-        ("random", *rand, None),
-        ("active", *rand, t(active)),
-    ]
+
+    def random_rays(B):
+        start = rng.random((B, 3), np.float32) * np.float32(n)
+        rd = rng.normal(size=(B, 3)).astype(np.float32)
+        rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+        cap = np.where(rng.random(B) < 0.25, np.float32(FAR),
+                       rng.random(B, np.float32) * np.float32(2 * n))
+        return t(start), t(rd), t(cap.astype(np.float32))
+
+    rand = random_rays(RAYS)
+    sets = [("camera", o, d, far, None), ("random", *rand, None),
+            ("active", *rand, t(rng.random(RAYS) < 0.5))]
+
+    # one main-path bounce from the camera hits (integrator.trace_paths):
+    # the fog-capped indirect cast, then the two-stage NEE toward the sun
+    prim = svo_raycast(world.table, world.root, world.height, o, d)
+    hit = prim["hit"]
+    pos = torch.where(hit[:, None], o + d * prim["t"][:, None], o)
+    state = t(rng.integers(0, 2**32, (RAYS, 3), dtype=np.uint32)
+              .astype(np.int64))
+    density = fog_density(t(rng.random(RAYS, np.float32)))
+    state, ind = sampling.cos_hemisphere(state, prim["normal"])
+    state, planet = atmosphere.raycast_planet(state, pos, ind, density,
+                                              active=hit)
+    cap = torch.where(planet["hit"], planet["t"], FAR)
+    sets.append(("bounce-1 indirect", pos, ind, cap, hit))
+    state, sun_dir = sampling.sample_sun(state, _sun(dev))
+    facing = hit & (dot(sun_dir, prim["normal"]) > 0.0)
+    state, sun_planet = atmosphere.raycast_planet(state, pos, sun_dir,
+                                                  density, active=facing)
+    nee_act = facing & ~sun_planet["hit"]
+    near = svo_raycast(world.table, world.root, world.height, pos, sun_dir,
+                       NEE_NEAR, active=nee_act)["hit"]
+    sets.append(("NEE near", pos, sun_dir,
+                 torch.full((RAYS,), NEE_NEAR, device=dev), nee_act))
+    sets.append(("NEE far", pos, sun_dir, far, nee_act & ~near))
+
+    wide = random_rays(WIDE)
+    sets += [(f"batch-8 width, {share} active", *wide, active)
+             for share, active in _masks(rng, WIDE, dev)]
+    return sets
+
+
+def _camera_rays(cam, dev):
+    from voxtracer_torch.core import camera as vcam
+
+    o, d = vcam.generate_rays(cam, WIDTH, HEIGHT, device=dev)
+    return (o.expand(d.shape).reshape(-1, 3).contiguous(),
+            d.reshape(-1, 3).contiguous())
+
+
+def _sun(dev):
+    import torch
+
+    sun = np.asarray([0.8, 10.2743, 3.7])
+    return torch.as_tensor((sun / np.linalg.norm(sun)).astype(np.float32),
+                           device=dev)
+
+
+def _svo_bound(world, steps, B, active):
+    """K2's bound: every lane's outputs (33 B) and mask byte, the inputs
+    (28 B) of active lanes, the table once, and the loop steps of the
+    active lanes (counted by the plain version)."""
+    n_act = B if active is None else int(active.sum())
+    nbytes = (B * (33 + (0 if active is None else 1)) + n_act * 28
+              + world.table.numel() * 4)
+    return _bound(nbytes, steps * K2_STEP_OPS)
 
 
 def phase_svo(rng, world, dev):
@@ -239,7 +357,7 @@ def phase_svo(rng, world, dev):
 
     rec = dict(max_abs_err=0.0)
     w = (world.table, world.root, world.height)
-    for name, start, d, distance, active in _svo_sets(rng, dev):
+    for name, start, d, distance, active in _svo_sets(rng, world, dev):
         def kernel():
             return traverse.svo_raycast(*w, start, d, distance, active=active)
 
@@ -247,32 +365,33 @@ def phase_svo(rng, world, dev):
             return traverse.svo_raycast_plain(*w, start, d, distance,
                                               active=active)
 
-        k, p = kernel(), plain()
+        B = d.shape[0]
+        k = kernel()
+        before = traverse.plain_lane_steps
+        p = plain()
+        steps = traverse.plain_lane_steps - before
         torch.cuda.synchronize()
         for key in ("hit", "t", "node", "normal", "voxel"):
             if not torch.equal(k[key], p[key]):
-                bad = (k[key] != p[key]).reshape(RAYS, -1).any(1).sum()
+                bad = (k[key] != p[key]).reshape(B, -1).any(1).sum()
                 raise AssertionError(f"svo_cast {name}: {key} differs in "
                                      f"{int(bad)} lanes")
         for key in ("t", "normal"):
             err = float((k[key] - p[key]).abs().max())
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
         ms = _ms(kernel, 10)
-        before = traverse.plain_lane_steps
-        plain_ms = _ms(plain, 1)
-        # _ms runs the plain version twice (warm-up and timed)
-        steps = (traverse.plain_lane_steps - before) // 2
-        hits = float(p["hit"].float().mean())
-        nbytes = (RAYS * (12 + 12 + 4 + (0 if active is None else 1)
-                          + 1 + 4 + 4 + 12 + 12)
-                  + world.table.numel() * 4)
-        bound_ms, bound_by = _bound(nbytes, steps * K2_STEP_OPS)
-        print(f"svo_cast {name} ({RAYS} rays, {hits:.3f} hit): all five "
-              f"outputs equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"{steps} lane-steps, bound {bound_ms:.4f} ms ({bound_by})")
+        bound_ms, bound_by = _svo_bound(world, steps, B, active)
+        n_act = B if active is None else int(active.sum())
+        hits = float(p["hit"].float().sum()) / max(n_act, 1)
+        line = (f"svo_cast {name} ({B} lanes, {n_act} active, {hits:.3f} of "
+                f"them hit): all five outputs equal, kernel {ms:.4f} ms, "
+                f"{steps} lane-steps, bound {bound_ms:.4f} ms ({bound_by})")
         if name == "random":  # incoherent capped rays, like bounce casts
+            plain_ms = _ms(plain, 1)
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, library_ms=None)
+            line += f", plain {plain_ms:.4f} ms"
+        print(line)
     return rec
 
 
@@ -409,9 +528,7 @@ def phase_golden(dev):
                                 device=dev).serialize()
     w = svo.upload(dev_svo.table, dev_svo.root, dev_svo.height, dev)
     cam = _smoke_camera(6)
-    sun = np.asarray([0.8, 10.2743, 3.7])
-    sun = torch.as_tensor((sun / np.linalg.norm(sun)).astype(np.float32),
-                          device=dev)
+    sun = _sun(dev)
     o, d = vcam.generate_rays(cam, 96, 56, device=dev)
     soup = boxes.extract_boxes(dev_svo)
     soup_t = raster.soup_to_device(soup.lo, soup.size, soup.leaf, soup.rgb,
@@ -460,9 +577,7 @@ def phase_shaded(soup_t, world, dev):
     cam = _smoke_camera(LOG2_SIZE)
     op = np.asarray(cam.pos, np.float32)
     basis = cam.basis().to(dev)
-    sun = np.asarray([0.8, 10.2743, 3.7])
-    sun = torch.as_tensor((sun / np.linalg.norm(sun)).astype(np.float32),
-                          device=dev)
+    sun = _sun(dev)
     o, d = vcam.generate_rays(cam, WIDTH, HEIGHT, device=dev)
     w = (world.table, world.root, world.height)
     r = raster.raster_cast(*soup_t, op, basis, LOG2_SIZE, WIDTH, HEIGHT)
@@ -624,6 +739,26 @@ def phase_primaries(soup_r, svo_r):
           f"(bins once per pose: {100 * bins_ms / batch8:.2f}% if per batch)")
 
 
+def phase_profile(renderer):
+    """One torch.profiler window over a batch-8 sample_batch call of the
+    main path: each kernel's device ms and launches, and the device busy
+    share of the call's wall time."""
+    from voxtracer_torch.tools.kernel_ab import profile_call
+
+    cam = _smoke_camera(LOG2_SIZE)
+    sun = np.asarray([0.8, 10.2743, 3.7])
+    prof = profile_call(lambda: renderer.sample_batch(cam, sun, 8))
+    per = ", ".join(f"{name} {v['ms']:.3f} ms / {v['launches']} launches"
+                    for name, v in prof["kernels"].items())
+    print(f"profile, batch-8 sample_batch call: wall {prof['wall_ms']:.1f} "
+          f"ms, device busy {prof['busy_ms']:.1f} ms "
+          f"({100 * prof['busy_share']:.1f}%), {prof['device_events']} "
+          f"device events; {per}")
+    for name, v in prof["kernels"].items():
+        if v["launches"] <= 0:
+            raise AssertionError(f"the profile saw no {name} launch")
+
+
 def main() -> int:
     import torch
 
@@ -653,6 +788,7 @@ def main() -> int:
     phase_shaded(soup_t, world, dev)
     counts, soup_r, svo_r = phase_main(space, dev)
     phase_primaries(soup_r, svo_r)
+    phase_profile(soup_r)
 
     kernels = [
         dict(name="fog_march", route="cuda",

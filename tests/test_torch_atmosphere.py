@@ -80,6 +80,41 @@ def test_fog_march_ragged_sizes(rng):
         assert code.dtype == torch.int32 and (code == 0).all()
 
 
+@pytest.mark.parametrize("B,steps", [(1, 8), (100, 16), (1000, 64)])
+def test_fog_march_plain_active_masks_lanes(rng, B, steps):
+    """With a lane mask, the plain march equals the unmasked march on the
+    active lanes and gives code 0 and t 0.0 on the others."""
+    _, start, d, _ = _inputs(rng, B)
+    dens = rng.random(B, np.float32) * 1e-4
+    y0 = -np.log(1 - rng.random(B, np.float32)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (start, d, dens, y0)]
+    active = torch.from_numpy(rng.random(B) < 0.5)
+    code, t = tfog.fog_march(*args, n_steps=steps)
+    code_m, t_m = tfog.fog_march(*args, n_steps=steps, active=active)
+    assert code_m.dtype == torch.int32 and t_m.dtype == torch.float32
+    assert torch.equal(code_m[active], code[active])
+    assert torch.equal(t_m[active], t[active])
+    assert (code_m[~active] == 0).all()
+    assert (t_m[~active] == 0.0).all() and not t_m[~active].signbit().any()
+
+
+def test_raycast_planet_active_masks_march_not_draws(rng):
+    """Masked raycast_planet: the same state as unmasked (every lane draws
+    its 3 values), the unmasked result on active lanes, misses elsewhere."""
+    state, start, d, dens = _inputs(rng, 2048)
+    args = (torch.from_numpy(start), torch.from_numpy(d),
+            torch.from_numpy(dens))
+    active = torch.from_numpy(rng.random(2048) < 0.3)
+    s1, r1 = tatm.raycast_planet(trng.to_state(state), *args, n_steps=32)
+    s2, r2 = tatm.raycast_planet(trng.to_state(state), *args, n_steps=32,
+                                 active=active)
+    assert torch.equal(s1, s2)
+    for key in ("hit", "t", "rgba", "normal"):
+        assert torch.equal(r2[key][active], r1[key][active]), key
+    assert not r2["hit"][~active].any() and (r2["t"][~active] == 0).all()
+    assert r1["hit"][~active].any()  # the mask hid real hits
+
+
 def test_fog_march_codes_match_pallas(rng, interpret_pallas):
     from voxtracer.kernels.pallas.fog import fog_march
 

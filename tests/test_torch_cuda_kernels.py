@@ -1,9 +1,10 @@
 """CUDA kernels K1 (fog march), K2 (SVO cast) and K3 (resolve fold)
-against their plain PyTorch versions, on the card. Every test skips when torch sees no CUDA
-device (decided inside the fixture, not at import).
+against their plain PyTorch versions, on the card. Every test skips when
+torch sees no CUDA device (decided inside the fixture, not at import).
 
-Run on the card from the repository root:
-    python -m pytest tests/test_torch_cuda_kernels.py -q
+Run on the card from the repository root (the repository's conftest
+imports JAX, which the card's machine lacks):
+    python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
 """
 
 import numpy as np
@@ -43,11 +44,44 @@ def test_fog_march_matches_plain(cuda, B, steps):
     assert torch.equal(t_k, t_p)  # both without FMA, same expression order
 
 
+@pytest.mark.parametrize("B,steps,frac", [(1, 64, 1.0), (100, 16, 0.5),
+                                          (1000, 64, 0.1), (4097, 256, 0.01),
+                                          (65536, 64, 0.5)])
+def test_fog_march_masked_matches_plain(cuda, B, steps, frac):
+    """Masked lanes: the kernel equals the plain version (the unmasked
+    march on active lanes, code 0 and t 0 elsewhere); ragged sizes."""
+    rng = np.random.default_rng(B + steps)
+    start = torch.as_tensor(rng.random((B, 3), np.float32) * 1024, device=cuda)
+    d = rng.normal(size=(B, 3)).astype(np.float32)
+    d = torch.as_tensor(d / np.linalg.norm(d, axis=-1, keepdims=True),
+                        device=cuda)
+    dens = fog_density(torch.as_tensor(rng.random(B, np.float32), device=cuda))
+    y0 = torch.as_tensor(-np.log(1 - rng.random(B, np.float32)), device=cuda)
+    active = torch.as_tensor(rng.random(B) < frac, device=cuda)
+    before = fog.launches
+    code_k, t_k = fog.fog_march(start, d, dens, y0, n_steps=steps,
+                                active=active)
+    assert fog.launches == before + 1
+    code_p, t_p = fog.fog_march_plain(start, d, dens, y0, n_steps=steps,
+                                      active=active)
+    torch.cuda.synchronize()
+    assert torch.equal(code_k, code_p)
+    assert torch.equal(t_k, t_p)
+    assert (code_k[~active] == 0).all() and (t_k[~active] == 0).all()
+
+
 def test_fog_march_rejects_bad_input(cuda):
     x = torch.zeros((4, 3), device=cuda)
     with pytest.raises(ValueError):
         fog.fog_march(x, x, torch.zeros(4, device=cuda, dtype=torch.float64),
                       torch.zeros(4, device=cuda))
+    with pytest.raises(ValueError):  # a float mask
+        fog.fog_march(x, x, torch.zeros(4, device=cuda),
+                      torch.zeros(4, device=cuda),
+                      active=torch.ones(4, device=cuda))
+    with pytest.raises(ValueError):  # beyond the kernel's fraction table
+        fog.fog_march(x, x, torch.zeros(4, device=cuda),
+                      torch.zeros(4, device=cuda), n_steps=fog.MAX_STEPS + 1)
 
 
 @pytest.fixture(scope="module")
@@ -81,6 +115,31 @@ def test_svo_cast_matches_plain_bit_for_bit(cuda, world, kind):
     for key in ("hit", "t", "node", "normal", "voxel"):
         assert torch.equal(k[key], p[key]), key
     assert k["hit"].any()
+
+
+@pytest.mark.parametrize("B,frac", [(1, 1.0), (37, 0.5), (1000, 0.01),
+                                    (32769, 0.01), (100003, 0.1)])
+def test_svo_cast_sparse_and_ragged_bit_for_bit(cuda, world, B, frac):
+    """Sparse masks and sizes that are no multiple of a warp, a block or
+    a chunk: the lane fetch writes every inactive lane's outputs and walks
+    every active one."""
+    rng = np.random.default_rng(B)
+    n = float(1 << world.height)
+    start = torch.as_tensor(rng.random((B, 3), np.float32) * n, device=cuda)
+    d = rng.normal(size=(B, 3)).astype(np.float32)
+    d = torch.as_tensor(d / np.linalg.norm(d, axis=-1, keepdims=True),
+                        device=cuda)
+    dist = torch.as_tensor(np.where(rng.random(B) < 0.5, traverse.FAR,
+                                    rng.random(B) * n).astype(np.float32),
+                           device=cuda)
+    active = torch.as_tensor(rng.random(B) < frac, device=cuda)
+    w = (world.table, world.root, world.height)
+    k = traverse.svo_raycast(*w, start, d, dist, active=active)
+    p = traverse.svo_raycast_plain(*w, start, d, dist, active=active)
+    torch.cuda.synchronize()
+    for key in ("hit", "t", "node", "normal", "voxel"):
+        assert torch.equal(k[key], p[key]), key
+    assert not k["hit"][~active].any()
 
 
 @pytest.mark.parametrize("R,K", [(64, 16), (512, 16), (64, 104), (512, 256),

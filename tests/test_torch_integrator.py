@@ -128,6 +128,63 @@ def test_trace_paths_state_and_radiance_match_jax(rng):
     assert np.allclose(np.asarray(c1), c2.numpy(), rtol=1e-4, atol=1e-5)
 
 
+def _unmasked_marches(monkeypatch):
+    """trace_paths with every atmosphere march at full width."""
+    from voxtracer_torch.kernels import atmosphere
+
+    full = atmosphere.raycast_planet
+    monkeypatch.setattr(atmosphere, "raycast_planet",
+                        lambda *a, active=None, **k: full(*a, **k))
+
+
+def test_masked_marches_equal_unmasked_loop_and_jax(rng, monkeypatch):
+    """The bounce march takes ``alive`` and the NEE march ``live_hit &
+    facing``: radiance and RNG state are bit-equal to the loop that
+    marches every lane, and still equal the JAX package's."""
+    dev = _flat_world()
+    w = tsvo.upload(dev.table, dev.root, dev.height, "cpu")
+    B = 512
+    start = np.broadcast_to(np.float32([8.0, 6.0, 8.0]), (B, 3)).copy()
+    d = rng.normal(size=(B, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    wl = rng.random(B, np.float32)
+    state = rng.integers(0, 2**32, (B, 3), dtype=np.uint32)
+    sun = np.float32([0.3, 1.0, 0.2]) / np.float32(np.linalg.norm([0.3, 1, 0.2]))
+    lut = build_wl_to_rgb_lut(256)
+
+    def port():
+        return tint.trace_paths(w.table, w.root, w.height,
+                                torch.from_numpy(lut), torch.from_numpy(start),
+                                torch.from_numpy(d), torch.from_numpy(wl),
+                                torch.from_numpy(sun), trng.to_state(state),
+                                max_bounces=6, fog_steps=8)
+
+    s_masked, c_masked = port()
+    with monkeypatch.context() as m:
+        _unmasked_marches(m)
+        s_full, c_full = port()
+    assert torch.equal(s_masked, s_full)
+    assert torch.equal(c_masked, c_full)
+    assert c_masked.abs().sum() > 0
+    s1, c1 = jint.trace_paths(jnp.asarray(dev.table.view(np.int32)),
+                              np.int32(dev.root), dev.height, jnp.asarray(lut),
+                              jnp.asarray(start), jnp.asarray(d),
+                              jnp.asarray(wl), jnp.asarray(sun),
+                              jnp.asarray(state), max_bounces=6, fog_steps=8)
+    assert np.array_equal(np.asarray(s1).astype(np.int64), s_masked.numpy())
+    assert np.allclose(np.asarray(c1), c_masked.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_masked_marches_equal_unmasked_golden_sample(scene, monkeypatch):
+    """The same on the golden scene's terrain sample, bit for bit."""
+    seed = np.array([101, 202, 303], np.uint32)
+    img = _port_sample(scene, seed)
+    with monkeypatch.context() as m:
+        _unmasked_marches(m)
+        full = _port_sample(scene, seed)
+    assert torch.equal(img, full)
+
+
 def test_emissive_white_block(rng):
     """A placed pure-white block lights a dark world; a grey one does not."""
     lut = torch.from_numpy(build_wl_to_rgb_lut(256))

@@ -23,22 +23,27 @@ FOG_RGBA = (1.0, 1.0, 1.0, 0.0)  # raytrace.wgsl:320
 
 
 def raycast_planet(state, start, direction, sea_level_density,
-                   n_steps: int = 64):
+                   n_steps: int = 64, active=None):
     """Planet/fog cast.
 
     state: (..., 3) int64 RNG state; start, direction: (..., 3) float32
     (start broadcasts; direction unit length); sea_level_density: (...,)
-    per-ray fog density. Returns (new_state, dict(hit, t, rgba (..., 4),
-    normal (..., 3))).
+    per-ray fog density; active: optional (...,) bool lane mask: inactive
+    lanes are not marched and come back as misses (hit False, t 0), while
+    the state advances on every lane alike. Returns (new_state, dict(hit,
+    t, rgba (..., 4), normal (..., 3))).
     """
     batch_shape = direction.shape[:-1]
     start_b = start.expand(direction.shape).reshape(-1, 3).contiguous()
     dir_b = direction.reshape(-1, 3).contiguous()
     dens_b = sea_level_density.expand(batch_shape).reshape(-1).contiguous()
+    if active is not None:
+        active = active.expand(batch_shape).reshape(-1).contiguous()
 
     state, r = vrng.random3(state)
     y0 = (-torch.log(1.0 - r[..., 0])).reshape(-1).contiguous()
-    code, t = fog.fog_march(start_b, dir_b, dens_b, y0, n_steps=n_steps)
+    code, t = fog.fog_march(start_b, dir_b, dens_b, y0, n_steps=n_steps,
+                            active=active)
     code = code.reshape(batch_shape)
     t = t.reshape(batch_shape)
 

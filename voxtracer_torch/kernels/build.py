@@ -2,11 +2,14 @@
 library with a plain C interface, bound with ctypes.
 
 The library is compiled by ``nvcc`` at first use into
-``voxtracer_torch/_build/``, named by a hash of the sources and the flags,
-written under a temporary name and renamed into place, so concurrent
-builders never load a half-written file. Each source compiles in its own
-``nvcc`` process, all started together, and one more links them. There is no prebuilt fallback:
-without ``nvcc`` the first launch on a CUDA tensor raises.
+``voxtracer_torch/_build/``, named by a hash of the flags and of every
+file under ``csrc/`` (headers included), written under a temporary name
+and renamed into place, so concurrent builders never load a half-written
+file. Each source compiles in its own ``nvcc`` process, all started
+together, and one more links them; ptxas's per-kernel report (registers,
+stack frame, spills) is kept beside the library as ``<name>.ptxas.txt``.
+There is no prebuilt fallback: without ``nvcc`` the first launch on a
+CUDA tensor raises.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` for Hopper, ``-O3``, and
 ``--fmad=false``: nvcc contracts ``a*b+c`` into one fused multiply-add by
@@ -27,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("fog_march.cu", "svo_cast.cu", "resolve_fold.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,19 +38,25 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C entry points: name -> argtypes; each returns cudaGetLastError()
 SIGNATURES = {
-    # start, dir, density, y0, code, t, n, n_steps, planet_r, planet_r2,
-    # fog_r2, fog_factor, stream
-    "voxt_fog_march": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
+    # start, dir, density, y0, active, code, t, n, n_steps, planet_r,
+    # planet_r2, fog_r2, fog_factor, counter, static_pct, chunk, refill,
+    # stream
+    "voxt_fog_march": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
+                       _P, _I, _I, _I, _P),
     # table, root, height, start, dir, distance, active, skip_t0,
-    # hit, t, node, normal, voxel, n, stream
+    # hit, t, node, normal, voxel, n, counter, static_pct, chunk, refill,
+    # stream
     "voxt_svo_cast": (_P, _I, _I, _P, _P, _P, _P, _I,
-                      _P, _P, _P, _P, _P, _I, _P),
+                      _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P),
     # t_in, pl_in, rgb_in, rows, valid, tile_stride, dir, cam_x, cam_y,
     # cam_z, bound, distance, t_out, pl_out, rgb_out, n_tiles, rays, k,
     # stream
     "voxt_resolve_fold": (_P, _P, _P, _P, _P, _L, _P, _F, _F, _F, _F, _F,
                           _P, _P, _P, _I, _I, _I, _P),
 }
+
+# the persistent kernels index lanes (and 3 floats a lane) in int32
+MAX_LANES = 1 << 28
 
 _lib = None
 
@@ -60,33 +69,31 @@ def _nvcc() -> str:
                        "source at first use and need the CUDA toolkit")
 
 
-def _source_hash() -> str:
+def _source_hash(csrc: Path = CSRC) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(csrc)).encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the sources unless a library for this exact source hash
-    exists; return its path."""
-    out = BUILD_DIR / f"libvoxt_{_source_hash()}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_library(csrc: Path, out: Path) -> str:
+    """Compile ``SOURCES`` of ``csrc`` into the shared library ``out``
+    (one ``nvcc`` per source, all started together, then one link);
+    returns ptxas's report. Raises with nvcc's errors on failure."""
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in SOURCES]
     nvcc = _nvcc()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
-                               str(CSRC / s)], stdout=subprocess.PIPE,
+                               str(csrc / s)], stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for s, o in zip(SOURCES, objs)]
-    errors = []
+    errors, report = [], []
     for s, p in zip(SOURCES, procs):
         _, err = p.communicate()
         if p.returncode != 0:
             errors.append(f"{s} ({p.returncode}):\n{err}")
+        report.append(f"== {s}\n{err}")
     if not errors:
         res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                               *map(str, objs)], capture_output=True, text=True)
@@ -98,7 +105,25 @@ def build() -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError("nvcc failed: " + "\n".join(errors))
     os.replace(tmp, out)
+    return "".join(report)
+
+
+def build() -> Path:
+    """Compile the sources unless a library for this exact source hash
+    exists; return its path."""
+    out = BUILD_DIR / f"libvoxt_{_source_hash()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    report = compile_library(CSRC, out)
+    out.with_name(f"{out.name}.ptxas.txt").write_text(report)
     return out
+
+
+def ptxas_report() -> str:
+    """ptxas's report for the current library (after ``build``)."""
+    path = BUILD_DIR / f"libvoxt_{_source_hash()}.so.ptxas.txt"
+    return path.read_text() if path.exists() else ""
 
 
 def library() -> ctypes.CDLL:

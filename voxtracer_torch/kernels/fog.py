@@ -29,27 +29,44 @@ PLANET_R2_F = _F32(PLANET_RADIUS * PLANET_RADIUS)
 FOG_R2_F = _F32(FOG_RADIUS * FOG_RADIUS)
 FOG_FACTOR_F = _F32(FOG_FACTOR)
 
+MAX_STEPS = 256  # the kernel's shared table of segment fractions
+# lane fetch (csrc/lanes.cuh): percent of the lanes split evenly among
+# the warps up front, lanes per later claim, idle threads of a warp that
+# make it refill (measured on the card, PERF.md)
+STATIC_PCT, CHUNK, REFILL = 90, 32, 8
+
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 
 
-def fog_march(start, direction, density, y0, n_steps: int = 64):
+def fog_march(start, direction, density, y0, n_steps: int = 64,
+              active=None):
     """March B rays through the atmosphere.
 
-    start/direction: (B, 3) float32; density/y0: (B,) float32.
-    Returns (code (B,) int32 [0 miss / 1 planet / 2 fog], t (B,) float32).
+    start/direction: (B, 3) float32; density/y0: (B,) float32; active:
+    optional (B,) bool lane mask (inactive lanes are not marched).
+    Returns (code (B,) int32 [0 miss / 1 planet / 2 fog], t (B,) float32);
+    an inactive lane gets code 0 and t 0.
     """
     global launches
     if start.device.type == "cpu":
-        return fog_march_plain(start, direction, density, y0, n_steps)
+        return fog_march_plain(start, direction, density, y0, n_steps, active)
     if start.device.type != "cuda":
         raise ValueError(f"fog_march: unsupported device {start.device}")
+    if not 0 <= n_steps <= MAX_STEPS:
+        raise ValueError(f"fog_march: n_steps {n_steps} outside 0..{MAX_STEPS}")
     B = start.shape[0]
-    for name, x, shape in (("start", start, (B, 3)),
-                           ("direction", direction, (B, 3)),
-                           ("density", density, (B,)), ("y0", y0, (B,))):
-        if x.device != start.device or x.dtype != torch.float32 \
+    if B > build.MAX_LANES:
+        raise ValueError(f"fog_march: {B} lanes > {build.MAX_LANES}")
+    checks = [("start", start, (B, 3), torch.float32),
+              ("direction", direction, (B, 3), torch.float32),
+              ("density", density, (B,), torch.float32),
+              ("y0", y0, (B,), torch.float32)]
+    if active is not None:
+        checks.append(("active", active, (B,), torch.bool))
+    for name, x, shape, dtype in checks:
+        if x.device != start.device or x.dtype != dtype \
                 or tuple(x.shape) != shape or not x.is_contiguous():
-            raise ValueError(f"fog_march: {name} must be a contiguous float32 "
+            raise ValueError(f"fog_march: {name} must be a contiguous {dtype} "
                              f"{shape} tensor on {start.device}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
     code = torch.empty((B,), dtype=torch.int32, device=start.device)
@@ -57,12 +74,15 @@ def fog_march(start, direction, density, y0, n_steps: int = 64):
     if B == 0:
         return code, t
     lib = build.library()
+    counter = torch.zeros((1,), dtype=torch.int32, device=start.device)
     with torch.cuda.device(start.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.voxt_fog_march(
             start.data_ptr(), direction.data_ptr(), density.data_ptr(),
-            y0.data_ptr(), code.data_ptr(), t.data_ptr(), B, int(n_steps),
-            PLANET_R_F, PLANET_R2_F, FOG_R2_F, FOG_FACTOR_F, stream)
+            y0.data_ptr(), None if active is None else active.data_ptr(),
+            code.data_ptr(), t.data_ptr(), B, int(n_steps), PLANET_R_F,
+            PLANET_R2_F, FOG_R2_F, FOG_FACTOR_F, counter.data_ptr(), STATIC_PCT,
+            CHUNK, REFILL, stream)
     build.check(err, "fog_march")
     launches += 1
     return code, t
@@ -110,8 +130,10 @@ def _altitude(p, direction, t):
     return torch.sqrt(sx * sx + sy * sy + sz * sz) - PLANET_RADIUS
 
 
-def fog_march_plain(start, direction, density, y0, n_steps: int = 64):
-    """Plain PyTorch version of K1, on any device, same arithmetic."""
+def fog_march_plain(start, direction, density, y0, n_steps: int = 64,
+                    active=None):
+    """Plain PyTorch version of K1, on any device, same arithmetic; marches
+    every lane and zeroes the inactive ones."""
     t0, t1, valid, surf, p = _sphere_span(start, direction)
     density_scaled = div(t1 - t0, float(n_steps)) * density
     y = y0
@@ -130,4 +152,7 @@ def fog_march_plain(start, direction, density, y0, n_steps: int = 64):
     found = found & valid
     code = torch.where(found, 2, torch.where(surf, 1, 0)).to(torch.int32)
     t = torch.where(found, t_sc, torch.where(surf, t1, 0.0))
+    if active is not None:
+        code = torch.where(active, code, 0).to(torch.int32)
+        t = torch.where(active, t, 0.0)
     return code, t

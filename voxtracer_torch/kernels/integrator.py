@@ -23,7 +23,11 @@ roulette 1 (integrator.py:548-553 of the JAX package).
 
 The bounce loop is masked, as the JAX package's uncompacted loop: every
 lane runs every bounce, the ``alive`` mask gates what a finished path
-may change, and the loop ends early once no lane is alive.
+may change, and the loop ends early once no lane is alive. The casts
+skip the lanes whose results no live path reads: the SVO casts take
+their masks as the JAX loop does, the bounce march takes ``alive`` and
+the NEE march ``live_hit & facing`` (every use of its result is under
+that mask), so radiance and RNG state are those of the unmasked loop.
 
 With a box soup (``render_sample(..., soup=...)``) the first bounce takes
 its world hit from the rasterizer (``kernels/raster.raster_cast_exact``
@@ -80,7 +84,8 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
 
     for i in range(max_bounces):
         state, planet = atmosphere.raycast_planet(state, pos, d, density,
-                                                  n_steps=fog_steps)
+                                                  n_steps=fog_steps,
+                                                  active=alive)
         cap = torch.where(planet["hit"], planet["t"], FAR)
         if i == 0 and primary is not None:
             svo = primary
@@ -111,9 +116,9 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
         # next-event estimation toward the sun
         state, sun_dir = sampling.sample_sun(state, sun)
         facing = dot(sun_dir, normal) > 0.0
-        state, sun_planet = atmosphere.raycast_planet(state, pos, sun_dir,
-                                                      density,
-                                                      n_steps=fog_steps)
+        state, sun_planet = atmosphere.raycast_planet(
+            state, pos, sun_dir, density, n_steps=fog_steps,
+            active=live_hit & facing)
         nee_act = live_hit & facing & ~sun_planet["hit"]
         blocked = cast(pos, sun_dir, NEE_NEAR, nee_act)["hit"]
         blocked = blocked | cast(pos, sun_dir, FAR, nee_act & ~blocked)["hit"]

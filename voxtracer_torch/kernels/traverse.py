@@ -26,6 +26,10 @@ from voxtracer_torch.kernels import build
 EPS = 1.0e-6  # raytrace.wgsl:53
 FAR = 1.0e12  # "no cap" distance used by the integrator (raytrace.wgsl:343)
 MAX_HEIGHT = 15  # the kernel's node stack holds height + 1 <= 16 slots
+# lane fetch (csrc/lanes.cuh): percent of the lanes split evenly among
+# the warps up front, lanes per later claim, idle threads of a warp that
+# make it refill (measured on the card, PERF.md)
+STATIC_PCT, CHUNK, REFILL = 75, 32, 4
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 # loop steps summed over lanes by the plain version since the last reset:
@@ -90,6 +94,8 @@ def _svo_raycast_cuda(table, root, height, start, d, distance, skip_t0,
         raise ValueError("svo_raycast: table must be a contiguous int32 (N, 8) "
                          f"tensor on {d.device}")
     B = d.shape[0]
+    if B > build.MAX_LANES:
+        raise ValueError(f"svo_raycast: {B} lanes > {build.MAX_LANES}")
     dev = d.device
     out = dict(
         hit=torch.empty((B,), dtype=torch.bool, device=dev),
@@ -101,6 +107,7 @@ def _svo_raycast_cuda(table, root, height, start, d, distance, skip_t0,
     if B == 0:
         return out
     lib = build.library()
+    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.voxt_svo_cast(
@@ -108,7 +115,8 @@ def _svo_raycast_cuda(table, root, height, start, d, distance, skip_t0,
             d.data_ptr(), distance.data_ptr(),
             None if active is None else active.data_ptr(), int(bool(skip_t0)),
             out["hit"].data_ptr(), out["t"].data_ptr(), out["node"].data_ptr(),
-            out["normal"].data_ptr(), out["voxel"].data_ptr(), B, stream)
+            out["normal"].data_ptr(), out["voxel"].data_ptr(), B,
+            counter.data_ptr(), STATIC_PCT, CHUNK, REFILL, stream)
     build.check(err, "svo_raycast")
     launches += 1
     return out
