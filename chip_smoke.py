@@ -21,16 +21,24 @@ Phases, each printing its lines; any failure exits non-zero:
    cosine-hemisphere directions, the NEE cast capped at NEE_NEAR and the
    full NEE cast toward sun-cone directions, each with its mask), and
    random rays at batch-8 width with 1%, 10% and 50% active; K3 on
-   the 1024^3 world's raster bins at 853x480 (R = 64 pixel-center rays
-   and R = 512, 8 jittered samples, K = 16), a widen-shaped call (512
-   tiles x K = 1024), the near pre-pass's shared list, and random records
-   with invalid rows around a camera inside a box. Times both with CUDA
-   events; each kernel's bound is computed from this run's inputs.
+   the 1024^3 world's raster bins at 853x480, in its explicit-list form
+   (R = 64 pixel-center rays and R = 512, 8 jittered samples, K = 16; a
+   widen-shaped call, 512 tiles x K = 1024; the near pre-pass's shared
+   list; random records with invalid rows around a camera inside a box)
+   and in its segment form (the sorted pair array read where it lies,
+   the carry updated in place, the per-tile max: the main fold and the
+   pose's real widen rounds at R = 64 and R = 512, tile lists as
+   raster_cast finds them, a list of one tile, a ragged K). Times both
+   with CUDA events; each kernel's bound is computed from this run's
+   inputs.
 4. goldens: the 64^3 scene of tests/test_golden.py on the card:
    primary_64w and shadow_64w through the SVO cast, primary_64w through
    the rasterizer, and the fixed-seed path sample.
 5. shaded frame at 1024^3, 853x480: the rasterizer against the per-ray
-   SVO cast; fails above EDGE_GRAZE_BUDGET differing pixels.
+   SVO cast; fails above EDGE_GRAZE_BUDGET differing pixels. Prints the
+   rasterizer's ms/frame, its bins, and the frame on ready bins split
+   into K3's device time and launches and the rest, and its host reads a
+   frame.
 6. main path: Renderer at 853x480 (rasterized primaries, the default)
    and headless_run for 2 frames x 16 samples in batches of 8. All three
    kernels' launch counts in that run must be > 0, and no sample may be
@@ -420,14 +428,55 @@ def _random_fold_case(rng, dev, N, R, K):
         np.float32([507.5, 505.25, 508.75])
 
 
-def phase_resolve(rng, soup_t, dev):
-    """K3 against resolve_fold_plain on the 1024^3 world's bins, every
-    output bit for bit; returns the JSON record fields (the main path's
-    batch-8 shape: R = 512 rays per tile, K = 16)."""
+def _ms_fresh(restore, fn, reps: int) -> float:
+    """Mean milliseconds per call of ``fn`` on the card when every call
+    needs ``restore()`` first (a kernel that updates its input in place):
+    one pair of CUDA events around each call, the restores outside. The
+    card spins ~0.3 ms before each pair, so the host has queued the call
+    by the time the first event fires and no host time is counted."""
+    import torch
+
+    restore()
+    fn()
+    pairs = []
+    for _ in range(reps):
+        restore()
+        torch.cuda._sleep(500_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def _fold_bound(N, R, K, lists):
+    """K3's bound: 52 bytes a ray (direction, carry in, carry out), 33 a
+    listed record (its 8 ints and mask byte), and the slab tests."""
+    return _bound(N * R * (12 + 20 + 20) + lists * K * 33,
+                  N * R * K * K3_PAIR_OPS)
+
+
+def _fold_seg_bound(S, R, K, better):
+    """The segment form's own bound. It reads each listed ray's direction,
+    t and real-pixel flag (17 bytes) and never its pl or rgb, writes the
+    carry (20 bytes) only of the ``better`` rays that found a nearer hit,
+    reads 32 bytes a record (it takes no mask), and per listed tile its
+    index, start and next record's key and writes two floats (20 bytes).
+    The slab tests are those of the explicit form."""
+    return _bound(S * R * 17 + better * 20 + S * (K * 32 + 20),
+                  S * R * K * K3_PAIR_OPS)
+
+
+def _fold_inputs(rng, soup_t, dev):
+    """The 1024^3 world's raster bins at the smoke pose (pixel-center and
+    jittered) and its rays in tile layout: a dict."""
     import torch
 
     from voxtracer_torch.core import camera as vcam
-    from voxtracer_torch.kernels import raster, resolve
+    from voxtracer_torch.kernels import raster
 
     cam = _smoke_camera(LOG2_SIZE)
     op = np.asarray(cam.pos, np.float32)
@@ -435,45 +484,171 @@ def phase_resolve(rng, soup_t, dev):
     bins = raster.raster_bins(*soup_t, op, basis, LOG2_SIZE, WIDTH, HEIGHT)
     binsj = raster.raster_bins(*soup_t, op, basis, LOG2_SIZE, WIDTH, HEIGHT,
                                jittered=True)
-    DB = bins["dmin_bits"]
-    d64, _, _ = raster.tile_rays(basis, WIDTH, HEIGHT)
+    d64, ok64, _ = raster.tile_rays(basis, WIDTH, HEIGHT)
     py, px = vcam.pixel_grid(WIDTH, HEIGHT, dev)
     ld = vcam.pixel_ndc(px, py, WIDTH, HEIGHT)
     jit = torch.as_tensor(rng.random((8, HEIGHT, WIDTH, 2), np.float32),
                           device=dev)
     dirs8 = torch.stack([vcam.ray_directions(basis, ld, jitter=j,
                                              height=HEIGHT) for j in jit])
-    d512, _, _ = raster.tile_rays(basis, WIDTH, HEIGHT, dirs8)
+    d512, ok512, _ = raster.tile_rays(basis, WIDTH, HEIGHT, dirs8)
+    return dict(op=op, bins=bins, binsj=binsj, d64=d64, ok64=ok64, d512=d512,
+                ok512=ok512)
+
+
+def _fresh_carry(n, r, dev):
+    import torch
+
+    return (torch.full((n, r), torch.inf, device=dev),
+            torch.full((n, r), -1, dtype=torch.int32, device=dev),
+            torch.zeros((n, r, 3), device=dev))
+
+
+def _fold_cases(rng, inp, dev):
+    """K3's explicit-list cases as (name, carry, rows, valid, d, cam): the
+    main fold at R = 64 and R = 512, a widen-shaped call, the near
+    pre-pass's shared list, and random records around a camera inside a
+    box."""
+    import torch
+
+    from voxtracer_torch.kernels import resolve
+
+    bins, binsj, op = inp["bins"], inp["binsj"], inp["op"]
+    d64, d512 = inp["d64"], inp["d512"]
+    DB = bins["dmin_bits"]
     NT = d64.shape[0]
     tix = torch.arange(NT, dtype=torch.int32, device=dev)
-
-    def fresh(n, r):
-        return (torch.full((n, r), torch.inf, device=dev),
-                torch.full((n, r), -1, dtype=torch.int32, device=dev),
-                torch.zeros((n, r, 3), device=dev))
 
     def valid(rows, tiles):
         return (rows[..., 0] >> DB) == tiles[:, None]
 
+    main64 = resolve.seg_rows(bins["spairs"], bins["seg_start"],
+                              bins["cand_k"])
+    main512 = resolve.seg_rows(binsj["spairs"], binsj["seg_start"],
+                               binsj["cand_k"])
     wt = torch.as_tensor(np.sort(rng.choice(NT, min(512, NT), replace=False)),
                          dtype=torch.int32, device=dev)
-    wrows = raster._seg_rows(binsj["spairs"], binsj["seg_start"][wt] + 16,
+    wrows = resolve.seg_rows(binsj["spairs"], binsj["seg_start"][wt] + 16,
                              1024)
     shared = binsj["spairs"][:64]
     rnd = _random_fold_case(rng, dev, 512, 64, 256)
-    cases = [
-        ("main R=64 K=16", fresh(NT, 64), bins["cand_rows"],
-         valid(bins["cand_rows"], tix), d64, op),
-        ("main R=512 K=16", fresh(NT, 512), binsj["cand_rows"],
-         valid(binsj["cand_rows"], tix), d512, op),
-        ("widen 512 tiles R=512 K=1024", fresh(wt.numel(), 512), wrows,
-         valid(wrows, wt), d512[wt.long()], op),
-        ("near shared list R=512 K=64", fresh(NT, 512), shared,
+    return [
+        ("main R=64 K=16", _fresh_carry(NT, 64, dev), main64,
+         valid(main64, tix), d64, op),
+        ("main R=512 K=16", _fresh_carry(NT, 512, dev), main512,
+         valid(main512, tix), d512, op),
+        ("widen 512 tiles R=512 K=1024", _fresh_carry(wt.numel(), 512, dev),
+         wrows, valid(wrows, wt), d512[wt.long()], op),
+        ("near shared list R=512 K=64", _fresh_carry(NT, 512, dev), shared,
          torch.ones(64, dtype=torch.bool, device=dev), d512, op),
         ("random records, camera inside a box, R=64 K=256", *rnd),
     ]
+
+
+def _check_fold_seg(name, carry, bins, tiles, start, k, d, ok, op, rec):
+    """The segment form against its plain twin from the same carry: t, pl,
+    rgb (every tile, so the unlisted ones too), the per-tile max and the
+    next records' bounds bit for bit; times the kernel from that carry.
+    Returns the folded carry, the per-tile max and bounds, and (kernel
+    ms, plain ms, bound ms, bound by), the bound being this form's own
+    for this run's data (``_fold_seg_bound``); the explicit form's
+    yardstick for the same fold is printed beside it."""
+    import torch
+
+    from voxtracer_torch.kernels import resolve
+
+    args = (bins["spairs"], tiles, start, k, bins["dmin_bits"],
+            bins["quantum"], d, ok, op, LOG2_SIZE, 1.0e12)
+    got = tuple(c.clone() for c in carry)
+    want = tuple(c.clone() for c in carry)
+    got_out = resolve.resolve_fold_seg(*got, *args)
+    want_max, want_next = resolve.resolve_fold_seg_plain(*want, *args)
+    torch.cuda.synchronize()
+    for key, a, b in zip(("t", "pl", "rgb", "tile max", "next bound"),
+                         got + got_out, want + (want_max, want_next)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"resolve_fold_seg {name}: {key} differs in "
+                                 f"{int((a != b).sum())} values")
+    fin = torch.isfinite(want[0])
+    if fin.any():
+        rec["max_abs_err"] = max(rec["max_abs_err"], float(
+            (got[0][fin] - want[0][fin]).abs().max()))
+
+    def restore():
+        for g, c in zip(got, carry):
+            g.copy_(c)
+
+    ms = _ms_fresh(restore, lambda: resolve.resolve_fold_seg(*got, *args), 20)
+    plain_ms = _ms_fresh(restore, lambda: resolve.resolve_fold_seg_plain(
+        *got, *args), 2)
+    N = carry[0].shape[0] if tiles is None else int(tiles.numel())
+    R = carry[0].shape[1]
+    better = int((want[0] < carry[0]).sum())
+    bound_ms, bound_by = _fold_seg_bound(N, R, k, better)
+    print(f"resolve_fold_seg {name} ({N} tiles, R={R}, K={k}, {better} rays "
+          f"improved): t, pl, rgb, tile max, next bound equal, kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}; the explicit form's, 52 bytes a ray: "
+          f"{_fold_bound(N, R, k, N)[0]:.4f} ms)")
+    return want, (want_max, want_next), (ms, plain_ms, bound_ms, bound_by)
+
+
+def _seg_rounds(name, bins, d, ok, op, dev, rec):
+    """The main fold and the widen rounds of one cast in the segment form,
+    as raster_cast runs them, every step held against the plain twin;
+    then a tile list of length 1 and a K that is no multiple of the ray
+    tile or the stage. Returns the main fold's times."""
+    import torch
+
+    from voxtracer_torch.kernels import raster
+
+    NT, R = ok.shape
+    K = bins["cand_k"]
+    seg_start = bins["seg_start"]
+    carry, (tile_max, drop), main = _check_fold_seg(
+        f"{name} main", _fresh_carry(NT, R, dev), bins, None, seg_start, K, d,
+        ok, op, rec)
+    if not torch.equal(drop, bins["drop_dmin"]):
+        raise AssertionError("the main fold's next bounds are not the bins'")
+    consumed = K
+    wl, lists = None, []
+    for k_extra in raster.WIDEN_K:
+        sub = torch.nonzero(drop < tile_max).squeeze(1)
+        wl = sub if wl is None else wl[sub]
+        lists.append(int(wl.numel()))
+        if not lists[-1]:
+            break
+        tiles = wl.to(torch.int32)
+        start = seg_start[wl] + consumed
+        if len(lists) == 1:  # one tile, and a ragged K, from the same carry
+            _check_fold_seg(f"{name} one tile", carry, bins, tiles[:1],
+                            start[:1], 37, d, ok, op, rec)
+            _check_fold_seg(f"{name} ragged K", carry, bins, tiles, start,
+                            203, d, ok, op, rec)
+        carry, (tile_max, drop), _ = _check_fold_seg(
+            f"{name} widen round {len(lists)}", carry, bins, tiles, start,
+            k_extra, d, ok, op, rec)
+        consumed += k_extra
+    print(f"resolve_fold_seg {name}: tiles entering the widen rounds {lists}")
+    return main, lists
+
+
+def phase_resolve(rng, soup_t, dev):
+    """K3 against its plain versions on the 1024^3 world's bins, every
+    output bit for bit: the explicit-list form on five cases, and the
+    segment form (the sorted pair array read in place, the carry updated
+    in place, the per-tile max) on the main fold and the real widen
+    rounds at R = 64 and R = 512. Returns the JSON record fields (the
+    main path's batch-8 fold: the segment form, R = 512 rays per tile, K
+    = 16)."""
+    import torch
+
+    from voxtracer_torch.kernels import resolve
+
+    inp = _fold_inputs(rng, soup_t, dev)
+    bins, binsj = inp["bins"], inp["binsj"]
     rec = dict(max_abs_err=0.0)
-    for name, carry, rows, vld, d, cam_pos in cases:
+    for name, carry, rows, vld, d, cam_pos in _fold_cases(rng, inp, dev):
         args = (*carry, rows, vld, d, cam_pos, LOG2_SIZE, 1.0e12)
         k = resolve.resolve_fold(*args)
         p = resolve.resolve_fold_plain(*args)
@@ -485,19 +660,26 @@ def phase_resolve(rng, soup_t, dev):
         fin = torch.isfinite(p[0])
         err = float((k[0][fin] - p[0][fin]).abs().max()) if fin.any() else 0.0
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        ms = _ms(lambda: resolve.resolve_fold(*args), 20)
+        # event pairs behind a spin: the small cases end before the host
+        # has queued the next call, and a plain loop would time the host
+        ms = _ms_fresh(lambda: None, lambda: resolve.resolve_fold(*args), 20)
         plain_ms = _ms(lambda: resolve.resolve_fold_plain(*args), 2)
         N, R = carry[0].shape
         K = rows.shape[-2]
-        nbytes = N * R * (12 + 20 + 20) + (1 if rows.dim() == 2 else N) * K * 33
-        bound_ms, bound_by = _bound(nbytes, N * R * K * K3_PAIR_OPS)
+        bound_ms, bound_by = _fold_bound(N, R, K, 1 if rows.dim() == 2 else N)
         hits = float(torch.isfinite(p[0]).float().mean())
         print(f"resolve_fold {name} ({N} tiles, {hits:.3f} hit): t, pl, rgb "
               f"equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by})")
-        if name == "main R=512 K=16":
-            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=None)
+    _, lists64 = _seg_rounds("R=64", bins, inp["d64"], inp["ok64"],
+                             inp["op"], dev, rec)
+    main, _ = _seg_rounds("R=512", binsj, inp["d512"], inp["ok512"],
+                          inp["op"], dev, rec)
+    if len(lists64) != 3 or not all(lists64):
+        raise AssertionError(f"the smoke pose entered widen rounds {lists64}, "
+                             "expected three non-empty ones")
+    rec.update(ms=main[0], plain_ms=main[1], bound_ms=main[2],
+               bound_by=main[3], library_ms=None)
     print(f"raster bins at {WIDTH}x{HEIGHT}: {int(bins['n_pair'])} pairs "
           f"({int(binsj['n_pair'])} jittered), tiers {bins['n_tier']}")
     return rec
@@ -573,6 +755,7 @@ def phase_shaded(soup_t, world, dev):
     from voxtracer_torch.core import camera as vcam
     from voxtracer_torch.core.vecmath import dot
     from voxtracer_torch.kernels import raster, shade
+    from voxtracer_torch.tools.kernel_ab import profile_call
 
     cam = _smoke_camera(LOG2_SIZE)
     op = np.asarray(cam.pos, np.float32)
@@ -591,18 +774,36 @@ def phase_shaded(soup_t, world, dev):
         *soup_t, LOG2_SIZE, op, basis, sun, WIDTH, HEIGHT, table=w[0],
         root=w[1]))
     diff = int((img_r != img_s).any(-1).sum())
-    bins_ms = _ms(lambda: raster.raster_bins(*soup_t, op, basis, LOG2_SIZE,
-                                             WIDTH, HEIGHT), 3)
-    raster_ms = _ms(lambda: raster.raster_primary_frame(
-        *soup_t, LOG2_SIZE, op, basis, sun, WIDTH, HEIGHT, table=w[0],
-        root=w[1]), 3)
+    def frame(bins=None):
+        return raster.raster_primary_frame(
+            *soup_t, LOG2_SIZE, op, basis, sun, WIDTH, HEIGHT, table=w[0],
+            root=w[1], bins=bins)
+
+    def make_bins():
+        return raster.raster_bins(*soup_t, op, basis, LOG2_SIZE, WIDTH,
+                                  HEIGHT)
+
+    bins = make_bins()
+    bins_ms = _ms(make_bins, 3)
+    raster_ms = _ms(frame, 3)
+    cast_ms = _ms(lambda: frame(bins), 10)
     svo_ms = _ms(lambda: shade.svo_primary_frame(*w, o, d, sun), 5)
+    raster.host_reads = 0
+    frame()
+    reads = raster.host_reads
+    prof = profile_call(lambda: frame(bins))
+    k3 = prof["kernels"]["resolve_fold_kernel"]
     print(f"shaded frame 1024^3 {WIDTH}x{HEIGHT}: {soup_t[0].shape[0]} boxes, "
           f"{int(r['n_pair'])} pairs, near {r['n_near']}, widen demand "
           f"{r['n_widen']}, fallback {r['n_fallback']} tiles / {fb_rays} rays, "
           f"{diff} of {RAYS} pixels differ from the SVO cast (budget "
-          f"{EDGE_GRAZE_BUDGET}); raster {raster_ms:.3f} ms/frame (bins "
-          f"{bins_ms:.3f} ms), SVO cast {svo_ms:.3f} ms/frame")
+          f"{EDGE_GRAZE_BUDGET}); raster {raster_ms:.3f} ms/frame: bins "
+          f"{bins_ms:.3f} ms, and on the pose's bins {cast_ms:.3f} ms = "
+          f"resolve {k3['ms']:.3f} ms of K3 on the device in "
+          f"{k3['launches']} launches + the rest {cast_ms - k3['ms']:.3f} ms "
+          f"({prof['device_events']} device events, device busy "
+          f"{prof['busy_ms']:.3f} ms); {reads} host reads a frame, 1 of them "
+          f"for the bins; SVO cast {svo_ms:.3f} ms/frame")
     if not same or not torch.isfinite(img_r).all():
         raise AssertionError("raster_primary_frame disagrees with its parts")
     if diff > EDGE_GRAZE_BUDGET:

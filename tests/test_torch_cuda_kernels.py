@@ -146,8 +146,8 @@ def test_svo_cast_sparse_and_ragged_bit_for_bit(cuda, world, B, frac):
                                  (64, 1024), (512, 1024), (64, 1500)])
 def test_resolve_fold_matches_plain_bit_for_bit(cuda, R, K):
     """Random records (a fifth invalid), a carry holding some hits and a
-    camera inside the first box of every tile, capped and not. K = 1024
-    fills one shared-memory stage of the kernel; K = 1500 takes two."""
+    camera inside the first box of every tile, capped and not; K from one
+    quarter of a stage of the kernel (64 candidates) to 24 stages."""
     rng = np.random.default_rng(R + K)
     N = 48
     lo = rng.integers(0, 120, (N, K, 3))
@@ -184,3 +184,135 @@ def test_resolve_fold_matches_plain_bit_for_bit(cuda, R, K):
                                    args[5], cam, 7, 1.0e12)
     for a, b in zip(k, p):
         assert torch.equal(a, b)
+
+
+def _segments(rng, NT, db, most):
+    """A sorted pair array of random boxes: each tile a segment of
+    0..most records with rising keys, then the sentinel; and the starts."""
+    counts = rng.integers(0, most, NT)
+    counts[-1] = most - 1
+    tile = np.repeat(np.arange(NT), counts)
+    n = tile.size + 1
+    lo = rng.integers(0, 120, (n, 3))
+    size = rng.integers(1, 9, (n, 3))
+    rows = np.zeros((n, 8), np.int32)
+    rows[:, 1] = rng.integers(0, 1 << 20, n)
+    rows[:, 2] = lo[:, 0] | (lo[:, 1] << 16)
+    rows[:, 3] = lo[:, 2] | (size[:, 0] << 16)
+    rows[:, 4] = size[:, 1] | (size[:, 2] << 16)
+    rows[:, 5:8] = rng.random((n, 3), np.float32).view(np.int32)
+    rows[:-1, 0] = (tile << db) | np.arange(tile.size)
+    rows[-1] = 0
+    rows[-1, 0] = NT << db
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    return rows, start
+
+
+def _fold_seg_forced(carry, spairs, tiles, start, k, db, quantum, d, ok, cam,
+                     tree_height, ray_tile, spans):
+    """``resolve_fold_seg``'s launch with rays a thread and spans forced
+    (the wrapper leaves both to the launcher)."""
+    from voxtracer_torch.kernels import build
+
+    S = start.shape[0]
+    tile_max = torch.full((S,), -torch.inf, device=start.device)
+    next_dmin = torch.empty((S,), device=start.device)
+    err = build.library().voxt_resolve_fold_seg(
+        *(c.data_ptr() for c in carry), spairs.data_ptr(), spairs.shape[0],
+        None if tiles is None else tiles.data_ptr(), start.data_ptr(), S, k,
+        db, quantum, d.data_ptr(), ok.data_ptr(), tile_max.data_ptr(),
+        next_dmin.data_ptr(), *(float(c) for c in cam),
+        float(1 << tree_height), 1.0e12, carry[0].shape[1], ray_tile, spans,
+        torch.cuda.current_stream().cuda_stream)
+    build.check(err, "resolve_fold_seg")
+    return tile_max, next_dmin
+
+
+@pytest.mark.parametrize("ray_tile,spans", [(0, 0), (2, 1), (4, 4), (2, 16)])
+@pytest.mark.parametrize("R,k,consumed,listed", [
+    (64, 16, 0, None), (512, 16, 0, None), (64, 104, 16, 1470),
+    (512, 256, 120, 92), (512, 1024, 120, 5), (64, 1024, 10, 1),
+    (192, 100, 3, 300), (70, 37, 0, 0)])
+def test_resolve_fold_seg_matches_plain_bit_for_bit(cuda, R, k, consumed,
+                                                    listed, ray_tile, spans):
+    """The segment form on a random sorted pair array: the main fold over
+    every tile, widen rounds over tile lists of the smoke pose's lengths
+    (1,470, 92, 5) and of length 1 and 0, segments that end inside the
+    span, reads that clamp at the last record; the carry in place, the
+    unlisted tiles untouched, the per-tile max over real pixels. (0, 0)
+    goes through the wrapper, whose launcher picks its grid; the others
+    force rays a thread and spans at the C entry."""
+    if ray_tile == 4 and R % 128:
+        ray_tile = 2
+    rng = np.random.default_rng(R + k)
+    NT, db = 2000, 18
+    rows, seg_start = _segments(rng, NT, db, 300)
+    g = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=cuda)  # noqa: E731,E501
+    spairs, seg_start = g(rows), g(seg_start)
+    d = rng.normal(size=(NT, R, 3)).astype(np.float32)
+    d[: NT // 2] = np.abs(d[: NT // 2])  # half the tiles in one octant
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t0 = np.where(rng.random((NT, R)) < 0.3, rng.random((NT, R)) * 90,
+                  np.inf).astype(np.float32)
+    carry = (g(t0), g(np.where(np.isfinite(t0), 8, -1).astype(np.int32)),
+             g(rng.random((NT, R, 3), np.float32)))
+    ok = rng.random((NT, R)) < 0.9
+    ok[3] = False
+    ok = g(ok)
+    if listed is None:
+        tiles, start = None, seg_start
+    else:
+        tiles = np.sort(rng.choice(NT, listed, replace=False))
+        if listed == 1:
+            tiles[0] = NT - 1
+        tiles = g(tiles.astype(np.int32))
+        start = (seg_start[tiles.long()] + consumed).to(torch.int32)
+    cam = np.float32([63.5, 61.25, -4.75])
+    got = tuple(c.clone() for c in carry)
+    want = tuple(c.clone() for c in carry)
+    if (ray_tile, spans) == (0, 0) or listed == 0:
+        before = resolve.launches
+        got_out = resolve.resolve_fold_seg(*got, spairs, tiles, start, k, db,
+                                           0.375, g(d), ok, cam, 7, 1.0e12)
+        assert resolve.launches == before + (listed != 0)
+    else:
+        got_out = _fold_seg_forced(got, spairs, tiles, start, k, db, 0.375,
+                                   g(d), ok, cam, 7, ray_tile, spans)
+    want_out = resolve.resolve_fold_seg_plain(*want, spairs, tiles, start, k,
+                                              db, 0.375, g(d), ok, cam, 7,
+                                              1.0e12)
+    torch.cuda.synchronize()
+    for a, b in zip(got + got_out, want + want_out):
+        assert torch.equal(a, b)
+    if listed != 0:
+        assert (got[0] < carry[0]).any()
+
+
+@pytest.mark.parametrize("ray_tile,spans", [(2, 1), (2, 4), (4, 2), (4, 16)])
+def test_resolve_fold_settings_match_plain(cuda, ray_tile, spans):
+    """The explicit form under every ray tile and forced span counts (at
+    the C entry, as the A/B tool's sweep calls it), K not a multiple of
+    the stage or the spans, every octant in a warp."""
+    from voxtracer_torch.kernels import build
+    from voxtracer_torch.tools.kernel_ab import _Fold
+
+    rng = np.random.default_rng(spans)
+    N, R, K = 40, 256, 333
+    rows, _ = _segments(rng, 1, 18, N * K + 1)
+    rows = rows[: N * K].reshape(N, K, 8)
+    d = rng.normal(size=(N, R, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    g = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=cuda)  # noqa: E731,E501
+    args = (torch.full((N, R), torch.inf, device=cuda),
+            torch.full((N, R), -1, dtype=torch.int32, device=cuda),
+            torch.zeros((N, R, 3), device=cuda), g(rows),
+            g(rng.random((N, K)) >= 0.2), g(d))
+    cam = np.float32([63.5, 61.25, 64.75])
+    case = _Fold(None, build.library(), args[:3], *args[3:], cam, 7)
+    case.run_new((ray_tile, spans))
+    k = case.outs[1]
+    p = resolve.resolve_fold_plain(*args, cam, 7, 1.0e12)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert torch.isfinite(k[0]).any()

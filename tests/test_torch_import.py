@@ -1,5 +1,6 @@
-"""The port and chip_smoke.py import torch and never JAX, and nothing of
-the JAX package: the machine with the card has no JAX."""
+"""The port (its tools included) and chip_smoke.py import torch and never
+JAX, and nothing of the JAX package: the machine with the card has no
+JAX."""
 
 import os
 import subprocess
@@ -13,6 +14,7 @@ import importlib, pkgutil, sys
 import voxtracer_torch
 names = [m.name for m in pkgutil.walk_packages(voxtracer_torch.__path__,
                                                "voxtracer_torch.")]
+assert "voxtracer_torch.tools.kernel_ab" in names, names
 for name in names:
     importlib.import_module(name)
 sys.path.insert(0, ".")
@@ -34,3 +36,26 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
     assert n_modules >= 20  # every module of the port was imported
+
+
+def test_port_sources_name_no_jax_module():
+    """No source of the port, chip_smoke.py or the A/B tool has an import
+    statement of jax or of the JAX package, inside functions included
+    (the probe above sees only what runs at import)."""
+    import ast
+
+    files = sorted((REPO / "voxtracer_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert REPO / "voxtracer_torch" / "tools" / "kernel_ab.py" in files
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            bad += [(path.name, m) for m in mods
+                    if m.split(".")[0] in ("jax", "jaxlib", "voxtracer")]
+    assert not bad, bad

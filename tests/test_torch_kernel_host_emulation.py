@@ -1,12 +1,18 @@
-"""The CUDA sources of K2 (csrc/svo_cast.cu) and K1 (csrc/fog_march.cu),
-lane fetch (csrc/lanes.cuh) included, compiled for the host and run under
-a small emulation of the CUDA features they use: every thread of a block
-is a std::thread, the 32 threads of a warp meet at a barrier for each
-warp collective (__ballot_sync, __shfl_sync, __syncwarp), blocks run one
+"""The CUDA sources of K2 (csrc/svo_cast.cu), K1 (csrc/fog_march.cu),
+lane fetch (csrc/lanes.cuh) included, and K3 (csrc/resolve_fold.cu),
+compiled for the host and run under a small emulation of the CUDA
+features they use: every thread of a block is a std::thread, the 32
+threads of a warp meet at a barrier for each warp collective
+(__ballot_sync, __shfl_sync, __shfl_xor_sync, __syncwarp), blocks run one
 after another, and the "card" has 2 SMs of 2 blocks. It runs the
 kernels' real scheduling code on the CPU: the round-robin and claimed
 lanes, the per-warp queue, the refills, and the outputs of inactive
-lanes.
+lanes; K3's ray chunks, per-octant stages, candidate spans and their
+merge.
+
+K3 must equal its plain versions bit for bit in both forms, for every
+ray tile and span count; a build whose spans merge out of order, or by t
+alone, must not.
 
 K2 must equal its plain version bit for bit (its float operations are
 IEEE on both sides). K1 calls expf, and the host's expf differs from
@@ -30,7 +36,7 @@ import torch
 
 from voxtracer_torch.core import camera as vcam
 from voxtracer_torch.core.spectra import fog_density
-from voxtracer_torch.kernels import build, fog, traverse
+from voxtracer_torch.kernels import build, fog, resolve, traverse
 from voxtracer_torch.world import svo, worldgen
 
 torch.set_num_threads(2)
@@ -42,6 +48,7 @@ SHIM = r"""
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <thread>
 #include <vector>
 #define __global__
@@ -92,6 +99,35 @@ inline int atomicAdd(int* p, int v) {
 template <class T> T __ldg(const T* p) { return *p; }
 using std::max;
 using std::min;
+template <class T> T __shfl_xor_sync(unsigned, T v, int mask) {
+  t_warp->vals[threadIdx.x & 31] = (unsigned)v;
+  t_warp->bar.arrive_and_wait();
+  const T r = (T)t_warp->vals[(threadIdx.x & 31) ^ mask];
+  t_warp->bar.arrive_and_wait();
+  return r;
+}
+inline int atomicMax(int* p, int v) {
+  std::atomic_ref<int> a(*p);
+  int old = a.load();
+  while (old < v && !a.compare_exchange_weak(old, v)) {}
+  return old;
+}
+inline unsigned atomicMin(unsigned* p, unsigned v) {
+  std::atomic_ref<unsigned> a(*p);
+  unsigned old = a.load();
+  while (old > v && !a.compare_exchange_weak(old, v)) {}
+  return old;
+}
+inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
+inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
+inline int __vimax3_s32(int a, int b, int c) { return max(max(a, b), c); }
+inline int __vimin3_s32(int a, int b, int c) { return min(min(a, b), c); }
+struct alignas(8) float2 { float x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) int4 { int x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
 template <class K, class... A>
 void emu_launch(K kernel, int blocks, int threads, size_t smem, cudaStream_t,
                 A... args) {
@@ -116,6 +152,15 @@ void emu_launch(K kernel, int blocks, int threads, size_t smem, cudaStream_t,
 }
 """
 
+# builds of K3 that must fail: the spans merged last to first, and merged
+# by t alone (<= lets a later span take an equal t)
+FOLD_MUTANTS = {
+    "fold_reversed_merge": ("for (int s = 1; s < a.spans; ++s) {",
+                            "for (int s = a.spans - 1; s >= 1; --s) {"),
+    "fold_merge_by_t": ("if (js >= 0 && res[0] < lim[q]) {",
+                        "if (js >= 0 && res[0] <= lim[q]) {"),
+}
+
 # lane-fetch settings (static percent, chunk, refill): the wrappers' and
 # the corners
 FETCHES = [(traverse.STATIC_PCT, traverse.CHUNK, traverse.REFILL),
@@ -124,8 +169,8 @@ FETCHES = [(traverse.STATIC_PCT, traverse.CHUNK, traverse.REFILL),
 
 
 def _host_source(src: str) -> str:
-    src = src.replace("extern __shared__ int smem[];",
-                      "int* smem = g_dyn_smem;")
+    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) smem\[\];",
+                 r"\1* smem = reinterpret_cast<\1*>(g_dyn_smem);", src)
     return re.sub(r"(\w+)<<<([^>]*)>>>\(", r"emu_launch(\1, \2, ", src)
 
 
@@ -139,9 +184,16 @@ def host_kernels(tmp_path_factory):
     (out / "lanes.cuh").write_text((build.CSRC / "lanes.cuh").read_text())
     libs = {}
     procs = []
-    for name in ("svo_cast", "fog_march"):
+    fold_src = (build.CSRC / "resolve_fold.cu").read_text()
+    sources = {name: (build.CSRC / f"{name}.cu").read_text()
+               for name in ("svo_cast", "fog_march")}
+    sources["resolve_fold"] = fold_src
+    for name, (old, new) in FOLD_MUTANTS.items():
+        assert fold_src.count(old) == 1, name
+        sources[name] = fold_src.replace(old, new)
+    for name, text in sources.items():
         cpp = out / f"{name}.cpp"
-        cpp.write_text(_host_source((build.CSRC / f"{name}.cu").read_text()))
+        cpp.write_text(_host_source(text))
         so = out / f"{name}.so"
         procs.append((name, so, subprocess.Popen(
             [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fno-fast-math",
@@ -154,10 +206,15 @@ def host_kernels(tmp_path_factory):
             pytest.skip(f"g++ lacks C++20 <barrier>: {err[:200]}")
         assert p.returncode == 0, err
         lib = ctypes.CDLL(str(so))
-        fn = getattr(lib, f"voxt_{name}")
-        fn.argtypes = list(build.SIGNATURES[f"voxt_{name}"])
-        fn.restype = ctypes.c_int
-        libs[name] = fn
+        entries = [f"voxt_{name}"] if name in ("svo_cast", "fog_march") \
+            else ["voxt_resolve_fold", "voxt_resolve_fold_seg"]
+        fns = []
+        for entry in entries:
+            fn = getattr(lib, entry)
+            fn.argtypes = list(build.SIGNATURES[entry])
+            fn.restype = ctypes.c_int
+            fns.append(fn)
+        libs[name] = fns[0] if len(fns) == 1 else tuple(fns)
     return libs
 
 
@@ -277,3 +334,205 @@ def test_fog_march_source_masks_and_schedules_exactly(host_kernels, B,
             < 1.5 * 1.35e6 / n_steps
     if B > 100 and n_steps:
         assert set(code.tolist()) == {0, 1, 2}
+
+
+def _records(rng, shape, span=56, big=8):
+    """Random pair records (..., 8) of boxes in a 64^3 world."""
+    lo = rng.integers(0, span, shape + (3,))
+    size = rng.integers(1, big + 1, shape + (3,))
+    rows = np.zeros(shape + (8,), np.int32)
+    rows[..., 1] = rng.integers(0, 1 << 20, shape)
+    rows[..., 2] = lo[..., 0] | (lo[..., 1] << 16)
+    rows[..., 3] = lo[..., 2] | (size[..., 0] << 16)
+    rows[..., 4] = size[..., 1] | (size[..., 2] << 16)
+    rows[..., 5:8] = rng.random(shape + (3,), np.float32).view(np.int32)
+    return rows
+
+
+def _rays_and_carry(rng, N, R, coherent):
+    """Unit directions (random octants, or one octant per tile with a few
+    axis-aligned rays) and a carry that holds some hits."""
+    d = rng.normal(size=(N, R, 3)).astype(np.float32)
+    if coherent:
+        d = np.abs(d) * np.sign(rng.normal(size=(N, 1, 3))).astype(np.float32)
+        d[:, :3, 1:] = 0.0  # the EPS clamp
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t0 = np.where(rng.random((N, R)) < 0.3,
+                  rng.random((N, R), np.float32) * 80, np.inf)
+    t0 = t0.astype(np.float32)
+    pl0 = np.where(np.isfinite(t0), rng.integers(0, 4000, (N, R)) * 4, -1)
+    rgb0 = np.where(np.isfinite(t0)[..., None], rng.random((N, R, 3)), 0)
+    f = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a.astype(dt)))  # noqa: E731,E501
+    return f(d, np.float32), (f(t0, np.float32), f(pl0, np.int32),
+                              f(rgb0, np.float32))
+
+
+CAM_OUT = np.float32([31.3, 70.2, -9.6])
+CAM_IN = np.float32([23.5, 24.25, 22.75])  # inside a box: t_enter == 0
+
+
+def _fold_host(fn, carry, rows, valid, d, cam, distance, ray_tile, spans):
+    t, pl, rgb = carry
+    N, R = t.shape
+    K = rows.shape[-2]
+    out = (torch.full_like(t, 7.0), torch.full_like(pl, 7),
+           torch.full_like(rgb, 7.0))
+    err = fn(t.data_ptr(), pl.data_ptr(), rgb.data_ptr(), rows.data_ptr(),
+             valid.data_ptr(), 0 if rows.dim() == 2 else K, d.data_ptr(),
+             float(cam[0]), float(cam[1]), float(cam[2]), 64.0,
+             float(np.float32(distance)), out[0].data_ptr(),
+             out[1].data_ptr(), out[2].data_ptr(), N, R, K, ray_tile, spans,
+             None)
+    assert err == 0
+    return out
+
+
+def _bits_equal(got, want):
+    for name, a, b in zip(("t", "pl", "rgb"), got, want):
+        assert a.dtype == b.dtype and np.array_equal(
+            a.numpy().view(np.uint8), b.numpy().view(np.uint8)), name
+
+
+@pytest.mark.parametrize("N,R,K,shared,coherent,ray_tile,spans", [
+    (5, 64, 16, False, True, 0, 0),      # the main fold's shape, one octant
+    (3, 128, 16, False, False, 0, 0),    # ray tile 4, every octant in a warp
+    (3, 70, 37, False, False, 2, 1),     # ragged R and K
+    (2, 200, 150, False, True, 4, 2),    # three stages, ragged chunk
+    (2, 64, 150, False, False, 2, 4),    # spans end inside stages
+    (1, 64, 530, False, False, 2, 16),   # a 16-warp block
+    (1, 33, 40, False, False, 0, 8),     # spans longer than the list needs
+    (4, 64, 24, True, False, 0, 0),      # one list for every tile
+    (3, 128, 100, True, True, 4, 2),
+    (9, 64, 5, False, True, 2, 0),       # more units than one block holds
+])
+def test_resolve_fold_source_equals_plain(host_kernels, N, R, K, shared,
+                                          coherent, ray_tile, spans):
+    rng = np.random.default_rng(N * R + K)
+    rows = _records(rng, (N, K))
+    valid = rng.random((N, K)) >= 0.2
+    if shared:
+        rows, valid = rows[0], valid[0]
+    rows[..., 0, 2:5] = [20 | (20 << 16), 20 | (8 << 16), 8 | (8 << 16)]
+    rows, valid = torch.from_numpy(rows), torch.from_numpy(valid)
+    d, carry = _rays_and_carry(rng, N, R, coherent)
+    fn = host_kernels["resolve_fold"][0]
+    improved = False
+    for cam, distance in ((CAM_OUT, 1.0e12), (CAM_IN, 1.0e12),
+                          (CAM_OUT, 85.0)):
+        got = _fold_host(fn, carry, rows, valid, d, cam, distance, ray_tile,
+                         spans)
+        want = resolve.resolve_fold_plain(*carry, rows, valid, d, cam, 6,
+                                          distance)
+        _bits_equal(got, want)
+        improved |= bool((want[0] < carry[0]).any())
+    assert improved
+
+
+def _tie_case():
+    """Every ray's nearest candidate stands twice in the list, with two
+    owners and colours, once in each half: the first must win."""
+    rng = np.random.default_rng(3)
+    N, R, K = 2, 64, 96
+    rows = _records(rng, (N, K), span=30, big=4)
+    rows[..., 2] += 30  # boxes at x >= 30: behind the wall below
+    wall = [2 | (0 << 16), 0 | (2 << 16), 62 | (62 << 16)]  # x in [2, 4)
+    for j in (30, 80):  # with 4 spans: in the second and the fourth
+        rows[:, j, 2:5] = wall
+    valid = torch.ones((N, K), dtype=torch.bool)
+    d = rng.normal(size=(N, R, 3)).astype(np.float32)
+    d[..., 0] = np.abs(d[..., 0]) + 2.0  # toward +x, through the wall
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    carry = (torch.full((N, R), torch.inf),
+             torch.full((N, R), -1, dtype=torch.int32), torch.zeros((N, R, 3)))
+    return carry, torch.from_numpy(rows), valid, torch.from_numpy(d), \
+        np.float32([-5.0, 30.5, 31.25])
+
+
+@pytest.mark.parametrize("spans", [1, 2, 4, 8])
+def test_resolve_fold_spans_merge_in_list_order(host_kernels, spans):
+    carry, rows, valid, d, cam = _tie_case()
+    want = resolve.resolve_fold_plain(*carry, rows, valid, d, cam, 6, 1.0e12)
+    assert (want[1] >> 2 == rows[:, 30, 1][:, None]).all()  # the first wall
+    got = _fold_host(host_kernels["resolve_fold"][0], carry, rows, valid, d,
+                     cam, 1.0e12, 2, spans)
+    _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("mutant", sorted(FOLD_MUTANTS))
+def test_resolve_fold_wrong_span_merges_are_caught(host_kernels, mutant):
+    carry, rows, valid, d, cam = _tie_case()
+    want = resolve.resolve_fold_plain(*carry, rows, valid, d, cam, 6, 1.0e12)
+    fn = host_kernels[mutant][0]
+    _bits_equal(_fold_host(fn, carry, rows, valid, d, cam, 1.0e12, 2, 1),
+                want)  # one span: nothing to merge, still right
+    got = _fold_host(fn, carry, rows, valid, d, cam, 1.0e12, 2, 4)
+    assert torch.equal(got[0], want[0])  # the same t ...
+    assert not torch.equal(got[1], want[1])  # ... from the wrong candidate
+
+
+def _segments(rng, NT, db=20, most=150):
+    """A sorted pair array: each tile a segment of 0..most records with
+    rising keys, then the sentinel; and every tile's segment start."""
+    counts = rng.integers(0, most, NT)
+    counts[rng.integers(0, NT - 1)] = 0
+    counts[-1] = most - 1
+    tile = np.repeat(np.arange(NT), counts)
+    rows = _records(rng, (tile.size + 1,))
+    rows[:-1, 0] = (tile << db) | np.arange(tile.size)
+    rows[-1] = 0
+    rows[-1, 0] = NT << db
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    return torch.from_numpy(rows), torch.from_numpy(start), counts
+
+
+@pytest.mark.parametrize("NT,R,k,consumed,listed,ray_tile,spans", [
+    (12, 64, 16, 0, None, 0, 0),     # the main fold: every tile, in place
+    (12, 128, 16, 0, None, 4, 1),
+    (12, 64, 104, 16, 7, 2, 2),      # a widen round over 7 listed tiles
+    (12, 70, 130, 40, 5, 2, 4),      # segments end inside the span
+    (6, 64, 256, 10, 1, 0, 0),       # one tile; reads clamp at the end
+    (6, 128, 40, 0, 0, 0, 0),        # an empty list
+])
+def test_resolve_fold_seg_source_equals_plain(host_kernels, NT, R, k,
+                                              consumed, listed, ray_tile,
+                                              spans):
+    rng = np.random.default_rng(NT + R + k)
+    db = 20
+    spairs, seg_start, _ = _segments(rng, NT, db)
+    d, carry = _rays_and_carry(rng, NT, R, coherent=False)
+    ok = rng.random((NT, R)) < 0.8
+    ok[0] = False  # a tile of padding only
+    ok = torch.from_numpy(ok)
+    if listed is None:
+        tiles, start = None, seg_start
+    else:
+        tiles = torch.from_numpy(np.sort(rng.choice(NT, listed, replace=False))
+                                 .astype(np.int32))
+        if listed == 1:
+            tiles[0] = NT - 1
+        start = (seg_start[tiles.long()] + consumed).to(torch.int32)
+    S = NT if tiles is None else listed
+    got = tuple(c.clone() for c in carry)
+    got_max = torch.full((S,), -torch.inf)
+    got_next = torch.full((S,), 7.0)
+    if S:
+        err = host_kernels["resolve_fold"][1](
+            got[0].data_ptr(), got[1].data_ptr(), got[2].data_ptr(),
+            spairs.data_ptr(), spairs.shape[0],
+            None if tiles is None else tiles.data_ptr(), start.data_ptr(), S,
+            k, db, 0.375, d.data_ptr(), ok.data_ptr(), got_max.data_ptr(),
+            got_next.data_ptr(), float(CAM_OUT[0]), float(CAM_OUT[1]),
+            float(CAM_OUT[2]), 64.0, 1.0e12, R, ray_tile, spans, None)
+        assert err == 0
+    want = tuple(c.clone() for c in carry)
+    want_max, want_next = resolve.resolve_fold_seg_plain(
+        *want, spairs, tiles, start, k, db, 0.375, d, ok, CAM_OUT, 6, 1.0e12)
+    _bits_equal(got, want)
+    assert np.array_equal(got_max.numpy().view(np.int32),
+                          want_max.numpy().view(np.int32))
+    assert np.array_equal(got_next.numpy().view(np.int32),
+                          want_next.numpy().view(np.int32))
+    if listed:
+        rest = np.setdiff1d(np.arange(NT), tiles.numpy())
+        _bits_equal([g[rest] for g in got], [c[rest] for c in carry])
+        assert (want[0] < carry[0]).any()

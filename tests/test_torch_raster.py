@@ -30,6 +30,7 @@ from voxtracer.world.boxes import extract_boxes as jextract
 from voxtracer.world.svo import from_dense
 from voxtracer_torch.core import camera as tcam
 from voxtracer_torch.kernels import raster as traster
+from voxtracer_torch.kernels import resolve as tresolve
 from voxtracer_torch.kernels import traverse as ttrav
 from voxtracer_torch.world import svo as tsvo
 
@@ -225,7 +226,9 @@ def test_bins_equal_jax(terrain, jittered):
     assert np.array_equal(qf, b[moved, 0] & ((1 << DB) - 1))
     # valid candidate rows and the dropped bounds follow the same keys
     NT = got["seg_start"].shape[0]
-    gc, wc = got["cand_rows"].numpy(), np.asarray(want["cand_rows"])
+    gc = tresolve.seg_rows(got["spairs"], got["seg_start"],
+                           got["cand_k"]).numpy()
+    wc = np.asarray(want["cand_rows"])
     valid = (gc[..., 0] >> DB) == np.arange(NT)[:, None]
     assert np.array_equal(valid, (wc[..., 0] >> DB) == np.arange(NT)[:, None])
     assert np.array_equal(gc[valid][:, 1:], wc[valid][:, 1:])
@@ -256,3 +259,137 @@ def test_frame_equals_jax_raster_cast_exact(terrain):
     assert np.allclose(got["t"].numpy(), np.asarray(want["t"]), rtol=1e-4,
                        atol=1e-3)
     assert got["n_widen"][0] == int(np.asarray(want["n_widen"])[0])
+
+
+def _reference_cast(world, op, basis, W, H, ray_dirs=None, bins=None):
+    """raster_cast as it ran before the segment form: every round's
+    records gathered with seg_rows beside a validity mask, the carries of
+    the open tiles gathered, folded by resolve_fold_plain and scattered
+    back, and the open tiles found from the whole carry. Returns (t, pl,
+    rgb) in tile layout, n_widen and the fallback tiles."""
+    h = world["w"].height
+    if bins is None:
+        bins = traster.raster_bins(*world["args"], op, basis, h, W, H,
+                                   jittered=ray_dirs is not None)
+    DB, spairs, seg_start = bins["dmin_bits"], bins["spairs"], bins["seg_start"]
+    skey, K = bins["skey"], bins["cand_k"]
+    d_t, ok_t, _ = traster.tile_rays(basis, W, H, ray_dirs)
+    NT, R = ok_t.shape
+    fold = lambda c, rows, valid, d: tresolve.resolve_fold_plain(  # noqa: E731
+        *c, rows, valid, d, op, h, ttrav.FAR)
+    carry = (torch.full((NT, R), torch.inf),
+             torch.full((NT, R), -1, dtype=torch.int32),
+             torch.zeros((NT, R, 3)))
+    if bins["near_rows"].shape[0]:
+        carry = fold(carry, bins["near_rows"],
+                     torch.ones(bins["near_rows"].shape[0], dtype=torch.bool),
+                     d_t)
+    tix = torch.arange(NT, dtype=torch.int32)
+    rows = tresolve.seg_rows(spairs, seg_start, K)
+    tb, plb, rgbb = fold(carry, rows, (rows[..., 0] >> DB) == tix[:, None],
+                         d_t)
+    consumed = torch.full((NT,), K, dtype=torch.int32)
+    drop = bins["drop_dmin"].clone()
+
+    def still_open():
+        tile_max = torch.amax(torch.where(ok_t, tb, -torch.inf), dim=1)
+        return torch.nonzero(torch.isfinite(drop) & (drop < tile_max))[:, 0]
+
+    n_widen = []
+    for k_extra in traster.WIDEN_K:
+        wl = still_open()
+        n_widen.append(int(wl.numel()))
+        if not n_widen[-1]:
+            break
+        rows = tresolve.seg_rows(spairs, seg_start[wl] + consumed[wl], k_extra)
+        valid = (rows[..., 0] >> DB) == wl.to(torch.int32)[:, None]
+        tb[wl], plb[wl], rgbb[wl] = fold((tb[wl], plb[wl], rgbb[wl]), rows,
+                                         valid, d_t[wl])
+        consumed[wl] += k_extra
+        posr = torch.clamp_max(seg_start[wl] + consumed[wl],
+                               skey.shape[0] - 1).long()
+        drop[wl] = torch.where((skey[posr] >> DB) == wl.to(torch.int32),
+                               tresolve.dequant(skey[posr], DB,
+                                                bins["quantum"]), torch.inf)
+    n_widen += [0] * (3 - len(n_widen))
+    fb = still_open() if n_widen[-1] else torch.zeros(0, dtype=torch.int64)
+    return (tb, plb, rgbb), n_widen, fb
+
+
+@pytest.mark.parametrize("scene,pos,yaw,pitch,W,H,KS", [
+    ("terrain", REF_POSE["pos"], REF_POSE["yaw"], REF_POSE["pitch"], 96, 56, 1),
+    ("terrain", (30.0, 34.0, 12.0), 0.9, -0.3, 64, 48, 2),
+    ("terrain", (32.3, 70.7, 31.9), 0.37, 1.2, 61, 37, 1),  # ragged tiles
+    ("clutter", (15.8, 16.2, 16.4), 2.3, -0.4, 64, 40, 1),  # a near list
+    ("clutter", (16.21, 17.13, -9.37), 0.11, 0.23, 64, 40, 3),
+])
+def test_cast_on_segment_form_equals_gathered_rounds(terrain, clutter, scene,
+                                                     pos, yaw, pitch, W, H,
+                                                     KS):
+    """raster_cast on the segment form (the sorted pair array read in
+    place, the frame's carry updated in place, per-tile maxima from the
+    fold) gives the frame, the widen counters and the fallback list of
+    the rounds run on gathered lists and carries."""
+    world = terrain if scene == "terrain" else clutter
+    cam = tcam.Camera(pos=pos, yaw=yaw, pitch=pitch)
+    op = np.asarray(pos, np.float32)
+    ds = _jitter_dirs(cam, W, H, range(KS)) if KS > 1 else None
+    got = traster.raster_cast(*world["args"], op, cam.basis(),
+                              world["w"].height, W, H, ray_dirs=ds)
+    (tb, plb, _), n_widen, fb = _reference_cast(world, op, cam.basis(), W, H,
+                                                ds)
+    assert got["n_widen"] == n_widen and sum(n_widen) > 0
+    assert got["n_fallback"] == fb.numel()
+    assert np.array_equal(got["fb_tiles"].numpy(), fb.numpy())
+    TW, TH = -(-W // 8), -(-H // 8)
+    t_px = tb.reshape(TH, TW, KS, 8, 8).permute(2, 0, 3, 1, 4).reshape(
+        KS, TH * 8, TW * 8)[:, :H, :W]
+    pl_px = plb.reshape(TH, TW, KS, 8, 8).permute(2, 0, 3, 1, 4).reshape(
+        KS, TH * 8, TW * 8)[:, :H, :W]
+    hit = torch.isfinite(t_px) & (pl_px >= 0)
+    g_hit, g_t = got["hit"].reshape(KS, H, W), got["t"].reshape(KS, H, W)
+    assert torch.equal(g_hit, hit)
+    assert torch.equal(g_t, torch.where(hit, t_px, 0.0))
+    assert hit.any()
+
+
+def test_bins_hold_no_candidate_lists(terrain):
+    """The bins carry the sorted pair array and each tile's segment start,
+    not per-tile candidate lists; the main fold's candidates are the first
+    cand_k records of each segment."""
+    cam = tcam.Camera(**REF_POSE)
+    bins = traster.raster_bins(*terrain["args"],
+                               np.asarray(cam.pos, np.float32), cam.basis(),
+                               terrain["w"].height, 96, 56, cand_k=12)
+    assert "cand_rows" not in bins and bins["cand_k"] == 12
+    NT = bins["seg_start"].shape[0]
+    assert all(v.numel() < NT * 12 * 8 for k, v in bins.items()
+               if isinstance(v, torch.Tensor) and k != "spairs")
+    # the main fold reports the bins' dropped bounds as its next bounds
+    d_t, ok_t, _ = traster.tile_rays(cam.basis(), 96, 56)
+    carry = (torch.full((NT, 64), torch.inf),
+             torch.full((NT, 64), -1, dtype=torch.int32),
+             torch.zeros((NT, 64, 3)))
+    _, nxt = tresolve.resolve_fold_seg(
+        *carry, bins["spairs"], None, bins["seg_start"], 12,
+        bins["dmin_bits"], bins["quantum"], d_t, ok_t,
+        np.asarray(cam.pos, np.float32), terrain["w"].height, ttrav.FAR)
+    assert torch.equal(nxt, bins["drop_dmin"])
+    assert torch.isfinite(nxt).any()
+
+
+def test_cast_counts_its_host_reads(terrain):
+    """One host read for the bins' tier counts, one per widen round
+    entered, one for the fallback list when the last round ran."""
+    cam = tcam.Camera(**REF_POSE)
+    op = np.asarray(cam.pos, np.float32)
+    h = terrain["w"].height
+    traster.host_reads = 0
+    bins = traster.raster_bins(*terrain["args"], op, cam.basis(), h, 96, 56)
+    assert traster.host_reads == 1
+    traster.host_reads = 0
+    r = traster.raster_cast(*terrain["args"], op, cam.basis(), h, 96, 56,
+                            bins=bins)
+    rounds = sum(1 for n in r["n_widen"] if n)
+    entered = min(rounds + 1, 3)  # the round that finds no tile is a read
+    assert traster.host_reads == entered + (1 if r["n_widen"][-1] else 0)

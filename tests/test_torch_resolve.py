@@ -8,7 +8,12 @@ candidates, same order: t, pl and rgb bit-equal.
 The Pallas wrapper takes R = 64 or a stacked R that it lays out as rows
 of 128 lanes; at R = 128 its row count comes out 1 and it keeps only the
 first 64 rays (pallas/resolve.py:118, :190-192), so the stacked form is
-held against it at R = 256 and against the XLA fold at R = 128."""
+held against it at R = 256 and against the XLA fold at R = 128.
+
+The segment form (resolve_fold_seg_plain: the sorted pair array read
+where it lies, the carry updated in place, the per-tile max) is held to
+resolve_fold_plain on gathered lists, and through it to the Pallas kernel
+and the XLA fold."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -152,3 +157,174 @@ def test_resolve_fold_checks_shapes():
         tresolve.resolve_fold(t(carry[0]), t(carry[1]), t(carry[2]),
                               t(rows[:, :4]), t(valid), t(d), cam,
                               TREE_HEIGHT, 1.0e12)
+
+
+DB = 20
+QUANTUM = 0.125
+
+
+def _segments(seed, NT, most=60):
+    """A sorted pair array over NT tiles: each tile's segment holds
+    0..most records of _case's boxes with rising keys, one tile holds
+    none, and a sentinel row (tile NT) closes the array."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, most, NT)
+    counts[NT // 2] = 0
+    n = int(counts.sum())
+    _, rows, _, _, _, _ = _case(seed, 1, 64, n + 1)
+    rows = rows[0]
+    rows[:n, 0] = (np.repeat(np.arange(NT), counts) << DB) | np.arange(n)
+    rows[n] = 0
+    rows[n, 0] = NT << DB
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    return rows, start, counts
+
+
+def _seg_inputs(seed, NT, R):
+    carry, _, _, d, cam, _ = _case(seed, NT, R, 1)
+    ok = np.random.default_rng(seed).random((NT, R)) < 0.7
+    ok[1] = False  # a tile of padding pixels only
+    return carry, d, cam, ok
+
+
+def _seg_fold(carry, spairs, tiles, start, k, d, ok, cam, distance=1.0e12):
+    """resolve_fold_seg_plain on copies; (carry after, tile max); the
+    next records' bounds are held to the keys here."""
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    state = [t(c) for c in carry]
+    tmax, nxt = tresolve.resolve_fold_seg_plain(
+        *state, t(spairs), None if tiles is None else t(tiles), t(start), k,
+        DB, QUANTUM, t(d), t(ok), cam, TREE_HEIGHT, distance)
+    idx = np.arange(len(start)) if tiles is None else tiles
+    key = spairs[np.minimum(start.astype(np.int64) + k, len(spairs) - 1), 0]
+    q = np.maximum((key & ((1 << DB) - 1)) - 1, 0).astype(np.float32)
+    want = np.where((key >> DB) == idx, q * np.float32(QUANTUM), np.inf)
+    assert np.array_equal(nxt.numpy(), want.astype(np.float32))
+    return [s.numpy() for s in state], tmax.numpy()
+
+
+def _gathered_fold(carry, spairs, tiles, start, k, d, cam, distance=1.0e12):
+    """The same fold by hand: the records gathered with seg_rows, valid
+    where the key names the tile, folded by resolve_fold_plain."""
+    rows = tresolve.seg_rows(torch.from_numpy(spairs), torch.from_numpy(start),
+                             k).numpy()
+    valid = (rows[..., 0] >> DB) == tiles[:, None]
+    return _port([c[tiles] for c in carry], rows, valid, d[tiles], cam,
+                 distance), rows, valid
+
+
+@pytest.mark.parametrize("R,k,consumed,listed", [
+    (64, 16, 0, None),    # the main fold: every tile from its segment start
+    (128, 16, 0, None),
+    (64, 24, 16, 6),      # a widen round: segments end inside the span
+    (64, 104, 10, 4),     # spans that run far past every segment
+    (128, 500, 5, 3),     # reads clamp at the last record
+])
+def test_seg_fold_equals_plain_fold_on_gathered_lists(R, k, consumed, listed):
+    NT = 9
+    spairs, seg_start, counts = _segments(R + k, NT)
+    carry, d, cam, ok = _seg_inputs(R + k, NT, R)
+    if listed is None:
+        tiles_arg, tiles, start = None, np.arange(NT), seg_start
+    else:
+        tiles = np.sort(np.random.default_rng(k).choice(NT, listed,
+                                                        replace=False))
+        tiles[-1] = NT - 1  # the last segment: its tail is the sentinel
+        tiles = np.unique(tiles).astype(np.int32)
+        tiles_arg = tiles
+        start = (seg_start[tiles] + consumed).astype(np.int32)
+    got, tmax = _seg_fold(carry, spairs, tiles_arg, start, k, d, ok, cam)
+    want, rows, valid = _gathered_fold(carry, spairs, tiles, start, k, d, cam)
+    # the next tile's records, and at k = 500 the clamped tail, are in
+    # the lists as invalid candidates
+    assert (~valid).any()
+    assert k < 500 or (start.astype(np.int64) + k > len(spairs)).all()
+    for g, c, w in zip(got, carry, want):
+        assert np.array_equal(g[tiles], w)
+        rest = np.setdiff1d(np.arange(NT), tiles)
+        assert np.array_equal(g[rest], c[rest])  # unlisted tiles untouched
+    want_max = np.where(ok[tiles], want[0], -np.inf).max(axis=1)
+    assert np.array_equal(tmax, want_max.astype(np.float32))
+    assert (got[0] < carry[0]).any()
+
+
+def test_seg_fold_tile_max_reads_real_pixels_only():
+    """A padding ray's t, however far, is not in its tile's max; a tile
+    with no real pixel reports -inf."""
+    NT, R, k = 5, 64, 16
+    spairs, seg_start, _ = _segments(3, NT)
+    carry, d, cam, ok = _seg_inputs(3, NT, R)
+    ok[:] = True
+    ok[1] = False
+    ok[:, :8] = False
+    carry[0][:] = np.float32(50.0)  # every real ray holds a hit already
+    carry[1][:] = 4
+    carry[0][:, :8] = np.float32(1.0e9)  # padding rays: far, and they
+    d[:, :8] = np.float32([0.0, 1.0, 0.0])  # look away from every box
+    got, tmax = _seg_fold(carry, spairs, None, seg_start, k, d, ok, cam)
+    assert tmax[1] == -np.inf
+    others = np.array([0, 2, 3, 4])
+    assert np.array_equal(tmax[others], got[0][others, 8:].max(axis=1))
+    assert (got[0][:, :8].max(axis=1) > tmax).all()
+    assert (got[0][:, 8:] < 50.0).any()
+
+
+def test_seg_fold_empty_tile_list():
+    NT, R = 4, 64
+    spairs, seg_start, _ = _segments(5, NT)
+    carry, d, cam, ok = _seg_inputs(5, NT, R)
+    got, tmax = _seg_fold(carry, spairs, np.zeros(0, np.int32),
+                          np.zeros(0, np.int32), 16, d, ok, cam)
+    assert tmax.shape == (0,)
+    _assert_equal(got, carry)
+
+
+def test_seg_fold_wrapper_takes_plain_on_cpu_and_checks_shapes():
+    NT, R = 4, 64
+    spairs, seg_start, _ = _segments(6, NT)
+    carry, d, cam, ok = _seg_inputs(6, NT, R)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    state = [t(c) for c in carry]
+    tmax, nxt = tresolve.resolve_fold_seg(
+        *state, t(spairs), None, t(seg_start), 16, DB, QUANTUM, t(d), t(ok),
+        cam, TREE_HEIGHT, 1.0e12)
+    assert nxt.shape == (NT,) and torch.isfinite(nxt).any()
+    want, want_max = _seg_fold(carry, spairs, None, seg_start, 16, d, ok, cam)
+    _assert_equal([s.numpy() for s in state], want)
+    assert np.array_equal(tmax.numpy(), want_max)
+    with pytest.raises(ValueError):  # one start per listed tile
+        tresolve.resolve_fold_seg(*state, t(spairs), None, t(seg_start[:2]),
+                                  16, DB, QUANTUM, t(d), t(ok), cam,
+                                  TREE_HEIGHT, 1e12)
+    with pytest.raises(ValueError):  # the carry is updated in place
+        tresolve.resolve_fold_seg(state[0].T.contiguous().T, *state[1:],
+                                  t(spairs), None, t(seg_start), 16, DB,
+                                  QUANTUM, t(d), t(ok), cam, TREE_HEIGHT, 1e12)
+    with pytest.raises(ValueError):
+        tresolve.resolve_fold_seg(*state, t(spairs), None, t(seg_start), 0,
+                                  DB, QUANTUM, t(d), t(ok), cam, TREE_HEIGHT,
+                                  1e12)
+
+
+@pytest.mark.parametrize("R,k", [(64, 16), (256, 32)])
+def test_seg_fold_equals_pallas_kernel_and_xla_fold(R, k):
+    """Through the gathered lists the segment form is the JAX package's
+    fold: the Pallas kernel in interpret mode and the XLA scan, on the
+    records the segment form read."""
+    NT = 6
+    spairs, seg_start, _ = _segments(R, NT, most=40)
+    carry, d, cam, ok = _seg_inputs(R, NT, R)
+    tiles = np.arange(NT)
+    got, _ = _seg_fold(carry, spairs, None, seg_start, k, d, ok, cam)
+    _, rows, valid = _gathered_fold(carry, spairs, tiles, seg_start, k, d, cam)
+    lo, hi, rgb, pl = (x.numpy() for x in tresolve.decode(
+        torch.from_numpy(rows)))
+    geo = dict(lo=lo, hi=hi, rgb=rgb,
+               pl=np.where(valid, pl, -4).astype(np.int32))
+    want = jresolve.resolve_fold(
+        tuple(jnp.asarray(c) for c in carry), jnp.asarray(geo["lo"]),
+        jnp.asarray(geo["hi"]), jnp.asarray(geo["rgb"]),
+        jnp.asarray(geo["pl"]), jnp.asarray(d), jnp.asarray(cam),
+        TREE_HEIGHT, 1.0e12, interpret=True)
+    _assert_equal(got, [np.asarray(w) for w in want])
+    _assert_equal(got, _xla_fold(carry, geo, d, cam))

@@ -50,9 +50,15 @@ SIGNATURES = {
                       _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P),
     # t_in, pl_in, rgb_in, rows, valid, tile_stride, dir, cam_x, cam_y,
     # cam_z, bound, distance, t_out, pl_out, rgb_out, n_tiles, rays, k,
-    # stream
+    # ray_tile, spans, stream
     "voxt_resolve_fold": (_P, _P, _P, _P, _P, _L, _P, _F, _F, _F, _F, _F,
-                          _P, _P, _P, _I, _I, _I, _P),
+                          _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # t, pl, rgb, rows, n_records, tiles, start, n_slots, k, db, quantum,
+    # dir, ok, tile_max, next_dmin, cam_x, cam_y, cam_z, bound, distance,
+    # rays, ray_tile, spans, stream
+    "voxt_resolve_fold_seg": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P,
+                              _P, _P, _P, _F, _F, _F, _F, _F, _I, _I, _I,
+                              _P),
 }
 
 # the persistent kernels index lanes (and 3 floats a lane) in int32

@@ -9,15 +9,21 @@ Pipeline:
    product of its tile spans; emit (tile, box) pairs in the JAX package's
    order; pack (tile, quantized camera distance) into one int32 key; ONE
    stable sort carries the pair records; ``searchsorted`` finds each
-   tile's segment; the K nearest records per tile, the nearest dropped
-   distance bound per tile and the near list (boxes behind the camera or
-   over 1024 tiles, resolved against every tile) complete the bins.
+   tile's segment; the nearest distance bound beyond each tile's K
+   nearest records and the near list (boxes behind the camera or over
+   1024 tiles, resolved against every tile) complete the bins.
 2. ``raster_cast``: rays tiled 8x8 (k jitter samples of one pose stack
    in the tile's ray axis, r = sample * 64 + intile); the near pre-pass,
    the main fold of K candidates and three widen rounds (the next 104 /
    256 / 1024 records of every tile not provably complete) all run on
-   the resolve fold, kernel K3 (``kernels/resolve.py``); tiles still not
-   provably complete are listed with the rays that need a re-cast.
+   the resolve fold, kernel K3 (``kernels/resolve.py``). The main fold
+   and the widen rounds read the sorted pair array where it lies and
+   update the frame's carry in place (``resolve_fold_seg``): a round
+   hands the kernel its tile list and each tile's next record, and gets
+   back each tile's farthest resolved t and the distance bound of the
+   first record it has not folded; a tile is open while that bound is
+   nearer than that t. Tiles still open after the last round are listed
+   with the rays that need a re-cast.
 3. ``apply_fallback`` re-casts those rays with the SVO cast (kernel K2),
    so ``raster_cast_exact`` gives the traversal's first hit.
 
@@ -26,9 +32,10 @@ list, the widen rounds and the fallback a static capacity and reports
 overflow. PyTorch does not: the port sizes every tier exactly from one
 host read of the tier counts per pose, widens every incomplete tile and
 re-casts every still-incomplete one, so nothing can overflow and nothing
-is dropped. That costs host syncs: one per pose (the tier counts), and
-per sample one per widen round that finds incomplete tiles plus one for
-the fallback list.
+is dropped. That costs host reads: one per pose (the tier counts), and
+per cast one per widen round entered (the list of open tiles) plus one
+for the fallback list when the last round ran. ``host_reads`` counts
+them.
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ import torch
 
 from voxtracer_torch.core import camera as vcam
 from voxtracer_torch.core.vecmath import dot, rdiv
-from voxtracer_torch.kernels.resolve import resolve_fold
+from voxtracer_torch.kernels.resolve import (dequant, resolve_fold,
+                                             resolve_fold_seg)
 from voxtracer_torch.kernels.traverse import FAR, leaf_rgb, svo_raycast
 
 NEAR_EPS = 1.0e-4  # camera-space z below which corners are unprojectable
@@ -54,6 +62,8 @@ WIDEN_K = (104, 256, 1024)
 # and culled boxes
 _ONE = _NTIERS + 1
 _CULLED = _NTIERS + 2
+
+host_reads = 0  # device-to-host reads since the last reset (module doc)
 
 
 def soup_to_device(lo, size, leaf, rgb, device):
@@ -80,21 +90,6 @@ def _ray_dirs_for_pixels(px, py, basis, width, height):
     of ``camera.generate_rays``."""
     ld = vcam.pixel_ndc(px, py, width, height)
     return vcam.ray_directions(basis, ld)
-
-
-def _dequant(key, db: int, quantum):
-    """Conservative lower bound of a packed key's distance: the quantized
-    floor minus one quantum."""
-    q = torch.clamp_min((key & ((1 << db) - 1)) - 1, 0)
-    return q.to(torch.float32) * quantum
-
-
-def _seg_rows(spairs, starts, size: int):
-    """``size`` consecutive records from each start, clamped to the last
-    record: (S, size, 8)."""
-    pos = starts[:, None] + torch.arange(size, dtype=starts.dtype,
-                                         device=starts.device)
-    return spairs[torch.clamp_max(pos, spairs.shape[0] - 1).long()]
 
 
 def tile_rays(basis, W: int, H: int, ray_dirs=None):
@@ -143,12 +138,17 @@ def raster_bins(box_lo, box_size, box_attr, cam_pos, cam_basis,
     high bits, the quantized distance in the low ``dmin_bits``),
     ``spairs`` (PAIRS, 8) the sorted records [key, owner, q0, q1, q2, r,
     g, b] ending in sentinel rows (tile NT; at least one), ``seg_start``
-    (NT,), ``cand_rows`` (NT, K, 8), ``drop_dmin`` (NT,) (inf: nothing
-    dropped), ``near_idx`` (n_near,) and ``near_rows`` (n_near, 8) the
-    near list,
+    (NT,), ``cand_k`` the main fold's K (its candidates are the K records
+    from ``seg_start`` on), ``drop_dmin`` (NT,) the bound of each tile's
+    nearest record beyond them (inf: nothing dropped; the main fold
+    returns the same),
+    ``near_idx`` (n_near,) and ``near_rows`` (n_near, 8) the near list,
+    ``center_rays`` the pose's pixel-center rays as ``tile_rays`` returns
+    them (None when ``jittered``: the samples bring their own rays),
     ``n_tier`` the host counts [near, tier 1..10], ``n_near`` and
     ``n_pair`` (real pairs, a device scalar).
     """
+    global host_reads
     dev = box_lo.device
     TW = -(-W // TILE)
     TH = -(-H // TILE)
@@ -236,6 +236,7 @@ def raster_bins(box_lo, box_size, box_attr, cam_pos, cam_basis,
     code = torch.where(near, 0, torch.where(empty, _CULLED, code))
     order = torch.argsort(code, stable=True).to(i32)
     counts = torch.bincount(code, minlength=_CULLED + 1).tolist()
+    host_reads += 1
     offs = np.concatenate([[0], np.cumsum(counts)]).tolist()
     members = [order[offs[k]:offs[k + 1]].long() for k in range(_CULLED + 1)]
     n_tier = counts[:_NTIERS + 1]
@@ -308,20 +309,19 @@ def raster_bins(box_lo, box_size, box_attr, cam_pos, cam_basis,
     PAIRS = spairs.shape[0]
     tix = torch.arange(NT, dtype=i32, device=dev)
     seg_start = torch.searchsorted(skey, tix << DB, out_int32=True)
-    K = cand_k
-    cand_rows = _seg_rows(spairs, seg_start, K)
-    posk = torch.clamp_max(seg_start + K, PAIRS - 1).long()
+    posk = torch.clamp_max(seg_start + cand_k, PAIRS - 1).long()
     drop_dmin = torch.where((skey[posk] >> DB) == tix,
-                            _dequant(skey[posk], DB, float(quantum)),
+                            dequant(skey[posk], DB, float(quantum)),
                             torch.inf)
     near_idx = members[0]
     near_rows = torch.cat([torch.zeros_like(near_idx, dtype=i32)[:, None],
                            near_idx.to(i32)[:, None], geom[near_idx]], dim=1)
     return dict(
         skey=skey, spairs=spairs, seg_start=seg_start, dmin_bits=DB,
-        quantum=float(quantum), cand_rows=cand_rows, drop_dmin=drop_dmin,
+        quantum=float(quantum), cand_k=cand_k, drop_dmin=drop_dmin,
         near_idx=near_idx.to(i32), near_rows=near_rows, n_tier=n_tier,
         n_near=n_tier[0], n_pair=(ptile < NT).sum(),
+        center_rays=None if jittered else tile_rays(basis, W, H),
     )
 
 
@@ -356,66 +356,64 @@ def raster_cast(box_lo, box_size, box_attr, cam_pos, cam_basis,
         bins = raster_bins(box_lo, box_size, box_attr, cam_np, basis,
                            tree_height, W, H, jittered=ray_dirs is not None)
     DB = bins["dmin_bits"]
-    skey, spairs, seg_start = bins["skey"], bins["spairs"], bins["seg_start"]
-    cand_rows = bins["cand_rows"]
-    K = cand_rows.shape[1]
-    PAIRS = skey.shape[0]
+    spairs, seg_start, K = bins["spairs"], bins["seg_start"], bins["cand_k"]
 
-    d_t, ok_t, d_pad = tile_rays(basis, W, H, ray_dirs)
+    if ray_dirs is None and bins["center_rays"] is not None:
+        d_t, ok_t, d_pad = bins["center_rays"]
+    else:
+        d_t, ok_t, d_pad = tile_rays(basis, W, H, ray_dirs)
     KS = d_pad.shape[0]
     R = KS * TILE * TILE
 
-    def fold(carry, rows, valid, d):
-        return resolve_fold(*carry, rows, valid, d, cam_np, tree_height,
-                            distance)
-
-    carry = (torch.full((NT, R), torch.inf, device=dev),
-             torch.full((NT, R), -1, dtype=i32, device=dev),
-             torch.zeros((NT, R, 3), device=dev))
+    tb = torch.full((NT, R), torch.inf, device=dev)
+    plb = torch.full((NT, R), -1, dtype=i32, device=dev)
+    rgbb = torch.zeros((NT, R, 3), device=dev)
     # near pre-pass: one shared list against every tile
     n_near = bins["near_rows"].shape[0]
     if n_near:
-        carry = fold(carry, bins["near_rows"],
-                     torch.ones(n_near, dtype=torch.bool, device=dev), d_t)
-    tix = torch.arange(NT, dtype=i32, device=dev)
-    carry = fold(carry, cand_rows, (cand_rows[..., 0] >> DB) == tix[:, None],
-                 d_t)
-    tb, plb, rgbb = carry
+        tb, plb, rgbb = resolve_fold(
+            tb, plb, rgbb, bins["near_rows"],
+            torch.ones(n_near, dtype=torch.bool, device=dev), d_t, cam_np,
+            tree_height, distance)
 
-    # ---- widen rounds: every tile with a dropped candidate nearer than
-    # its farthest resolved t folds the next records of its segment
-    consumed = torch.full((NT,), K, dtype=i32, device=dev)
-    drop_cur = bins["drop_dmin"].clone()
-    quantum = bins["quantum"]
+    def fold(tiles, start, k):
+        """Fold the next k records of the listed tiles (None: all) into
+        the carry, in place. Returns per listed tile its farthest resolved
+        t and the distance bound of its first record not folded."""
+        return resolve_fold_seg(tb, plb, rgbb, spairs, tiles, start, k, DB,
+                                bins["quantum"], d_t, ok_t, cam_np,
+                                tree_height, distance)
+
+    def still_open(wl):
+        """The tiles of the list ``wl`` (None: all) with an unfolded
+        record nearer than their farthest resolved t, and those tiles'
+        bounds."""
+        global host_reads
+        host_reads += 1
+        sub = torch.nonzero(drop < tile_max).squeeze(1)
+        return (sub if wl is None else wl[sub]), drop[sub]
+
+    tile_max, drop = fold(None, seg_start, K)
+
+    # ---- widen rounds: every open tile folds the next records of its
+    # segment. A tile that is complete stays so, so the open list only
+    # shrinks and every listed tile has consumed the same count.
+    consumed = K
     n_widen = []
-
-    def still_open():
-        tile_max = torch.amax(torch.where(ok_t, tb, -torch.inf), dim=1)
-        return torch.nonzero(torch.isfinite(drop_cur)
-                             & (drop_cur < tile_max)).squeeze(1)
-
     wl = None
     for k_extra in WIDEN_K:
-        wl = still_open()
+        wl, _ = still_open(wl)
         n_widen.append(int(wl.numel()))
         if not n_widen[-1]:
             break
-        start = seg_start[wl] + consumed[wl]
-        rows = _seg_rows(spairs, start, k_extra)
-        valid = (rows[..., 0] >> DB) == wl.to(i32)[:, None]
-        wt, wp, wr = fold((tb[wl], plb[wl], rgbb[wl]), rows, valid, d_t[wl])
-        tb[wl], plb[wl], rgbb[wl] = wt, wp, wr
-        consumed[wl] += k_extra
-        posr = torch.clamp_max(seg_start[wl] + consumed[wl], PAIRS - 1).long()
-        drop_cur[wl] = torch.where((skey[posr] >> DB) == wl.to(i32),
-                                   _dequant(skey[posr], DB, quantum),
-                                   torch.inf)
+        tile_max, drop = fold(wl.to(i32), seg_start[wl] + consumed, k_extra)
+        consumed += k_extra
     n_widen += [0] * (3 - len(n_widen))
 
     # ---- what is still open goes to the exact per-ray fallback; a ray
     # nearer than its tile's nearest dropped bound is complete already
-    fb = still_open() if n_widen[-1] else wl[:0]
-    fb_need = tb[fb] >= drop_cur[fb][:, None]
+    fb, fb_drop = still_open(wl) if n_widen[-1] else (wl[:0], drop[:0])
+    fb_need = tb[fb] >= fb_drop[:, None]
 
     # ---- untile
     HP, WP = TH * TILE, TW * TILE

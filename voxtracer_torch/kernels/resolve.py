@@ -1,5 +1,5 @@
 """The rasterizer's resolve fold: CUDA kernel K3 (csrc/resolve_fold.cu) and
-its plain PyTorch version.
+its plain PyTorch versions.
 
 Counterpart of ``voxtracer/kernels/pallas/resolve.py:resolve_fold`` and
 of the XLA fold it stands in for (``voxtracer/kernels/raster.py``
@@ -9,11 +9,21 @@ axis, rgb)`` by the traversal's mirrored slab test, strict ``<``, so the
 first candidate seen wins a tie.
 
 Candidates are sorted-pair records ``[key, owner, q0, q1, q2, r, g, b]``
-(int32 x 8, as ``kernels/raster.py`` packs them) beside a validity mask:
-``rows`` (N, K, 8) with ``valid`` (N, K) gives each tile its own list,
-``rows`` (K, 8) with ``valid`` (K,) one list shared by every tile.
+(int32 x 8, as ``kernels/raster.py`` packs them). Two entry points:
 
-The wrapper takes the kernel for CUDA tensors and the plain version for
+- ``resolve_fold``: explicit lists beside a validity mask: ``rows`` (N,
+  K, 8) with ``valid`` (N, K) gives each tile its own list, ``rows`` (K,
+  8) with ``valid`` (K,) one list shared by every tile (the near
+  pre-pass). Returns the folded carry as new tensors.
+- ``resolve_fold_seg``: the sorted pair array itself, a list of tiles and
+  each tile's first record; every listed tile folds the next ``k``
+  records of its segment (reads clamp at the last record; a record is
+  valid when its key ``>> db`` is the tile) into the full-frame carry, in
+  place; per listed tile the max of t over real pixels and the distance
+  bound of its next record come back. Nothing is gathered: this is the
+  form ``raster_cast`` runs.
+
+Each wrapper takes the kernel for CUDA tensors and its plain version for
 CPU tensors; there is no fallback between them.
 """
 
@@ -117,6 +127,8 @@ def resolve_fold(t, pl, rgb, rows, valid, d, cam_pos, tree_height: int,
         return t.clone(), pl.clone(), rgb.clone()
     t, pl, rgb, rows, valid, d = (x.contiguous()
                                   for x in (t, pl, rgb, rows, valid, d))
+    if rows.data_ptr() % 16:  # the kernel reads whole records
+        rows = rows.clone()
     t_out, pl_out, rgb_out = (torch.empty_like(x) for x in (t, pl, rgb))
     cam = np.asarray(cam_pos, np.float32).reshape(3)
     lib = build.library()
@@ -128,7 +140,7 @@ def resolve_fold(t, pl, rgb, rows, valid, d, cam_pos, tree_height: int,
             float(cam[0]), float(cam[1]), float(cam[2]),
             float(1 << tree_height), float(np.float32(distance)),
             t_out.data_ptr(), pl_out.data_ptr(), rgb_out.data_ptr(), N, R, K,
-            stream)
+            0, 0, stream)  # the launcher picks its grid
     build.check(err, "resolve_fold")
     launches += 1
     return t_out, pl_out, rgb_out
@@ -169,3 +181,125 @@ def resolve_fold_plain(t, pl, rgb, rows, valid, d, cam_pos, tree_height: int,
         pl = torch.where(better, pl_k, pl)
         rgb = torch.where(better[..., None], rgb_k, rgb)
     return t, pl, rgb
+
+
+def seg_rows(spairs, starts, size: int):
+    """``size`` consecutive records from each start, clamped to the last
+    record: (S, size, 8)."""
+    pos = starts[:, None] + torch.arange(size, dtype=starts.dtype,
+                                         device=starts.device)
+    return spairs[torch.clamp_max(pos, spairs.shape[0] - 1).long()]
+
+
+def dequant(key, db: int, quantum):
+    """Conservative lower bound of a packed key's distance: the quantized
+    floor minus one quantum."""
+    q = torch.clamp_min((key & ((1 << db) - 1)) - 1, 0)
+    return q.to(torch.float32) * quantum
+
+
+def _check_seg(t, pl, rgb, spairs, tiles, start, k, d, ok):
+    """Shapes of one segment fold: (NT tiles, R rays, S listed tiles)."""
+    if t.dim() != 2:
+        raise ValueError("resolve_fold_seg: t must be (NT, R)")
+    if int(k) < 1:
+        raise ValueError("resolve_fold_seg: k must be at least 1")
+    NT, R = t.shape
+    S = NT if tiles is None else tiles.shape[0]
+    want = {
+        "t": (t, torch.float32, (NT, R)),
+        "pl": (pl, torch.int32, (NT, R)),
+        "rgb": (rgb, torch.float32, (NT, R, 3)),
+        "spairs": (spairs, torch.int32, (spairs.shape[0], 8)),
+        "start": (start, torch.int32, (S,)),
+        "d": (d, torch.float32, (NT, R, 3)),
+        "ok": (ok, torch.bool, (NT, R)),
+    }
+    if tiles is not None:
+        want["tiles"] = (tiles, torch.int32, (S,))
+    for name, (x, dtype, shape) in want.items():
+        if x.device != t.device or x.dtype != dtype or tuple(x.shape) != shape \
+                or not x.is_contiguous():
+            raise ValueError(f"resolve_fold_seg: {name} must be contiguous "
+                             f"{dtype} {shape} on {t.device}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    if spairs.shape[0] == 0:
+        raise ValueError("resolve_fold_seg: spairs holds no record")
+    return NT, R, S
+
+
+def resolve_fold_seg(t, pl, rgb, spairs, tiles, start, k: int, db: int,
+                     quantum: float, d, ok, cam_pos, tree_height: int,
+                     distance: float):
+    """Fold the next ``k`` records of each listed tile's segment into the
+    full-frame carry, IN PLACE.
+
+    t (NT, R) float32, pl (NT, R) int32, rgb (NT, R, 3) float32: the
+    carry of every tile, updated for the listed ones; spairs (PAIRS, 8)
+    int32 the sorted pair array; tiles (S,) int32 the listed tiles, each
+    at most once, or None for every tile in order; start (S,) int32 each
+    listed tile's first record; a record counts when its key ``>> db``
+    equals the tile, and reads clamp at the last record; quantum: the
+    length one step of a key's low ``db`` bits stands for; d (NT, R, 3)
+    directions; ok (NT, R) bool the real pixels. Returns two (S,) float32
+    tensors: per listed tile the max of the folded t over its real pixels
+    (-inf when it has none), and the lower bound of the distance of
+    record ``start + k``, the first not folded (``dequant`` of its key;
+    inf when it is not the tile's). A tile whose bound is not below its
+    max is complete.
+    """
+    global launches
+    NT, R, S = _check_seg(t, pl, rgb, spairs, tiles, start, k, d, ok)
+    if t.device.type == "cpu":
+        return resolve_fold_seg_plain(t, pl, rgb, spairs, tiles, start, k, db,
+                                      quantum, d, ok, cam_pos, tree_height,
+                                      distance)
+    if t.device.type != "cuda":
+        raise ValueError(f"resolve_fold_seg: unsupported device {t.device}")
+    tile_max = torch.full((S,), -torch.inf, device=t.device)
+    next_dmin = torch.empty((S,), device=t.device)
+    if S == 0 or R == 0:
+        return tile_max, next_dmin.fill_(torch.inf)
+    if spairs.data_ptr() % 16:
+        raise ValueError("resolve_fold_seg: spairs must be 16-byte aligned")
+    cam = np.asarray(cam_pos, np.float32).reshape(3)
+    lib = build.library()
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.voxt_resolve_fold_seg(
+            t.data_ptr(), pl.data_ptr(), rgb.data_ptr(), spairs.data_ptr(),
+            spairs.shape[0], None if tiles is None else tiles.data_ptr(),
+            start.data_ptr(), S, int(k), int(db), float(np.float32(quantum)),
+            d.data_ptr(), ok.data_ptr(), tile_max.data_ptr(),
+            next_dmin.data_ptr(), float(cam[0]), float(cam[1]), float(cam[2]),
+            float(1 << tree_height), float(np.float32(distance)), R,
+            0, 0, stream)  # the launcher picks its grid
+    build.check(err, "resolve_fold_seg")
+    launches += 1
+    return tile_max, next_dmin
+
+
+def resolve_fold_seg_plain(t, pl, rgb, spairs, tiles, start, k: int, db: int,
+                           quantum: float, d, ok, cam_pos, tree_height: int,
+                           distance: float):
+    """Plain PyTorch version of ``resolve_fold_seg``, on any device: it
+    gathers each listed tile's records and carry, folds them with
+    ``resolve_fold_plain`` and scatters the carry back."""
+    NT, R, S = _check_seg(t, pl, rgb, spairs, tiles, start, k, d, ok)
+    if S == 0:
+        none = torch.full((S,), torch.inf, device=t.device)
+        return -none, none
+    idx = (torch.arange(NT, device=t.device) if tiles is None
+           else tiles.long())
+    rows = seg_rows(spairs, start, int(k))
+    valid = (rows[..., 0] >> db) == idx[:, None]
+    ft, fpl, frgb = resolve_fold_plain(t[idx], pl[idx], rgb[idx], rows, valid,
+                                       d[idx], cam_pos, tree_height, distance)
+    t[idx], pl[idx], rgb[idx] = ft, fpl, frgb
+    key = spairs[torch.clamp_max(start.long() + int(k), spairs.shape[0] - 1),
+                 0]
+    next_dmin = torch.where((key >> db) == idx,
+                            dequant(key, db, float(np.float32(quantum))),
+                            torch.inf)
+    return (torch.amax(torch.where(ok[idx], ft, -torch.inf), dim=1),
+            next_dmin)

@@ -1,16 +1,20 @@
 """Old against new kernels on one card, in turns, and the device split of
 a batch-8 main-path call.
 
-    # K1/K2 of this tree against those of another tree's csrc/ (the
-    # parent's C entry points, as of the kernels before their redesign),
-    # timed old, new, new, old on the smoke's sets; ptxas reports of both;
-    # with --sweep, new K1/K2 times over the lane fetch's static share,
-    # chunk and refill
-    python -m voxtracer_torch.tools.kernel_ab kernels --old-csrc DIR [--sweep]
+    # the resolve fold (K3) of this tree against that of another tree's
+    # csrc/ (one block per tile, no ray tile, no spans), timed old, new,
+    # new, old with one clock (an event pair a call, behind a spin on the
+    # card) on the smoke's five explicit-list cases, then the two main
+    # folds again with the new kernel in its segment form; ptxas reports
+    # of both; with --sweep, new K3 times over ray tile and spans
+    python -m voxtracer_torch.tools.kernel_ab kernels --old-csrc DIR \
+        [--sweep]
 
-    # ms per batch-8 sample_batch call at 1024^3, 853x480, and one
-    # torch.profiler window over such a call, for whichever voxtracer_torch
-    # is first on the path (so PYTHONPATH=<other tree> times that tree)
+    # ms per batch-8 sample_batch call and per Renderer.preview_frame
+    # (a shaded frame on the rasterizer, bins cached) at 1024^3, 853x480,
+    # and one torch.profiler window over each, for whichever
+    # voxtracer_torch is first on the path (so PYTHONPATH=<other tree>
+    # times that tree)
     python voxtracer_torch/tools/kernel_ab.py e2e [--reps N]
 
 Every line it prints names the card and its power limit; it fails when
@@ -30,16 +34,13 @@ from pathlib import Path
 import numpy as np
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the C entry points of K1 and K2 before the persistent lane-fetch redesign
-OLD_SIGNATURES = {
-    "voxt_fog_march": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
-    "voxt_svo_cast": (_P, _I, _I, _P, _P, _P, _P, _I,
-                      _P, _P, _P, _P, _P, _I, _P),
-}
+_L = ctypes.c_longlong
+# the old tree's C entry point: K3 as one block per tile
+OLD_RESOLVE_FOLD = (_P, _P, _P, _P, _P, _L, _P, _F, _F, _F, _F, _F,
+                    _P, _P, _P, _I, _I, _I, _P)
 KERNEL_NAMES = ("svo_cast_kernel", "fog_march_kernel", "resolve_fold_kernel")
-# (static percent, chunk, refill) of the lane fetch
-SWEEP = [(p, c, r) for p in (0, 75, 90) for c in (32, 64)
-         for r in (4, 8, 16)]
+# (ray tile, spans) of the resolve fold; 0 is the launcher's own choice
+FOLD_SWEEP = [(0, 0)] + [(rt, sp) for rt in (2, 4) for sp in (1, 2, 4, 8, 16)]
 
 
 def card() -> str:
@@ -91,21 +92,6 @@ def profile_call(fn):
     return out
 
 
-def _ms(fn, reps: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
 def _old_library(old_csrc: Path):
     from voxtracer_torch.kernels import build
 
@@ -113,10 +99,8 @@ def _old_library(old_csrc: Path):
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     report = build.compile_library(old_csrc, out)
     lib = ctypes.CDLL(str(out))
-    for name, argtypes in OLD_SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+    lib.voxt_resolve_fold.argtypes = list(OLD_RESOLVE_FOLD)
+    lib.voxt_resolve_fold.restype = ctypes.c_int
     return lib, report
 
 
@@ -133,162 +117,168 @@ def _ptxas_lines(report: str):
     return rows
 
 
-class _Svo:
-    """Old and new K2 on one set, preallocated outputs, direct calls."""
+class _Fold:
+    """Old and new K3 on one explicit-list case, preallocated outputs,
+    direct calls. ``old`` may be None where only the new kernel runs."""
 
-    def __init__(self, old, new, world, start, d, dist, active):
+    def __init__(self, old, new, carry, rows, valid, d, cam, tree_height):
         import torch
 
-        B = d.shape[0]
-        dev = d.device
-        self.old, self.new, self.w = old, new, world
-        self.args = (start, d, dist, active)
-        self.counter = torch.zeros((1,), dtype=torch.int32, device=dev)
-        self.outs = [dict(hit=torch.empty(B, dtype=torch.bool, device=dev),
-                          t=torch.empty(B, device=dev),
-                          node=torch.empty(B, dtype=torch.int32, device=dev),
-                          normal=torch.empty((B, 3), device=dev),
-                          voxel=torch.empty((B, 3), dtype=torch.int32,
-                                            device=dev)) for _ in range(2)]
+        self.old, self.new = old, new
+        self.carry = tuple(c.contiguous() for c in carry)
+        self.rows, self.valid, self.d = (rows.contiguous(),
+                                         valid.contiguous(), d.contiguous())
+        self.consts = (*(float(c) for c in cam), float(1 << tree_height),
+                       1.0e12)
+        self.outs = [tuple(torch.empty_like(c) for c in self.carry)
+                     for _ in range(2)]
 
-    def _common(self, out):
+    def _args(self, out):
         import torch
 
-        start, d, dist, active = self.args
-        w = self.w
-        return [w.table.data_ptr(), int(w.root), int(w.height),
-                start.data_ptr(), d.data_ptr(), dist.data_ptr(),
-                None if active is None else active.data_ptr(), 1,
-                out["hit"].data_ptr(), out["t"].data_ptr(),
-                out["node"].data_ptr(), out["normal"].data_ptr(),
-                out["voxel"].data_ptr(), d.shape[0]], \
+        N, R = self.carry[0].shape
+        K = self.rows.shape[-2]
+        return [*(c.data_ptr() for c in self.carry), self.rows.data_ptr(),
+                self.valid.data_ptr(), 0 if self.rows.dim() == 2 else K,
+                self.d.data_ptr(), *self.consts,
+                *(o.data_ptr() for o in out), N, R, K], \
             torch.cuda.current_stream().cuda_stream
 
     def run_old(self):
-        args, stream = self._common(self.outs[0])
-        assert self.old.voxt_svo_cast(*args, stream) == 0
+        args, stream = self._args(self.outs[0])
+        assert self.old.voxt_resolve_fold(*args, stream) == 0
 
-    def run_new(self, fetch=None):
-        from voxtracer_torch.kernels import traverse as m
+    def run_new(self, setting=(0, 0)):
+        """``setting``: (ray tile, spans) forced on the launcher; 0 is
+        its own choice."""
+        args, stream = self._args(self.outs[1])
+        assert self.new.voxt_resolve_fold(*args, *setting, stream) == 0
 
-        args, stream = self._common(self.outs[1])
-        self.counter.zero_()
-        assert self.new.voxt_svo_cast(
-            *args, self.counter.data_ptr(),
-            *(fetch or (m.STATIC_PCT, m.CHUNK, m.REFILL)), stream) == 0
-
-    def equal(self):
-        import torch
-
-        return all(torch.equal(self.outs[0][k], self.outs[1][k])
-                   for k in self.outs[0])
-
-
-class _Fog:
-    """Old K1 (no mask: every lane marched) and new K1 (masked)."""
-
-    def __init__(self, old, new, args, active):
-        import torch
-
-        B = args[0].shape[0]
-        dev = args[0].device
-        self.old, self.new, self.args, self.active = old, new, args, active
-        self.counter = torch.zeros((1,), dtype=torch.int32, device=dev)
-        self.outs = [(torch.empty(B, dtype=torch.int32, device=dev),
-                      torch.empty(B, device=dev)) for _ in range(2)]
-
-    def _consts(self):
-        from voxtracer_torch.kernels import fog
-
-        return (fog.PLANET_R_F, fog.PLANET_R2_F, fog.FOG_R2_F,
-                fog.FOG_FACTOR_F)
-
-    def run_old(self):
-        import torch
-
-        code, t = self.outs[0]
-        assert self.old.voxt_fog_march(
-            *(a.data_ptr() for a in self.args), code.data_ptr(),
-            t.data_ptr(), code.shape[0], 64, *self._consts(),
-            torch.cuda.current_stream().cuda_stream) == 0
-
-    def run_new(self, fetch=None):
-        import torch
-
-        from voxtracer_torch.kernels import fog
-
-        code, t = self.outs[1]
-        self.counter.zero_()
-        assert self.new.voxt_fog_march(
-            *(a.data_ptr() for a in self.args),
-            None if self.active is None else self.active.data_ptr(),
-            code.data_ptr(), t.data_ptr(), code.shape[0], 64, *self._consts(),
-            self.counter.data_ptr(),
-            *(fetch or (fog.STATIC_PCT, fog.CHUNK, fog.REFILL)),
-            torch.cuda.current_stream().cuda_stream) == 0
+    def restore(self):
+        """Nothing: neither kernel writes what it reads."""
 
     def equal(self):
         import torch
 
-        code, t = self.outs[0]
-        if self.active is not None:
-            code = torch.where(self.active, code, 0)
-            t = torch.where(self.active, t, 0.0)
-        return torch.equal(code, self.outs[1][0]) and \
-            torch.equal(t, self.outs[1][1])
+        return all(torch.equal(a, b) for a, b in zip(*self.outs))
+
+
+class _FoldSeg(_Fold):
+    """The same fold, old as above (its list gathered beforehand, as the
+    old raster_bins did), new in the segment form: the sorted pair array
+    read in place and the carry updated in place, restored before every
+    call."""
+
+    def __init__(self, old, new, carry, rows, valid, d, cam, tree_height,
+                 bins, ok):
+        import torch
+
+        super().__init__(old, new, carry, rows, valid, d, cam, tree_height)
+        self.bins, self.ok, self.cam, self.h = bins, ok, cam, tree_height
+        self.state = tuple(torch.empty_like(c) for c in self.carry)
+        self.outs[1] = self.state
+
+    def restore(self):
+        for s, c in zip(self.state, self.carry):
+            s.copy_(c)
+
+    def run_new(self):
+        from voxtracer_torch.kernels import resolve as m
+
+        b = self.bins
+        m.resolve_fold_seg(*self.state, b["spairs"], None, b["seg_start"],
+                           b["cand_k"], b["dmin_bits"], b["quantum"], self.d,
+                           self.ok, self.cam, self.h, 1.0e12)
+
+
+def _fold_ab(old, new, smi, sweep: bool, reps: int):
+    """K3 old against new: the smoke's five explicit-list cases, then the
+    two main folds again with the new kernel in its segment form."""
+    import torch
+
+    import chip_smoke as cs
+    from voxtracer_torch.kernels import raster
+    from voxtracer_torch.world import boxes, worldgen
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20261016)
+    dsvo = worldgen.generate(log2_size=cs.LOG2_SIZE, verbose=False,
+                             device=dev).serialize()
+    soup = boxes.extract_boxes(dsvo)
+    soup_t = raster.soup_to_device(soup.lo, soup.size, soup.leaf, soup.rgb,
+                                   dev)
+    inp = cs._fold_inputs(rng, soup_t, dev)
+    raw = cs._fold_cases(rng, inp, dev)
+    cases = []
+    for name, carry, rows, valid, d, cam in raw:
+        N, R = carry[0].shape
+        K = rows.shape[-2]
+        bound = cs._fold_bound(N, R, K, 1 if rows.dim() == 2 else N)
+        cases.append((f"resolve_fold {name}", bound,
+                      _Fold(old, new, carry, rows, valid, d, cam,
+                            cs.LOG2_SIZE)))
+    for (name, carry, rows, valid, d, cam), bins, ok in (
+            (raw[0], inp["bins"], inp["ok64"]),
+            (raw[1], inp["binsj"], inp["ok512"])):
+        N, R = carry[0].shape
+        cases.append((f"resolve_fold {name}, new in the segment form",
+                      cs._fold_bound(N, R, rows.shape[-2], N),
+                      _FoldSeg(old, new, carry, rows, valid, d, cam,
+                               cs.LOG2_SIZE, bins, ok)))
+    for name, (bound_ms, bound_by), case in cases:
+        # one clock for both sides; restore() is outside the event pairs
+        def ms(fn):
+            return cs._ms_fresh(case.restore, fn, reps)
+
+        case.run_old()
+        case.restore()
+        case.run_new()
+        torch.cuda.synchronize()
+        if not case.equal():
+            raise AssertionError(f"{name}: old and new kernels differ")
+        row = dict(case=name, card=smi, bound_ms=bound_ms, bound_by=bound_by)
+        if isinstance(case, _FoldSeg):
+            # the in-place form moves less than the function the old
+            # kernel computes: its own bound, for this run's data
+            N, R = case.carry[0].shape
+            better = int((case.state[0] < case.carry[0]).sum())
+            row["new_bound_ms"], row["new_bound_by"] = cs._fold_seg_bound(
+                N, R, case.rows.shape[-2], better)
+        times = [ms(case.run_old), ms(case.run_new), ms(case.run_new),
+                 ms(case.run_old)]
+        print(json.dumps(dict(row, old_ms=[times[0], times[3]],
+                              new_ms=[times[1], times[2]], equal=True)))
+    if sweep:
+        for name, _, case in cases:
+            if isinstance(case, _FoldSeg):
+                continue
+            R = case.carry[0].shape[1]
+            K = case.rows.shape[-2]
+            row = {}
+            for rt, sp in FOLD_SWEEP:
+                if (rt == 4 and R % 128) or (sp > 1 and K // sp < 8):
+                    continue
+                row[f"{rt}/{sp}"] = cs._ms_fresh(
+                    case.restore, lambda: case.run_new((rt, sp)), reps)
+                torch.cuda.synchronize()
+                if not case.equal():
+                    raise AssertionError(f"{name}: differs at {rt}/{sp}")
+            print(json.dumps(dict(sweep=name, card=smi,
+                                  ray_tile_spans_ms=row)))
 
 
 def run_kernels(old_csrc: Path, sweep: bool, reps: int):
-    import torch
-
     sys.path.insert(0, str(Path.cwd()))
-    import chip_smoke as cs
     from voxtracer_torch.kernels import build
-    from voxtracer_torch.world import svo, worldgen
 
     smi = card()
     print(smi)
-    dev = torch.device("cuda")
     old, old_report = _old_library(old_csrc)
     new = build.library()
     for tag, report in (("old", old_report), ("new", build.ptxas_report())):
         for src, regs, props in _ptxas_lines(report):
             print(f"ptxas {tag} {src}: {regs}; {props}")
-
-    rng = np.random.default_rng(20261016)
-    space = worldgen.generate(log2_size=cs.LOG2_SIZE, verbose=False,
-                              device=dev).serialize()
-    world = svo.upload(space.table, space.root, space.height, dev)
-    cases = [(f"svo_cast {name} ({int(d.shape[0])} lanes, "
-              f"{int(d.shape[0]) if a is None else int(a.sum())} active)",
-              _Svo(old, new, world, s, d, dist, a))
-             for name, s, d, dist, a in cs._svo_sets(rng, world, dev)]
-    fog_cases = [("409440", cs._fog_inputs(rng, cs.RAYS, dev), [None])]
-    wide = cs._fog_inputs(rng, cs.WIDE, dev)
-    fog_cases.append((str(cs.WIDE), wide,
-                      [m for _, m in cs._masks(rng, cs.WIDE, dev)]))
-    for size, args, masks in fog_cases:
-        for m in masks:
-            share = "all" if m is None else f"{float(m.float().mean()):.2f}"
-            cases.append((f"fog_march {size} lanes, active {share} (old "
-                          "marches every lane)", _Fog(old, new, args, m)))
-
-    for name, case in cases:
-        case.run_old()
-        case.run_new()
-        torch.cuda.synchronize()
-        if not case.equal():
-            raise AssertionError(f"{name}: old and new kernels differ")
-        times = [_ms(case.run_old, reps), _ms(case.run_new, reps),
-                 _ms(case.run_new, reps), _ms(case.run_old, reps)]
-        print(json.dumps(dict(case=name, card=smi, old_ms=[times[0], times[3]],
-                              new_ms=[times[1], times[2]], equal=True)))
-    if sweep:
-        for name, case in cases:
-            row = {"/".join(map(str, f)): _ms(lambda: case.run_new(f), reps)
-                   for f in SWEEP}
-            print(json.dumps(dict(sweep=name, card=smi,
-                                  static_chunk_refill_ms=row)))
+    _fold_ab(old, new, smi, sweep, reps)
 
 
 def run_e2e(reps: int):
@@ -316,10 +306,22 @@ def run_e2e(reps: int):
         torch.cuda.synchronize()
         ms.append(1e3 * (time.monotonic() - t0))
     prof = profile_call(lambda: r.sample_batch(cam, sun, 8))
+    # the shaded preview frame: the rasterizer without its bins (cached
+    # per pose), K3 and the PyTorch code around it
+    r.preview_frame(cam, sun)
+    frame_ms = []
+    for _ in range(10 * reps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        r.preview_frame(cam, sun)
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.monotonic() - t0))
+    frame_prof = profile_call(lambda: r.preview_frame(cam, sun))
     print(json.dumps(dict(package=str(Path(voxtracer_torch.__file__).parent),
                           card=smi, batch8_call_ms=ms,
                           paths_per_px_per_s=[8e3 / m for m in ms],
-                          profile=prof)))
+                          profile=prof, preview_frame_ms=frame_ms,
+                          preview_profile=frame_prof)))
 
 
 def main(argv=None) -> int:
