@@ -7,10 +7,11 @@ Phases, each printing its lines; any failure exits non-zero:
 
 1. card: fails unless torch sees a CUDA device; prints nvidia-smi's name
    and power limit.
-2. build: compiles kernels K1 (fog march), K2 (SVO cast) and K3 (resolve
-   fold) from voxtracer_torch/kernels/csrc with nvcc, one process per
-   source, loads them, and prints ptxas's registers, stack frame and
-   spills for each.
+2. build: compiles kernels K1 (fog march), K2 (SVO cast), K3 (resolve
+   fold) and K4 (heightfield walk) from voxtracer_torch/kernels/csrc with
+   nvcc, one process per source, loads them, and prints ptxas's
+   registers, stack frame and spills for each; compiles the native world
+   builder (native/svo_native.cpp) with g++.
 3. kernels against their plain PyTorch versions, on the card, at the main
    path's shapes, every output bit for bit: K1 at 409,440 rays (one
    853x480 sample) and at ragged sizes, each unmasked and with half the
@@ -28,25 +29,41 @@ Phases, each printing its lines; any failure exits non-zero:
    and in its segment form (the sorted pair array read where it lies,
    the carry updated in place, the per-tile max: the main fold and the
    pose's real widen rounds at R = 64 and R = 512, tile lists as
-   raster_cast finds them, a list of one tile, a ragged K). Times both
-   with CUDA events; each kernel's bound is computed from this run's
-   inputs.
+   raster_cast finds them, a list of one tile, a ragged K); K4 on K2's
+   409,440-lane and batch-8 sets (strict caps), on walks resumed in
+   certified air, on rays that start inside solid and, through
+   hf_raycast_edited, on an edited world, each also held to K2 on the
+   same rays up to the edge-graze budget. Times both with CUDA events;
+   each kernel's bound is computed from this run's inputs.
 4. goldens: the 64^3 scene of tests/test_golden.py on the card:
    primary_64w and shadow_64w through the SVO cast, primary_64w through
    the rasterizer, and the fixed-seed path sample.
 5. shaded frame at 1024^3, 853x480: the rasterizer against the per-ray
-   SVO cast; fails above EDGE_GRAZE_BUDGET differing pixels. Prints the
+   SVO cast, with its fallback on K2 and on K4; fails above
+   EDGE_GRAZE_BUDGET differing pixels. Prints the
    rasterizer's ms/frame, its bins, and the frame on ready bins split
    into K3's device time and launches and the rest, and its host reads a
    frame.
-6. main path: Renderer at 853x480 (rasterized primaries, the default)
-   and headless_run for 2 frames x 16 samples in batches of 8. All three
-   kernels' launch counts in that run must be > 0, and no sample may be
-   retried. Then a shorter run keeps the SVO-primary path driven
-   (use_soup=False, 1 frame x 8 samples), and ms/sample at batch 1 and 8
-   with rasterized and SVO primaries, from the same process.
-7. profile: one torch.profiler window over a batch-8 sample_batch call;
-   prints each kernel's device ms and launches and the device busy share.
+6. paths at 1024^3: Renderer at 853x480 (the default: rasterized
+   primaries, bounce and shadow casts on the heightfield) and
+   headless_run for 2 frames x 16 samples in batches of 8: K1, K3 and K4
+   must have launched, and no sample may be retried. Then the SVO engine
+   (use_soup=False, use_hf=False, 1 frame x 8 samples: K1 and K2), and
+   ms/sample at batch 1 and 8 with rasterized and SVO primaries, from the
+   same process. Then the two engines in turns (heightfield, SVO, SVO,
+   heightfield; same seeds): the radiance equal up to the graze budget,
+   ms per batch-8 call, and one torch.profiler window over a call of
+   each: every kernel's device ms and launches, the device busy share.
+7. main path at full width: worldgen.generate(log2_size=13,
+   backend="native"), the reference's 8192^3 world, a Renderer in hf-only
+   mode (no soup: primaries are bounce 0's K4 cast), headless_run for 2
+   frames x 16 samples at 853x480, 24 bounces, 64 fog steps, batches of 8,
+   EXR writes and a checkpoint at the end of each frame, the last one
+   read back (the resumed accumulator equal bit for bit). K1 and K4 must
+   have launched. K4 on that world's camera rays against its plain
+   version and K2. Prints worldgen, octree and pack seconds, device memory
+   in use, paths/px/s, the checkpoint's seconds and size, the preview
+   frame's ms, and a profile window over a batch-8 call.
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -67,6 +84,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 WIDTH, HEIGHT = 853, 480
 LOG2_SIZE = 10
+FULL_LOG2_SIZE = 13  # the reference's 8192^3 world (worldgen.rs:17)
 RAYS = WIDTH * HEIGHT  # 409,440 paths per sample
 WIDE = 8 * RAYS  # the lanes of a batch-8 call
 MASK_SHARES = (0.01, 0.10, 0.50)  # live lanes in the masked wide sets
@@ -80,6 +98,14 @@ HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 # sources): K1 per ray setup and per marched segment, K2 per loop step of
 # a lane, K3 per (ray, candidate) slab test
 K1_SETUP_OPS, K1_STEP_OPS, K2_STEP_OPS, K3_PAIR_OPS = 30, 30, 30, 27
+# K4 per ray setup and per walk step of a lane (hf_cast.cu's own count)
+K4_SETUP_OPS, K4_STEP_OPS = 60, 40
+# lanes in which the heightfield walk may differ from the SVO cast: rays
+# through a voxel edge or corner, where the two walks break the tie on
+# the last ulp apart. The JAX package's engine-parity tests allow 2 lanes
+# in 4096 (tests/test_heightfield.py:76); the share grows with the world
+# (a float32 has 10 fraction bits left at 8192)
+GRAZE_SHARE = 2 / 4096
 # shaded 1024^3 frame: pixels where the rasterizer's image may differ from
 # the per-ray SVO cast's. Edge grazes flip winners only at degenerate
 # cameras (integer positions, axis-aligned views); the smoke pose is not
@@ -146,6 +172,13 @@ def phase_build():
             src = line[3:]
         elif "stack frame" in line or "registers" in line:
             print(f"ptxas {src}: {line.strip()}")
+    from voxtracer_torch.world import native
+
+    t0 = time.monotonic()
+    path = native.build()
+    native.load_library()
+    print(f"build: {time.monotonic() - t0:.1f} s -> {path.relative_to(REPO)} "
+          "(g++, the native world builder)")
 
 
 def _fog_inputs(rng, B, dev):
@@ -357,7 +390,7 @@ def _svo_bound(world, steps, B, active):
     return _bound(nbytes, steps * K2_STEP_OPS)
 
 
-def phase_svo(rng, world, dev):
+def phase_svo(sets, world):
     """K2 against svo_raycast_plain, all five outputs bit for bit."""
     import torch
 
@@ -365,7 +398,7 @@ def phase_svo(rng, world, dev):
 
     rec = dict(max_abs_err=0.0)
     w = (world.table, world.root, world.height)
-    for name, start, d, distance, active in _svo_sets(rng, world, dev):
+    for name, start, d, distance, active in sets:
         def kernel():
             return traverse.svo_raycast(*w, start, d, distance, active=active)
 
@@ -401,6 +434,214 @@ def phase_svo(rng, world, dev):
             line += f", plain {plain_ms:.4f} ms"
         print(line)
     return rec
+
+
+def _hf_bound(pack, steps, B, active, t_min):
+    """K4's bound: every lane's outputs (29 B) and mask byte, the inputs
+    (28 B, 32 with a resume) of active lanes, and per walk step of an
+    active lane one float of the pack and the step's operations (counted
+    by the plain version)."""
+    n_act = B if active is None else int(active.sum())
+    nbytes = (B * (29 + (0 if active is None else 1))
+              + n_act * (28 if t_min is None else 32) + steps * 4)
+    return _bound(nbytes, n_act * K4_SETUP_OPS + steps * K4_STEP_OPS)
+
+
+def _cast_mismatch(a, b):
+    """Lanes where two casts differ, by kind: hit, then t, normal and
+    voxel among the lanes both hit."""
+    both = a["hit"] & b["hit"]
+    kinds = dict(hit=a["hit"] != b["hit"], t=both & (a["t"] != b["t"]),
+                 normal=both & (a["normal"] != b["normal"]).any(-1),
+                 voxel=both & (a["voxel"] != b["voxel"]).any(-1))
+    total = kinds["hit"] | kinds["t"] | kinds["normal"] | kinds["voxel"]
+    return int(total.sum()), {k: int(v.sum()) for k, v in kinds.items()}
+
+
+def _check_hf(name, pack, world, start, d, distance, active=None, t_min=None,
+              init_desc=0, timed=False, want=None):
+    """K4 against hf_raycast_plain, every output bit for bit, and against
+    K2 on the same rays (K2's hits held to the cap first: its cap is
+    advisory) up to GRAZE_SHARE of the active lanes. ``want``: a result
+    the kernel's must equal too (the full walk of a resumed one). Returns
+    (the kernel's result, kernel ms, lane-steps, bound ms, bound by, plain
+    ms or None)."""
+    import torch
+
+    from voxtracer_torch.kernels import heightfield, traverse
+
+    hmax_w = heightfield.terrain_max(pack[0], pack[1])
+
+    def kernel():
+        return heightfield.hf_raycast(*pack, start, d, distance,
+                                      active=active, t_min=t_min,
+                                      init_desc=init_desc, hmax_w=hmax_w)
+
+    def plain():
+        return heightfield.hf_raycast_plain(*pack, start, d, distance, True,
+                                            active, t_min, init_desc)
+
+    def k2():
+        return traverse.svo_raycast(world.table, world.root, world.height,
+                                    start, d, distance, active=active)
+
+    B = d.shape[0]
+    k = kernel()
+    before = heightfield.plain_lane_steps
+    p = plain()
+    steps = heightfield.plain_lane_steps - before
+    torch.cuda.synchronize()
+    for other, what in ((p, "its plain version"), (want, "the full walk")):
+        if other is None:
+            continue
+        for key in ("hit", "t", "normal", "voxel"):
+            if not torch.equal(k[key], other[key]):
+                bad = (k[key] != other[key]).reshape(B, -1).any(1).sum()
+                raise AssertionError(f"hf_cast {name}: {key} differs from "
+                                     f"{what} in {int(bad)} lanes")
+    err = max(float((k[key] - p[key]).abs().max()) for key in ("t", "normal"))
+    svo = k2()
+    svo["hit"] = svo["hit"] & (svo["t"] <= distance)
+    n_act = B if active is None else int(active.sum())
+    budget = int(np.ceil(n_act * GRAZE_SHARE))
+    n_bad, kinds = _cast_mismatch(svo, k)
+    # an event pair a call behind a spin on the card (_ms_fresh): a
+    # back-to-back loop of these short casts times the host's dispatch of
+    # the wrapper's allocations, ~0.2 ms a call whatever the rays
+    ms = _ms_fresh(lambda: None, kernel, 10)
+    loop_ms = _ms(kernel, 10)
+    bound_ms, bound_by = _hf_bound(pack, steps, B, active, t_min)
+    hits = float(p["hit"].float().sum()) / max(n_act, 1)
+    line = (f"hf_cast {name} ({B} lanes, {n_act} active, {hits:.3f} of them "
+            f"hit): all four outputs equal the plain version's, kernel "
+            f"{ms:.4f} ms ({loop_ms:.4f} in a back-to-back loop), {steps} "
+            f"lane-steps, bound {bound_ms:.4f} ms "
+            f"({bound_by}); {n_bad} lanes differ from K2 {kinds} (budget "
+            f"{budget})")
+    plain_ms = None
+    if timed:
+        plain_ms = _ms(plain, 1)
+        line += f", plain {plain_ms:.4f} ms"
+    line += (f", K2 on the same rays {_ms_fresh(lambda: None, k2, 10):.4f} ms "
+             "(the same clock)")
+    print(line)
+    if n_bad > budget:
+        raise AssertionError(f"hf_cast {name}: {n_bad} lanes differ from K2, "
+                             f"budget {budget}")
+    return k, (ms, steps, bound_ms, bound_by, plain_ms, err)
+
+
+def _edited_world(space, dev):
+    """A second copy of the smoke's world with a 2x2 dig at the highest
+    column near the camera and a white block above it: the edited node
+    table on the card, the bounds box and the edit site."""
+    from voxtracer_torch.world import svo, worldgen
+
+    edited = worldgen.generate(log2_size=LOG2_SIZE, verbose=False,
+                               backend="native", device=dev)
+    if not np.array_equal(edited.heights, space.heights):
+        raise AssertionError("worldgen is not reproducible")
+    n = 1 << LOG2_SIZE
+    cam = np.asarray(_smoke_camera(LOG2_SIZE).pos)
+    x0, z0 = int(cam[0]) + 20, int(cam[2]) + 20
+    win = space.heights[x0:x0 + 64, z0:z0 + 64]
+    cx, cz = np.unravel_index(np.argmax(win), win.shape)
+    cx, cz = int(cx) + x0, int(cz) + z0
+    top = int(space.heights[cx, cz])
+    if not (2 <= top < n - 4):
+        raise AssertionError(f"edit site ({cx}, {cz}) has height {top}")
+    edits = [(cx + dx, top - 1, cz + dz) for dx in range(2) for dz in range(2)]
+    for e in edits:
+        edited.set(e, None)
+    edited.set((cx, top + 2, cz), (1.0, 1.0, 1.0))
+    edits.append((cx, top + 2, cz))
+    dsvo = edited.serialize()
+    bounds = np.stack([np.min(edits, axis=0).astype(np.float32) - 1.0,
+                       np.max(edits, axis=0).astype(np.float32) + 2.0])
+    return (svo.upload(dsvo.table, dsvo.root, dsvo.height, dev), bounds,
+            np.array([cx + 0.5, top + 0.5, cz + 0.5], np.float32))
+
+
+def phase_hf(rng, sets, world, space, dev):
+    """K4 against hf_raycast_plain, all four outputs bit for bit, and
+    against K2 up to the graze budget: K2's sets, resumed walks, starts
+    inside solid, and an edited world through hf_raycast_edited. Returns
+    the JSON record fields (the random capped rays, as K2's) and the
+    pack."""
+    import torch
+
+    from voxtracer_torch.kernels import heightfield, traverse
+
+    t0 = time.monotonic()
+    pack = heightfield.build_height_mips(space.heights, device=dev)
+    torch.cuda.synchronize()
+    print(f"heightfield pack 1024^3: {tuple(pack[0].shape)} float32 "
+          f"({pack[0].numel() * 4 / 2**20:.1f} MiB), offsets {pack[1]}, built "
+          f"in {time.monotonic() - t0:.2f} s")
+    rec = dict(max_abs_err=0.0)
+    for name, start, d, distance, active in sets:
+        res, (ms, steps, bound_ms, bound_by, plain_ms, err) = _check_hf(
+            name, pack, world, start, d, distance, active,
+            timed=name in ("camera", "random"))
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if name == "camera":
+            full = res
+        if name == "random":  # incoherent capped rays, like bounce casts
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=None)
+
+    # walks resumed in certified air: camera rays at a random fraction of
+    # their own hit t (anywhere on the first diagonal for a miss)
+    _, o, d, far, _ = sets[0]
+    n = float(1 << LOG2_SIZE)
+    frac = torch.as_tensor(rng.random(RAYS, np.float32), device=dev)
+    t_min = torch.where(full["hit"], full["t"], n) * frac
+    for init_desc in (0, 3):
+        _check_hf(f"camera, resumed at t_min, init_desc {init_desc}", pack,
+                  world, o, d, far, t_min=t_min, init_desc=init_desc,
+                  want=full)
+
+    # rays that start inside solid columns, half of them on voxel corners
+    sx, sz = np.nonzero(space.heights >= 2)
+    pick = rng.integers(0, len(sx), RAYS)
+    x, z = sx[pick], sz[pick]
+    y = space.heights[x, z] * rng.uniform(0.1, 0.9, RAYS)
+    start = np.stack([x + rng.uniform(0.2, 0.8, RAYS), y,
+                      z + rng.uniform(0.2, 0.8, RAYS)], -1).astype(np.float32)
+    start[::2] = np.floor(start[::2])
+    _check_hf("starts inside solid", pack, world,
+              torch.as_tensor(start, device=dev), sets[1][2], sets[1][3])
+
+    # an edited world: the pre-edit walk plus K2 for the lanes that can see
+    # the edit, against K2 alone on the edited table
+    edited, bounds, site = _edited_world(space, dev)
+    cam = torch.as_tensor(np.asarray(_smoke_camera(LOG2_SIZE).pos,
+                                     np.float32), device=dev)
+    aim = torch.as_tensor(site, device=dev) + torch.as_tensor(
+        rng.normal(size=(RAYS, 3)).astype(np.float32) * 6.0, device=dev)
+    o = cam.expand(RAYS, 3).contiguous()
+    o[RAYS // 2:] = torch.as_tensor(
+        rng.random((RAYS - RAYS // 2, 3), np.float32) * n, device=dev)
+    d = aim - o
+    d = d / torch.sqrt((d * d).sum(-1, keepdim=True))
+    hyb = heightfield.hf_raycast_edited(*pack, edited.table, edited.root,
+                                        bounds, o, d)
+    ref = traverse.svo_raycast(edited.table, edited.root, edited.height, o, d)
+    pre = traverse.svo_raycast(world.table, world.root, world.height, o, d)
+    torch.cuda.synchronize()
+    n_bad, kinds = _cast_mismatch(ref, hyb)
+    changed, _ = _cast_mismatch(ref, pre)
+    n_aff = int(hyb["from_svo"].sum())
+    budget = int(np.ceil(RAYS * GRAZE_SHARE))
+    print(f"hf_raycast_edited, rays aimed at a dig and a placed block "
+          f"({RAYS} lanes): {n_aff} re-cast on K2, the edit changed {changed} "
+          f"lanes; {n_bad} lanes differ from K2 on the edited world {kinds} "
+          f"(budget {budget})")
+    if not 0 < n_aff < RAYS or not changed or n_bad > budget:
+        raise AssertionError("hf_raycast_edited disagrees with the SVO cast")
+    if not bool((hyb["node"][hyb["from_svo"] & hyb["hit"]] >= 0).all()):
+        raise AssertionError("a re-cast hit carries no leaf")
+    return rec, pack
 
 
 def _random_fold_case(rng, dev, N, R, K):
@@ -702,7 +943,7 @@ def phase_golden(dev):
 
     from voxtracer_torch.core import camera as vcam
     from voxtracer_torch.core.spectra import build_wl_to_rgb_lut
-    from voxtracer_torch.kernels import raster, shade
+    from voxtracer_torch.kernels import heightfield, raster, shade
     from voxtracer_torch.kernels.integrator import render_sample
     from voxtracer_torch.world import boxes, svo, worldgen
 
@@ -732,24 +973,33 @@ def phase_golden(dev):
             raise AssertionError(f"golden {name} ({engine}) not reproduced")
 
     lut = torch.as_tensor(build_wl_to_rgb_lut(256), device=dev)
-    img = render_sample(w.table, w.root, w.height, lut,
-                        np.asarray(cam.pos, np.float32), cam.basis(), sun,
-                        np.array([101, 202, 303], np.uint32), 96, 56,
-                        max_bounces=4, fog_steps=16).cpu().numpy()
+    tiles, offsets, _ = heightfield.build_height_mips(dev_svo.space.heights,
+                                                      device=dev)
     want = np.load(REPO / "tests" / "golden" / "path_sample_64w.npy")
-    frac = float((np.abs(img - want) > 1e-3).mean())
-    mean_rel = abs(float(img.mean()) / float(want.mean()) - 1.0)
-    print(f"golden path_sample_64w on the card: {frac:.6f} of values beyond "
-          f"1e-3 (limit {GOLDEN_FRAC}), means {img.mean():.6f} vs "
-          f"{want.mean():.6f} (rel {mean_rel:.2e}, limit {GOLDEN_MEAN_REL})")
-    if not np.isfinite(img).all() or frac > GOLDEN_FRAC \
-            or mean_rel > GOLDEN_MEAN_REL:
-        raise AssertionError("golden path sample not reproduced on the card")
+    engines = (("SVO engine", {}), ("heightfield engine", dict(
+        hf_mips=tiles, hf_offsets=offsets,
+        terrain_rgb=dev_svo.space.terrain_rgb)))
+    for engine, kw in engines:
+        img = render_sample(w.table, w.root, w.height, lut,
+                            np.asarray(cam.pos, np.float32), cam.basis(), sun,
+                            np.array([101, 202, 303], np.uint32), 96, 56,
+                            max_bounces=4, fog_steps=16, **kw).cpu().numpy()
+        frac = float((np.abs(img - want) > 1e-3).mean())
+        mean_rel = abs(float(img.mean()) / float(want.mean()) - 1.0)
+        print(f"golden path_sample_64w on the card, {engine}: {frac:.6f} of "
+              f"values beyond 1e-3 (limit {GOLDEN_FRAC}), means "
+              f"{img.mean():.6f} vs {want.mean():.6f} (rel {mean_rel:.2e}, "
+              f"limit {GOLDEN_MEAN_REL})")
+        if not np.isfinite(img).all() or frac > GOLDEN_FRAC \
+                or mean_rel > GOLDEN_MEAN_REL:
+            raise AssertionError(f"golden path sample not reproduced on the "
+                                 f"card ({engine})")
 
 
-def phase_shaded(soup_t, world, dev):
+def phase_shaded(soup_t, world, pack, dev):
     """The shaded frame at 1024^3, 853x480: rasterizer against the
-    per-ray SVO cast (K2), both on the card."""
+    per-ray SVO cast (K2), both on the card; the rasterizer's fallback on
+    K2 and on the heightfield walk (K4, ``pack``)."""
     import torch
 
     from voxtracer_torch.core import camera as vcam
@@ -774,6 +1024,39 @@ def phase_shaded(soup_t, world, dev):
         *soup_t, LOG2_SIZE, op, basis, sun, WIDTH, HEIGHT, table=w[0],
         root=w[1]))
     diff = int((img_r != img_s).any(-1).sum())
+    from voxtracer_torch.kernels import heightfield
+
+    # the smoke pose leaves no tile open after the widen rounds, so the
+    # two fallbacks are compared with the rasterizer starved: 4
+    # candidates a tile and widen rounds of 8 records
+    hf = (pack[0], pack[1], soup_t[2][0, 1:4])
+    keep = raster.WIDEN_K
+    raster.WIDEN_K = (8, 8, 8)
+    try:
+        few = raster.raster_bins(*soup_t, op, basis, LOG2_SIZE, WIDTH, HEIGHT,
+                                 cand_k=4)
+        launched = heightfield.launches
+        exact = [raster.raster_cast_exact(
+            *soup_t, op, basis, LOG2_SIZE, WIDTH, HEIGHT, bins=few, **kw)
+            for kw in (dict(table=w[0], root=w[1]), dict(hf=hf))]
+        launched = heightfield.launches - launched
+    finally:
+        raster.WIDEN_K = keep
+    n_fb = exact[0]["n_fallback"]
+    starved_rays = int(exact[0]["fb_need"].sum())
+    diff_hf = sum(int((exact[0][k] != exact[1][k]).reshape(RAYS, -1).any(-1)
+                      .sum()) for k in ("hit", "t", "normal", "rgb"))
+    diff_k2 = int(((exact[0]["hit"] != ex["hit"]) | (exact[0]["t"] != ex["t"]))
+                  .sum())
+    print(f"shaded frame 1024^3 {WIDTH}x{HEIGHT}, rasterizer starved (K = 4, "
+          f"widen 8/8/8): {n_fb} fallback tiles / {starved_rays} rays; "
+          f"fallback on "
+          f"K4 ({launched} launch) against fallback on K2: {diff_hf} "
+          f"differing pixels (budget 0); against the unstarved frame "
+          f"{diff_k2} (budget {EDGE_GRAZE_BUDGET})")
+    if diff_hf or diff_k2 > EDGE_GRAZE_BUDGET or launched != 1 or n_fb < 100:
+        raise AssertionError("the K4 fallback disagrees with the K2 fallback")
+
     def frame(bins=None):
         return raster.raster_primary_frame(
             *soup_t, LOG2_SIZE, op, basis, sun, WIDTH, HEIGHT, table=w[0],
@@ -810,38 +1093,81 @@ def phase_shaded(soup_t, world, dev):
         raise AssertionError(f"{diff} pixels differ, budget {EDGE_GRAZE_BUDGET}")
 
 
-def _headless(renderer, cam, frames, frame_samples, batch, name):
+def _headless(renderer, cam, frames, frame_samples, batch, name,
+              log2_size=LOG2_SIZE, checkpoint_every=None):
     """One headless_run with every launch count set to 0 just before and
-    read just after; checks the EXRs; returns the counts."""
+    read just after; checks the EXRs; with ``checkpoint_every`` reads the
+    last snapshot back and holds its accumulator to the renderer's bit
+    for bit. Returns the counts."""
     import torch
 
-    from voxtracer_torch.kernels import fog, resolve, traverse
-    from voxtracer_torch.render import film
+    from voxtracer_torch.kernels import fog, heightfield, resolve, traverse
+    from voxtracer_torch.render import checkpoint, film
     from voxtracer_torch.render.driver import headless_run
 
     lines = []
     with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "render_state.npz"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fog.launches = traverse.launches = resolve.launches = 0
+        heightfield.launches = 0
+        saves = []  # seconds of each checkpoint the run writes
+        save = checkpoint.save_render_state
+
+        def timed_save(*args):
+            t = time.monotonic()
+            save(*args)
+            saves.append(time.monotonic() - t)
+
+        checkpoint.save_render_state = timed_save
         t0 = time.monotonic()
-        headless_run(renderer, cam, out_dir=tmp, frame_samples=frame_samples,
-                     max_frames=frames, batch=batch, log=lines.append)
+        try:
+            headless_run(renderer, cam, out_dir=tmp,
+                         frame_samples=frame_samples, max_frames=frames,
+                         batch=batch, checkpoint_every=checkpoint_every,
+                         checkpoint_path=ckpt, log=lines.append)
+        finally:
+            checkpoint.save_render_state = save
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         counts = dict(fog_march=fog.launches, svo_cast=traverse.launches,
-                      resolve_fold=resolve.launches)
+                      resolve_fold=resolve.launches,
+                      hf_cast=heightfield.launches)
         peak = torch.cuda.max_memory_allocated()
         exrs = sorted(Path(tmp).glob("*.exr"))
         imgs = [film.load_exr(p)[..., :3] for p in exrs]
+        if checkpoint_every:
+            size = ckpt.stat().st_size
+            t0 = time.monotonic()
+            resumed, _, _ = checkpoint.load_render_state(
+                ckpt, device=renderer.device)
+            torch.cuda.synchronize()
+            load_s = time.monotonic() - t0
+            same = torch.equal(resumed.acc.buffer, renderer.acc.buffer) \
+                and resumed.acc.samples == renderer.acc.samples \
+                and torch.equal(resumed.world.table, renderer.world.table) \
+                and resumed.host_rng.getstate() == renderer.host_rng.getstate()
+            print(f"{name}: checkpoint of {renderer.world.table.shape[0]} "
+                  f"node rows every {checkpoint_every} samples: "
+                  f"{size / 2**20:.1f} MiB on disk, written in "
+                  f"{[round(t, 2) for t in saves]} s, the last read back in "
+                  f"{load_s:.2f} s; accumulator, count, table and RNG state "
+                  f"equal: {same}")
+            if not same or len(saves) != frames:
+                raise AssertionError("the resumed render state differs")
+            del resumed
     for line in lines:
         print(f"  headless: {line.strip()}")
     retries = sum("sample failed" in line for line in lines)
     samples = frames * frame_samples
     print(f"{name}: {frames} frames x {frame_samples} samples at "
-          f"{WIDTH}x{HEIGHT}, 1024^3, batch {batch}: {samples / wall:.3f} "
-          f"paths/px/s, {1e3 * wall / samples:.2f} ms/sample (wall, EXR "
-          f"writes included), peak {peak / 2**20:.1f} MiB, launches {counts}")
+          f"{WIDTH}x{HEIGHT}, {1 << log2_size}^3, batch {batch}: "
+          f"{samples / wall:.3f} paths/px/s, {1e3 * wall / samples:.2f} "
+          f"ms/sample (wall, EXR writes included"
+          + (f"; {samples / (wall - sum(saves)):.3f} paths/px/s without the "
+             f"{sum(saves):.1f} s of checkpoint writes" if saves else "")
+          + f"), peak {peak / 2**20:.1f} MiB, launches {counts}")
     if retries:
         raise AssertionError(f"{retries} samples were retried")
     if len(imgs) != frames:
@@ -855,33 +1181,47 @@ def _headless(renderer, cam, frames, frame_samples, batch, name):
     return counts
 
 
+def _expect_launches(name, counts, on, off=()):
+    """Fail unless every kernel of ``on`` launched on this path and none
+    of ``off`` did."""
+    for k in on:
+        if counts[k] <= 0:
+            raise AssertionError(f"{k} was not launched on the {name}")
+    for k in off:
+        if counts[k] != 0:
+            raise AssertionError(f"{k} launched {counts[k]} times on the "
+                                 f"{name}")
+
+
 def phase_main(space, dev):
-    """The headless day-cycle at 1024^3, 853x480 with rasterized primaries
-    (the default Renderer); returns its launch counts. Then the
-    SVO-primary path, driven the same way but shorter."""
+    """The headless day-cycle at 1024^3, 853x480 with the default Renderer
+    (rasterized primaries, heightfield bounce and shadow casts); returns
+    its launch counts. Then the SVO engine (SVO primaries, bounce and
+    shadow casts), driven the same way."""
     from voxtracer_torch.render.driver import Renderer
 
     cam = _smoke_camera(LOG2_SIZE)
     renderer = Renderer(space.serialize(), WIDTH, HEIGHT, seed=0, device=dev)
-    if not renderer.soup_world:
-        raise AssertionError("the terrain world did not take the soup path")
-    counts = _headless(renderer, cam, 2, 16, 8, "main path")
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+    if not renderer.soup_world or renderer._get_hf()[0] is None \
+            or renderer._hf_only():
+        raise AssertionError("the terrain world did not take the soup and "
+                             "heightfield engines")
+    counts = _headless(renderer, cam, 2, 16, 8, "1024^3 path")
+    _expect_launches("1024^3 path", counts,
+                     ("fog_march", "resolve_fold", "hf_cast"))
     svo = Renderer(space.serialize(), WIDTH, HEIGHT, seed=0, device=dev,
-                   use_soup=False)
-    svo_counts = _headless(svo, cam, 1, 8, 8, "SVO-primary path")
-    if svo_counts["fog_march"] <= 0 or svo_counts["svo_cast"] <= 0 \
-            or svo_counts["resolve_fold"] != 0:
-        raise AssertionError(f"SVO-primary path launches {svo_counts}")
-    return counts, renderer, svo
+                   use_soup=False, use_hf=False)
+    svo_counts = _headless(svo, cam, 1, 8, 8, "SVO-engine path")
+    _expect_launches("SVO-engine path", svo_counts, ("fog_march", "svo_cast"),
+                     ("resolve_fold", "hf_cast"))
+    return counts, svo_counts, renderer, svo
 
 
 def phase_primaries(soup_r, svo_r):
-    """ms/sample at batch 1 and 8 with rasterized and with SVO primaries,
-    in turns (raster, SVO, SVO, raster), and the share of a batch-8 sample
-    that its rasterized primaries take (bins, resolve and fallback)."""
+    """ms/sample at batch 1 and 8 of the default Renderer (rasterized
+    primaries, heightfield casts) and of the SVO engine, in turns (raster,
+    SVO, SVO, raster), and the share of a batch-8 sample that its
+    rasterized primaries take (bins, resolve and fallback)."""
     import torch
 
     from voxtracer_torch.core import rng as vrng
@@ -907,8 +1247,9 @@ def phase_primaries(soup_r, svo_r):
                         ("raster", soup_r)):
             runs[name] += [per_sample(r, k) for _ in range(reps)]
         out[k] = runs
-        print(f"batch {k}: ms/sample rasterized primaries "
-              f"{sorted(runs['raster'])}, SVO primaries {sorted(runs['svo'])}")
+        print(f"batch {k}: ms/sample rasterized primaries and heightfield "
+              f"casts {sorted(runs['raster'])}, SVO primaries and casts "
+              f"{sorted(runs['svo'])}")
 
     basis = cam.basis()
     soup = soup_r._get_soup()
@@ -940,24 +1281,119 @@ def phase_primaries(soup_r, svo_r):
           f"(bins once per pose: {100 * bins_ms / batch8:.2f}% if per batch)")
 
 
-def phase_profile(renderer):
-    """One torch.profiler window over a batch-8 sample_batch call of the
-    main path: each kernel's device ms and launches, and the device busy
-    share of the call's wall time."""
+def _profile(name, renderer, cam, expect):
+    """One torch.profiler window over a batch-8 sample_batch call: each
+    kernel's device ms and launches, and the device busy share of the
+    call's wall time. ``expect``: the kernels that must have launched."""
     from voxtracer_torch.tools.kernel_ab import profile_call
+
+    sun = np.asarray([0.8, 10.2743, 3.7])
+    prof = profile_call(lambda: renderer.sample_batch(cam, sun, 8))
+    per = ", ".join(f"{k} {v['ms']:.3f} ms / {v['launches']} launches"
+                    for k, v in prof["kernels"].items())
+    print(f"profile, batch-8 sample_batch call, {name}: wall "
+          f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms "
+          f"({100 * prof['busy_share']:.1f}%), {prof['device_events']} "
+          f"device events; {per}")
+    for k in expect:
+        if prof["kernels"][f"{k}_kernel"]["launches"] <= 0:
+            raise AssertionError(f"the profile of the {name} saw no {k} "
+                                 "launch")
+    return prof
+
+
+def phase_engines(space, dev):
+    """The heightfield engine against the SVO engine at 1024^3, both with
+    rasterized primaries, in turns in this process: the radiance of the
+    same 8 seeds, ms per batch-8 call, and a profile window of each."""
+    import torch
+
+    from voxtracer_torch.render.driver import Renderer
 
     cam = _smoke_camera(LOG2_SIZE)
     sun = np.asarray([0.8, 10.2743, 3.7])
-    prof = profile_call(lambda: renderer.sample_batch(cam, sun, 8))
-    per = ", ".join(f"{name} {v['ms']:.3f} ms / {v['launches']} launches"
-                    for name, v in prof["kernels"].items())
-    print(f"profile, batch-8 sample_batch call: wall {prof['wall_ms']:.1f} "
-          f"ms, device busy {prof['busy_ms']:.1f} ms "
-          f"({100 * prof['busy_share']:.1f}%), {prof['device_events']} "
-          f"device events; {per}")
-    for name, v in prof["kernels"].items():
-        if v["launches"] <= 0:
-            raise AssertionError(f"the profile saw no {name} launch")
+    dev_svo = space.serialize()
+    rs = {name: Renderer(dev_svo, WIDTH, HEIGHT, seed=0, device=dev,
+                         use_hf=name == "heightfield")
+          for name in ("heightfield", "SVO")}
+    for r in rs.values():  # the same 8 seeds; soup, bins, pack, warm-up
+        r.sample_batch(cam, sun, 8)
+    torch.cuda.synchronize()
+    a, b = rs["heightfield"].acc.buffer, rs["SVO"].acc.buffer
+    diff = int((a != b).any(-1).sum())
+    budget = int(np.ceil(RAYS * 8 * GRAZE_SHARE))
+    rel = abs(float(a.mean()) / float(b.mean()) - 1.0)
+    print(f"engines at 1024^3, one batch of 8 samples, same seeds: {diff} of "
+          f"{RAYS} pixels differ (budget {budget}: {GRAZE_SHARE:.2e} of the "
+          f"batch's paths), image means {float(a.mean()) / 8:.6f} vs "
+          f"{float(b.mean()) / 8:.6f} (rel {rel:.2e})")
+    if diff > budget or rel > GOLDEN_MEAN_REL or not torch.isfinite(a).all():
+        raise AssertionError("the two engines' radiance differs")
+    ms = {name: [] for name in rs}
+    for name in ("heightfield", "SVO", "SVO", "heightfield"):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            rs[name].sample_batch(cam, sun, 8)
+            torch.cuda.synchronize()
+            ms[name].append(1e3 * (time.monotonic() - t0))
+    print("engines at 1024^3, ms per batch-8 call in turns: heightfield "
+          f"{[round(m, 2) for m in ms['heightfield']]}, SVO "
+          f"{[round(m, 2) for m in ms['SVO']]}")
+    _profile("1024^3, heightfield engine", rs["heightfield"], cam,
+             ("fog_march", "resolve_fold", "hf_cast"))
+    _profile("1024^3, SVO engine", rs["SVO"], cam,
+             ("fog_march", "resolve_fold", "svo_cast"))
+
+
+def phase_full(dev):
+    """The main path at full width: the reference's 8192^3 world from the
+    native builder, a Renderer in hf-only mode, the headless loop with
+    EXR writes and checkpoints; returns its launch counts."""
+    import torch
+
+    from voxtracer_torch.render.driver import Renderer
+    from voxtracer_torch.world import worldgen
+
+    n = 1 << FULL_LOG2_SIZE
+    t0 = time.monotonic()
+    space = worldgen.generate(log2_size=FULL_LOG2_SIZE, backend="native",
+                              device=dev)
+    t1 = time.monotonic()
+    dev_svo = space.serialize()
+    renderer = Renderer(dev_svo, WIDTH, HEIGHT, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    if not renderer._hf_only() or renderer._get_soup() is not None:
+        raise AssertionError(f"the {n}^3 world is not in hf-only mode")
+    torch.cuda.synchronize()
+    t3 = time.monotonic()
+    tiles = renderer._get_hf()[0]
+    print(f"worldgen {n}^3 (native): {t1 - t0:.1f} s, "
+          f"{dev_svo.table.shape[0]} node rows "
+          f"({dev_svo.table.nbytes / 2**20:.1f} MiB); serialize and upload "
+          f"{t2 - t1:.2f} s; heightfield pack {tuple(tiles.shape)} "
+          f"({tiles.numel() * 4 / 2**20:.1f} MiB) in {t3 - t2:.2f} s; device "
+          f"memory in use {torch.cuda.memory_allocated() / 2**20:.1f} MiB")
+    cam = _smoke_camera(FULL_LOG2_SIZE)
+    # K4 on the full-size pack against its plain version and against K2
+    far = torch.full((RAYS,), 1.0e12, device=dev)
+    _check_hf(f"camera rays at {n}^3", (*renderer._get_hf()[:2],
+                                        FULL_LOG2_SIZE), renderer.world,
+              *_camera_rays(cam, dev), far, timed=True)
+    counts = _headless(renderer, cam, 2, 16, 8, "main path",
+                       log2_size=FULL_LOG2_SIZE, checkpoint_every=16)
+    _expect_launches("main path", counts, ("fog_march", "hf_cast"),
+                     ("svo_cast", "resolve_fold"))
+    _profile(f"{n}^3 main path", renderer, cam, ("fog_march", "hf_cast"))
+    sun = np.asarray([0.8, 10.2743, 3.7])
+    ms = _ms(lambda: renderer.preview_frame(cam, sun), 5)
+    img = renderer.preview_frame(cam, sun)
+    if img is None or not torch.isfinite(img).all() or not img.mean() > 0:
+        raise AssertionError("the hf-only preview frame is empty")
+    print(f"preview frame {n}^3 {WIDTH}x{HEIGHT} (hf_frame_cast, exact): "
+          f"{ms:.3f} ms, mean {float(img.mean()):.6f}")
+    return counts
 
 
 def main() -> int:
@@ -972,38 +1408,51 @@ def main() -> int:
     from voxtracer_torch.world import boxes, svo, worldgen
 
     t0 = time.monotonic()
-    space = worldgen.generate(log2_size=LOG2_SIZE, verbose=False, device=dev)
+    space = worldgen.generate(log2_size=LOG2_SIZE, verbose=False,
+                              backend="native", device=dev)
     dev_svo = space.serialize()
     world = svo.upload(dev_svo.table, dev_svo.root, dev_svo.height, dev)
     t1 = time.monotonic()
     soup = boxes.extract_boxes(dev_svo)
     soup_t = raster.soup_to_device(soup.lo, soup.size, soup.leaf, soup.rgb,
                                    dev)
-    print(f"worldgen 1024^3: {t1 - t0:.1f} s, {dev_svo.table.shape[0]} nodes; "
-          f"box soup {len(soup)} boxes in {time.monotonic() - t1:.1f} s")
+    print(f"worldgen 1024^3 (native): {t1 - t0:.1f} s, "
+          f"{dev_svo.table.shape[0]} nodes; box soup {len(soup)} boxes in "
+          f"{time.monotonic() - t1:.1f} s")
 
     fog_rec = phase_fog(rng, dev)
-    svo_rec = phase_svo(rng, world, dev)
+    sets = _svo_sets(rng, world, dev)
+    svo_rec = phase_svo(sets, world)
+    hf_rec, pack = phase_hf(rng, sets, world, space, dev)
+    del sets
     res_rec = phase_resolve(rng, soup_t, dev)
     phase_golden(dev)
-    phase_shaded(soup_t, world, dev)
-    counts, soup_r, svo_r = phase_main(space, dev)
+    phase_shaded(soup_t, world, pack, dev)
+    counts, svo_counts, soup_r, svo_r = phase_main(space, dev)
     phase_primaries(soup_r, svo_r)
-    phase_profile(soup_r)
+    del soup_r, svo_r
+    phase_engines(space, dev)
+    del space, dev_svo, world, soup, soup_t, pack
+    torch.cuda.empty_cache()
+    full = phase_full(dev)
 
     kernels = [
         dict(name="fog_march", route="cuda",
              source="voxtracer_torch/kernels/csrc/fog_march.cu",
              replaces="voxtracer/kernels/pallas/fog.py:40",
-             launches=counts["fog_march"], **fog_rec),
+             launches=full["fog_march"], **fog_rec),
         dict(name="svo_cast", route="cuda",
              source="voxtracer_torch/kernels/csrc/svo_cast.cu",
              replaces="voxtracer/kernels/traverse.py:117",
-             launches=counts["svo_cast"], **svo_rec),
+             launches=svo_counts["svo_cast"], **svo_rec),
         dict(name="resolve_fold", route="cuda",
              source="voxtracer_torch/kernels/csrc/resolve_fold.cu",
              replaces="voxtracer/kernels/pallas/resolve.py:44",
              launches=counts["resolve_fold"], **res_rec),
+        dict(name="hf_cast", route="cuda",
+             source="voxtracer_torch/kernels/csrc/hf_cast.cu",
+             replaces="voxtracer/kernels/heightfield.py:206",
+             launches=full["hf_cast"], **hf_rec),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""CUDA kernels K1 (fog march), K2 (SVO cast) and K3 (resolve fold)
-against their plain PyTorch versions, on the card. Every test skips when
+"""CUDA kernels K1 (fog march), K2 (SVO cast), K3 (resolve fold) and K4
+(heightfield walk) against their plain PyTorch versions, on the card. Every test skips when
 torch sees no CUDA device (decided inside the fixture, not at import).
 
 Run on the card from the repository root (the repository's conftest
@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from voxtracer_torch.core.spectra import fog_density
-from voxtracer_torch.kernels import fog, resolve, traverse
+from voxtracer_torch.kernels import fog, heightfield, resolve, traverse
 from voxtracer_torch.world import svo, worldgen
 
 torch.set_num_threads(2)
@@ -316,3 +316,81 @@ def test_resolve_fold_settings_match_plain(cuda, ray_tile, spans):
     for a, b in zip(k, p):
         assert torch.equal(a, b)
     assert torch.isfinite(k[0]).any()
+
+
+@pytest.fixture(scope="module")
+def terrain(cuda):
+    space = worldgen.generate(log2_size=7, verbose=False, device=cuda)
+    dev = space.serialize()
+    return (svo.upload(dev.table, dev.root, dev.height, cuda),
+            np.asarray(space.heights))
+
+
+@pytest.mark.parametrize("tile_log", [2, 3])
+@pytest.mark.parametrize("kind", ["random", "capped", "active", "kept t0",
+                                  "resumed"])
+def test_hf_cast_matches_plain_bit_for_bit(cuda, terrain, kind, tile_log):
+    world, heights = terrain
+    pack = heightfield.build_height_mips(heights, tile_log=tile_log,
+                                         device=cuda)
+    rng = np.random.default_rng(11)
+    B = 32768
+    n = float(1 << world.height)
+    start = rng.random((B, 3), np.float32) * n * 1.2 - 0.1 * n
+    sx, sz = np.nonzero(heights >= 2)  # a quarter start inside solid
+    pick = rng.integers(0, len(sx), B // 4)
+    start[: B // 4] = np.stack(
+        [sx[pick] + 0.5, heights[sx[pick], sz[pick]] * 0.5, sz[pick] + 0.5],
+        -1)
+    start = torch.as_tensor(start.astype(np.float32), device=cuda)
+    d = rng.normal(size=(B, 3)).astype(np.float32)
+    d[: B // 16, 1] = 0.0
+    d = torch.as_tensor(d / np.linalg.norm(d, axis=-1, keepdims=True),
+                        device=cuda)
+    dist = torch.full((B,), traverse.FAR, device=cuda)
+    active = t_min = None
+    skip_t0, init_desc = kind != "kept t0", 0
+    if kind in ("capped", "active"):
+        dist = torch.as_tensor(rng.random(B, np.float32) * n, device=cuda)
+    if kind == "active":
+        active = torch.as_tensor(rng.random(B) < 0.5, device=cuda)
+    if kind == "resumed":
+        # from the air: the walk may resume only where the ray is in air
+        start[:, 1] = start[:, 1].abs() + float(heights.max()) + 1.0
+        full = heightfield.hf_raycast(*pack, start, d, dist)
+        t_min = torch.where(full["hit"], full["t"], n) * torch.as_tensor(
+            rng.random(B, np.float32), device=cuda)
+        init_desc = 2
+    before = heightfield.launches
+    k = heightfield.hf_raycast(*pack, start, d, dist, skip_t0=skip_t0,
+                               active=active, t_min=t_min,
+                               init_desc=init_desc)
+    assert heightfield.launches == before + 1
+    p = heightfield.hf_raycast_plain(*pack, start, d, dist, skip_t0, active,
+                                     t_min, init_desc)
+    torch.cuda.synchronize()
+    for key in ("hit", "t", "normal", "voxel"):
+        assert torch.equal(k[key], p[key]), key
+    assert k["hit"].any() and not k["hit"].all()
+    if kind == "resumed":
+        for key in ("hit", "t", "normal", "voxel"):
+            assert torch.equal(k[key], full[key]), key
+    if kind == "random":  # against K2, lane for lane up to edge grazes
+        r = traverse.svo_raycast(world.table, world.root, world.height, start,
+                                 d, dist)
+        bad = (r["hit"] != k["hit"]) | (r["hit"] & k["hit"] & (
+            (r["t"] != k["t"]) | (r["normal"] != k["normal"]).any(-1)
+            | (r["voxel"] != k["voxel"]).any(-1)))
+        assert int(bad.sum()) <= B // 10000
+
+
+def test_hf_cast_rejects_bad_input(cuda, terrain):
+    _, heights = terrain
+    tiles, offs, h = heightfield.build_height_mips(heights, device=cuda)
+    start = torch.zeros((4, 3), device=cuda)
+    d = torch.ones((4, 3), device=cuda)
+    with pytest.raises(ValueError, match="tiles"):
+        heightfield.hf_raycast(tiles.cpu(), offs, h, start, d)
+    with pytest.raises(ValueError, match="hmax_w"):
+        heightfield.hf_raycast(tiles, offs, h, start, d,
+                               hmax_w=torch.ones(1))

@@ -217,3 +217,74 @@ def test_headless_frames_take_whole_batches(tmp_path):
     tdrv.headless_run(r, cam, out_dir=tmp_path, frame_samples=4,
                       max_frames=2, batch=2, log=lambda line: None)
     assert calls == [2, 2, 2, 2]
+
+
+def test_hf_and_svo_engines_agree():
+    """``use_hf`` (the default) against ``use_hf=False``, with rasterized
+    and with per-ray primaries: one radiance, bit for bit; the pack is
+    built once per world and dropped with it."""
+    sun = np.array([0.8, 10.2743, 3.7])
+    space, cam, a = _renderer(seed=5)
+    out = []
+    for kw in (dict(), dict(use_hf=False), dict(use_soup=False),
+               dict(use_hf=False, use_soup=False)):
+        r = tdrv.Renderer(space.serialize(), 32, 16, max_bounces=3,
+                          fog_steps=8, seed=5, device="cpu", **kw)
+        r.sample(cam, sun)
+        r.sample_batch(cam, sun, 2)
+        assert (r._get_hf()[0] is not None) == kw.get("use_hf", True)
+        out.append(r.acc.buffer)
+    for b in out[1:]:
+        assert torch.equal(out[0], b)
+    pack = a._get_hf()
+    assert a._get_hf()[0] is pack[0]
+    a.update_space(space.serialize())
+    assert a._hf is None and a._get_hf()[0] is not pack[0]
+    space.set((3, 3, 3), (1.0, 0.0, 0.0))  # no exact heightmap any more
+    a.update_space(space.serialize())
+    assert a._get_hf() == (None, None, None)
+
+
+def test_renderer_hf_only_mode(monkeypatch):
+    """The policy for the reference's scale (``HF_FRAME_SIZE`` lowered to
+    this world): no soup is built, previews are exact heightfield frames,
+    samples accumulate, and everything equals the SVO engine's."""
+    from voxtracer_torch.kernels import shade
+    from voxtracer_torch.world import boxes
+
+    space = tgen.generate(log2_size=6, verbose=False, device="cpu")
+    cam = tcam.Camera(pos=(0.62 * 64, float(space.heights.max()) + 5.0,
+                           0.35 * 64), yaw=2.2, pitch=-0.3)
+    sun = np.asarray([0.8, 10.2743, 3.7])
+    assert tdrv.Renderer.HF_FRAME_SIZE == 4096
+    monkeypatch.setattr(tdrv.Renderer, "HF_FRAME_SIZE", 64)
+    monkeypatch.setattr(boxes, "extract_boxes", lambda *a, **k: 1 / 0)
+    r = tdrv.Renderer(space.serialize(), 32, 24, max_bounces=2, fog_steps=4,
+                      seed=3, device="cpu")
+    assert r._hf_only() and r._get_soup() is None and r._soup is None
+    img = r.preview_frame(cam, sun)
+    o, d = tcam.generate_rays(cam, 32, 24, device="cpu")
+    su = torch.from_numpy((sun / np.linalg.norm(sun)).astype(np.float32))
+    w = r.world
+    assert torch.equal(img, shade.svo_primary_frame(w.table, w.root, w.height,
+                                                    o, d, su))
+    assert img.sum() > 0
+    r.sample(cam, sun)
+    r.sample_batch(cam, sun, 2)
+    s = tdrv.Renderer(space.serialize(), 32, 24, max_bounces=2, fog_steps=4,
+                      seed=3, device="cpu", use_hf=False, use_soup=False)
+    assert not s._hf_only() and s.preview_frame(cam, sun) is None
+    s.sample(cam, sun)
+    s.sample_batch(cam, sun, 2)
+    assert r.acc.samples == 3 and torch.equal(r.acc.buffer, s.acc.buffer)
+
+
+def test_cli_headless_checkpoint_flags(tmp_path, monkeypatch):
+    args = build_parser().parse_args(
+        ["headless", "--checkpoint-every", "8", "--checkpoint-path",
+         str(tmp_path / "s.npz")])
+    assert args.checkpoint_every == 8
+    assert args.checkpoint_path == str(tmp_path / "s.npz")
+    args = build_parser().parse_args(["headless"])
+    assert args.checkpoint_every is None
+    assert args.checkpoint_path == "render_state.npz"

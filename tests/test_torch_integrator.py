@@ -1,5 +1,5 @@
 """Port vs JAX: the path tracer (voxtracer_torch/kernels/integrator.py,
-SVO engine, against voxtracer/kernels/integrator.py and the committed
+SVO engine and heightfield engine, against voxtracer/kernels/integrator.py and the committed
 golden sample tests/golden/path_sample_64w.npy).
 
 Golden contract (tests/test_golden.py:46-60): atol 1e-3 on all but < 1e-4
@@ -27,6 +27,7 @@ from voxtracer.world import worldgen as jgen
 from voxtracer.world.svo import from_dense
 from voxtracer_torch.core import camera as tcam
 from voxtracer_torch.core import rng as trng
+from voxtracer_torch.kernels import heightfield as thf
 from voxtracer_torch.kernels import integrator as tint
 from voxtracer_torch.world import svo as tsvo
 
@@ -260,3 +261,115 @@ def test_render_samples_with_soup_is_serial_sum(scene, soup):
                                 max_bounces=4, fog_steps=16, soup=soup[1])
     a, b = (_soup_sample(scene, soup, s) for s in seeds)
     assert torch.equal(total, a + b)
+
+
+def _hf_paths(rng, B, n):
+    start = rng.uniform(0, n, (B, 3)).astype(np.float32)
+    start[:, 1] = rng.uniform(2, n, B)
+    d = rng.standard_normal((B, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    wl = rng.random(B).astype(np.float32)
+    state = rng.integers(0, 2**32, (B, 3), dtype=np.uint32)
+    return start, d, wl, state
+
+
+def test_trace_paths_hf_engine_bit_identical(scene, rng):
+    """With the heightfield pack (every bounce cast the walk, NEE one
+    uncapped walk, hits shaded by the terrain colour) radiance and RNG
+    state equal the SVO engine's bit for bit on a terrain world, and the
+    JAX package's ``trace_paths`` with its pack under the golden
+    contract's lane budget (tests/test_heightfield.py:214 allows 2
+    lanes)."""
+    dev, w, _, _, sun, lut = scene
+    heights = np.asarray(dev.space.heights)
+    tiles, offs, _ = thf.build_height_mips(heights, device="cpu")
+    B = 2048
+    start, d, wl, state = _hf_paths(rng, B, 64)
+    args = (w.table, w.root, w.height, torch.from_numpy(lut),
+            torch.from_numpy(start), torch.from_numpy(d), torch.from_numpy(wl),
+            torch.from_numpy(sun), torch.from_numpy(state.astype(np.int64)))
+    svo_steps = thf.plain_lane_steps
+    st_a, rad_a = tint.trace_paths(*args, max_bounces=6, fog_steps=16)
+    assert thf.plain_lane_steps == svo_steps  # the SVO engine walks no pack
+    st_b, rad_b = tint.trace_paths(*args, max_bounces=6, fog_steps=16,
+                                   hf_mips=tiles, hf_offsets=offs,
+                                   terrain_rgb=(0.5, 0.5, 0.5))
+    assert thf.plain_lane_steps > svo_steps
+    assert torch.equal(rad_a, rad_b) and torch.equal(st_a, st_b)
+    assert float(rad_b.sum()) > 0
+
+    from voxtracer.kernels import heightfield as jhf
+
+    flat, joffs, _ = jhf.build_height_mips(heights)
+    st_j, rad_j = jint.trace_paths(
+        jnp.asarray(dev.table.view(np.int32)), np.int32(dev.root), dev.height,
+        jnp.asarray(lut), jnp.asarray(start), jnp.asarray(d), jnp.asarray(wl),
+        jnp.asarray(sun), jnp.asarray(state), max_bounces=6, fog_steps=16,
+        hf_mips=flat, hf_offsets=joffs,
+        terrain_rgb=jnp.asarray([0.5, 0.5, 0.5], jnp.float32), fuse_nee=False)
+    sdiff = (np.asarray(st_j).astype(np.int64) != st_b.numpy()).any(-1)
+    assert int(sdiff.sum()) <= 2
+    close = np.isclose(np.asarray(rad_j), rad_b.numpy(), rtol=1e-4, atol=1e-5)
+    assert int((~close.all(-1)).sum()) <= 2
+
+
+def test_render_sample_hf_engine_equals_svo_engine(scene, soup):
+    """The sample with the pack equals the sample without it, bit for bit:
+    per-ray primaries from bounce 0's walk, and rasterized primaries with
+    the fallback on the walk (``render_samples`` the serial sum)."""
+    dev, w, _, cam, sun, lut = scene
+    tiles, offs, _ = thf.build_height_mips(np.asarray(dev.space.heights),
+                                           device="cpu")
+    hf = dict(hf_mips=tiles, hf_offsets=offs,
+              terrain_rgb=torch.tensor([0.5, 0.5, 0.5]))
+    seed = np.array([101, 202, 303], np.uint32)
+    base = (w.table, w.root, w.height, torch.from_numpy(lut),
+            np.asarray(cam.pos, np.float32), cam.basis(),
+            torch.from_numpy(sun))
+    kw = dict(max_bounces=4, fog_steps=16)
+    want = _port_sample(scene, seed)
+    assert torch.equal(tint.render_sample(*base, seed, W, H, **kw, **hf), want)
+    assert torch.equal(tint.render_sample(*base, seed, W, H, soup=soup[1],
+                                          **kw, **hf), want)
+    seeds = np.array([[101, 202, 303], [4, 5, 6]], np.uint32)
+    total = tint.render_samples(*base, seeds, W, H, soup=soup[1], **kw, **hf)
+    assert torch.equal(total, want + _port_sample(scene, seeds[1]))
+
+
+def test_edited_world_render_equals_pure_svo_render():
+    """``hf_edit_bounds`` keeps the walk on an edited world: the sample
+    equals the pure SVO render of the EDITED world (a dig and an emissive
+    placed block in view), re-cast lanes shading by their own leaf."""
+    space = jgen.generate(log2_size=6, verbose=False, backend="python")
+    h0 = np.asarray(space.heights).copy()
+    cx, cz = np.unravel_index(np.argmax(h0[8:56, 8:56]), (48, 48))
+    cx, cz = int(cx) + 8, int(cz) + 8
+    top = int(h0[cx, cz])
+    space.set((cx, top - 1, cz), None)
+    for dx in range(3):  # a white (emissive) slab above the dig
+        for dz in range(3):
+            space.set((cx + dx, top + 1, cz + dz), (1.0, 1.0, 1.0))
+    dev = space.serialize()
+    w = tsvo.upload(dev.table, dev.root, dev.height, "cpu")
+    bounds = np.stack([np.array([cx - 1, top - 2, cz - 1], np.float32),
+                       np.array([cx + 4, top + 3, cz + 4], np.float32)])
+    tiles, offs, _ = thf.build_height_mips(h0, device="cpu")
+    cam = tcam.Camera(pos=(cx - 14.0, top + 9.0, cz - 10.0), yaw=0.65,
+                      pitch=0.45)  # looking down at the edit site
+    sun = np.array([0.5, 0.8, 0.33], np.float32)
+    sun /= np.linalg.norm(sun)
+    args = (w.table, w.root, w.height,
+            torch.from_numpy(build_wl_to_rgb_lut(256)),
+            np.asarray(cam.pos, np.float32), cam.basis(),
+            torch.from_numpy(sun), np.array([3, 77, 19], np.uint32), 64, 48)
+    kw = dict(max_bounces=4, fog_steps=8)
+    a = tint.render_sample(*args, **kw)
+    b = tint.render_sample(*args, hf_mips=tiles, hf_offsets=offs,
+                           terrain_rgb=space.terrain_rgb,
+                           hf_edit_bounds=bounds, **kw)
+    assert int((a != b).any(-1).sum()) <= 4  # tests/test_heightfield.py:397
+    assert float(b.sum()) > 0
+    # without the bounds the walk does not see the edit
+    c = tint.render_sample(*args, hf_mips=tiles, hf_offsets=offs,
+                           terrain_rgb=space.terrain_rgb, **kw)
+    assert not torch.equal(a, c)

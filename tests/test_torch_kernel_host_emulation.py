@@ -1,6 +1,6 @@
-"""The CUDA sources of K2 (csrc/svo_cast.cu), K1 (csrc/fog_march.cu),
-lane fetch (csrc/lanes.cuh) included, and K3 (csrc/resolve_fold.cu),
-compiled for the host and run under a small emulation of the CUDA
+"""The CUDA sources of K2 (csrc/svo_cast.cu), K4 (csrc/hf_cast.cu), K1
+(csrc/fog_march.cu), lane fetch (csrc/lanes.cuh) included, and K3
+(csrc/resolve_fold.cu), compiled for the host and run under a small emulation of the CUDA
 features they use: every thread of a block is a std::thread, the 32
 threads of a warp meet at a barrier for each warp collective
 (__ballot_sync, __shfl_sync, __shfl_xor_sync, __syncwarp), blocks run one
@@ -14,8 +14,8 @@ K3 must equal its plain versions bit for bit in both forms, for every
 ray tile and span count; a build whose spans merge out of order, or by t
 alone, must not.
 
-K2 must equal its plain version bit for bit (its float operations are
-IEEE on both sides). K1 calls expf, and the host's expf differs from
+K2 and K4 must equal their plain versions bit for bit (their float
+operations are IEEE on both sides). K1 calls expf, and the host's expf differs from
 torch.exp in the last bit for ~1% of inputs, so K1 is held bit for bit
 to itself under every lane-fetch setting and mask; against its plain
 version, its codes may differ on 0.5% of the lanes, a planet hit's t by
@@ -36,7 +36,8 @@ import torch
 
 from voxtracer_torch.core import camera as vcam
 from voxtracer_torch.core.spectra import fog_density
-from voxtracer_torch.kernels import build, fog, resolve, traverse
+from voxtracer_torch.kernels import (build, fog, heightfield, resolve,
+                                     traverse)
 from voxtracer_torch.world import svo, worldgen
 
 torch.set_num_threads(2)
@@ -186,7 +187,7 @@ def host_kernels(tmp_path_factory):
     procs = []
     fold_src = (build.CSRC / "resolve_fold.cu").read_text()
     sources = {name: (build.CSRC / f"{name}.cu").read_text()
-               for name in ("svo_cast", "fog_march")}
+               for name in ("svo_cast", "fog_march", "hf_cast")}
     sources["resolve_fold"] = fold_src
     for name, (old, new) in FOLD_MUTANTS.items():
         assert fold_src.count(old) == 1, name
@@ -206,8 +207,8 @@ def host_kernels(tmp_path_factory):
             pytest.skip(f"g++ lacks C++20 <barrier>: {err[:200]}")
         assert p.returncode == 0, err
         lib = ctypes.CDLL(str(so))
-        entries = [f"voxt_{name}"] if name in ("svo_cast", "fog_march") \
-            else ["voxt_resolve_fold", "voxt_resolve_fold_seg"]
+        entries = [f"voxt_{name}"] \
+            if name in ("svo_cast", "fog_march", "hf_cast") else ["voxt_resolve_fold", "voxt_resolve_fold_seg"]
         fns = []
         for entry in entries:
             fn = getattr(lib, entry)
@@ -277,6 +278,107 @@ def test_svo_cast_source_equals_plain(host_kernels, world, B, frac, fetch):
                               want[key].numpy().view(np.uint8)), key
     if B > 1:
         assert want["hit"].any()
+
+
+@pytest.fixture(scope="module")
+def hf_world():
+    """A 64^3 terrain world: its pack at tile logs 3 and 2 (the second
+    with a partial top grid) and its exact column heights."""
+    space = worldgen.generate(log2_size=6, verbose=False, device="cpu")
+    packs = [heightfield.build_height_mips(space.heights, tile_log=tl,
+                                           device="cpu") for tl in (3, 2)]
+    return packs, np.asarray(space.heights)
+
+
+def _hf_host(fn, pack, start, d, dist, active, t_min, skip_t0, init_desc,
+             fetch):
+    tiles, offsets, height = pack
+    B = d.shape[0]
+    out = dict(hit=torch.full((B,), True), t=torch.full((B,), 7.0),
+               normal=torch.full((B, 3), 7.0),
+               voxel=torch.full((B, 3), 7, dtype=torch.int32))
+    counter = torch.zeros(1, dtype=torch.int32)
+    rows = heightfield.row_starts(offsets, "cpu")
+    hmax_w = heightfield.terrain_max(tiles, offsets)
+    err = fn(tiles.data_ptr(), offsets[0], len(offsets) - 1,
+             rows.data_ptr(), height, hmax_w.data_ptr(), start.data_ptr(),
+             d.data_ptr(),
+             dist.data_ptr(), None if active is None else active.data_ptr(),
+             None if t_min is None else t_min.data_ptr(), int(skip_t0),
+             init_desc, out["hit"].data_ptr(), out["t"].data_ptr(),
+             out["normal"].data_ptr(), out["voxel"].data_ptr(), B,
+             counter.data_ptr(), *fetch, None)
+    assert err == 0
+    return out
+
+
+def _hf_rays(rng, B, heights):
+    """The K2 sets' rays, a quarter of them started inside solid columns
+    and some exactly on voxel boundaries."""
+    n = heights.shape[0]
+    start, d, dist = _svo_rays(rng, B, float(n))
+    sx, sz = np.nonzero(heights >= 2)
+    k = B // 4
+    if k:
+        pick = rng.integers(0, len(sx), k)
+        x, z = sx[pick], sz[pick]
+        y = heights[x, z] * rng.uniform(0.1, 0.9, k)
+        start[B - k:] = torch.from_numpy(np.stack(
+            [x + rng.uniform(0.2, 0.8, k), y, z + rng.uniform(0.2, 0.8, k)],
+            axis=-1).astype(np.float32))
+        start[B - k:B - k // 2] = torch.floor(start[B - k:B - k // 2])
+    return start, d, dist
+
+
+@pytest.mark.parametrize("fetch", FETCHES)
+@pytest.mark.parametrize("B,frac,pack_i,skip_t0,init_desc", [
+    (1, 1.0, 0, True, 0), (37, 0.5, 1, True, 0), (1000, None, 0, True, 0),
+    (2500, 0.3, 1, False, 1), (4099, 0.02, 0, True, 2)])
+def test_hf_cast_source_equals_plain(host_kernels, hf_world, B, frac, pack_i,
+                                     skip_t0, init_desc, fetch):
+    packs, heights = hf_world
+    pack = packs[pack_i]
+    rng = np.random.default_rng(B + 1)
+    start, d, dist = _hf_rays(rng, B, heights)
+    active = None if frac is None else torch.from_numpy(rng.random(B) < frac)
+    got = _hf_host(host_kernels["hf_cast"], pack, start, d, dist, active,
+                   None, skip_t0, init_desc, fetch)
+    want = heightfield.hf_raycast_plain(*pack, start, d, dist, skip_t0,
+                                        active, None, init_desc)
+    for key in ("hit", "t", "normal", "voxel"):
+        # bits, so that a -0.0 for a 0.0 would show
+        assert np.array_equal(got[key].numpy().view(np.uint8),
+                              want[key].numpy().view(np.uint8)), key
+    if B > 100:
+        assert want["hit"].any() and not want["hit"].all()
+
+
+def test_hf_cast_source_resumes_at_t_min(host_kernels, hf_world):
+    """A walk resumed in certified air, from the kernel's source: equal to
+    the plain version resumed alike and to the full walk."""
+    packs, heights = hf_world
+    rng = np.random.default_rng(5)
+    B = 1500
+    n = heights.shape[0]
+    start = rng.uniform(-n, 2 * n, (B, 3)).astype(np.float32)
+    start[:, 1] = rng.uniform(heights.max() + 1, 2 * n, B)
+    target = rng.uniform(0, n, (B, 3)).astype(np.float32)
+    d = target - start
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    start, d = torch.from_numpy(start), torch.from_numpy(d)
+    dist = torch.full((B,), traverse.FAR)
+    for pack in packs:
+        full = heightfield.hf_raycast_plain(*pack, start, d, dist)
+        t_min = torch.where(full["hit"], full["t"], float(n)) \
+            * torch.from_numpy(rng.random(B, np.float32))
+        want = heightfield.hf_raycast_plain(*pack, start, d, dist, True, None,
+                                            t_min, 3)
+        got = _hf_host(host_kernels["hf_cast"], pack, start, d, dist, None,
+                       t_min, True, 3, FETCHES[0])
+        for key in ("hit", "t", "normal", "voxel"):
+            assert torch.equal(got[key], want[key]), key
+            assert torch.equal(got[key], full[key]), key
+        assert full["hit"].sum() > B // 4
 
 
 def _fog_host(fn, args, active, n_steps, fetch):

@@ -393,3 +393,90 @@ def test_cast_counts_its_host_reads(terrain):
     rounds = sum(1 for n in r["n_widen"] if n)
     entered = min(rounds + 1, 3)  # the round that finds no tile is a read
     assert traster.host_reads == entered + (1 if r["n_widen"][-1] else 0)
+
+
+def _starved(monkeypatch):
+    """Bins of 2 candidates and widen rounds of 1, 1 and 2 records, so
+    that many tiles stay open after the last round and are re-cast."""
+    monkeypatch.setattr(traster, "WIDEN_K", (1, 1, 2))
+
+
+@pytest.mark.parametrize("pos,yaw,pitch,KS", [
+    (REF_POSE["pos"], REF_POSE["yaw"], REF_POSE["pitch"], 1),
+    ((30.0, 34.0, 12.0), 0.9, -0.3, 2),
+    ((32.3, 70.7, 31.9), 0.37, 1.2, 1),
+])
+def test_fallback_on_the_heightfield_equals_the_svo_fallback(
+        terrain, monkeypatch, pos, yaw, pitch, KS):
+    """``raster_cast_exact(hf=...)``: the still-open tiles re-cast on the
+    heightfield walk, resumed 2 voxels before each tile's nearest
+    unfolded bound, give the frame of the SVO fallback bit for bit."""
+    from voxtracer_torch.kernels import heightfield as thf
+
+    _starved(monkeypatch)
+    w = terrain["w"]
+    cam = tcam.Camera(pos=pos, yaw=yaw, pitch=pitch)
+    op = np.asarray(cam.pos, np.float32)
+    W, H = 64, 48
+    ds = None if KS == 1 else _jitter_dirs(cam, W, H, range(KS))
+    bins = traster.raster_bins(*terrain["args"], op, cam.basis(), w.height, W,
+                               H, cand_k=2, jittered=ds is not None)
+    raw = traster.raster_cast(*terrain["args"], op, cam.basis(), w.height, W,
+                              H, ray_dirs=ds, bins=bins)
+    assert raw["n_fallback"] > 4 and raw["fb_need"].any()
+    assert raw["fb_tmin"].shape == raw["fb_tiles"].shape
+    assert torch.isfinite(raw["fb_tmin"]).all()
+    # a needy ray's resolved t is no nearer than its tile's bound
+    assert (raw["fb_tmin"] > 0).all()
+    space = terrain["dev"].space
+    tiles, offs, _ = thf.build_height_mips(np.asarray(space.heights),
+                                           device="cpu")
+    rgb = terrain["soup"].rgb[0]
+    kw = dict(ray_dirs=ds, bins=bins)
+    want = traster.raster_cast_exact(*terrain["args"], op, cam.basis(),
+                                     w.height, W, H, table=w.table,
+                                     root=w.root, **kw)
+    before = thf.plain_lane_steps
+    got = traster.raster_cast_exact(*terrain["args"], op, cam.basis(),
+                                    w.height, W, H, hf=(tiles, offs, rgb),
+                                    **kw)
+    assert thf.plain_lane_steps > before
+    for f in ("hit", "t", "normal", "rgb"):
+        assert torch.equal(got[f], want[f]), f
+    assert not torch.equal(got["hit"], raw["hit"]) \
+        or not torch.equal(got["t"], raw["t"])
+
+
+def test_heightfield_fallback_equals_jax(terrain, monkeypatch):
+    """Against the JAX package's ``raster_cast_exact(hf_mips=...)`` with
+    its rounds at their smallest (its lists come in chunks of 8), under
+    the raster parity bar."""
+    from voxtracer.kernels import heightfield as jhf
+
+    from voxtracer_torch.kernels import heightfield as thf
+
+    _starved(monkeypatch)
+    cam = tcam.Camera(**REF_POSE)
+    op = np.asarray(cam.pos, np.float32)
+    W, H = 64, 48
+    w, soup, dev = terrain["w"], terrain["soup"], terrain["dev"]
+    heights = np.asarray(dev.space.heights)
+    tiles, offs, _ = thf.build_height_mips(heights, device="cpu")
+    bins = traster.raster_bins(*terrain["args"], op, cam.basis(), w.height, W,
+                               H, cand_k=2)
+    got = traster.raster_cast_exact(*terrain["args"], op, cam.basis(),
+                                    w.height, W, H, bins=bins,
+                                    hf=(tiles, offs, soup.rgb[0]))
+    assert got["n_fallback"] > 4
+    flat, joffs, _ = jhf.build_height_mips(heights)
+    want = jraster.raster_cast_exact(
+        jnp.asarray(soup.lo), jnp.asarray(soup.size),
+        jnp.asarray(jraster.pack_box_attr(soup)), op, np.asarray(cam.basis()),
+        dev.height, W, H, hf_mips=flat, hf_offsets=joffs,
+        terrain_rgb=jnp.asarray(soup.rgb[0]), want_voxel=False, cand_k=8,
+        widen_k=8, widen2_k=8, widen3_k=8)
+    assert int(np.asarray(want["n_fallback"])) > 4
+    for f in ("hit", "normal", "rgb"):
+        assert np.array_equal(got[f].numpy(), np.asarray(want[f])), f
+    assert np.allclose(got["t"].numpy(), np.asarray(want["t"]), rtol=1e-4,
+                       atol=1e-3)

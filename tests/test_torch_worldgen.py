@@ -52,14 +52,15 @@ def test_build_octree_node_identical():
 
 def test_generate_matches_jax_python_builder():
     want = jgen.generate(log2_size=6, verbose=False, backend="python")
-    got = tgen.generate(log2_size=6, verbose=False, device="cpu")
+    got = tgen.generate(log2_size=6, verbose=False, backend="python",
+                        device="cpu")
     assert np.array_equal(want.serialize().table, got.serialize().table)
 
 
 def test_upload_of_jax_world_equals_own_table():
     space = jgen.generate(log2_size=5, verbose=False, backend="python")
     jdev = space.serialize()
-    tdev = tgen.generate(log2_size=5, verbose=False,
+    tdev = tgen.generate(log2_size=5, verbose=False, backend="python",
                         device="cpu").serialize()
     a = tsvo.upload(jdev.table, jdev.root, jdev.height, "cpu")
     b = tsvo.upload(tdev.table, tdev.root, tdev.height, "cpu")

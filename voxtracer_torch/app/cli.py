@@ -8,7 +8,10 @@ Subcommands, with the flags and defaults of ``voxtracer/app/cli.py``:
   (default) or the per-ray SVO cast, ``shadow`` always on the SVO cast;
   prints the frame's milliseconds on the card.
 * ``headless`` — the day-cycle batch job: N samples per frame, EXR dump,
-  sun schedule, throughput prints (main.rs:112-145).
+  sun schedule, throughput prints (main.rs:112-145); ``--checkpoint-every
+  N`` snapshots the render state. ``--log2-size 13`` is the reference's
+  8192^3 world: built by the native builder (needs ``g++``), rendered on
+  the heightfield engine with no box soup.
 * ``combine`` — average frames/*.exr across iters into movie/*.png
   (main.rs:312-370).
 
@@ -164,7 +167,9 @@ def cmd_headless(args):
     headless_run(r, cam, out_dir=args.frames_dir,
                  frame_samples=args.frame_samples,
                  sun_start=np.asarray(args.sun, np.float64),
-                 max_iters=args.iters, max_frames=args.max_frames)
+                 max_iters=args.iters, max_frames=args.max_frames,
+                 checkpoint_every=args.checkpoint_every,
+                 checkpoint_path=args.checkpoint_path)
 
 
 def cmd_combine(args):
@@ -194,6 +199,9 @@ def build_parser():
     p.add_argument("--frame-samples", type=int, default=1000)
     p.add_argument("--iters", type=int, default=1)
     p.add_argument("--max-frames", type=int, default=None)
+    p.add_argument("--checkpoint-every", type=int, default=None,
+                   help="snapshot the render state every N samples")
+    p.add_argument("--checkpoint-path", default="render_state.npz")
     p.set_defaults(fn=cmd_headless)
 
     p = sub.add_parser("combine", help="frames/*.exr -> movie/*.png")

@@ -28,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("fog_march.cu", "svo_cast.cu", "resolve_fold.cu")
+SOURCES = ("fog_march.cu", "svo_cast.cu", "resolve_fold.cu", "hf_cast.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
@@ -59,6 +59,11 @@ SIGNATURES = {
     "voxt_resolve_fold_seg": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P,
                               _P, _P, _P, _F, _F, _F, _F, _F, _I, _I, _I,
                               _P),
+    # tiles, tile_log, levels, row_starts, height, hmax_w, start, dir,
+    # distance, active, t_min, skip_t0, init_desc, hit, t, normal, voxel, n,
+    # counter, static_pct, chunk, refill, stream
+    "voxt_hf_cast": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                     _P, _P, _P, _P, _I, _P, _I, _I, _I, _P),
 }
 
 # the persistent kernels index lanes (and 3 floats a lane) in int32

@@ -1,4 +1,5 @@
-"""The spectral path-tracing integrator, SVO engine.
+"""The spectral path-tracing integrator, on the SVO cast or, for terrain
+worlds, the heightfield walk.
 
 Per bounce, as ``voxtracer/kernels/integrator.py:trace_paths``
 (behavioural reference raytrace.wgsl:329-413):
@@ -29,6 +30,15 @@ their masks as the JAX loop does, the bounce march takes ``alive`` and
 the NEE march ``live_hit & facing`` (every use of its result is under
 that mask), so radiance and RNG state are those of the unmasked loop.
 
+With a heightfield pack (``hf_mips``, ``hf_offsets``, ``terrain_rgb``;
+kernels/heightfield.py) every bounce cast is the heightfield walk (K4)
+capped at the fog event, NEE is ONE uncapped walk (it settles near
+occluders in a few steps, so the two stages buy nothing), and hits shade
+with the terrain colour, the bits ``leaf_rgb`` reads from the one
+interned terrain leaf. The two engines return the same hits lane for
+lane, so radiance and RNG state are the same. With ``hf_edit_bounds``
+the cast is ``hf_raycast_edited`` and re-cast lanes shade by their leaf.
+
 With a box soup (``render_sample(..., soup=...)``) the first bounce takes
 its world hit from the rasterizer (``kernels/raster.raster_cast_exact``
 on the jittered camera rays) instead of an SVO cast: the same first hit,
@@ -46,7 +56,7 @@ from voxtracer_torch.core.sampling import (COS_SUN_RADIUS, PI, SUN_COLOR,
                                            SUN_WEIGHT)
 from voxtracer_torch.core.spectra import fog_density, spectral_throughput
 from voxtracer_torch.core.vecmath import dot
-from voxtracer_torch.kernels import atmosphere, raster
+from voxtracer_torch.kernels import atmosphere, heightfield, raster
 from voxtracer_torch.kernels.traverse import FAR, leaf_rgb, svo_raycast
 
 # most blocked shadow rays block within a few voxels (terrain self-shadow;
@@ -58,7 +68,9 @@ RR_THRESHOLD = 0.5
 
 def trace_paths(table, root: int, height: int, lut, start, direction,
                 wavelength, sun, state, max_bounces: int = 24,
-                fog_steps: int = 64, primary=None):
+                fog_steps: int = 64, primary=None, hf_mips=None,
+                hf_offsets: tuple | None = None, terrain_rgb=None,
+                hf_edit_bounds=None):
     """Trace one spectral path per ray; returns (state, radiance (..., 3)).
 
     table/root/height: the node table (kernels.traverse conventions);
@@ -68,8 +80,17 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
     state. ``primary``: optional uncapped first-bounce world hit (dict
     hit/t/normal/rgb of the batch shape, e.g. rasterized); bounce 0 then
     casts no SVO ray. An uncapped first hit nearer than the fog event is
-    what the capped cast would return.
+    what the capped cast would return. ``hf_mips``/``hf_offsets``/
+    ``terrain_rgb``: the world's heightfield pack (pre-edit) and terrain
+    colour; the casts then walk it (module doc). ``hf_edit_bounds``: (2,
+    3) or (K, 2, 3) boxes covering every point edit since worldgen, which
+    keeps the walk on an edited world.
     """
+    use_hf = hf_mips is not None
+    if use_hf:
+        hmax_w = heightfield.terrain_max(hf_mips, hf_offsets)
+        trgb = torch.as_tensor(terrain_rgb, dtype=torch.float32).to(
+            hf_mips.device)
     density = fog_density(wavelength)
     light = spectral_throughput(lut, wavelength)
     color = torch.zeros_like(light)
@@ -79,8 +100,22 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
     d = direction
 
     def cast(p, dr, distance, active):
-        return svo_raycast(table, root, height, p, dr, distance=distance,
-                           active=active)
+        if not use_hf:
+            return svo_raycast(table, root, height, p, dr, distance=distance,
+                               active=active)
+        if hf_edit_bounds is not None:
+            return heightfield.hf_raycast_edited(
+                hf_mips, hf_offsets, height, table, root, hf_edit_bounds, p,
+                dr, distance=distance, active=active, hmax_w=hmax_w)
+        return heightfield.hf_raycast(hf_mips, hf_offsets, height, p, dr,
+                                      distance=distance, active=active,
+                                      hmax_w=hmax_w)
+
+    def nee_occluded(p, sun_dir, act):
+        if use_hf:
+            return cast(p, sun_dir, FAR, act)["hit"]
+        blocked = cast(p, sun_dir, NEE_NEAR, act)["hit"]
+        return blocked | cast(p, sun_dir, FAR, act & ~blocked)["hit"]
 
     for i in range(max_bounces):
         state, planet = atmosphere.raycast_planet(state, pos, d, density,
@@ -92,7 +127,14 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
             svo_rgb = primary["rgb"]
         else:
             svo = cast(pos, d, cap, alive)
-            svo_rgb = leaf_rgb(table, svo["node"])
+            if not use_hf:
+                svo_rgb = leaf_rgb(table, svo["node"])
+            else:
+                svo_rgb = trgb.expand(svo["normal"].shape)
+                if hf_edit_bounds is not None:
+                    svo_rgb = torch.where(
+                        (svo["from_svo"] & svo["hit"])[..., None],
+                        leaf_rgb(table, svo["node"]), svo_rgb)
         use_svo = svo["hit"] & (svo["t"] <= cap)
         hit_any = planet["hit"] | use_svo
         rgba = torch.where(
@@ -120,9 +162,8 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
             state, pos, sun_dir, density, n_steps=fog_steps,
             active=live_hit & facing)
         nee_act = live_hit & facing & ~sun_planet["hit"]
-        blocked = cast(pos, sun_dir, NEE_NEAR, nee_act)["hit"]
-        blocked = blocked | cast(pos, sun_dir, FAR, nee_act & ~blocked)["hit"]
-        sun_visible = ~sun_planet["hit"] & ~blocked
+        sun_visible = ~sun_planet["hit"] \
+            & ~nee_occluded(pos, sun_dir, nee_act)
         nee = (
             SUN_COLOR
             * rgba[..., :3]
@@ -173,47 +214,66 @@ def _primary(cam_pos, cam_basis, frame_seed, width_px, height_px, device):
 
 
 def _raster_primary(table, root, height, cam_pos, cam_basis, d, width_px,
-                    height_px, soup, soup_bins):
+                    height_px, soup, soup_bins, hf=None):
     """The first world hit of every jittered camera ray from the box soup
-    (one k-batched resolve when ``d`` has a leading sample axis)."""
+    (one k-batched resolve when ``d`` has a leading sample axis); ``hf``
+    = (hf_mips, hf_offsets, terrain_rgb) puts the fallback on K4."""
     pr = raster.raster_cast_exact(
         soup[0], soup[1], soup[2], cam_pos, cam_basis, height, width_px,
-        height_px, table=table, root=root, ray_dirs=d, bins=soup_bins)
+        height_px, table=table, root=root, ray_dirs=d, bins=soup_bins, hf=hf)
     # a single sample comes back without its leading axis
     lead = pr["hit"].dim()
     return {k: pr[k].reshape(d.shape[:-1] + pr[k].shape[lead:])
             for k in ("hit", "t", "normal", "rgb")}
 
 
+def _fallback_hf(hf_mips, hf_offsets, terrain_rgb, hf_edit_bounds):
+    """The rasterizer's fallback rides the heightfield walk on unedited
+    terrain only (the walk alone does not see edits)."""
+    if hf_mips is None or terrain_rgb is None or hf_edit_bounds is not None:
+        return None
+    return hf_mips, hf_offsets, terrain_rgb
+
+
 def render_sample(table, root: int, height: int, lut, cam_pos, cam_basis,
                   sun, frame_seed, width_px: int, height_px: int,
                   max_bounces: int = 24, fog_steps: int = 64, soup=None,
-                  soup_bins=None):
+                  soup_bins=None, hf_mips=None,
+                  hf_offsets: tuple | None = None, terrain_rgb=None,
+                  hf_edit_bounds=None):
     """One progressive sample, 1 spectral path per pixel
     (raytrace.wgsl:415-430): seed from (frame_seed, pixel), draw jitter
     and wavelength, trace. ``soup``: optional (box_lo, box_size,
     box_attr) on the table's device (``raster.soup_to_device``); the
     first bounce is then rasterized, against ``soup_bins`` (the pose's
-    jittered ``raster.raster_bins``) when given. Returns the (H, W, 3)
-    radiance on the table's device."""
+    jittered ``raster.raster_bins``) when given. ``hf_*``/``terrain_rgb``:
+    the heightfield pack for ``trace_paths``; without edit bounds the
+    rasterizer's fallback rides it too. Returns the (H, W, 3) radiance on
+    the table's device."""
     dev = table.device
     state, d, wavelength = _primary(cam_pos, cam_basis, frame_seed, width_px,
                                     height_px, dev)
     primary = None
     if soup is not None:
-        primary = _raster_primary(table, root, height, cam_pos, cam_basis, d,
-                                  width_px, height_px, soup, soup_bins)
+        primary = _raster_primary(
+            table, root, height, cam_pos, cam_basis, d, width_px, height_px,
+            soup, soup_bins,
+            hf=_fallback_hf(hf_mips, hf_offsets, terrain_rgb, hf_edit_bounds))
     pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
     _, radiance = trace_paths(table, root, height, lut, pos, d, wavelength,
                               sun.to(dev), state, max_bounces, fog_steps,
-                              primary=primary)
+                              primary=primary, hf_mips=hf_mips,
+                              hf_offsets=hf_offsets, terrain_rgb=terrain_rgb,
+                              hf_edit_bounds=hf_edit_bounds)
     return radiance
 
 
 def render_samples(table, root: int, height: int, lut, cam_pos, cam_basis,
                    sun, frame_seeds, width_px: int, height_px: int,
                    max_bounces: int = 24, fog_steps: int = 64, soup=None,
-                   soup_bins=None):
+                   soup_bins=None, hf_mips=None,
+                   hf_offsets: tuple | None = None, terrain_rgb=None,
+                   hf_edit_bounds=None):
     """k samples traced as one batch of k*H*W paths; returns the (H, W, 3)
     radiance SUM, added sample by sample in order, so it equals k
     render_sample calls summed in sequence, bit for bit. With a ``soup``
@@ -230,12 +290,16 @@ def render_samples(table, root: int, height: int, lut, cam_pos, cam_basis,
         if soup_bins is None:
             soup_bins = raster.raster_bins(*soup, cam_pos, cam_basis, height,
                                            width_px, height_px, jittered=True)
-        primary = _raster_primary(table, root, height, cam_pos, cam_basis, d,
-                                  width_px, height_px, soup, soup_bins)
+        primary = _raster_primary(
+            table, root, height, cam_pos, cam_basis, d, width_px, height_px,
+            soup, soup_bins,
+            hf=_fallback_hf(hf_mips, hf_offsets, terrain_rgb, hf_edit_bounds))
     pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
     _, r = trace_paths(table, root, height, lut, pos, d, wavelength,
                        sun.to(dev), state, max_bounces, fog_steps,
-                       primary=primary)
+                       primary=primary, hf_mips=hf_mips,
+                       hf_offsets=hf_offsets, terrain_rgb=terrain_rgb,
+                       hf_edit_bounds=hf_edit_bounds)
     acc = r[0]
     for k in range(1, r.shape[0]):
         acc = acc + r[k]

@@ -25,7 +25,10 @@ Pipeline:
    nearer than that t. Tiles still open after the last round are listed
    with the rays that need a re-cast.
 3. ``apply_fallback`` re-casts those rays with the SVO cast (kernel K2),
-   so ``raster_cast_exact`` gives the traversal's first hit.
+   so ``raster_cast_exact`` gives the traversal's first hit; on unedited
+   terrain ``apply_fallback_hf`` re-casts them with the heightfield walk
+   (kernel K4) instead, resumed just before each tile's nearest unfolded
+   record.
 
 The JAX package needs fixed shapes, so it gives every tier, the near
 list, the widen rounds and the fallback a static capacity and reports
@@ -45,6 +48,7 @@ import torch
 
 from voxtracer_torch.core import camera as vcam
 from voxtracer_torch.core.vecmath import dot, rdiv
+from voxtracer_torch.kernels.heightfield import hf_raycast
 from voxtracer_torch.kernels.resolve import (dequant, resolve_fold,
                                              resolve_fold_seg)
 from voxtracer_torch.kernels.traverse import FAR, leaf_rgb, svo_raycast
@@ -342,8 +346,10 @@ def raster_cast(box_lo, box_size, box_attr, cam_pos, cam_basis,
     Returns a dict: hit (..., H, W) bool, t (0 on a miss), normal (...,
     3), rgb (..., 3); the counters n_pair, n_near, n_tier, n_widen (tiles
     entering each widen round) and n_fallback; fb_tiles (F,) the tiles
-    still not provably complete and fb_need (F, k*64) the rays among them
-    that need a re-cast (``apply_fallback``).
+    still not provably complete, fb_need (F, k*64) the rays among them
+    that need a re-cast (``apply_fallback``) and fb_tmin (F,) each such
+    tile's nearest unfolded distance bound: a needy ray's hit is provably
+    no nearer (``apply_fallback_hf`` resumes its walk there).
     """
     dev = box_lo.device
     TW = -(-W // TILE)
@@ -438,7 +444,7 @@ def raster_cast(box_lo, box_size, box_attr, cam_pos, cam_basis,
         hit=squeeze(hit), t=squeeze(t_out), normal=squeeze(normal),
         rgb=squeeze(rgb), n_pair=bins["n_pair"], n_near=n_near,
         n_tier=bins["n_tier"], n_widen=n_widen, n_fallback=int(fb.numel()),
-        fb_tiles=fb.to(i32), fb_need=fb_need,
+        fb_tiles=fb.to(i32), fb_need=fb_need, fb_tmin=fb_drop,
     )
 
 
@@ -507,15 +513,51 @@ def apply_fallback(res, table, root: int, tree_height: int, cam_pos,
     return out
 
 
+def apply_fallback_hf(res, hf_mips, hf_offsets: tuple, tree_height: int,
+                      cam_pos, cam_basis, W: int, H: int, terrain_rgb,
+                      distance=FAR, ray_dirs=None):
+    """``apply_fallback`` on the heightfield walk (K4) instead of the SVO
+    cast: exact on UNEDITED terrain, where the two agree lane for lane and
+    every hit has the one terrain colour. Each tile's walk resumes two
+    voxels before its nearest unfolded distance bound (``fb_tmin``): a
+    needy ray's hit is provably no nearer, and the slack keeps the
+    resume strictly in air."""
+    dev = hf_mips.device
+    basis = torch.as_tensor(cam_basis, dtype=torch.float32).to(dev)
+    fd, need, put = _fb_expand(res, basis, W, H, ray_dirs)
+    cam = torch.as_tensor(_host_vec(cam_pos), device=dev)
+    t_min = torch.clamp_min(res["fb_tmin"][:, None] - 2.0, 0.0)
+    fr = hf_raycast(hf_mips, hf_offsets, tree_height, cam, fd,
+                    distance=distance, active=need, t_min=t_min)
+    fb_hit = fr["hit"] & (fr["t"] <= distance) & need
+    keep = fb_hit[..., None].to(torch.float32)
+    trgb = torch.as_tensor(terrain_rgb, dtype=torch.float32).to(dev)
+    out = dict(res)
+    out["hit"] = put(res["hit"], fb_hit)
+    out["t"] = put(res["t"], torch.where(fb_hit, fr["t"], 0.0))
+    out["normal"] = put(res["normal"], fr["normal"] * keep)
+    out["rgb"] = put(res["rgb"], trgb * keep)
+    return out
+
+
 def raster_cast_exact(box_lo, box_size, box_attr, cam_pos, cam_basis,
                       tree_height: int, W: int, H: int, table=None,
-                      root=None, distance=FAR, ray_dirs=None, bins=None):
-    """``raster_cast`` plus the exact per-ray fallback when the node table
-    is given: then every pixel is the SVO traversal's first hit."""
+                      root=None, distance=FAR, ray_dirs=None, bins=None,
+                      hf=None):
+    """``raster_cast`` plus the exact per-ray fallback: on the SVO cast
+    when the node table is given, on the heightfield walk when ``hf`` =
+    (hf_mips, hf_offsets, terrain_rgb) of an UNEDITED terrain world is.
+    Then every pixel is the SVO traversal's first hit."""
     res = raster_cast(box_lo, box_size, box_attr, cam_pos, cam_basis,
                       tree_height, W, H, distance=distance,
                       ray_dirs=ray_dirs, bins=bins)
-    if table is not None and root is not None and res["n_fallback"]:
+    if not res["n_fallback"]:
+        return res
+    if hf is not None:
+        return apply_fallback_hf(res, hf[0], hf[1], tree_height, cam_pos,
+                                 cam_basis, W, H, hf[2], distance=distance,
+                                 ray_dirs=ray_dirs)
+    if table is not None and root is not None:
         res = apply_fallback(res, table, root, tree_height, cam_pos,
                              cam_basis, W, H, distance=distance,
                              ray_dirs=ray_dirs)

@@ -26,9 +26,9 @@ from voxtracer_torch.core import rng as vrng
 from voxtracer_torch.core.color import srgb_encode
 from voxtracer_torch.core.spectra import build_wl_to_rgb_lut
 from voxtracer_torch.core.vecmath import dot
-from voxtracer_torch.kernels import raster
+from voxtracer_torch.kernels import heightfield, raster
 from voxtracer_torch.kernels.integrator import render_sample, render_samples
-from voxtracer_torch.render import film
+from voxtracer_torch.render import checkpoint, film
 from voxtracer_torch.render.accumulator import Accumulator
 from voxtracer_torch.world import boxes
 from voxtracer_torch.world.svo import upload
@@ -62,21 +62,28 @@ def rotate_sun(sun: np.ndarray, step: float = DAY_STEP) -> np.ndarray:
 class Renderer:
     """Progressive spectral path tracer over an SVO world on ``device``.
 
-    Bounce and shadow casts are SVO casts (K2). With ``use_soup`` (the
-    default, as in the JAX ``Renderer``) a world that is unedited terrain
-    (its ``space`` carries an exact heightmap) casts every sample's
-    primaries on the box rasterizer: the terrain soup is extracted and
-    uploaded once per world and the pose-only bins are cached per pose.
-    Any other world, or ``use_soup=False``, keeps SVO-cast primaries; that
-    is decided up front from the heightmap. Both give the traversal's
-    first hit, so the radiance is the same. The world table and LUT are
-    uploaded once; per sample only the frame seed crosses from the host.
+    A world that is unedited terrain (its ``space`` carries an exact
+    heightmap) is a heightfield, and two engines use that. With ``use_hf``
+    (the default, as in the JAX ``Renderer``) bounce and shadow casts walk
+    the heightfield (K4) instead of the octree (K2); the pack is built
+    on first use. With ``use_soup`` (the default) every sample's
+    primaries come from the box rasterizer: the terrain soup is extracted
+    and uploaded once per world and the pose-only bins are cached per
+    pose. From ``HF_FRAME_SIZE`` up a world with the heightfield engine
+    builds no soup at all (hf-only mode): primaries are the first
+    bounce's heightfield cast, previews ``hf_frame_cast``. Any other
+    world, or both switches off, casts everything on the SVO. All engines
+    give the traversal's first hit, so the radiance is the same. The
+    world table and LUT are uploaded once; per sample only the frame seed
+    crosses from the host.
     """
+
+    HF_FRAME_SIZE = 4096  # world edge from which terrain worlds skip the soup
 
     def __init__(self, device_svo, width: int, height: int,
                  max_bounces: int = 24, fog_steps: int = 64,
                  seed: int | None = None, device="cuda",
-                 use_soup: bool = True):
+                 use_soup: bool = True, use_hf: bool = True):
         """``device_svo``: any object with numpy ``.table/.root/.height``
         (this package's ``DeviceSvo`` or the JAX package's)."""
         self.device = torch.device(device)
@@ -85,6 +92,7 @@ class Renderer:
         self.max_bounces = max_bounces
         self.fog_steps = fog_steps
         self.use_soup = use_soup
+        self.use_hf = use_hf
         self.lut = torch.from_numpy(build_wl_to_rgb_lut()).to(self.device)
         self.acc = Accumulator(width, height, self.device)
         self.host_rng = random.Random(seed)
@@ -92,20 +100,48 @@ class Renderer:
 
     def update_space(self, device_svo):
         """Upload a (re)serialized world; the accumulation restarts and
-        the soup and bins of the old world are dropped."""
+        the soup, bins and heightfield pack of the old world are dropped."""
         self.world = upload(device_svo.table, device_svo.root,
                             device_svo.height, self.device)
         self._dev = device_svo
         self._soup = None
+        self._hf = None  # lazy: (tiles, offsets, terrain rgb), or False
         self._bins = self._bins_key = None
         self.soup_world = (self.use_soup
                            and boxes.terrain_heights(device_svo) is not None)
         self.acc.invalidate()
 
+    def _get_hf(self):
+        """The heightfield engine's arguments ``(hf_mips, hf_offsets,
+        terrain_rgb)`` for an unedited terrain world (the pack is built
+        on first use), or three Nones: no exact heightmap, ``use_hf``
+        off, or a heightmap that is not the tree's size."""
+        if self._hf is None:
+            heights = boxes.terrain_heights(self._dev) if self.use_hf \
+                else None
+            self._hf = False
+            if heights is not None \
+                    and heights.shape[0] == 1 << self.world.height:
+                tiles, offsets, _ = heightfield.build_height_mips(
+                    heights, device=self.device)
+                rgb = getattr(self._dev.space, "terrain_rgb", (0.5, 0.5, 0.5))
+                self._hf = (tiles, offsets, torch.tensor(
+                    rgb, dtype=torch.float32, device=self.device))
+        return self._hf or (None, None, None)
+
+    def _hf_only(self) -> bool:
+        """Whether the world is terrain of at least ``HF_FRAME_SIZE`` with
+        the heightfield engine: then no soup is built and the heightfield
+        serves primaries too."""
+        heights = boxes.terrain_heights(self._dev)
+        if heights is None or max(heights.shape) < self.HF_FRAME_SIZE:
+            return False
+        return self._get_hf()[0] is not None
+
     def _get_soup(self):
         """The world's box soup on the device (extracted on first use),
-        or None when primaries stay on the SVO cast."""
-        if not self.soup_world:
+        or None when primaries stay on the per-ray cast."""
+        if not self.soup_world or self._hf_only():
             return None
         if self._soup is None:
             soup = boxes.extract_boxes(self._dev)
@@ -140,9 +176,12 @@ class Renderer:
         return (w.table, w.root, w.height, self.lut,
                 np.asarray(cam.pos, np.float32), cam.basis())
 
-    def _soup_kw(self, cam: vcam.Camera):
+    def _engine_kw(self, cam: vcam.Camera):
         soup = self._get_soup()
-        return dict(soup=soup, soup_bins=self._get_soup_bins(cam, soup))
+        hf_mips, hf_offsets, terrain_rgb = self._get_hf()
+        return dict(soup=soup, soup_bins=self._get_soup_bins(cam, soup),
+                    hf_mips=hf_mips, hf_offsets=hf_offsets,
+                    terrain_rgb=terrain_rgb)
 
     def sample(self, cam: vcam.Camera, sun: np.ndarray):
         """One progressive step: 1 spectral path per pixel."""
@@ -151,7 +190,7 @@ class Renderer:
         radiance = render_sample(
             *self._args(cam), sun_t, seed, self.width, self.height,
             max_bounces=self.max_bounces, fog_steps=self.fog_steps,
-            **self._soup_kw(cam))
+            **self._engine_kw(cam))
         self.acc.add(radiance)
 
     def sample_batch(self, cam: vcam.Camera, sun: np.ndarray, k: int):
@@ -162,7 +201,7 @@ class Renderer:
         total = render_samples(
             *self._args(cam), sun_t, seeds, self.width, self.height,
             max_bounces=self.max_bounces, fog_steps=self.fog_steps,
-            **self._soup_kw(cam))
+            **self._engine_kw(cam))
         self.acc.add(total, k)
 
     def preview_frame(self, cam: vcam.Camera, sun: np.ndarray):
@@ -170,18 +209,32 @@ class Renderer:
         (software.rs:260-276 shading on the rasterized first hit), on the
         pose's cached bins. Tiles the rasterizer cannot prove complete
         are not re-cast (preview only; the path-traced accumulation stays
-        exact). Returns (H, W, 3) linear radiance, or None when the world
-        has no soup."""
-        soup = self._get_soup()
-        if soup is None:
-            return None
+        exact). Without a soup (hf-only mode) the frame is the exact
+        ``hf_frame_cast``. Returns (H, W, 3) linear radiance, or None when
+        the world has neither."""
         sun = np.asarray(sun, np.float64)
         sun_t = torch.from_numpy(
             (sun / np.linalg.norm(sun)).astype(np.float32)).to(self.device)
+        soup = self._get_soup()
+        if soup is None:
+            return self._hf_preview(cam, sun_t)
         r = raster.raster_cast(
             *soup, np.asarray(cam.pos, np.float32), cam.basis(),
             self.world.height, self.width, self.height,
             bins=self._get_soup_bins(cam, soup))
+        lighting = dot(sun_t, r["normal"]) / 2.0 + 1.0
+        return r["rgb"] * lighting[..., None] * r["hit"][..., None]
+
+    def _hf_preview(self, cam: vcam.Camera, sun_t):
+        """``preview_frame`` on the heightfield engine: exact primaries,
+        the same shading."""
+        hf_mips, hf_offsets, terrain_rgb = self._get_hf()
+        if hf_mips is None:
+            return None
+        r = heightfield.hf_frame_cast(
+            hf_mips, hf_offsets, self.world.height,
+            np.asarray(cam.pos, np.float32), cam.basis(), self.width,
+            self.height, terrain_rgb)
         lighting = dot(sun_t, r["normal"]) / 2.0 + 1.0
         return r["rgb"] * lighting[..., None] * r["hit"][..., None]
 
@@ -206,13 +259,17 @@ class Renderer:
 def headless_run(renderer: Renderer, cam: vcam.Camera, out_dir="frames",
                  frame_samples: int = 1000, sun_start=SUN_START,
                  max_iters: int = 1, max_frames: int | None = None,
-                 batch: int = 1, log=print):
+                 checkpoint_every: int | None = None,
+                 checkpoint_path="render_state.npz", batch: int = 1,
+                 log=print):
     """Day-cycle batch render (main.rs:112-145, 402-408).
 
     A sample that raises is retried (the in-flight frame restarts) up to
-    three times, then the error propagates. ``batch`` > 1 traces that many
-    samples per call (Renderer.sample_batch); each sample's radiance is
-    the same either way."""
+    three times, then the error propagates. ``checkpoint_every`` writes
+    the whole render state to ``checkpoint_path`` whenever the frame's
+    sample count is a multiple of it (render/checkpoint.py). ``batch`` > 1
+    traces that many samples per call (Renderer.sample_batch); each
+    sample's radiance is the same either way."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     sun = np.asarray(sun_start, np.float64)
@@ -241,6 +298,9 @@ def headless_run(renderer: Renderer, cam: vcam.Camera, out_dir="frames",
                 renderer.acc.invalidate()
                 continue
             done_samples = renderer.acc.samples
+            if checkpoint_every and done_samples % checkpoint_every == 0:
+                checkpoint.save_render_state(checkpoint_path, renderer, cam,
+                                             sun)
         renderer.save_exr(out / f"{it:04d}-{seq:03d}.exr")
         seq += 1
         sun = rotate_sun(sun, DAY_STEP)

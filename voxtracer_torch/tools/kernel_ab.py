@@ -14,8 +14,19 @@ a batch-8 main-path call.
     # (a shaded frame on the rasterizer, bins cached) at 1024^3, 853x480,
     # and one torch.profiler window over each, for whichever
     # voxtracer_torch is first on the path (so PYTHONPATH=<other tree>
-    # times that tree)
-    python voxtracer_torch/tools/kernel_ab.py e2e [--reps N]
+    # times that tree). --engine hf | svo sets the Renderer's use_hf (the
+    # heightfield walk K4, or the SVO cast K2, for bounce and shadow
+    # rays); both runs hf, svo, svo, hf in turns in this one process;
+    # package (the default) passes nothing, so a tree from before the
+    # switch runs too. --log2-size 13 is the hf-only world (no preview
+    # timing there: it has no bins).
+    python voxtracer_torch/tools/kernel_ab.py e2e [--reps N] \
+        [--engine package|hf|svo|both] [--log2-size L]
+
+    # K4 (and K2 beside it) on the smoke's ray sets over lane-fetch
+    # settings (static percent, lanes per claim, idle threads to refill;
+    # csrc/lanes.cuh): a choice of schedule, the results do not change
+    python -m voxtracer_torch.tools.kernel_ab fetch [--reps N]
 
 Every line it prints names the card and its power limit; it fails when
 torch sees no card.
@@ -38,7 +49,8 @@ _L = ctypes.c_longlong
 # the old tree's C entry point: K3 as one block per tile
 OLD_RESOLVE_FOLD = (_P, _P, _P, _P, _P, _L, _P, _F, _F, _F, _F, _F,
                     _P, _P, _P, _I, _I, _I, _P)
-KERNEL_NAMES = ("svo_cast_kernel", "fog_march_kernel", "resolve_fold_kernel")
+KERNEL_NAMES = ("svo_cast_kernel", "fog_march_kernel", "resolve_fold_kernel",
+                "hf_cast_kernel")
 # (ray tile, spans) of the resolve fold; 0 is the launcher's own choice
 FOLD_SWEEP = [(0, 0)] + [(rt, sp) for rt in (2, 4) for sp in (1, 2, 4, 8, 16)]
 
@@ -281,7 +293,7 @@ def run_kernels(old_csrc: Path, sweep: bool, reps: int):
     _fold_ab(old, new, smi, sweep, reps)
 
 
-def run_e2e(reps: int):
+def run_e2e(reps: int, engine: str = "package", log2_size: int = 10):
     import torch
 
     import voxtracer_torch
@@ -291,37 +303,97 @@ def run_e2e(reps: int):
 
     smi = card()
     dev = torch.device("cuda")
-    s = 1024 / 8192.0
+    s = (1 << log2_size) / 8192.0
     cam = vcam.Camera(pos=tuple(np.asarray(vcam.DEFAULT_POSE.pos) * s),
                       yaw=vcam.DEFAULT_POSE.yaw, pitch=vcam.DEFAULT_POSE.pitch)
     sun = np.asarray([0.8, 10.2743, 3.7])
-    space = worldgen.generate(log2_size=10, verbose=False, device=dev)
-    r = Renderer(space.serialize(), 853, 480, seed=0, device=dev)
-    r.sample_batch(cam, sun, 8)  # build, soup, bins, warm-up
-    ms = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        r.sample_batch(cam, sun, 8)
-        torch.cuda.synchronize()
-        ms.append(1e3 * (time.monotonic() - t0))
-    prof = profile_call(lambda: r.sample_batch(cam, sun, 8))
-    # the shaded preview frame: the rasterizer without its bins (cached
-    # per pose), K3 and the PyTorch code around it
-    r.preview_frame(cam, sun)
-    frame_ms = []
-    for _ in range(10 * reps):
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        r.preview_frame(cam, sun)
-        torch.cuda.synchronize()
-        frame_ms.append(1e3 * (time.monotonic() - t0))
-    frame_prof = profile_call(lambda: r.preview_frame(cam, sun))
-    print(json.dumps(dict(package=str(Path(voxtracer_torch.__file__).parent),
-                          card=smi, batch8_call_ms=ms,
-                          paths_per_px_per_s=[8e3 / m for m in ms],
-                          profile=prof, preview_frame_ms=frame_ms,
-                          preview_profile=frame_prof)))
+    space = worldgen.generate(log2_size=log2_size, verbose=False, device=dev)
+    dev_svo = space.serialize()
+    turns = dict(both=("hf", "svo", "svo", "hf")).get(engine, (engine,))
+    renderers = {}
+    for name in turns:
+        if name in renderers:
+            continue
+        kw = {} if name == "package" else dict(use_hf=name == "hf")
+        r = Renderer(dev_svo, 853, 480, seed=0, device=dev, **kw)
+        r.sample_batch(cam, sun, 8)  # build, soup, bins, pack, warm-up
+        renderers[name] = r
+    for name in turns:
+        r = renderers[name]
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            r.sample_batch(cam, sun, 8)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.monotonic() - t0))
+        prof = profile_call(lambda: r.sample_batch(cam, sun, 8))
+        row = dict(package=str(Path(voxtracer_torch.__file__).parent),
+                   card=smi, engine=name, log2_size=log2_size,
+                   batch8_call_ms=ms,
+                   paths_per_px_per_s=[8e3 / m for m in ms], profile=prof)
+        # the shaded preview frame: the rasterizer without its bins (cached
+        # per pose), K3 and the PyTorch code around it
+        if r.preview_frame(cam, sun) is not None and log2_size < 12:
+            frame_ms = []
+            for _ in range(10 * reps):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                r.preview_frame(cam, sun)
+                torch.cuda.synchronize()
+                frame_ms.append(1e3 * (time.monotonic() - t0))
+            row.update(preview_frame_ms=frame_ms, preview_profile=profile_call(
+                lambda: r.preview_frame(cam, sun)))
+        print(json.dumps(row))
+
+
+# (static percent, chunk, refill) of the persistent lane fetch
+FETCH_SWEEP = [(75, 32, 4), (90, 32, 4), (90, 32, 8), (100, 32, 4),
+               (75, 128, 4), (90, 128, 4), (90, 256, 8), (97, 128, 4),
+               (97, 512, 4)]
+
+
+def run_fetch(reps: int):
+    """K4's and K2's ms on the smoke's ray sets for every setting of
+    FETCH_SWEEP, one JSON line a set; the outputs must not change."""
+    sys.path.insert(0, str(Path.cwd()))
+    import torch
+
+    import chip_smoke as cs
+    from voxtracer_torch.kernels import heightfield, traverse
+    from voxtracer_torch.world import svo, worldgen
+
+    smi = card()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20261016)
+    space = worldgen.generate(log2_size=cs.LOG2_SIZE, verbose=False,
+                              device=dev)
+    dsvo = space.serialize()
+    world = svo.upload(dsvo.table, dsvo.root, dsvo.height, dev)
+    pack = heightfield.build_height_mips(space.heights, device=dev)
+    casts = {
+        "hf_cast": (heightfield, lambda *a, **k: heightfield.hf_raycast(
+            *pack, *a, **k)),
+        "svo_cast": (traverse, lambda *a, **k: traverse.svo_raycast(
+            world.table, world.root, world.height, *a, **k)),
+    }
+    for name, start, d, distance, active in cs._svo_sets(rng, world, dev):
+        for kernel, (mod, cast) in casts.items():
+            keep = (mod.STATIC_PCT, mod.CHUNK, mod.REFILL)
+            want = cast(start, d, distance, active=active)
+            row = {}
+            for fetch in FETCH_SWEEP:
+                mod.STATIC_PCT, mod.CHUNK, mod.REFILL = fetch
+                got = cast(start, d, distance, active=active)
+                if not all(torch.equal(got[k], want[k]) for k in want):
+                    raise AssertionError(f"{kernel} {name}: {fetch} changed "
+                                         "an output")
+                row["/".join(map(str, fetch))] = cs._ms(
+                    lambda: cast(start, d, distance, active=active), reps)
+            mod.STATIC_PCT, mod.CHUNK, mod.REFILL = keep
+            print(json.dumps(dict(fetch_sweep=name, kernel=kernel, card=smi,
+                                  lanes=int(d.shape[0]),
+                                  pct_chunk_refill_ms=row)))
 
 
 def main(argv=None) -> int:
@@ -333,11 +405,18 @@ def main(argv=None) -> int:
     k.add_argument("--reps", type=int, default=10)
     e = sub.add_parser("e2e")
     e.add_argument("--reps", type=int, default=3)
+    e.add_argument("--engine", choices=("package", "hf", "svo", "both"),
+                   default="package")
+    e.add_argument("--log2-size", type=int, default=10)
+    f = sub.add_parser("fetch")
+    f.add_argument("--reps", type=int, default=10)
     a = ap.parse_args(argv)
     if a.mode == "kernels":
         run_kernels(a.old_csrc, a.sweep, a.reps)
+    elif a.mode == "fetch":
+        run_fetch(a.reps)
     else:
-        run_e2e(a.reps)
+        run_e2e(a.reps, a.engine, a.log2_size)
     return 0
 
 

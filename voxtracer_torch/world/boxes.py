@@ -197,11 +197,15 @@ def terrain_leaf_id(dev) -> int:
     """Slot id of the terrain's single block leaf: the first slot whose
     node is a block, the same slot the JAX package finds through
     ``solid_leaf`` (blocks are the nodes whose solid leaf is themselves).
-    A JAX ``DeviceSvo`` answers from its ``solid_leaf``."""
+    A JAX ``DeviceSvo`` answers from its ``solid_leaf``, a native space
+    from the leaf under its first solid column."""
     solid_leaf = getattr(dev, "solid_leaf", None)
     if solid_leaf is not None:
         ids = np.nonzero(
             solid_leaf == np.arange(len(solid_leaf), dtype=np.int64))[0]
+    elif hasattr(dev.space, "leaf_at"):
+        cols = np.argwhere(np.asarray(dev.space.heights) > 0)
+        ids = [dev.space.leaf_at((x, 0, z)) for x, z in cols[:1]]
     else:
         kinds = dev.space._kind
         ids = [nid for nid, kind in enumerate(kinds) if kind == _BLOCK]

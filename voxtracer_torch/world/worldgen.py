@@ -2,8 +2,9 @@
 
 Pipeline of ``voxtracer/world/worldgen.py`` (behavioural reference
 worldgen.rs:10-96): the heightmap is evaluated in torch on the given
-device; the min/max pyramid and the bottom-up octree build stay numpy on
-the host, as in the JAX package's Python builder.
+device; the octree is built on the host, by the native C++ builder
+(world/native.py) or by the numpy pyramid and the Python bottom-up
+builder below, node for node the same tree.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from voxtracer_torch.core.vecmath import div
+from voxtracer_torch.world import native
 from voxtracer_torch.world.noise import fbm2, simplex2
 from voxtracer_torch.world.svo import SvoSpace
 
@@ -172,10 +174,14 @@ def build_octree(mins, maxs, space: SvoSpace | None = None,
 
 
 def generate(log2_size: int = REFERENCE_LOG2_SIZE, verbose: bool = True,
-             seed_scale: int | None = None, seed_noise: int | None = None,
-             device="cuda") -> SvoSpace:
+             backend: str = "auto", seed_scale: int | None = None,
+             seed_noise: int | None = None, device="cuda"):
     """Full worldgen (worldgen.rs:10-59): heightmap on ``device``, then
-    the numpy pyramid and the Python octree builder on the host.
+    the octree on the host.
+
+    backend: ``"native"`` (the C++ builder; raises without ``g++``),
+    ``"python"``, or ``"auto"`` (native when it can be built). Both give
+    identical octrees; the native one builds its pyramid internally.
 
     The space keeps its heightmap (``heights``, uint32 [x, z]), the
     terrain colour and ``heights_exact``: an unedited terrain world is a
@@ -189,12 +195,20 @@ def generate(log2_size: int = REFERENCE_LOG2_SIZE, verbose: bool = True,
         device=device,
     )
     t1 = time.monotonic()
-    mins, maxs = minmax_pyramid(h)
-    space = build_octree(mins, maxs)
+    if backend not in ("auto", "native", "python"):
+        raise ValueError(f"generate: unknown backend {backend!r}")
+    if backend == "auto":
+        backend = "native" if native.available() else "python"
+    if backend == "native":
+        space = native.NativeSvoSpace()
+        space.build_terrain(h, TERRAIN_RGB)
+    else:
+        mins, maxs = minmax_pyramid(h)
+        space = build_octree(mins, maxs)
     t2 = time.monotonic()
     if verbose:
         print(f"heightmaps in {t1 - t0:.3f}s")
-        print(f"octree in {t2 - t1:.3f}s [python]")
+        print(f"octree in {t2 - t1:.3f}s [{backend}]")
         print(f"world size: {space.mem_usage() / 1024 / 1024:.0f} mib "
               f"({space.num_nodes()} nodes)")
     space.heights = h
