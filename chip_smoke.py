@@ -20,8 +20,9 @@ Phases, each printing its lines; any failure exits non-zero:
    rays with random caps, and a random active mask, the three casts of a
    main-path bounce from the camera hits (the fog-capped indirect cast of
    cosine-hemisphere directions, the NEE cast capped at NEE_NEAR and the
-   full NEE cast toward sun-cone directions, each with its mask), and
-   random rays at batch-8 width with 1%, 10% and 50% active; K3 on
+   full NEE cast toward sun-cone directions, each with its mask, and the
+   heightfield engine's one NEE cast), and random rays at batch-8 width
+   with 1%, 10% and 50% active; K3 on
    the 1024^3 world's raster bins at 853x480, in its explicit-list form
    (R = 64 pixel-center rays and R = 512, 8 jittered samples, K = 16; a
    widen-shaped call, 512 tiles x K = 1024; the near pre-pass's shared
@@ -33,8 +34,10 @@ Phases, each printing its lines; any failure exits non-zero:
    409,440-lane and batch-8 sets (strict caps), on walks resumed in
    certified air, on rays that start inside solid and, through
    hf_raycast_edited, on an edited world, each also held to K2 on the
-   same rays up to the edge-graze budget. Times both with CUDA events;
-   each kernel's bound is computed from this run's inputs.
+   same rays up to the edge-graze budget; every K4 line gives the shape
+   of the walk the plain version counted (steps a walking lane: mean,
+   p99, max; lane-steps by walk level and by move). Times both with CUDA
+   events; each kernel's bound is computed from this run's inputs.
 4. goldens: the 64^3 scene of tests/test_golden.py on the card:
    primary_64w and shadow_64w through the SVO cast, primary_64w through
    the rasterizer, and the fixed-seed path sample.
@@ -60,9 +63,11 @@ Phases, each printing its lines; any failure exits non-zero:
    frames x 16 samples at 853x480, 24 bounces, 64 fog steps, batches of 8,
    EXR writes and a checkpoint at the end of each frame, the last one
    read back (the resumed accumulator equal bit for bit). K1 and K4 must
-   have launched. K4 on that world's camera rays against its plain
-   version and K2. Prints worldgen, octree and pack seconds, device memory
-   in use, paths/px/s, the checkpoint's seconds and size, the preview
+   have launched. K4 on that world at the main path's shapes (camera
+   rays, a bounce-1 indirect cast, the NEE cast, batch-8 width with 1%,
+   10% and 50% active) against its plain version and K2, each with its
+   bound and walk shape. Prints worldgen, octree and pack seconds, device
+   memory in use, paths/px/s, the checkpoint's seconds and size, the preview
    frame's ms, and a profile window over a batch-8 call.
 
 The line before the last is the per-kernel JSON record; the last line is
@@ -302,11 +307,13 @@ def phase_fog(rng, dev):
     return rec
 
 
-def _svo_sets(rng, world, dev):
+def _svo_sets(rng, world, dev, log2_size=LOG2_SIZE):
     """The K2 ray sets as (name, start, d, distance, active), flat:
     camera rays, random rays with random caps, and those with a random
     mask, at 409,440 lanes; the casts of a main-path bounce from the
-    camera hits; and random rays at batch-8 width with sparse masks."""
+    camera hits (the SVO engine's two-stage NEE, and the heightfield
+    engine's one NEE cast); and random rays at batch-8 width with sparse
+    masks. ``world``: the SVO world of edge 2^log2_size."""
     import torch
 
     from voxtracer_torch.core import sampling
@@ -316,8 +323,8 @@ def _svo_sets(rng, world, dev):
     from voxtracer_torch.kernels.integrator import NEE_NEAR
     from voxtracer_torch.kernels.traverse import FAR, svo_raycast
 
-    n = float(1 << LOG2_SIZE)
-    cam = _smoke_camera(LOG2_SIZE)
+    n = float(1 << log2_size)
+    cam = _smoke_camera(log2_size)
     o, d = _camera_rays(cam, dev)
     t = lambda a: torch.as_tensor(a, device=dev).contiguous()  # noqa: E731
     far = torch.full((RAYS,), FAR, dtype=torch.float32, device=dev)
@@ -357,6 +364,7 @@ def _svo_sets(rng, world, dev):
     sets.append(("NEE near", pos, sun_dir,
                  torch.full((RAYS,), NEE_NEAR, device=dev), nee_act))
     sets.append(("NEE far", pos, sun_dir, far, nee_act & ~near))
+    sets.append(("NEE", pos, sun_dir, far, nee_act))
 
     wide = random_rays(WIDE)
     sets += [(f"batch-8 width, {share} active", *wide, active)
@@ -436,15 +444,47 @@ def phase_svo(sets, world):
     return rec
 
 
+# the K4 sets of the main path at 8192^3 (of _svo_sets' names)
+FULL_HF_SETS = ("camera", "bounce-1 indirect", "NEE") + tuple(
+    f"batch-8 width, {int(100 * f)}% active" for f in MASK_SHARES)
+
+
+def _walk_shape(w):
+    """The plain version's record of a walk (hf_raycast_plain's ``walk``)
+    in a line: steps a walking lane took (mean, p99, max), lane-steps by
+    walk level and by move."""
+    per = w["per_lane"]
+    per = per[per > 0].double()
+    if not per.numel():
+        return "no lane walked"
+    p99 = float(per.kthvalue(max(1, int(np.ceil(0.99 * per.numel()))))[0])
+    total = sum(w["by_level"].values())
+    levels = ", ".join(f"L{lv} {c} ({100 * c / total:.1f}%)"
+                       for lv, c in sorted(w["by_level"].items()))
+    moves = ", ".join(f"{m} {100 * c / total:.1f}%"
+                      for m, c in w["moves"].items())
+    return (f"steps a walking lane: mean {float(per.mean()):.2f}, p99 "
+            f"{p99:.0f}, max {int(per.max())}; lane-steps by level: "
+            f"{levels}; by move: {moves}")
+
+
 def _hf_bound(pack, steps, B, active, t_min):
     """K4's bound: every lane's outputs (29 B) and mask byte, the inputs
-    (28 B, 32 with a resume) of active lanes, and per walk step of an
-    active lane one float of the pack and the step's operations (counted
-    by the plain version)."""
+    (28 B, 32 with a resume) of active lanes, the pack's floats the walk
+    reads (one a walk step of an active lane, each float at most once),
+    and the steps' operations (steps counted by the plain version)."""
     n_act = B if active is None else int(active.sum())
     nbytes = (B * (29 + (0 if active is None else 1))
-              + n_act * (28 if t_min is None else 32) + steps * 4)
+              + n_act * (28 if t_min is None else 32)
+              + min(steps, pack[0].numel()) * 4)
     return _bound(nbytes, n_act * K4_SETUP_OPS + steps * K4_STEP_OPS)
+
+
+def _bits(x):
+    """A float tensor's bits as int32 (other tensors as they are)."""
+    import torch
+
+    return x.view(torch.int32) if x.is_floating_point() else x
 
 
 def _cast_mismatch(a, b):
@@ -477,9 +517,10 @@ def _check_hf(name, pack, world, start, d, distance, active=None, t_min=None,
                                       active=active, t_min=t_min,
                                       init_desc=init_desc, hmax_w=hmax_w)
 
-    def plain():
+    def plain(walk=None):
         return heightfield.hf_raycast_plain(*pack, start, d, distance, True,
-                                            active, t_min, init_desc)
+                                            active, t_min, init_desc,
+                                            walk=walk)
 
     def k2():
         return traverse.svo_raycast(world.table, world.root, world.height,
@@ -488,14 +529,17 @@ def _check_hf(name, pack, world, start, d, distance, active=None, t_min=None,
     B = d.shape[0]
     k = kernel()
     before = heightfield.plain_lane_steps
-    p = plain()
+    walk = {}
+    p = plain(walk)
     steps = heightfield.plain_lane_steps - before
+    shape = _walk_shape(walk)
     torch.cuda.synchronize()
     for other, what in ((p, "its plain version"), (want, "the full walk")):
         if other is None:
             continue
         for key in ("hit", "t", "normal", "voxel"):
-            if not torch.equal(k[key], other[key]):
+            # bits: a -0.0 for a 0.0 differs
+            if not torch.equal(_bits(k[key]), _bits(other[key])):
                 bad = (k[key] != other[key]).reshape(B, -1).any(1).sum()
                 raise AssertionError(f"hf_cast {name}: {key} differs from "
                                      f"{what} in {int(bad)} lanes")
@@ -516,8 +560,8 @@ def _check_hf(name, pack, world, start, d, distance, active=None, t_min=None,
             f"hit): all four outputs equal the plain version's, kernel "
             f"{ms:.4f} ms ({loop_ms:.4f} in a back-to-back loop), {steps} "
             f"lane-steps, bound {bound_ms:.4f} ms "
-            f"({bound_by}); {n_bad} lanes differ from K2 {kinds} (budget "
-            f"{budget})")
+            f"({bound_by}); {shape}; {n_bad} lanes differ from K2 {kinds} "
+            f"(budget {budget})")
     plain_ms = None
     if timed:
         plain_ms = _ms(plain, 1)
@@ -1376,11 +1420,15 @@ def phase_full(dev):
           f"({tiles.numel() * 4 / 2**20:.1f} MiB) in {t3 - t2:.2f} s; device "
           f"memory in use {torch.cuda.memory_allocated() / 2**20:.1f} MiB")
     cam = _smoke_camera(FULL_LOG2_SIZE)
-    # K4 on the full-size pack against its plain version and against K2
-    far = torch.full((RAYS,), 1.0e12, device=dev)
-    _check_hf(f"camera rays at {n}^3", (*renderer._get_hf()[:2],
-                                        FULL_LOG2_SIZE), renderer.world,
-              *_camera_rays(cam, dev), far, timed=True)
+    # K4 on the full-size pack at the main path's shapes, against its
+    # plain version and against K2
+    pack = (*renderer._get_hf()[:2], FULL_LOG2_SIZE)
+    rng = np.random.default_rng(20261017)
+    for name, start, d, distance, active in _svo_sets(
+            rng, renderer.world, dev, FULL_LOG2_SIZE):
+        if name in FULL_HF_SETS:
+            _check_hf(f"{name} at {n}^3", pack, renderer.world, start, d,
+                      distance, active, timed=name == "camera")
     counts = _headless(renderer, cam, 2, 16, 8, "main path",
                        log2_size=FULL_LOG2_SIZE, checkpoint_every=16)
     _expect_launches("main path", counts, ("fog_march", "hf_cast"),

@@ -326,10 +326,13 @@ def terrain(cuda):
             np.asarray(space.heights))
 
 
-@pytest.mark.parametrize("tile_log", [2, 3])
+@pytest.mark.parametrize("tile_log", heightfield.TILE_LOGS)
 @pytest.mark.parametrize("kind", ["random", "capped", "active", "kept t0",
-                                  "resumed"])
+                                  "resumed", "low face"])
 def test_hf_cast_matches_plain_bit_for_bit(cuda, terrain, kind, tile_log):
+    """Every output compared by its bits ("low face": starts on integer
+    points, half on the floor, with zero direction components and t == 0
+    hits kept, so some hit at t0 = max(-0.0, 0.0) = +0.0)."""
     world, heights = terrain
     pack = heightfield.build_height_mips(heights, tile_log=tile_log,
                                          device=cuda)
@@ -345,11 +348,17 @@ def test_hf_cast_matches_plain_bit_for_bit(cuda, terrain, kind, tile_log):
     start = torch.as_tensor(start.astype(np.float32), device=cuda)
     d = rng.normal(size=(B, 3)).astype(np.float32)
     d[: B // 16, 1] = 0.0
+    if kind == "low face":
+        g = rng.integers(0, int(n) + 1, (B, 3)).astype(np.float32)
+        g[:, 1] = np.where(rng.random(B) < 0.5, 0.0, rng.integers(0, 24, B))
+        start = torch.as_tensor(g, device=cuda)
+        d[rng.random((B, 3)) < 0.3] = 0.0
+        d[np.abs(d).sum(1) == 0, 1] = 1.0
     d = torch.as_tensor(d / np.linalg.norm(d, axis=-1, keepdims=True),
                         device=cuda)
     dist = torch.full((B,), traverse.FAR, device=cuda)
     active = t_min = None
-    skip_t0, init_desc = kind != "kept t0", 0
+    skip_t0, init_desc = kind not in ("kept t0", "low face"), 0
     if kind in ("capped", "active"):
         dist = torch.as_tensor(rng.random(B, np.float32) * n, device=cuda)
     if kind == "active":
@@ -370,8 +379,13 @@ def test_hf_cast_matches_plain_bit_for_bit(cuda, terrain, kind, tile_log):
                                      t_min, init_desc)
     torch.cuda.synchronize()
     for key in ("hit", "t", "normal", "voxel"):
-        assert torch.equal(k[key], p[key]), key
+        a, b = k[key], p[key]
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), key
     assert k["hit"].any() and not k["hit"].all()
+    if kind == "low face":
+        assert int((k["hit"] & (k["t"] == 0.0)).sum()) > 100
     if kind == "resumed":
         for key in ("hit", "t", "normal", "voxel"):
             assert torch.equal(k[key], full[key]), key
@@ -394,3 +408,44 @@ def test_hf_cast_rejects_bad_input(cuda, terrain):
     with pytest.raises(ValueError, match="hmax_w"):
         heightfield.hf_raycast(tiles, offs, h, start, d,
                                hmax_w=torch.ones(1))
+    before = heightfield.launches
+    pack4 = heightfield.build_height_mips(heights, tile_log=4, device=cuda)
+    with pytest.raises(ValueError, match="tile_log"):
+        heightfield.hf_raycast(*pack4, start, d)
+    huge = torch.empty((1 << 25, 64), device=cuda)  # 2^31 floats
+    with pytest.raises(ValueError, match="32-bit"):
+        heightfield.hf_raycast(huge, offs, h, start, d,
+                               hmax_w=torch.ones(1, device=cuda))
+    del huge
+    assert heightfield.launches == before
+
+
+def test_hf_cast_at_8192_matches_plain(cuda):
+    """The reference's 8192^3 heightmap: a pack of 1,065,221 rows (68M
+    floats, the largest indices the kernel forms in 32 bits); camera rays
+    at the smoke pose and random rays, bit for bit the plain version."""
+    from voxtracer_torch.core import camera as vcam
+
+    heights = worldgen.heightmap(13, device=cuda)
+    pack = heightfield.build_height_mips(heights, device=cuda)
+    assert pack[0].shape[0] == 1_065_221
+    cam = vcam.Camera(pos=vcam.DEFAULT_POSE.pos, yaw=vcam.DEFAULT_POSE.yaw,
+                      pitch=vcam.DEFAULT_POSE.pitch)
+    o, d = vcam.generate_rays(cam, 256, 144, device=cuda)
+    rng = np.random.default_rng(13)
+    B = 32768
+    start = torch.as_tensor(rng.random((B, 3), np.float32) * 8192.0,
+                            device=cuda)
+    rd = rng.normal(size=(B, 3)).astype(np.float32)
+    rd = torch.as_tensor(rd / np.linalg.norm(rd, axis=-1, keepdims=True),
+                         device=cuda)
+    for s, dd in ((o.expand(d.shape).reshape(-1, 3), d.reshape(-1, 3)),
+                  (start, rd)):
+        dist = torch.full((dd.shape[0],), traverse.FAR, device=cuda)
+        k = heightfield.hf_raycast(*pack, s, dd, dist)
+        p = heightfield.hf_raycast_plain(*pack, s.expand(dd.shape)
+                                         .contiguous(), dd, dist)
+        torch.cuda.synchronize()
+        for key in ("hit", "t", "normal", "voxel"):
+            assert torch.equal(k[key], p[key]), key
+        assert k["hit"].any() and not k["hit"].all()

@@ -254,6 +254,33 @@ def test_degenerate_heightfields_equal_jax():
         assert got["hit"].all() if expect == "all" else not got["hit"].any()
 
 
+def _grid_starts(rng, B):
+    """Rays from integer points, half of them on the floor y = 0 and some
+    on the faces x, z = 0 or N, with a third of the direction components
+    zero: starts on a (mirrored) low face, whose entry t is -0.0."""
+    start = rng.integers(0, N + 1, (B, 3)).astype(np.float32)
+    start[:, 1] = np.where(rng.random(B) < 0.5, 0.0, rng.integers(0, 24, B))
+    d = rng.standard_normal((B, 3)).astype(np.float32)
+    d[rng.random((B, 3)) < 0.3] = 0.0
+    d[np.abs(d).sum(1) == 0, 1] = 1.0
+    return start, d / np.linalg.norm(d, axis=1, keepdims=True)
+
+
+def test_starts_on_the_low_face_equal_jax_bit_for_bit(world):
+    """A start on the (mirrored) low face enters at t = -0.0; with t == 0
+    hits kept, the walk's first column test can hit at t0 = max(-0.0,
+    0.0), which is +0.0 in JAX and so in the port: every output compared
+    by its bits."""
+    start, d = _grid_starts(np.random.default_rng(41), 2048)
+    want = _jax_cast(world, start, d, skip_t0=False)
+    got = _port_cast(world, start, d, skip_t0=False)
+    for k in KEYS:
+        w = np.asarray(want[k])
+        assert np.array_equal(w.view(np.uint8), got[k].numpy().view(np.uint8)), k
+    at0 = np.asarray(want["hit"]) & (np.asarray(want["t"]) == 0.0)
+    assert at0.sum() > 100 and not got["hit"].all()
+
+
 @pytest.mark.parametrize("tile_log,init_desc", [(1, 0), (2, 0), (3, 1),
                                                 (3, 2), (2, 5)])
 def test_tile_size_and_start_level_change_no_bit(world, tile_log, init_desc):
@@ -427,8 +454,39 @@ def test_wrapper_dispatches_on_the_device_and_checks_before_launch(world):
         thf.hf_raycast(tiles, offs, 0, start, d)
     with pytest.raises(ValueError, match="device"):
         thf.hf_raycast(tiles, offs, h, start, d.to("meta"))
+    # a tile_log the kernel has no instantiation for, and a pack whose
+    # float index overflows 32 bits (on the meta device: no storage)
+    pack4 = thf.build_height_mips(world["heights"], tile_log=4, device="cpu")
+    with pytest.raises(ValueError, match="tile_log 4"):
+        thf._hf_raycast_cuda(*pack4, start, d, one, True, None, None, 0, one)
+    meta = [x.to("meta") for x in (start, d, one)]
+    with pytest.raises(ValueError, match="32-bit"):
+        thf._hf_raycast_cuda(torch.empty((1 << 25, 64), device="meta"), offs,
+                             h, meta[0], meta[1], meta[2], True, None, None,
+                             0, meta[2])
     steps = thf.plain_lane_steps
     r = thf.hf_raycast(tiles, offs, h, torch.tensor([20.5, 60.0, 20.5]),
                        torch.tensor([[0.0, -1.0, 0.0]]))
     assert r["hit"].all() and thf.plain_lane_steps > steps
     assert thf.launches == 0
+
+
+@pytest.mark.parametrize("name", ["airborne", "surface bounce", "capped"])
+def test_plain_walk_counts_its_steps_by_lane_and_level(world, name):
+    """The plain version's record of its walk: the lane-steps by level
+    sum to what ``plain_lane_steps`` counted, and so do the per-lane
+    steps and the steps by move; every walking lane ends once; the
+    longest lane took as many steps as the loop ran."""
+    start, d, kw, _ = _ray_set(world, name)
+    dist = _t(kw.get("distance", np.full(len(d), ttr.FAR, np.float32)))
+    walk = {}
+    before = thf.plain_lane_steps
+    thf.hf_raycast_plain(*world["tpack"], _t(start), _t(d), dist, walk=walk)
+    steps = thf.plain_lane_steps - before
+    assert steps > 0 and sum(walk["by_level"].values()) == steps
+    assert int(walk["per_lane"].sum()) == steps
+    assert sum(walk["moves"].values()) == steps
+    assert walk["moves"]["end"] == int((walk["per_lane"] > 0).sum())
+    assert int(walk["per_lane"].max()) == walk["iterations"]
+    assert walk["per_lane"].shape == (len(start),)
+    assert set(walk["by_level"]) <= set(range(0, LOG2, 3))

@@ -57,6 +57,7 @@ SHIM = r"""
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(...)
+#define __grid_constant__
 #define __shared__ static
 struct dim3_ { unsigned x = 0, y = 0, z = 0; };
 inline thread_local dim3_ threadIdx, blockIdx;
@@ -312,6 +313,13 @@ def _hf_host(fn, pack, start, d, dist, active, t_min, skip_t0, init_desc,
     return out
 
 
+def _bits(got, want):
+    for key in ("hit", "t", "normal", "voxel"):
+        # bits, so that a -0.0 for a 0.0 would show
+        assert np.array_equal(got[key].numpy().view(np.uint8),
+                              want[key].numpy().view(np.uint8)), key
+
+
 def _hf_rays(rng, B, heights):
     """The K2 sets' rays, a quarter of them started inside solid columns
     and some exactly on voxel boundaries."""
@@ -345,12 +353,66 @@ def test_hf_cast_source_equals_plain(host_kernels, hf_world, B, frac, pack_i,
                    None, skip_t0, init_desc, fetch)
     want = heightfield.hf_raycast_plain(*pack, start, d, dist, skip_t0,
                                         active, None, init_desc)
-    for key in ("hit", "t", "normal", "voxel"):
-        # bits, so that a -0.0 for a 0.0 would show
-        assert np.array_equal(got[key].numpy().view(np.uint8),
-                              want[key].numpy().view(np.uint8)), key
+    _bits(got, want)
     if B > 100:
         assert want["hit"].any() and not want["hit"].all()
+
+
+@pytest.fixture(scope="module")
+def hf_heights():
+    """Terrain heightmaps of 32 and 128 columns a side."""
+    return {lg: worldgen.heightmap(lg, device="cpu") for lg in (5, 7)}
+
+
+@pytest.mark.parametrize("log2", [5, 7])
+@pytest.mark.parametrize("tile_log", heightfield.TILE_LOGS)
+def test_hf_cast_source_every_tile_log(host_kernels, hf_heights, log2,
+                                       tile_log):
+    """Every tile_log instantiation, at two world heights (their top
+    levels fill a tile or not), from every start level: bit for bit the
+    plain version."""
+    heights = hf_heights[log2]
+    pack = heightfield.build_height_mips(heights, tile_log=tile_log,
+                                         device="cpu")
+    tiles, offsets, _ = pack
+    rng = np.random.default_rng(log2 * 10 + tile_log)
+    B = 700
+    start, d, dist = _hf_rays(rng, B, heights)
+    active = torch.from_numpy(rng.random(B) < 0.8)
+    want = heightfield.hf_raycast_plain(*pack, start, d, dist, True, active)
+    assert want["hit"].any() and not want["hit"].all()
+    for init_desc in range(len(offsets) - 1):
+        got = _hf_host(host_kernels["hf_cast"], pack, start, d, dist, active,
+                       None, True, init_desc, FETCHES[0])
+        _bits(got, want)
+
+
+@pytest.mark.parametrize("log2", [5, 7])
+def test_hf_cast_source_starts_on_the_low_face(host_kernels, hf_heights,
+                                               log2):
+    """Rays from integer points, half on the floor y = 0 and some on the
+    world's faces, with zero direction components, t == 0 hits kept: a
+    start on a (mirrored) low face enters at t = -0.0 and may hit at t0 =
+    max(-0.0, 0.0), +0.0 on both sides, bit for bit."""
+    heights = hf_heights[log2]
+    n = heights.shape[0]
+    pack = heightfield.build_height_mips(heights, device="cpu")
+    rng = np.random.default_rng(log2)
+    B = 1500
+    start = rng.integers(0, n + 1, (B, 3)).astype(np.float32)
+    start[:, 1] = np.where(rng.random(B) < 0.5, 0.0, rng.integers(0, 12, B))
+    d = rng.normal(size=(B, 3)).astype(np.float32)
+    d[rng.random((B, 3)) < 0.3] = 0.0
+    d[np.abs(d).sum(1) == 0, 1] = 1.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    start, d = torch.from_numpy(start), torch.from_numpy(d)
+    dist = torch.full((B,), traverse.FAR)
+    want = heightfield.hf_raycast_plain(*pack, start, d, dist, False)
+    assert (want["hit"] & (want["t"] == 0.0)).sum() > 50
+    for init_desc in (0, 1):
+        got = _hf_host(host_kernels["hf_cast"], pack, start, d, dist, None,
+                       None, False, init_desc, FETCHES[0])
+        _bits(got, want)
 
 
 def test_hf_cast_source_resumes_at_t_min(host_kernels, hf_world):

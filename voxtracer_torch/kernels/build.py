@@ -88,19 +88,19 @@ def _source_hash(csrc: Path = CSRC) -> str:
     return h.hexdigest()[:16]
 
 
-def compile_library(csrc: Path, out: Path) -> str:
-    """Compile ``SOURCES`` of ``csrc`` into the shared library ``out``
+def compile_library(csrc: Path, out: Path, sources=SOURCES) -> str:
+    """Compile ``sources`` of ``csrc`` into the shared library ``out``
     (one ``nvcc`` per source, all started together, then one link);
     returns ptxas's report. Raises with nvcc's errors on failure."""
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in SOURCES]
+    objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in sources]
     nvcc = _nvcc()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
                                str(csrc / s)], stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
-             for s, o in zip(SOURCES, objs)]
+             for s, o in zip(sources, objs)]
     errors, report = [], []
-    for s, p in zip(SOURCES, procs):
+    for s, p in zip(sources, procs):
         _, err = p.communicate()
         if p.returncode != 0:
             errors.append(f"{s} ({p.returncode}):\n{err}")

@@ -43,6 +43,7 @@ from voxtracer_torch.kernels import build
 from voxtracer_torch.kernels.traverse import EPS, FAR, _lanes, svo_raycast
 
 MAX_LEVELS = 16  # row starts the kernel holds in shared memory
+TILE_LOGS = (1, 2, 3)  # the kernel's instantiations (3 in production)
 # lane fetch (csrc/lanes.cuh), as for K2
 STATIC_PCT, CHUNK, REFILL = 75, 32, 4
 
@@ -50,6 +51,7 @@ launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 # walk steps summed over lanes by the plain version since the last reset:
 # the kernel takes the same steps, so this is its work for these rays
 plain_lane_steps = 0
+MOVES = ("descend", "in tile", "coarsen", "end")  # hf_raycast_plain's walk=
 
 
 def _top_child_level(height: int, tl: int) -> int:
@@ -228,6 +230,12 @@ def _hf_raycast_cuda(tiles, offsets, height, start, d, distance, skip_t0,
         raise ValueError(f"hf_raycast: hmax_w must be float32 on {dev}")
     if len(offsets) - 1 > MAX_LEVELS or height > 30:
         raise ValueError("hf_raycast: pack too deep for the kernel")
+    if offsets[0] not in TILE_LOGS:
+        raise ValueError(f"hf_raycast: tile_log {offsets[0]} is not one of "
+                         f"the kernel's {TILE_LOGS}")
+    if tiles.numel() >= 1 << 31:
+        raise ValueError(f"hf_raycast: a pack of {tiles.numel()} floats "
+                         "overflows the kernel's 32-bit indices")
     B = d.shape[0]
     if B > build.MAX_LANES:
         raise ValueError(f"hf_raycast: {B} lanes > {build.MAX_LANES}")
@@ -260,11 +268,18 @@ def _hf_raycast_cuda(tiles, offsets, height, start, d, distance, skip_t0,
 
 def hf_raycast_plain(tiles, offsets: tuple, height: int, start, d, distance,
                      skip_t0: bool = True, active=None, t_min=None,
-                     init_desc: int = 0, hmax_w=None):
+                     init_desc: int = 0, hmax_w=None, *, walk=None):
     """Plain PyTorch version of K4 on flattened lanes: start/d (B, 3),
     distance (B,), active (B,) bool or None, t_min (B,) or None. The same
     arithmetic as the kernel and as ``voxtracer/kernels/heightfield.py``
-    (``_hf_init``, ``_hf_body`` one cell a step, ``_hf_finalize``)."""
+    (``_hf_init``, ``_hf_body`` one cell a step, ``_hf_finalize``).
+
+    ``walk``: a dict to receive the walk's shape: ``per_lane`` (B,) int64,
+    the steps each lane took (0 for a lane that never walked);
+    ``by_level``, walk level -> lane-steps at that level; ``moves``, what
+    the steps did (MOVES: descend, advance in the tile, coarsen past its
+    edge, end the walk); ``iterations``, the loop's iterations (every
+    walking lane starts at the first, so the longest lane's steps)."""
     global plain_lane_steps
     B = d.shape[0]
     dev = d.device
@@ -294,7 +309,10 @@ def hf_raycast_plain(tiles, offsets: tuple, height: int, start, d, distance,
         distance)
 
     enter = -s0 * inv_d
-    t0 = torch.clamp_min(hmax(enter), 0.0)
+    # +0.0 where the latest entry is -0.0 (a start on the mirrored low
+    # face), as XLA's max gives it
+    t0 = hmax(enter)
+    t0 = torch.where(t0 > 0.0, t0, 0.0)
     ex = enter[:, 0] == t0
     ey = ~ex & (enter[:, 1] == t0)
     ez = ~ex & ~ey & (enter[:, 2] == t0)
@@ -391,8 +409,16 @@ def hf_raycast_plain(tiles, offsets: tuple, height: int, start, d, distance,
     fx, fy, fz = flip[lane, 0], flip[lane, 1], flip[lane, 2]
     dist, tend = distance[lane], tend[lane]
 
+    if walk is not None:
+        per_lane = torch.zeros((B,), dtype=i64, device=dev)
+        by_level = torch.zeros((MAX_LEVELS,), dtype=i64, device=dev)
+        moves = torch.zeros((len(MOVES),), dtype=i64, device=dev)
+    iterations = 0
     while lane.numel():
         plain_lane_steps += lane.numel()
+        iterations += 1
+        if walk is not None:
+            by_level += torch.bincount(L // tl, minlength=MAX_LEVELS)
         dc = n >> L  # child grid dim
         dp = torch.clamp_min(dc >> tl, 1)
         cell = (torch.ones_like(L) << L).to(f32)  # 2^L exactly
@@ -463,6 +489,9 @@ def hf_raycast_plain(tiles, offsets: tuple, height: int, start, d, distance,
             & ((acz >> tl) == (cz >> tl))
         exit_t = adv & ~in_tile & ~gone
         dead = col_hit | gone | (adv & ((t_out > dist) | (t_out >= tend)))
+        if walk is not None:
+            moves += torch.stack([do_desc.sum(), (in_tile & ~dead).sum(),
+                                  (exit_t & ~dead).sum(), dead.sum()])
 
         L = torch.where(do_desc, L - tl, torch.where(exit_t, L + tl, L))
         cx = torch.where(do_desc, gcx, torch.where(
@@ -473,6 +502,8 @@ def hf_raycast_plain(tiles, offsets: tuple, height: int, start, d, distance,
         axis = torch.where(adv, torch.where(ax_x, 0, 2), axis)
 
         if bool(dead.any()):
+            if walk is not None:
+                per_lane[lane[dead]] = iterations
             keep = ~dead
             lane, t, axis, L, cx, cz = (lane[keep], t[keep], axis[keep],
                                         L[keep], cx[keep], cz[keep])
@@ -481,6 +512,10 @@ def hf_raycast_plain(tiles, offsets: tuple, height: int, start, d, distance,
             fx, fy, fz = fx[keep], fy[keep], fz[keep]
             dist, tend = dist[keep], tend[keep]
 
+    if walk is not None:
+        walk.update(per_lane=per_lane, iterations=iterations, by_level={
+            tl * i: int(c) for i, c in enumerate(by_level.tolist()) if c},
+            moves=dict(zip(MOVES, moves.tolist())))
     normal = torch.where(hit_axis[:, None] == axes, -d_sign, 0.0) \
         * hit[:, None].to(f32)
     return dict(hit=hit, t=hit_t, normal=normal, voxel=hit_voxel)

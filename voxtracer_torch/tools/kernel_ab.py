@@ -10,6 +10,16 @@ a batch-8 main-path call.
     python -m voxtracer_torch.tools.kernel_ab kernels --old-csrc DIR \
         [--sweep]
 
+    # the heightfield walk (K4) of this tree against that of a tree from
+    # before its redesign (one float a step from device memory, tile_log
+    # a runtime int) and against variant trees (a copy of this tree's
+    # csrc/ with hf_cast.cu or lanes.cuh edited; K4 alone is built from
+    # each), on the smoke's K4 sets at 1024^3, or with --log2-size 13 the
+    # main path's at 8192^3; in turns (old, new, each variant, then the
+    # reverse), every output held equal; ptxas reports of each
+    python -m voxtracer_torch.tools.kernel_ab hf_cast --old-csrc DIR \
+        [--variant DIR ...] [--log2-size L] [--reps N]
+
     # ms per batch-8 sample_batch call and per Renderer.preview_frame
     # (a shaded frame on the rasterizer, bins cached) at 1024^3, 853x480,
     # and one torch.profiler window over each, for whichever
@@ -40,6 +50,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -279,6 +290,146 @@ def _fold_ab(old, new, smi, sweep: bool, reps: int):
                                   ray_tile_spans_ms=row)))
 
 
+class _Hf:
+    """K4 of several libraries on one ray set: direct calls, preallocated
+    outputs a library, the lane counter zeroed before every call (a call
+    with a spent counter walks no lane and keeps the last outputs)."""
+
+    def __init__(self, libs, pack, start, d, distance, active):
+        import torch
+
+        from voxtracer_torch.kernels import heightfield as hf
+
+        self.libs = libs
+        self.tiles, self.offsets, self.height = pack
+        self.rays = (start, d, distance, active)
+        dev = d.device
+        self.rows = hf.row_starts(self.offsets, dev)
+        self.hmax_w = hf.terrain_max(self.tiles, self.offsets)
+        B = d.shape[0]
+        self.outs = [dict(
+            hit=torch.empty((B,), dtype=torch.bool, device=dev),
+            t=torch.empty((B,), dtype=torch.float32, device=dev),
+            normal=torch.empty((B, 3), dtype=torch.float32, device=dev),
+            voxel=torch.empty((B, 3), dtype=torch.int32, device=dev))
+            for _ in libs]
+        self.counter = torch.zeros((1,), dtype=torch.int32, device=dev)
+
+    def restore(self):
+        self.counter.zero_()
+
+    def run(self, k):
+        import torch
+
+        from voxtracer_torch.kernels import heightfield as hf
+
+        start, d, distance, active = self.rays
+        out = self.outs[k]
+        assert self.libs[k].voxt_hf_cast(
+            self.tiles.data_ptr(), self.offsets[0], len(self.offsets) - 1,
+            self.rows.data_ptr(), self.height, self.hmax_w.data_ptr(),
+            start.data_ptr(), d.data_ptr(), distance.data_ptr(),
+            None if active is None else active.data_ptr(), None, 1, 0,
+            out["hit"].data_ptr(), out["t"].data_ptr(),
+            out["normal"].data_ptr(), out["voxel"].data_ptr(), d.shape[0],
+            self.counter.data_ptr(), hf.STATIC_PCT, hf.CHUNK, hf.REFILL,
+            torch.cuda.current_stream().cuda_stream) == 0
+
+    def equal(self, k, ref):
+        import torch
+
+        return all(torch.equal(self.outs[k][key], self.outs[ref][key])
+                   for key in self.outs[k])
+
+
+def _hf_library(csrc: Path):
+    """K4 alone, built from ``csrc`` (hf_cast.cu and lanes.cuh; its C
+    entry as this tree's, unchanged since K4 was first ported) into its
+    own library; returns it and ptxas's report."""
+    from voxtracer_torch.kernels import build
+
+    out = build.BUILD_DIR / f"ab_hf_{build._source_hash(csrc)}.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    report = build.compile_library(csrc, out, sources=("hf_cast.cu",))
+    lib = ctypes.CDLL(str(out))
+    lib.voxt_hf_cast.argtypes = list(build.SIGNATURES["voxt_hf_cast"])
+    lib.voxt_hf_cast.restype = ctypes.c_int
+    return lib, report
+
+
+def run_hf(old_csrc: Path, variants, reps: int, log2_size: int):
+    """K4 of this tree against a tree from before its redesign and against
+    variant trees, on the smoke's K4 sets: at 1024^3 all of K2's sets, at
+    8192^3 the main path's (chip_smoke.FULL_HF_SETS). Timed in turns
+    (old, new, each variant, then the reverse), every output held equal
+    to the new kernel's."""
+    sys.path.insert(0, str(Path.cwd()))
+    import torch
+
+    import chip_smoke as cs
+    from voxtracer_torch.kernels import build
+    from voxtracer_torch.kernels import heightfield as hf
+    from voxtracer_torch.world import svo, worldgen
+
+    smi = card()
+    print(smi)
+    new = build.library()
+    # the old tree and every variant built at once, one nvcc each
+    trees = [old_csrc, *variants]
+    with ThreadPoolExecutor(len(trees)) as pool:
+        built = list(pool.map(_hf_library, trees))
+    names = ["old", "new", *(v.name for v in variants)]
+    libs = [built[0][0], new, *(lib for lib, _ in built[1:])]
+    reports = [built[0][1], build.ptxas_report(),
+               *(report for _, report in built[1:])]
+    for name, report in zip(names, reports):
+        for src, regs, props in _ptxas_lines(report):
+            if src == "hf_cast.cu":
+                print(f"ptxas {name} {src}: {regs}; {props}")
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20261016 if log2_size == cs.LOG2_SIZE
+                                else 20261017)
+    space = worldgen.generate(log2_size=log2_size, verbose=False,
+                              backend="native", device=dev)
+    dsvo = space.serialize()
+    world = svo.upload(dsvo.table, dsvo.root, dsvo.height, dev)
+    pack = hf.build_height_mips(space.heights, device=dev)
+    del space, dsvo
+    turns = list(range(len(libs)))
+    turns += turns[::-1]
+    for name, start, d, distance, active in cs._svo_sets(rng, world, dev,
+                                                         log2_size):
+        if log2_size != cs.LOG2_SIZE and name not in cs.FULL_HF_SETS:
+            continue
+        case = _Hf(libs, pack, start, d, distance, active)
+        for k in range(len(libs)):
+            case.restore()
+            case.run(k)
+        torch.cuda.synchronize()
+        for k in range(len(libs)):
+            if not case.equal(k, 1):
+                raise AssertionError(f"hf_cast {name}: {names[k]} differs "
+                                     "from new")
+        walk = {}
+        before = hf.plain_lane_steps
+        hf.hf_raycast_plain(*pack, start, d, distance, True, active,
+                            walk=walk)
+        steps = hf.plain_lane_steps - before
+        bound_ms, bound_by = cs._hf_bound(pack, steps, d.shape[0], active,
+                                          None)
+        ms = {n: [] for n in names}
+        for k in turns:
+            ms[names[k]].append(cs._ms_fresh(case.restore,
+                                             lambda k=k: case.run(k), reps))
+        print(json.dumps(dict(case=f"hf_cast {name} at {1 << log2_size}^3",
+                              card=smi, lanes=int(d.shape[0]),
+                              lane_steps=steps, walk=cs._walk_shape(walk),
+                              bound_ms=bound_ms, bound_by=bound_by, ms=ms,
+                              equal=True)))
+        sys.stdout.flush()
+
+
 def run_kernels(old_csrc: Path, sweep: bool, reps: int):
     sys.path.insert(0, str(Path.cwd()))
     from voxtracer_torch.kernels import build
@@ -403,6 +554,11 @@ def main(argv=None) -> int:
     k.add_argument("--old-csrc", type=Path, required=True)
     k.add_argument("--sweep", action="store_true")
     k.add_argument("--reps", type=int, default=10)
+    h = sub.add_parser("hf_cast")
+    h.add_argument("--old-csrc", type=Path, required=True)
+    h.add_argument("--variant", type=Path, action="append", default=[])
+    h.add_argument("--reps", type=int, default=10)
+    h.add_argument("--log2-size", type=int, default=10)
     e = sub.add_parser("e2e")
     e.add_argument("--reps", type=int, default=3)
     e.add_argument("--engine", choices=("package", "hf", "svo", "both"),
@@ -413,6 +569,8 @@ def main(argv=None) -> int:
     a = ap.parse_args(argv)
     if a.mode == "kernels":
         run_kernels(a.old_csrc, a.sweep, a.reps)
+    elif a.mode == "hf_cast":
+        run_hf(a.old_csrc, a.variant, a.reps, a.log2_size)
     elif a.mode == "fetch":
         run_fetch(a.reps)
     else:
