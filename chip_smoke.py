@@ -8,7 +8,8 @@ Phases, each printing its lines; any failure exits non-zero:
 1. card: fails unless torch sees a CUDA device; prints nvidia-smi's name
    and power limit.
 2. build: compiles kernels K1 (fog march), K2 (SVO cast), K3 (resolve
-   fold) and K4 (heightfield walk) from voxtracer_torch/kernels/csrc with
+   fold), K4 (heightfield walk) and K5 (the horizon envelope's per-ray
+   t_min) from voxtracer_torch/kernels/csrc with
    nvcc, one process per source, loads them, and prints ptxas's
    registers, stack frame and spills for each; compiles the native world
    builder (native/svo_native.cpp) with g++.
@@ -57,18 +58,36 @@ Phases, each printing its lines; any failure exits non-zero:
    heightfield; same seeds): the radiance equal up to the graze budget,
    ms per batch-8 call, and one torch.profiler window over a call of
    each: every kernel's device ms and launches, the device busy share.
-7. main path at full width: worldgen.generate(log2_size=13,
+7. edits at 1024^3 (soup on): blocks placed and deleted through
+   Renderer.apply_edits on a Renderer that rasterizes its primaries:
+   heightfield-exact edits (the pack and soup patched, the pure walk
+   kept), then a floating block and a hole (a bounds box, the hybrid
+   cast). After each phase the preview frame and a batch-8 path sample
+   equal those of a Renderer built fresh on the edited world: bit for bit
+   while the heightfield stays exact, up to the graze budget once the
+   engines differ; the previews up to the rays either rasterized preview
+   leaves unresolved. Prints the edit-to-preview latency (set, apply,
+   preview) p50/p90/max.
+8. main path at full width: worldgen.generate(log2_size=13,
    backend="native"), the reference's 8192^3 world, a Renderer in hf-only
-   mode (no soup: primaries are bounce 0's K4 cast), headless_run for 2
+   mode (no soup: primaries are the K4 cast resumed by the pose's horizon
+   envelope through K5), headless_run for 2
    frames x 16 samples at 853x480, 24 bounces, 64 fog steps, batches of 8,
    EXR writes and a checkpoint at the end of each frame, the last one
    read back (the resumed accumulator equal bit for bit). K1 and K4 must
    have launched. K4 on that world at the main path's shapes (camera
    rays, a bounce-1 indirect cast, the NEE cast, batch-8 width with 1%,
    10% and 50% active) against its plain version and K2, each with its
-   bound and walk shape. Prints worldgen, octree and pack seconds, device
-   memory in use, paths/px/s, the checkpoint's seconds and size, the preview
-   frame's ms, and a profile window over a batch-8 call.
+   bound and walk shape. K5 on each envelope tier's table at 409,440
+   camera rays and at batch-8 width against its plain version (rung
+   counts up to the graze share, t_min within 1e-6 relative; the bound
+   charges the table rows the rays reach), the walks
+   it resumes equal to the full walks in every lane; each tier's build
+   ms. Prints worldgen, octree and pack seconds, device memory in use,
+   paths/px/s, the checkpoint's seconds and size, a batch-8 call with and
+   without the envelope (equal radiance by bits; ms in turns), the
+   preview frame's ms with and without the envelope, and a profile window
+   over a batch-8 call.
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -105,6 +124,8 @@ HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 K1_SETUP_OPS, K1_STEP_OPS, K2_STEP_OPS, K3_PAIR_OPS = 30, 30, 30, 27
 # K4 per ray setup and per walk step of a lane (hf_cast.cu's own count)
 K4_SETUP_OPS, K4_STEP_OPS = 60, 40
+# K5 per ray (azimuth bin, slope, t_min) and per step of its row search
+K5_RAY_OPS, K5_STEP_OPS = 50, 2
 # lanes in which the heightfield walk may differ from the SVO cast: rays
 # through a voxel edge or corner, where the two walks break the tie on
 # the last ulp apart. The JAX package's engine-parity tests allow 2 lanes
@@ -1145,7 +1166,8 @@ def _headless(renderer, cam, frames, frame_samples, batch, name,
     for bit. Returns the counts."""
     import torch
 
-    from voxtracer_torch.kernels import fog, heightfield, resolve, traverse
+    from voxtracer_torch.kernels import (fog, heightfield, resolve, skyline,
+                                         traverse)
     from voxtracer_torch.render import checkpoint, film
     from voxtracer_torch.render.driver import headless_run
 
@@ -1155,7 +1177,7 @@ def _headless(renderer, cam, frames, frame_samples, batch, name,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fog.launches = traverse.launches = resolve.launches = 0
-        heightfield.launches = 0
+        heightfield.launches = skyline.launches = 0
         saves = []  # seconds of each checkpoint the run writes
         save = checkpoint.save_render_state
 
@@ -1177,7 +1199,8 @@ def _headless(renderer, cam, frames, frame_samples, batch, name,
         wall = time.monotonic() - t0
         counts = dict(fog_march=fog.launches, svo_cast=traverse.launches,
                       resolve_fold=resolve.launches,
-                      hf_cast=heightfield.launches)
+                      hf_cast=heightfield.launches,
+                      sky_tmin=skyline.launches)
         peak = torch.cuda.max_memory_allocated()
         exrs = sorted(Path(tmp).glob("*.exr"))
         imgs = [film.load_exr(p)[..., :3] for p in exrs]
@@ -1252,12 +1275,12 @@ def phase_main(space, dev):
                              "heightfield engines")
     counts = _headless(renderer, cam, 2, 16, 8, "1024^3 path")
     _expect_launches("1024^3 path", counts,
-                     ("fog_march", "resolve_fold", "hf_cast"))
+                     ("fog_march", "resolve_fold", "hf_cast"), ("sky_tmin",))
     svo = Renderer(space.serialize(), WIDTH, HEIGHT, seed=0, device=dev,
                    use_soup=False, use_hf=False)
     svo_counts = _headless(svo, cam, 1, 8, 8, "SVO-engine path")
     _expect_launches("SVO-engine path", svo_counts, ("fog_march", "svo_cast"),
-                     ("resolve_fold", "hf_cast"))
+                     ("resolve_fold", "hf_cast", "sky_tmin"))
     return counts, svo_counts, renderer, svo
 
 
@@ -1390,6 +1413,337 @@ def phase_engines(space, dev):
              ("fog_march", "resolve_fold", "svo_cast"))
 
 
+def _sky_bound(d, E, bin_w):
+    """K5's bound on the directions ``d`` (B, 3): each ray's direction
+    (12 B) read and t_min (4 B) written once, and once each table row
+    these rays reach (their azimuth bins), not the whole table; the
+    per-ray arithmetic and the row search's compares."""
+    from voxtracer_torch.kernels import skyline
+
+    B, (bins, K) = d.shape[0], E.shape
+    rows = skyline.azimuth_bin(d, bin_w, bins).unique().numel()
+    steps = int(np.ceil(np.log2(K + 1)))
+    return _bound(B * 16 + rows * K * 4,
+                  B * (K5_RAY_OPS + steps * K5_STEP_OPS))
+
+
+def _batch8_primaries(renderer, cam, dev):
+    """The jittered camera rays of a batch-8 call, (8 * RAYS, 3)."""
+    import random
+
+    import torch
+
+    from voxtracer_torch.core import rng as vrng
+    from voxtracer_torch.kernels import integrator
+
+    host = random.Random(7)
+    pos = np.asarray(cam.pos, np.float32)
+    return torch.cat([
+        integrator._primary(pos, cam.basis(), vrng.host_frame_seed(host),
+                            WIDTH, HEIGHT, dev)[1].reshape(-1, 3)
+        for _ in range(8)]).contiguous()
+
+
+def phase_envelope(renderer, cam, dev):
+    """K5 on the 8192^3 world, each of the Renderer's envelope tiers:
+    the tier's build ms; K5 against its plain version at 409,440
+    pixel-centre camera rays and at batch-8 width (jittered primaries):
+    rung counts (a t_min off by more than 1e-6 relative) up to the graze
+    share of the lanes (their count, budget and max abs error go into the
+    record too), max abs error over the rest; the walk K5's t_min
+    resumes (init_desc 3) against the full walk, hit, t and normal by
+    bits in every lane. Returns the record of the batch-8 set at tier 1,
+    the tier the held pose of the main path runs most."""
+    import torch
+
+    from voxtracer_torch.kernels import heightfield, skyline
+
+    tiles, offs, _ = renderer._get_hf()
+    pos = np.asarray(cam.pos, np.float32)
+    t0 = time.monotonic()
+    pack = skyline.sky_levels_from_hf(tiles, offs, FULL_LOG2_SIZE)
+    torch.cuda.synchronize()
+    print(f"envelope pyramid at {1 << FULL_LOG2_SIZE}^3 (once a world): "
+          f"{1e3 * (time.monotonic() - t0):.1f} ms, "
+          f"{len(pack['coarse'])} coarse levels")
+    _, cd = _camera_rays(cam, dev)
+    sets = (("camera rays", cd), ("batch-8 primaries",
+                                   _batch8_primaries(renderer, cam, dev)))
+    origin = torch.as_tensor(pos, device=dev)
+    hmax_w = heightfield.terrain_max(tiles, offs)
+    rec = None
+    for tier, (kw, first) in enumerate(renderer.SKY_TIERS):
+        builds = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            env = skyline.build_skyline_env_device(
+                pack, np.asarray(cam.pos, np.float64), **kw)
+            torch.cuda.synchronize()
+            builds.append(1e3 * (time.monotonic() - t0))
+        E = env["E"]
+        consts = skyline._consts(E.shape[0], env["d0"], env["g"])
+        print(f"envelope tier {tier} {kw} (from use {first} of a pose): "
+              f"build {sorted(round(b, 2) for b in builds)} ms, table "
+              f"{tuple(E.shape)}")
+        for name, d in sets:
+            B = d.shape[0]
+
+            def kernel():
+                return skyline.skyline_env_tmin(E, d, env["d0"], env["g"],
+                                                env["K"])
+
+            def plain():
+                return skyline.skyline_env_tmin_plain(E, d, *consts)
+
+            k, p = kernel(), plain()
+            torch.cuda.synchronize()
+            off = (k - p).abs() > 1e-6 * p.abs()
+            n_off = int(off.sum())
+            budget = int(np.ceil(B * GRAZE_SHARE))
+            err = float((k - p).abs()[~off].max())
+            err_off = float((k - p).abs()[off].max()) if n_off else 0.0
+            ms = _ms_fresh(lambda: None, kernel, 10)
+            plain_ms = _ms(plain, 2)
+            bound_ms, bound_by = _sky_bound(d, E, consts[0])
+
+            def walk(t_min):
+                return heightfield.hf_raycast(
+                    tiles, offs, FULL_LOG2_SIZE, origin, d, t_min=t_min,
+                    init_desc=0 if t_min is None else 3, hmax_w=hmax_w)
+
+            full, resumed = walk(None), walk(k)
+            torch.cuda.synchronize()
+            diff = int(((full["hit"] != resumed["hit"])
+                        | (_bits(full["t"]) != _bits(resumed["t"]))
+                        | (_bits(full["normal"]) != _bits(resumed["normal"]))
+                        .any(-1)).sum())
+            walk_ms = (_ms_fresh(lambda: None, lambda: walk(None), 3),
+                       _ms_fresh(lambda: None, lambda: walk(k), 3))
+            print(f"sky_tmin tier {tier}, {name} ({B} lanes): {n_off} lanes "
+                  f"off the plain version (budget {budget}; max abs err "
+                  f"{err_off:.3e} there), max abs err {err:.3e} elsewhere, "
+                  f"{float((k > 0).float().mean()):.4f} "
+                  f"certified, {float((k >= 1e37).float().mean()):.4f} "
+                  f"all-miss; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}); resumed walk "
+                  f"against the full walk: {diff} lanes differ (budget 0), "
+                  f"K4 {walk_ms[1]:.3f} ms resumed against {walk_ms[0]:.3f} "
+                  "ms full")
+            if n_off > budget or diff or not np.isfinite(err):
+                raise AssertionError(f"sky_tmin tier {tier}, {name}: {n_off} "
+                                     f"lanes off, {diff} resumed lanes differ")
+            if tier == 1 and name == "batch-8 primaries":
+                rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, max_abs_err=err,
+                           library_ms=None, lanes_off=n_off,
+                           lanes_off_budget=budget,
+                           max_abs_err_off_lanes=err_off)
+    return rec
+
+
+def phase_envelope_path(renderer, cam):
+    """The main path's envelope end to end at 8192^3: one batch-8
+    sample_batch call with the envelope and one without (the same seeds),
+    the radiance equal by bits; ms per call in turns (with, without,
+    without, with); the preview frame (hf_frame_cast) with the envelope at
+    init_desc 3 (the default) and 0, and without it."""
+    import torch
+
+    from voxtracer_torch.kernels import heightfield
+
+    sun = np.asarray([0.8, 10.2743, 3.7])
+
+    def call(env_on):
+        if not env_on:
+            renderer._get_sky_env = lambda c: None
+        try:
+            renderer.host_rng.seed(1234)
+            renderer.acc.invalidate()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            renderer.sample_batch(cam, sun, 8)
+            torch.cuda.synchronize()
+            return 1e3 * (time.monotonic() - t0), renderer.acc.buffer.clone()
+        finally:
+            renderer.__dict__.pop("_get_sky_env", None)
+
+    a = call(True)[1]
+    b = call(False)[1]
+    diff = int((a != b).any(-1).sum())
+    ms = {True: [], False: []}
+    for on in (True, False, False, True):
+        ms[on].append(call(on)[0])
+    with_ms = [round(m, 2) for m in ms[True]]
+    without_ms = [round(m, 2) for m in ms[False]]
+    print(f"batch-8 sample_batch at {1 << FULL_LOG2_SIZE}^3, the same seeds "
+          f"with and without the envelope: {diff} of {RAYS} pixels differ "
+          f"(budget 0); ms per call in turns: with {with_ms}, without "
+          f"{without_ms} (tier {renderer._sky_env[2]})")
+    if diff or not torch.isfinite(a).all():
+        raise AssertionError("the envelope changed the radiance")
+    tiles, offs, trgb = renderer._get_hf()
+    env = renderer._get_sky_env(cam)
+    pos = np.asarray(cam.pos, np.float32)
+
+    def frame(**kw):
+        return heightfield.hf_frame_cast(tiles, offs, FULL_LOG2_SIZE, pos,
+                                         cam.basis(), WIDTH, HEIGHT, trgb,
+                                         **kw)
+
+    ref = frame()
+    out = {}
+    for name, kw in (("no envelope", {}), ("envelope, init_desc 3",
+                                           dict(sky_env=env)),
+                     ("envelope, init_desc 0", dict(sky_env=env,
+                                                    init_desc=0))):
+        r = frame(**kw)
+        if not all(torch.equal(_bits(r[k]), _bits(ref[k])) for k in ref):
+            raise AssertionError(f"hf_frame_cast {name} differs")
+        out[name] = _ms(lambda: frame(**kw), 5)
+    print(f"hf_frame_cast {1 << FULL_LOG2_SIZE}^3 {WIDTH}x{HEIGHT}, equal by "
+          "bits, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
+
+
+def _edit_site(space, cam, dx=0):
+    """The highest column of a 64 x 64 window ahead of the camera."""
+    x0, z0 = int(cam.pos[0]) + 20 + dx, int(cam.pos[2]) + 20
+    win = space.heights[x0:x0 + 64, z0:z0 + 64]
+    cx, cz = np.unravel_index(np.argmax(win), win.shape)
+    return int(cx) + x0, int(cz) + z0
+
+
+def _unresolved(r, cam):
+    """Rays the rasterized preview of ``r`` leaves unresolved (open tiles
+    are not re-cast in a preview)."""
+    from voxtracer_torch.kernels import raster
+
+    soup = r._get_soup()
+    if soup is None:
+        return 0
+    res = raster.raster_cast(*soup, np.asarray(cam.pos, np.float32),
+                             cam.basis(), r.world.height, r.width, r.height,
+                             bins=r._get_soup_bins(cam, soup))
+    return int(res["fb_need"].sum())
+
+
+def _against_fresh(name, r, space, cam, sun, budget, dev):
+    """The preview and a batch-8 path sample of ``r`` against a Renderer
+    built fresh on the edited space: the sample up to ``budget`` pixels,
+    the preview up to that plus the rays either rasterized preview leaves
+    unresolved."""
+    import torch
+
+    from voxtracer_torch.render.driver import Renderer
+
+    t0 = time.monotonic()
+    fresh = Renderer(space.serialize(), WIDTH, HEIGHT, seed=0, device=dev)
+    img_b = fresh.preview_frame(cam, sun)
+    torch.cuda.synchronize()
+    fresh_s = time.monotonic() - t0
+    img_a = r.preview_frame(cam, sun)
+    open_rays = _unresolved(r, cam) + _unresolved(fresh, cam)
+    prev = int((img_a != img_b).any(-1).sum())
+    for x in (r, fresh):
+        x.host_rng.seed(99)
+        x.acc.invalidate()
+        x.sample_batch(cam, sun, 8)
+    torch.cuda.synchronize()
+    path = int((r.acc.buffer != fresh.acc.buffer).any(-1).sum())
+    engines = lambda x: ("raster" if x._get_soup() is not None else "per-ray",
+                         "hf" if x._get_hf()[0] is not None else "svo",
+                         "bounds" if x._hf_bounds() is not None else "pure")
+    print(f"edits, {name}: against a fresh Renderer ({fresh_s:.1f} s to build "
+          f"and preview; engines {engines(r)} against {engines(fresh)}): "
+          f"preview {prev} pixels differ (budget {budget} + {open_rays} "
+          f"unresolved rays), batch-8 sample {path} pixels differ (budget "
+          f"{budget})")
+    if path > budget or prev > budget + open_rays \
+            or not torch.isfinite(img_a).all() or not img_a.max() > 0:
+        raise AssertionError(f"edits, {name}: the edited Renderer differs "
+                             "from a fresh one")
+
+
+def phase_edits(space, dev):
+    """Edits at 1024^3 through Renderer.apply_edits with the soup on
+    (module doc, 7); returns the edit-to-preview latencies."""
+    import torch
+
+    from voxtracer_torch.render.driver import Renderer
+
+    cam = _smoke_camera(LOG2_SIZE)
+    sun = np.asarray([0.8, 10.2743, 3.7])
+    r = Renderer(space.serialize(), WIDTH, HEIGHT, seed=0, device=dev)
+    r.preview_frame(cam, sun)  # the soup and pose bins exist: edits patch
+    r.sample_batch(cam, sun, 8)
+    trgb = space.terrain_rgb
+    lat = []
+    part = {}
+
+    def timed(name, fn):
+        """``fn`` with its seconds (synchronized) kept in ``part``."""
+        def run(*a, **k):
+            t = time.monotonic()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            part[name] = time.monotonic() - t
+            return out
+        return run
+
+    r._apply_hf_edits = timed("heightfield", r._apply_hf_edits)
+    r._soup.apply = timed("soup", r._soup.apply)
+
+    def edit(batch):
+        torch.cuda.synchronize()
+        part.clear()
+        t0 = time.monotonic()
+        for p, val in batch:
+            space.set(p, val)
+        t1 = time.monotonic()
+        r.apply_edits(space, edits=[p for p, _ in batch])
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+        img = r.preview_frame(cam, sun)
+        torch.cuda.synchronize()
+        t3 = time.monotonic()
+        lat.append((t1 - t0, t2 - t1, t3 - t2, part.get("soup", 0.0),
+                    part.get("heightfield", 0.0)))
+        return img
+
+    # heightfield-exact: top voxels deleted and placed back, column by
+    # column, each batch one edit as a user makes them
+    for k in range(6):
+        cx, cz = _edit_site(space, cam, dx=8 * k)
+        top = int(space.heights[cx, cz])
+        edit([((cx, top - 1, cz), None)])
+        edit([((cx, top - 1, cz), trgb), ((cx, top, cz), trgb)])
+    if r._hf_bounds() is not None or not space.heights_exact \
+            or r._soup is None:
+        raise AssertionError("heightfield-exact edits left the pure walk")
+    _against_fresh("heightfield-exact", r, space, cam, sun, 0, dev)
+    cx, cz = _edit_site(space, cam)
+    top = int(space.heights[cx, cz])
+    edit([((cx, top + 3, cz), (1.0, 1.0, 1.0))])  # a floating block
+    edit([((cx + 1, top - 3, cz), None)])  # a hole under the top
+    edit([((cx - 1, top + 1, cz), (0.9, 0.2, 0.1)),
+          ((cx - 1, top + 2, cz), (0.9, 0.2, 0.1))])
+    if r._hf_bounds() is None or r._get_hf()[0] is None:
+        raise AssertionError("bounds-tracked edits dropped the hybrid")
+    _against_fresh("bounds-tracked", r, space, cam, sun,
+                   int(np.ceil(RAYS * 8 * GRAZE_SHARE)), dev)
+    parts = np.array(lat) * 1e3
+    tot = parts[:, :3].sum(axis=1)
+    q = lambda a: f"p50 {np.percentile(a, 50):.2f} / p90 " \
+        f"{np.percentile(a, 90):.2f} / max {a.max():.2f}"  # noqa: E731
+    print(f"edits at 1024^3 {WIDTH}x{HEIGHT}, {len(lat)} batches: "
+          f"edit-to-preview ms {q(tot)}; space.set {q(parts[:, 0])}; "
+          f"apply_edits {q(parts[:, 1])} (of it the soup patch "
+          f"{q(parts[:, 3])}, the heightfield patch {q(parts[:, 4])}); "
+          f"preview_frame {q(parts[:, 2])}")
+    return lat
+
+
+
 def phase_full(dev):
     """The main path at full width: the reference's 8192^3 world from the
     native builder, a Renderer in hf-only mode, the headless loop with
@@ -1429,19 +1783,24 @@ def phase_full(dev):
         if name in FULL_HF_SETS:
             _check_hf(f"{name} at {n}^3", pack, renderer.world, start, d,
                       distance, active, timed=name == "camera")
+    sky_rec = phase_envelope(renderer, cam, dev)
     counts = _headless(renderer, cam, 2, 16, 8, "main path",
                        log2_size=FULL_LOG2_SIZE, checkpoint_every=16)
-    _expect_launches("main path", counts, ("fog_march", "hf_cast"),
+    _expect_launches("main path", counts, ("fog_march", "hf_cast",
+                                           "sky_tmin"),
                      ("svo_cast", "resolve_fold"))
-    _profile(f"{n}^3 main path", renderer, cam, ("fog_march", "hf_cast"))
+    phase_envelope_path(renderer, cam)
+    _profile(f"{n}^3 main path", renderer, cam, ("fog_march", "hf_cast",
+                                                 "sky_tmin"))
     sun = np.asarray([0.8, 10.2743, 3.7])
     ms = _ms(lambda: renderer.preview_frame(cam, sun), 5)
     img = renderer.preview_frame(cam, sun)
     if img is None or not torch.isfinite(img).all() or not img.mean() > 0:
         raise AssertionError("the hf-only preview frame is empty")
-    print(f"preview frame {n}^3 {WIDTH}x{HEIGHT} (hf_frame_cast, exact): "
-          f"{ms:.3f} ms, mean {float(img.mean()):.6f}")
-    return counts
+    print(f"preview frame {n}^3 {WIDTH}x{HEIGHT} (hf_frame_cast, exact, "
+          f"resumed by the envelope): {ms:.3f} ms, mean "
+          f"{float(img.mean()):.6f}")
+    return counts, sky_rec
 
 
 def main() -> int:
@@ -1480,9 +1839,10 @@ def main() -> int:
     phase_primaries(soup_r, svo_r)
     del soup_r, svo_r
     phase_engines(space, dev)
+    phase_edits(space, dev)
     del space, dev_svo, world, soup, soup_t, pack
     torch.cuda.empty_cache()
-    full = phase_full(dev)
+    full, sky_rec = phase_full(dev)
 
     kernels = [
         dict(name="fog_march", route="cuda",
@@ -1501,6 +1861,10 @@ def main() -> int:
              source="voxtracer_torch/kernels/csrc/hf_cast.cu",
              replaces="voxtracer/kernels/heightfield.py:206",
              launches=full["hf_cast"], **hf_rec),
+        dict(name="sky_tmin", route="cuda",
+             source="voxtracer_torch/kernels/csrc/sky_tmin.cu",
+             replaces="voxtracer/kernels/skyline.py:441",
+             launches=full["sky_tmin"], **sky_rec),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,9 @@
 """Port vs JAX: the terrain box soup (voxtracer_torch/world/boxes.py
 against voxtracer/world/boxes.py), the heightmap that worldgen keeps on
-the space, and the worlds that have no soup."""
+the space, the instance soup of worlds that are not unedited terrain,
+and the worlds that have no soup."""
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -51,8 +54,10 @@ def test_generate_keeps_heights_and_backref():
 
 
 def test_worlds_without_soup_raise():
-    """An edited world and a from_dense world carry no exact heightmap:
-    extract_boxes raises, and terrain_heights says so up front."""
+    """An edited world and a from_dense world carry no exact heightmap
+    (terrain_heights says so up front): their soup is the octree's
+    instances, the JAX package's box for box. A table without solid
+    leaves (a checkpoint's) has no soup: extract_boxes raises."""
     space = tgen.generate(log2_size=5, verbose=False, device="cpu")
     space.set((3, 30, 3), (1.0, 1.0, 1.0))
     rng = np.random.default_rng(5)
@@ -60,5 +65,11 @@ def test_worlds_without_soup_raise():
     dense = from_dense(solid, np.full((16, 16, 16, 3), 0.5, np.float32))
     for dev in (space.serialize(), dense.serialize()):
         assert tboxes.terrain_heights(dev) is None
+        got, want = tboxes.extract_boxes(dev), jboxes.extract_boxes(dev)
+        assert len(got) > 0
+        for f in ("lo", "size", "leaf", "rgb"):
+            assert np.array_equal(getattr(got, f), getattr(want, f)), f
+        bare = SimpleNamespace(table=dev.table, root=dev.root,
+                               height=dev.height)
         with pytest.raises(ValueError):
-            tboxes.extract_boxes(dev)
+            tboxes.extract_boxes(bare)

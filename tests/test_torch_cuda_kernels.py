@@ -1,5 +1,6 @@
-"""CUDA kernels K1 (fog march), K2 (SVO cast), K3 (resolve fold) and K4
-(heightfield walk) against their plain PyTorch versions, on the card. Every test skips when
+"""CUDA kernels K1 (fog march), K2 (SVO cast), K3 (resolve fold), K4
+(heightfield walk) and K5 (envelope lookup) against their plain PyTorch
+versions, on the card. Every test skips when
 torch sees no CUDA device (decided inside the fixture, not at import).
 
 Run on the card from the repository root (the repository's conftest
@@ -449,3 +450,40 @@ def test_hf_cast_at_8192_matches_plain(cuda):
         for key in ("hit", "t", "normal", "voxel"):
             assert torch.equal(k[key], p[key]), key
         assert k["hit"].any() and not k["hit"].all()
+
+
+@pytest.mark.parametrize("tier", [0, 1, 2])
+def test_sky_tmin_matches_plain(cuda, tier):
+    """K5 on each of the Renderer's envelope tiers for an 8192^3 world's
+    camera rays and random directions: rung counts as the plain version's
+    in all but 2 lanes of 4096, t_min within 1e-6 relative elsewhere (the
+    card's atan2f/exp2f and torch's may round apart; usually none differ);
+    the resumed walk equals the full walk."""
+    from voxtracer_torch.core import camera as vcam
+    from voxtracer_torch.kernels import skyline
+    from voxtracer_torch.render.driver import Renderer
+
+    heights = worldgen.heightmap(13, device=cuda)
+    pack = heightfield.build_height_mips(heights, device=cuda)
+    cam = vcam.Camera(pos=vcam.DEFAULT_POSE.pos, yaw=vcam.DEFAULT_POSE.yaw,
+                      pitch=vcam.DEFAULT_POSE.pitch)
+    env = skyline.build_skyline_env_device(
+        skyline.sky_levels_from_hf(*pack), np.asarray(cam.pos, np.float64),
+        **Renderer.SKY_TIERS[tier][0])
+    o, d = vcam.generate_rays(cam, 853, 480, device=cuda)
+    d = d.reshape(-1, 3).contiguous()
+    before = skyline.launches
+    got = skyline.skyline_env_tmin(env["E"], d, env["d0"], env["g"], env["K"])
+    assert skyline.launches == before + 1
+    want = skyline.skyline_env_tmin_plain(
+        env["E"], d, *skyline._consts(8192, env["d0"], env["g"]))
+    torch.cuda.synchronize()
+    off = (got - want).abs() > 1e-6 * want.abs()
+    assert int(off.sum()) <= 2 * d.shape[0] // 4096
+    start = o.reshape(-1, 3).contiguous()
+    dist = torch.full((d.shape[0],), traverse.FAR, device=cuda)
+    full = heightfield.hf_raycast(*pack, start, d, dist)
+    resumed = heightfield.hf_raycast(*pack, start, d, dist, t_min=got,
+                                     init_desc=3)
+    for key in ("hit", "t", "normal", "voxel"):
+        assert torch.equal(full[key], resumed[key]), key

@@ -162,12 +162,14 @@ def test_soup_built_once_bins_once_per_pose(monkeypatch):
     img = r.preview_frame(cam2, sun)
     assert img.shape == (16, 32, 3) and torch.isfinite(img).all()
     assert calls == {"soup": 1, "bins": 2} and img.max() > 0
-    # an edit leaves no exact heightmap: primaries go back to the SVO cast
+    # an edit leaves no exact heightmap: the new world's soup is its
+    # octree's instances, extracted once; the heightfield engine is off
     space.set((12, 13, 6), (1.0, 1.0, 1.0))
     r.update_space(space.serialize())
-    assert not r.soup_world and r.preview_frame(cam, sun) is None
+    assert r.soup_world and r._get_hf()[0] is None
+    img = r.preview_frame(cam, sun)
     r.sample(cam, sun)
-    assert calls == {"soup": 1, "bins": 2}
+    assert calls == {"soup": 2, "bins": 3} and img.max() > 0
 
 
 def test_dense_world_keeps_svo_primaries():
@@ -288,3 +290,42 @@ def test_cli_headless_checkpoint_flags(tmp_path, monkeypatch):
     args = build_parser().parse_args(["headless"])
     assert args.checkpoint_every is None
     assert args.checkpoint_path == "render_state.npz"
+
+
+def test_sky_env_tiers_by_pose_reuse(monkeypatch):
+    """An hf-only Renderer builds the pose's envelope at tier 0, climbs to
+    tier 1 at the second use and tier 2 at the fifth (SKY_TIERS); a new
+    pose starts again at tier 0; update_space drops the pyramid and the
+    table; sample_batch hands the envelope to render_samples."""
+    monkeypatch.setattr(tdrv.Renderer, "HF_FRAME_SIZE", 32)
+    space, cam, r = _renderer()
+    assert r._hf_only() and r._sky_env is None
+    tiers = []
+    for _ in range(6):
+        env = r._get_sky_env(cam)
+        tiers.append(r._sky_env[2])
+        assert env[0].shape == (8192, r.SKY_TIERS[tiers[-1]][0]["K"])
+    assert tiers == [0, 1, 1, 1, 2, 2]
+    cam2 = tcam.Camera(pos=(12.5, 14.0, 6.0), yaw=0.4, pitch=0.5)
+    r._get_sky_env(cam2)
+    assert r._sky_env[2] == 0 and r._sky_mips is not None
+
+    seen = {}
+    real = tdrv.render_samples
+
+    def spy(*a, **k):
+        seen.update(k)
+        return real(*a, **k)
+
+    monkeypatch.setattr(tdrv, "render_samples", spy)
+    sun = np.array([0.8, 10.2743, 3.7])
+    r.sample_batch(cam2, sun, 2)
+    E, d0, g = seen["hf_sky_env"]
+    assert E is r._sky_env[1][0] and seen["soup"] is None
+    b = tdrv.Renderer(space.serialize(), 32, 16, max_bounces=3, fog_steps=8,
+                      seed=0, device="cpu", use_soup=False)
+    monkeypatch.setattr(tdrv.Renderer, "_get_sky_env", lambda self, c: None)
+    b.sample_batch(cam2, sun, 2)
+    assert torch.equal(r.acc.buffer, b.acc.buffer)
+    r.update_space(space.serialize())
+    assert r._sky_env is None and r._sky_mips is None

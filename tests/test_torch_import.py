@@ -14,7 +14,9 @@ import importlib, pkgutil, sys
 import voxtracer_torch
 names = [m.name for m in pkgutil.walk_packages(voxtracer_torch.__path__,
                                                "voxtracer_torch.")]
-assert "voxtracer_torch.tools.kernel_ab" in names, names
+for must in ("voxtracer_torch.tools.kernel_ab",
+             "voxtracer_torch.kernels.skyline"):
+    assert must in names, names
 for name in names:
     importlib.import_module(name)
 sys.path.insert(0, ".")
@@ -47,6 +49,7 @@ def test_port_sources_name_no_jax_module():
     files = sorted((REPO / "voxtracer_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert REPO / "voxtracer_torch" / "tools" / "kernel_ab.py" in files
+    assert REPO / "voxtracer_torch" / "kernels" / "skyline.py" in files
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

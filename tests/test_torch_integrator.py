@@ -373,3 +373,47 @@ def test_edited_world_render_equals_pure_svo_render():
     c = tint.render_sample(*args, hf_mips=tiles, hf_offsets=offs,
                            terrain_rgb=space.terrain_rgb, **kw)
     assert not torch.equal(a, c)
+
+
+def test_render_samples_env_resumed_primaries(scene):
+    """``hf_sky_env``: the k samples' camera rays resume their walks from
+    the pose's envelope (K5's plain version, then the walk): the radiance
+    sum equals the port's without the envelope bit for bit, and JAX's
+    ``render_samples`` with its own envelope under the golden contract."""
+    from voxtracer.kernels import heightfield as jhf
+    from voxtracer.kernels import skyline as jsky
+    from voxtracer_torch.kernels import skyline as tsky
+
+    dev, w, jc, cam, sun, lut = scene
+    heights = np.asarray(dev.space.heights)
+    tiles, offs, _ = thf.build_height_mips(heights, device="cpu")
+    pos = np.asarray(cam.pos, np.float32)
+    env = tsky.build_skyline_env_device(
+        tsky.sky_levels_from_hf(tiles, offs, 6), pos, bins=8192, K=256,
+        ratio=32)
+    hf = dict(hf_mips=tiles, hf_offsets=offs,
+              terrain_rgb=torch.tensor([0.5, 0.5, 0.5]))
+    seeds = np.array([[101, 202, 303], [4, 5, 6]], np.uint32)
+    base = (w.table, w.root, w.height, torch.from_numpy(lut), pos,
+            cam.basis(), torch.from_numpy(sun), seeds, W, H)
+    kw = dict(max_bounces=4, fog_steps=16)
+    steps = thf.plain_lane_steps
+    want = tint.render_samples(*base, **kw, **hf)
+    plain_steps = thf.plain_lane_steps - steps
+    got = tint.render_samples(*base, **kw, **hf,
+                              hf_sky_env=(env["E"], env["d0"], env["g"]))
+    assert torch.equal(got, want)
+    # the resumed primaries walk fewer steps
+    assert thf.plain_lane_steps - steps - plain_steps < plain_steps
+
+    flat, joffs, _ = jhf.build_height_mips(heights)
+    jenv = jsky.build_skyline_env_device(
+        jsky.sky_levels_from_hf(flat, joffs, 6), pos, bins=8192, K=256,
+        ratio=32)
+    jgot = np.asarray(jint.render_samples(
+        jnp.asarray(dev.table.view(np.int32)), np.int32(dev.root), dev.height,
+        jnp.asarray(lut), pos, jc.basis(), jnp.asarray(sun),
+        jnp.asarray(seeds), W, H, **kw, hf_mips=flat, hf_offsets=joffs,
+        terrain_rgb=jnp.asarray([0.5, 0.5, 0.5], jnp.float32),
+        hf_sky_env=(jenv["E"], jenv["d0"], jenv["g"])))
+    _close(got.numpy() / 2, jgot / 2)

@@ -1,6 +1,6 @@
 """The CUDA sources of K2 (csrc/svo_cast.cu), K4 (csrc/hf_cast.cu), K1
-(csrc/fog_march.cu), lane fetch (csrc/lanes.cuh) included, and K3
-(csrc/resolve_fold.cu), compiled for the host and run under a small emulation of the CUDA
+(csrc/fog_march.cu), lane fetch (csrc/lanes.cuh) included, K3
+(csrc/resolve_fold.cu) and K5 (csrc/sky_tmin.cu), compiled for the host and run under a small emulation of the CUDA
 features they use: every thread of a block is a std::thread, the 32
 threads of a warp meet at a barrier for each warp collective
 (__ballot_sync, __shfl_sync, __shfl_xor_sync, __syncwarp), blocks run one
@@ -20,7 +20,12 @@ torch.exp in the last bit for ~1% of inputs, so K1 is held bit for bit
 to itself under every lane-fetch setting and mask; against its plain
 version, its codes may differ on 0.5% of the lanes, a planet hit's t by
 an ulp of the planet-scale terms it cancels, and a scatter point by
-about one segment.
+about one segment. K5 calls atan2f, hypotf and exp2f, which may differ
+from torch's in the last bit: a lane whose azimuth or slope lies on a
+boundary may land one bin or one rung over (at most 2 lanes in 4096, the
+smoke's graze share), and every other lane's t_min is within 1e-6
+relative; its binary search over the row must give the full count's rung
+(the nondecreasing rows make them one).
 
 Needs g++ with C++20 (<barrier>); skips without it.
 """
@@ -188,7 +193,7 @@ def host_kernels(tmp_path_factory):
     procs = []
     fold_src = (build.CSRC / "resolve_fold.cu").read_text()
     sources = {name: (build.CSRC / f"{name}.cu").read_text()
-               for name in ("svo_cast", "fog_march", "hf_cast")}
+               for name in ("svo_cast", "fog_march", "hf_cast", "sky_tmin")}
     sources["resolve_fold"] = fold_src
     for name, (old, new) in FOLD_MUTANTS.items():
         assert fold_src.count(old) == 1, name
@@ -209,7 +214,7 @@ def host_kernels(tmp_path_factory):
         assert p.returncode == 0, err
         lib = ctypes.CDLL(str(so))
         entries = [f"voxt_{name}"] \
-            if name in ("svo_cast", "fog_march", "hf_cast") else ["voxt_resolve_fold", "voxt_resolve_fold_seg"]
+            if name in ("svo_cast", "fog_march", "hf_cast", "sky_tmin") else ["voxt_resolve_fold", "voxt_resolve_fold_seg"]
         fns = []
         for entry in entries:
             fn = getattr(lib, entry)
@@ -441,6 +446,49 @@ def test_hf_cast_source_resumes_at_t_min(host_kernels, hf_world):
             assert torch.equal(got[key], want[key]), key
             assert torch.equal(got[key], full[key]), key
         assert full["hit"].sum() > B // 4
+
+
+@pytest.mark.parametrize("tier", [dict(), dict(bins=8192, K=256, ratio=32),
+                                  dict(bins=8192, K=512, ratio=128)])
+def test_sky_tmin_source_equals_plain(host_kernels, hf_world, tier):
+    """K5 from its source against skyline_env_tmin_plain on the same
+    table: camera rays from the envelope's origin and random directions,
+    axis-parallel and vertical ones included (module doc's budget); the
+    resumed walk equals the full walk either way."""
+    from voxtracer_torch.kernels import skyline
+
+    packs, heights = hf_world
+    n = heights.shape[0]
+    origin = (0.55 * n, float(heights.max()) + 4.0, 0.4 * n)
+    env = skyline.build_skyline_env_device(
+        skyline.sky_levels_from_hf(*packs[0]), origin, **tier)
+    E = env["E"]
+    cam = vcam.Camera(pos=origin, yaw=2.2, pitch=0.15)
+    _, cd = vcam.generate_rays(cam, 64, 32, device="cpu")
+    rng = np.random.default_rng(7)
+    rd = rng.normal(size=(2048, 3)).astype(np.float32)
+    rd[:6] = [[0, 1, 0], [0, -1, 0], [1, 0, 0], [0, 0, -1], [-1, 0, 0],
+              [0, 0, 0]]
+    d = torch.cat([cd.reshape(-1, 3), torch.from_numpy(rd)]).contiguous()
+    consts = skyline._consts(E.shape[0], env["d0"], env["g"])
+    got = torch.full((d.shape[0],), 7.0)
+    err = host_kernels["sky_tmin"](E.data_ptr(), E.shape[0], E.shape[1],
+                                   d.data_ptr(), d.shape[0], *consts,
+                                   skyline.FAR, got.data_ptr(), None)
+    assert err == 0
+    want = skyline.skyline_env_tmin_plain(E, d, *consts)
+    rel = (got - want).abs() / want.abs().clamp_min(1e-30)
+    off = rel > 1e-6
+    assert int(off.sum()) <= max(2, 2 * d.shape[0] // 4096), int(off.sum())
+    assert (want > 0).float().mean() > 0.3
+    start = torch.tensor(origin, dtype=torch.float32).expand(d.shape) \
+        .contiguous()
+    dist = torch.full((d.shape[0],), traverse.FAR)
+    full = heightfield.hf_raycast_plain(*packs[0], start, d, dist)
+    resumed = heightfield.hf_raycast_plain(*packs[0], start, d, dist, True,
+                                           None, got, 3)
+    for key in ("hit", "t", "normal", "voxel"):
+        assert torch.equal(full[key], resumed[key]), key
 
 
 def _fog_host(fn, args, active, n_steps, fetch):

@@ -28,7 +28,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("fog_march.cu", "svo_cast.cu", "resolve_fold.cu", "hf_cast.cu")
+SOURCES = ("fog_march.cu", "svo_cast.cu", "resolve_fold.cu", "hf_cast.cu",
+           "sky_tmin.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
@@ -64,6 +65,8 @@ SIGNATURES = {
     # counter, static_pct, chunk, refill, stream
     "voxt_hf_cast": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                      _P, _P, _P, _P, _I, _P, _I, _I, _I, _P),
+    # E, bins, K, dir, n, bin_w, log2_d0, log2_g, far, t_min, stream
+    "voxt_sky_tmin": (_P, _I, _I, _P, _I, _F, _F, _F, _F, _P, _P),
 }
 
 # the persistent kernels index lanes (and 3 floats a lane) in int32

@@ -40,6 +40,7 @@ import torch
 from voxtracer_torch.core import camera as vcam
 from voxtracer_torch.core.vecmath import hmax, hmin
 from voxtracer_torch.kernels import build
+from voxtracer_torch.kernels.skyline import skyline_env_tmin
 from voxtracer_torch.kernels.traverse import EPS, FAR, _lanes, svo_raycast
 
 MAX_LEVELS = 16  # row starts the kernel holds in shared memory
@@ -180,7 +181,7 @@ def row_starts(offsets: tuple, device):
 
 def hf_raycast(tiles, offsets: tuple, height: int, start, d, distance=FAR,
                skip_t0: bool = True, active=None, t_min=None,
-               init_desc: int = 0, hmax_w=None):
+               init_desc: int | None = None, hmax_w=None, sky_env=None):
     """Cast rays against the heightfield terrain (module doc).
 
     tiles/offsets/height: the pack. start, d: (..., 3) float32 (start
@@ -188,9 +189,13 @@ def hf_raycast(tiles, offsets: tuple, height: int, start, d, distance=FAR,
     optional (...,) bool lane mask. ``t_min``: optional per-ray
     (broadcastable) resume: the walk starts at ``max(world entry t,
     t_min)``, and the caller guarantees the ray is in air up to and
-    including it. ``init_desc``: start the walk that many tile levels
-    below the top (a choice of schedule: no output bit depends on it).
-    ``hmax_w``: ``terrain_max`` of the pack when the caller keeps it
+    including it. ``sky_env``: optional ``(E, d0, g[, K])``, the horizon
+    envelope built for ``start`` (kernels/skyline.py), in place of
+    ``t_min``: each ray resumes at its certified-air ``t_min`` from K5,
+    which changes no output bit. ``init_desc``: start the walk that many
+    tile levels below the top (a choice of schedule: no output bit
+    depends on it); None takes 3 with an envelope and 0 without, as the
+    JAX package does. ``hmax_w``: ``terrain_max`` of the pack when the caller keeps it
     (computed here otherwise).
 
     Returns a dict of (...)-shaped tensors: hit (bool), t, normal (...,
@@ -201,6 +206,13 @@ def hf_raycast(tiles, offsets: tuple, height: int, start, d, distance=FAR,
         raise ValueError("hf_raycast: height must be >= 1")
     start, d, distance, active, batch_shape = _lanes(start, d, distance,
                                                      active)
+    if sky_env is not None:
+        if t_min is not None:
+            raise ValueError("hf_raycast: give t_min or sky_env, not both")
+        t_min = skyline_env_tmin(sky_env[0], d, *sky_env[1:]) \
+            .reshape(batch_shape)
+    if init_desc is None:
+        init_desc = 3 if sky_env is not None else 0
     if t_min is not None:
         t_min = torch.as_tensor(t_min, dtype=torch.float32, device=d.device)
         t_min = t_min.expand(batch_shape).reshape(-1).contiguous()
@@ -523,7 +535,7 @@ def hf_raycast_plain(tiles, offsets: tuple, height: int, start, d, distance,
 
 def hf_raycast_edited(tiles, offsets: tuple, height: int, table, root: int,
                       edit_bounds, start, d, distance=FAR, active=None,
-                      t_min=None, hmax_w=None):
+                      sky_env=None, hmax_w=None):
     """Heightfield cast for an EDITED terrain world: K4 on the pre-edit
     pack, plus an exact SVO re-cast (K2) of the lanes whose segment can
     see the edits.
@@ -539,10 +551,10 @@ def hf_raycast_edited(tiles, offsets: tuple, height: int, table, root: int,
 
     Returns hit/t/normal/voxel plus ``node`` (the SVO leaf of re-cast
     lanes, -1 where the heightfield answered) and ``from_svo`` (the
-    re-cast mask). ``t_min`` resumes the pre-edit walk only."""
+    re-cast mask). ``sky_env`` (hf_raycast) resumes the pre-edit walk
+    only."""
     r1 = hf_raycast(tiles, offsets, height, start, d, distance=distance,
-                    active=active, t_min=t_min,
-                    init_desc=3 if t_min is not None else 0, hmax_w=hmax_w)
+                    active=active, hmax_w=hmax_w, sky_env=sky_env)
     bshape = r1["hit"].shape
     dev = d.device
     p = torch.as_tensor(start, dtype=torch.float32, device=dev) \
@@ -595,7 +607,7 @@ def hf_raycast_edited(tiles, offsets: tuple, height: int, table, root: int,
 def hf_frame_cast(tiles, offsets: tuple, height: int, cam_pos, cam_basis,
                   width_px: int, height_px: int, terrain_rgb,
                   terrain_node: int = -1, ray_dirs=None, distance=FAR,
-                  init_desc: int = 0):
+                  init_desc: int | None = None, sky_env=None):
     """Full-frame primary visibility on UNEDITED terrain: one
     ``hf_raycast`` over every pixel's camera ray, as the
     ``raster_cast_exact`` result (hit/t/normal/node/rgb/voxel, each (H,
@@ -604,7 +616,12 @@ def hf_frame_cast(tiles, offsets: tuple, height: int, cam_pos, cam_basis,
 
     ``ray_dirs``: optional (H, W, 3) directions (jittered primaries);
     default the pixel centres, made op by op as ``camera.generate_rays``
-    makes them. ``terrain_node``: the leaf reported for hits."""
+    makes them. ``terrain_node``: the leaf reported for hits.
+    ``sky_env``: optional ``(E, d0, g, K)``, the horizon envelope built
+    for ``cam_pos`` (kernels/skyline.py): every ray resumes at its
+    certified-air ``t_min``, which changes no output bit. ``init_desc``:
+    the walk's start depth (hf_raycast); None takes 3 with an envelope
+    and 0 without, as the JAX package does."""
     dev = tiles.device
     W, H = width_px, height_px
     if ray_dirs is None:
@@ -612,9 +629,9 @@ def hf_frame_cast(tiles, offsets: tuple, height: int, cam_pos, cam_basis,
         py, px = vcam.pixel_grid(W, H, dev)
         ray_dirs = vcam.ray_directions(basis, vcam.pixel_ndc(px, py, W, H))
     cam = torch.as_tensor(cam_pos, dtype=torch.float32).to(dev)
-    r = hf_raycast(tiles, offsets, height, cam,
-                   ray_dirs.to(torch.float32).reshape(H, W, 3),
-                   distance=distance, init_desc=init_desc)
+    d = ray_dirs.to(torch.float32).reshape(H, W, 3)
+    r = hf_raycast(tiles, offsets, height, cam, d, distance=distance,
+                   init_desc=init_desc, sky_env=sky_env)
     hit = r["hit"]
     trgb = torch.as_tensor(terrain_rgb, dtype=torch.float32).to(dev)
     return dict(

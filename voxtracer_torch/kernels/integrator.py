@@ -42,7 +42,9 @@ the cast is ``hf_raycast_edited`` and re-cast lanes shade by their leaf.
 With a box soup (``render_sample(..., soup=...)``) the first bounce takes
 its world hit from the rasterizer (``kernels/raster.raster_cast_exact``
 on the jittered camera rays) instead of an SVO cast: the same first hit,
-so the same radiance.
+so the same radiance. Without a soup, on unedited terrain, ``hf_sky_env``
+(the pose's horizon envelope, kernels/skyline.py) resumes every camera
+ray's walk in certified air (K5 then K4): again the same first hit.
 """
 
 from __future__ import annotations
@@ -235,12 +237,49 @@ def _fallback_hf(hf_mips, hf_offsets, terrain_rgb, hf_edit_bounds):
     return hf_mips, hf_offsets, terrain_rgb
 
 
+def _hf_env_primary(hf_mips, hf_offsets: tuple, height: int, cam_pos, d,
+                    terrain_rgb, hf_sky_env):
+    """The uncapped first hit of every camera ray ``d`` (..., 3) on the
+    heightfield, each walk resumed at its certified-air ``t_min`` from the
+    pose's envelope ``hf_sky_env = (E, d0, g)`` and started 3 tile levels
+    down (``voxtracer/kernels/integrator.py:567``). The resumed walk
+    equals the walk from the start, and an uncapped first hit is what
+    bounce 0's capped cast would return below the cap, so the radiance is
+    the same bit for bit."""
+    sh = d.shape[:-1]
+    pos = torch.as_tensor(cam_pos, dtype=torch.float32).to(d.device)
+    pr = heightfield.hf_raycast(hf_mips, hf_offsets, height, pos,
+                                d.reshape(-1, 3), sky_env=hf_sky_env)
+    trgb = torch.as_tensor(terrain_rgb, dtype=torch.float32).to(d.device)
+    return dict(hit=pr["hit"].reshape(sh), t=pr["t"].reshape(sh),
+                normal=pr["normal"].reshape(sh + (3,)),
+                rgb=trgb.expand(sh + (3,)))
+
+
+def _first_hits(table, root, height, cam_pos, cam_basis, d, width_px,
+                height_px, soup, soup_bins, hf_mips, hf_offsets, terrain_rgb,
+                hf_edit_bounds, hf_sky_env):
+    """Bounce 0's world hits when an engine other than the bounce cast
+    serves them: the rasterizer with a soup, the envelope-resumed walk on
+    unedited terrain with an envelope; else None."""
+    if soup is not None:
+        return _raster_primary(
+            table, root, height, cam_pos, cam_basis, d, width_px, height_px,
+            soup, soup_bins,
+            hf=_fallback_hf(hf_mips, hf_offsets, terrain_rgb, hf_edit_bounds))
+    if hf_mips is not None and hf_sky_env is not None \
+            and hf_edit_bounds is None:
+        return _hf_env_primary(hf_mips, hf_offsets, height, cam_pos, d,
+                               terrain_rgb, hf_sky_env)
+    return None
+
+
 def render_sample(table, root: int, height: int, lut, cam_pos, cam_basis,
                   sun, frame_seed, width_px: int, height_px: int,
                   max_bounces: int = 24, fog_steps: int = 64, soup=None,
                   soup_bins=None, hf_mips=None,
                   hf_offsets: tuple | None = None, terrain_rgb=None,
-                  hf_edit_bounds=None):
+                  hf_edit_bounds=None, hf_sky_env=None):
     """One progressive sample, 1 spectral path per pixel
     (raytrace.wgsl:415-430): seed from (frame_seed, pixel), draw jitter
     and wavelength, trace. ``soup``: optional (box_lo, box_size,
@@ -248,17 +287,17 @@ def render_sample(table, root: int, height: int, lut, cam_pos, cam_basis,
     first bounce is then rasterized, against ``soup_bins`` (the pose's
     jittered ``raster.raster_bins``) when given. ``hf_*``/``terrain_rgb``:
     the heightfield pack for ``trace_paths``; without edit bounds the
-    rasterizer's fallback rides it too. Returns the (H, W, 3) radiance on
-    the table's device."""
+    rasterizer's fallback rides it too. ``hf_sky_env``: ``(E, d0, g)``,
+    the envelope built for ``cam_pos``; taken for the primaries when
+    ``hf_mips`` is given, without a soup and without edit bounds (as in
+    the JAX package). Returns the (H, W, 3) radiance on the table's
+    device."""
     dev = table.device
     state, d, wavelength = _primary(cam_pos, cam_basis, frame_seed, width_px,
                                     height_px, dev)
-    primary = None
-    if soup is not None:
-        primary = _raster_primary(
-            table, root, height, cam_pos, cam_basis, d, width_px, height_px,
-            soup, soup_bins,
-            hf=_fallback_hf(hf_mips, hf_offsets, terrain_rgb, hf_edit_bounds))
+    primary = _first_hits(table, root, height, cam_pos, cam_basis, d,
+                          width_px, height_px, soup, soup_bins, hf_mips,
+                          hf_offsets, terrain_rgb, hf_edit_bounds, hf_sky_env)
     pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
     _, radiance = trace_paths(table, root, height, lut, pos, d, wavelength,
                               sun.to(dev), state, max_bounces, fog_steps,
@@ -273,27 +312,25 @@ def render_samples(table, root: int, height: int, lut, cam_pos, cam_basis,
                    max_bounces: int = 24, fog_steps: int = 64, soup=None,
                    soup_bins=None, hf_mips=None,
                    hf_offsets: tuple | None = None, terrain_rgb=None,
-                   hf_edit_bounds=None):
+                   hf_edit_bounds=None, hf_sky_env=None):
     """k samples traced as one batch of k*H*W paths; returns the (H, W, 3)
     radiance SUM, added sample by sample in order, so it equals k
     render_sample calls summed in sequence, bit for bit. With a ``soup``
     the k samples' primaries are ONE k-batched resolve against one set of
-    pose bins (``soup_bins``, or bins built here once for all k)."""
+    pose bins (``soup_bins``, or bins built here once for all k); with
+    ``hf_sky_env`` one envelope lookup and one resumed walk for all k."""
     dev = table.device
     parts = [_primary(cam_pos, cam_basis, s, width_px, height_px, dev)
              for s in frame_seeds]
     state = torch.stack([p[0] for p in parts])
     d = torch.stack([p[1] for p in parts])
     wavelength = torch.stack([p[2] for p in parts])
-    primary = None
-    if soup is not None:
-        if soup_bins is None:
-            soup_bins = raster.raster_bins(*soup, cam_pos, cam_basis, height,
-                                           width_px, height_px, jittered=True)
-        primary = _raster_primary(
-            table, root, height, cam_pos, cam_basis, d, width_px, height_px,
-            soup, soup_bins,
-            hf=_fallback_hf(hf_mips, hf_offsets, terrain_rgb, hf_edit_bounds))
+    if soup is not None and soup_bins is None:
+        soup_bins = raster.raster_bins(*soup, cam_pos, cam_basis, height,
+                                       width_px, height_px, jittered=True)
+    primary = _first_hits(table, root, height, cam_pos, cam_basis, d,
+                          width_px, height_px, soup, soup_bins, hf_mips,
+                          hf_offsets, terrain_rgb, hf_edit_bounds, hf_sky_env)
     pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
     _, r = trace_paths(table, root, height, lut, pos, d, wavelength,
                        sun.to(dev), state, max_bounces, fog_steps,

@@ -26,12 +26,13 @@ from voxtracer_torch.core import rng as vrng
 from voxtracer_torch.core.color import srgb_encode
 from voxtracer_torch.core.spectra import build_wl_to_rgb_lut
 from voxtracer_torch.core.vecmath import dot
-from voxtracer_torch.kernels import heightfield, raster
+from voxtracer_torch.kernels import heightfield, raster, skyline
 from voxtracer_torch.kernels.integrator import render_sample, render_samples
+from voxtracer_torch.kernels.traverse import leaf_rgb
 from voxtracer_torch.render import checkpoint, film
 from voxtracer_torch.render.accumulator import Accumulator
 from voxtracer_torch.world import boxes
-from voxtracer_torch.world.svo import upload
+from voxtracer_torch.world.svo import EMPTY, DeviceSvo, DeviceWorld, upload
 
 SUN_ARC_FROM = np.array([0.8, 1.0, 3.7])
 SUN_ARC_TO = np.array([0.8, 0.0, 3.7])
@@ -59,26 +60,45 @@ def rotate_sun(sun: np.ndarray, step: float = DAY_STEP) -> np.ndarray:
             + k * np.dot(k, v) * (1 - np.cos(th)))
 
 
+def _heights(dev):
+    """The heightmap worldgen left on ``dev.space`` (exact, or stale after
+    edits), or None."""
+    return getattr(getattr(dev, "space", None), "heights", None)
+
+
 class Renderer:
     """Progressive spectral path tracer over an SVO world on ``device``.
 
-    A world that is unedited terrain (its ``space`` carries an exact
-    heightmap) is a heightfield, and two engines use that. With ``use_hf``
-    (the default, as in the JAX ``Renderer``) bounce and shadow casts walk
-    the heightfield (K4) instead of the octree (K2); the pack is built
-    on first use. With ``use_soup`` (the default) every sample's
-    primaries come from the box rasterizer: the terrain soup is extracted
-    and uploaded once per world and the pose-only bins are cached per
-    pose. From ``HF_FRAME_SIZE`` up a world with the heightfield engine
-    builds no soup at all (hf-only mode): primaries are the first
-    bounce's heightfield cast, previews ``hf_frame_cast``. Any other
-    world, or both switches off, casts everything on the SVO. All engines
-    give the traversal's first hit, so the radiance is the same. The
-    world table and LUT are uploaded once; per sample only the frame seed
-    crosses from the host.
+    A world built by worldgen carries its heightmap, and two engines use
+    that. With ``use_hf`` (the default, as in the JAX ``Renderer``) bounce
+    and shadow casts walk the heightfield (K4) instead of the octree (K2);
+    the pack is built on first use. With ``use_soup`` (the default) every
+    sample's primaries come from the box rasterizer: the soup is extracted
+    and uploaded once per world (the terrain path while the heightmap is
+    exact, else the octree's instances) and the pose-only bins are cached
+    per pose. From ``HF_FRAME_SIZE`` up a world with the heightfield engine
+    builds no soup at all (hf-only mode): primaries are the heightfield
+    walk resumed in certified air by the pose's horizon envelope
+    (``_get_sky_env``; K5), previews ``hf_frame_cast``. Worlds without a
+    heightmap (``from_dense``, resumed from a checkpoint), or both
+    switches off, cast everything on the SVO. All engines give the
+    traversal's first hit, so the radiance is the same. The world table
+    and LUT are uploaded once; per sample only the frame seed crosses
+    from the host.
+
+    Point edits go through ``apply_edits``: the changed table rows are
+    written in place, the soup is patched, and the heightfield engine
+    stays on: edits that keep the world a heightfield patch the pack (and
+    the envelope's pyramid); any other edit adds a box to a list of edit
+    bounds, and the casts re-cast on the SVO the lanes that can see one.
     """
 
     HF_FRAME_SIZE = 4096  # world edge from which terrain worlds skip the soup
+    EDIT_BOXES = 24  # edit-bounds boxes kept before the nearest pair merges
+    # envelope tiers by the uses of one pose: (build arguments, first use)
+    SKY_TIERS = ((dict(bins=8192, K=256, ratio=32), 0),
+                 (dict(bins=8192, K=512, ratio=128), 1),
+                 (dict(bins=8192, K=512, ratio=256), 4))
 
     def __init__(self, device_svo, width: int, height: int,
                  max_bounces: int = 24, fog_steps: int = 64,
@@ -100,31 +120,219 @@ class Renderer:
 
     def update_space(self, device_svo):
         """Upload a (re)serialized world; the accumulation restarts and
-        the soup, bins and heightfield pack of the old world are dropped."""
+        the soup, bins, heightfield pack, envelope and edit bounds of the
+        old world are dropped."""
         self.world = upload(device_svo.table, device_svo.root,
                             device_svo.height, self.device)
         self._dev = device_svo
-        self._soup = None
+        solid = getattr(device_svo, "solid_leaf", None)
+        self._solid_leaf = None if solid is None else np.array(solid, np.int32)
+        self._table_edited = False  # the device table is ahead of _dev's
+        self._soup = None  # lazy SoupPatcher
         self._hf = None  # lazy: (tiles, offsets, terrain rgb), or False
         self._bins = self._bins_key = None
-        self.soup_world = (self.use_soup
-                           and boxes.terrain_heights(device_svo) is not None)
+        self._sky_mips = None  # the envelope's pyramid pack (per world)
+        self._sky_env = None  # (pose key, (E, d0, g, K), tier, uses)
+        self._edit_bounds = None  # list of (2, 3) boxes covering edits
+        self._bounds_t = None  # the list as a tensor on the device
+        sp = getattr(device_svo, "space", None)
+        self._seen_edit_count = getattr(sp, "edit_count", 0)
+        self._seen_set_calls = getattr(sp, "set_calls", 0)
+        self.soup_world = self.use_soup and _heights(device_svo) is not None
         self.acc.invalidate()
+
+    def apply_edits(self, space, edits=None):
+        """Bring the device up to date after point edits already made in
+        ``space``: only the rows its ``serialize_delta`` reports are
+        written (the table grows to the space's capacity with EMPTY rows);
+        without a delta, or when the tree's height changed, a full
+        ``update_space``. ``edits``: the (x, y, z) voxels edited. With
+        them the soup is patched in place and the heightfield engine
+        stays: edits that keep the world a heightfield re-derive the
+        heightmap and patch the pack (``_apply_hf_edits``); others add a
+        bounds box (a list of at most ``EDIT_BOXES``, the pair whose union
+        grows least merged first; past a quarter of the world edge the
+        engine turns off). Without ``edits`` the soup and the engine are
+        dropped until the next ``update_space``."""
+        delta = (space.serialize_delta()
+                 if hasattr(space, "serialize_delta") else None)
+        if delta is None:
+            self.update_space(space.serialize())
+            return
+        rows, vals, solid, root, height, cap = delta
+        if height != self.world.height or self._solid_leaf is None:
+            self.update_space(space.serialize())
+            return
+        table = self.world.table
+        if cap > table.shape[0]:
+            grow = cap - table.shape[0]
+            table = torch.cat([table, torch.full(
+                (grow, 8), -1, dtype=torch.int32, device=self.device)])
+            self._solid_leaf = np.concatenate(
+                [self._solid_leaf, np.full(grow, -1, np.int32)])
+        if len(rows):
+            idx = torch.from_numpy(np.asarray(rows, np.int64)).to(self.device)
+            table[idx] = torch.from_numpy(
+                np.ascontiguousarray(vals, np.uint32).view(np.int32)).to(
+                self.device)
+            self._solid_leaf[np.asarray(rows, np.int64)] = solid
+        self.world = DeviceWorld(table=table,
+                                 root=-1 if root == EMPTY else int(root),
+                                 height=self.world.height)
+        self._table_edited = True
+
+        if self._soup is None:
+            patched = True  # the lazy extraction reads the edited world
+        elif edits is not None:
+            patched = self._soup.apply(edits, space)
+        else:
+            patched = False
+        if edits is not None and len(edits) \
+                and self._apply_hf_edits(space, edits):
+            pass  # still an exact heightfield: the pure walk stays valid
+        elif edits is not None and len(edits):
+            # the walk on the pre-edit pack stays exact outside the boxes;
+            # a box is grown by a voxel to bury float32 slab wobble
+            sp0 = getattr(self._dev, "space", None)
+            if sp0 is not None:
+                sp0.heights_exact = False
+            e = np.asarray(edits, np.float32).reshape(-1, 3)
+            bl = list(self._edit_bounds or [])
+            bl.append(np.stack([e.min(axis=0) - 1.0, e.max(axis=0) + 2.0]))
+            while len(bl) > self.EDIT_BOXES:
+                best, bi, bj = None, 0, 1
+                for i in range(len(bl)):
+                    for j in range(i + 1, len(bl)):
+                        u = (np.maximum(bl[i][1], bl[j][1])
+                             - np.minimum(bl[i][0], bl[j][0])).prod()
+                        grow = u - (bl[i][1] - bl[i][0]).prod() \
+                            - (bl[j][1] - bl[j][0]).prod()
+                        if best is None or grow < best:
+                            best, bi, bj = grow, i, j
+                m = np.stack([np.minimum(bl[bi][0], bl[bj][0]),
+                              np.maximum(bl[bi][1], bl[bj][1])])
+                bl = [b for k, b in enumerate(bl) if k not in (bi, bj)]
+                bl.append(m)
+            self._edit_bounds = bl
+            if max((b[1] - b[0]).max() for b in bl) \
+                    > (1 << self.world.height) / 4.0:
+                self._edit_bounds = None
+                self._hf = False
+        else:
+            # edits at unknown places: no pre-edit walk can be trusted
+            sp0 = getattr(self._dev, "space", None)
+            if sp0 is not None:
+                sp0.heights_exact = False
+            self._edit_bounds = None
+            self._hf = False
+        self._bounds_t = None
+        if not patched:
+            self._soup = None
+            self.soup_world = False
+        self._bins = self._bins_key = None
+        self._seen_edit_count = getattr(space, "edit_count",
+                                        self._seen_edit_count)
+        self._seen_set_calls = getattr(space, "set_calls",
+                                       self._seen_set_calls)
+        self.acc.invalidate()
+
+    def _apply_hf_edits(self, space, edits) -> bool:
+        """If after this batch every touched column is a contiguous
+        terrain-coloured stack [0, h'), write the new heights into
+        ``space.heights``, patch the heightfield pack and the envelope's
+        pyramid in place, set ``space.heights_exact`` and return True.
+        Any other shape (holes, overhangs, other colours) returns False
+        untouched. Refused while bounds are tracked or the engine is off,
+        and when the space counts more ``set`` calls since the last batch
+        than this batch holds (edits the renderer was never shown)."""
+        heights = getattr(space, "heights", None)
+        if (heights is None or self._hf is False
+                or self._edit_bounds is not None):
+            return False
+        scnt = getattr(space, "set_calls", None)
+        cnt = getattr(space, "edit_count", None)
+        if scnt is not None:
+            if scnt - self._seen_set_calls > len(edits):
+                return False
+        elif cnt is not None:
+            if cnt - self._seen_edit_count > len(edits):
+                return False
+        elif getattr(space, "edited", False) \
+                and not getattr(space, "heights_exact", False):
+            return False
+        n = 1 << self.world.height
+        trgb = getattr(space, "terrain_rgb", None)
+        if trgb is None:
+            return False
+        trgb32 = tuple(np.float32(c) for c in trgb)
+        cols: dict[tuple, list] = {}
+        for p in edits:
+            x, y, z = int(p[0]), int(p[1]), int(p[2])
+            if not (0 <= x < n and 0 <= y < n and 0 <= z < n):
+                return False
+            cols.setdefault((x, z), []).append(y)
+        new_h: dict[tuple, int] = {}
+        for (x, z), ys in cols.items():
+            h = int(heights[x, z])
+            solid = {}
+            for y in sorted(set(ys)):
+                got = space.get((x, y, z))
+                if got is not None and tuple(
+                        np.float32(c) for c in got) != trgb32:
+                    return False  # a block of another colour
+                solid[y] = got is not None
+            placed = sorted(y for y, sv in solid.items() if sv and y >= h)
+            deleted = sorted(y for y, sv in solid.items() if not sv and y < h)
+            if placed and deleted:
+                return False
+            if placed:
+                if placed != list(range(h, h + len(placed))):
+                    return False  # floating above the top
+                new_h[(x, z)] = h + len(placed)
+            elif deleted:
+                if deleted != list(range(h - len(deleted), h)):
+                    return False  # a hole below the new top
+                new_h[(x, z)] = h - len(deleted)
+        if new_h and not (isinstance(heights, np.ndarray)
+                          and heights.flags.writeable):
+            heights = np.array(heights)
+            space.heights = heights
+        for (x, z), hh in new_h.items():
+            heights[x, z] = hh
+        if new_h and isinstance(self._hf, tuple):
+            heightfield.patch_height_mips(self._hf[0], self._hf[1],
+                                          self.world.height, heights,
+                                          list(new_h))
+        space.heights_exact = True
+        if new_h:
+            if self._sky_mips is not None and isinstance(self._hf, tuple):
+                self._sky_mips = skyline.patch_sky_levels(
+                    self._sky_mips, self._hf[0], list(new_h))
+            else:
+                self._sky_mips = None
+            self._sky_env = None  # the pose's table read the old heights
+        return True
 
     def _get_hf(self):
         """The heightfield engine's arguments ``(hf_mips, hf_offsets,
-        terrain_rgb)`` for an unedited terrain world (the pack is built
-        on first use), or three Nones: no exact heightmap, ``use_hf``
-        off, or a heightmap that is not the tree's size."""
-        if self._hf is None:
-            heights = boxes.terrain_heights(self._dev) if self.use_hf \
-                else None
+        terrain_rgb)`` for a terrain world (the pack is built on first
+        use), or three Nones: no heightmap, ``use_hf`` off, a heightmap
+        that is not the tree's size, or edits that left the heightmap
+        stale with no bounds tracked."""
+        sp = getattr(self._dev, "space", None)
+        heights = _heights(self._dev) if self.use_hf else None
+        stale = (getattr(sp, "edited", False)
+                 and not getattr(sp, "heights_exact", False)
+                 and self._edit_bounds is None)
+        if heights is None or self._hf is False or stale:
             self._hf = False
-            if heights is not None \
-                    and heights.shape[0] == 1 << self.world.height:
+            return None, None, None
+        if self._hf is None:
+            self._hf = False
+            if heights.shape[0] == 1 << self.world.height:
                 tiles, offsets, _ = heightfield.build_height_mips(
                     heights, device=self.device)
-                rgb = getattr(self._dev.space, "terrain_rgb", (0.5, 0.5, 0.5))
+                rgb = getattr(sp, "terrain_rgb", (0.5, 0.5, 0.5))
                 self._hf = (tiles, offsets, torch.tensor(
                     rgb, dtype=torch.float32, device=self.device))
         return self._hf or (None, None, None)
@@ -132,25 +340,87 @@ class Renderer:
     def _hf_only(self) -> bool:
         """Whether the world is terrain of at least ``HF_FRAME_SIZE`` with
         the heightfield engine: then no soup is built and the heightfield
-        serves primaries too."""
-        heights = boxes.terrain_heights(self._dev)
+        serves primaries too (edited worlds while their bounds are
+        tracked: the hybrid cast stays exact)."""
+        heights = _heights(self._dev)
         if heights is None or max(heights.shape) < self.HF_FRAME_SIZE:
             return False
         return self._get_hf()[0] is not None
 
+    def _hf_bounds(self):
+        """The tracked edit boxes as a (k, 2, 3) float32 tensor for the
+        hybrid cast, or None (no bounds-tracked edits: the pure walk)."""
+        sp = getattr(self._dev, "space", None)
+        if not getattr(sp, "edited", False) or self._edit_bounds is None:
+            return None
+        if self._bounds_t is None:
+            self._bounds_t = torch.from_numpy(
+                np.stack(self._edit_bounds).astype(np.float32)).to(self.device)
+        return self._bounds_t
+
+    def _get_sky_env(self, cam: vcam.Camera):
+        """The pose's horizon envelope ``(E, d0, g, K)`` for an hf-only
+        world, or None. Built on the device from the world's pyramid
+        (derived once from the heightfield pack); richer tables as a pose
+        is held: ``SKY_TIERS`` by the uses of one ``cam.pos``, a new pose
+        back at tier 0. Not for edits that left the heightmap stale with
+        no bounds tracked; bounds-tracked edits keep it, since the hybrid
+        cast's walk runs on the pre-edit pack the envelope certifies."""
+        if not self._hf_only():
+            return None
+        sp = getattr(self._dev, "space", None)
+        if getattr(sp, "edited", False) \
+                and not getattr(sp, "heights_exact", False) \
+                and self._hf_bounds() is None:
+            return None
+        key = tuple(np.asarray(cam.pos, np.float64).tolist())
+        uses = 0
+        if self._sky_env is not None and self._sky_env[0] == key:
+            _, args, tier, uses = self._sky_env
+            uses += 1
+            if self._tier(uses) == tier:
+                self._sky_env = (key, args, tier, uses)
+                return args
+        if self._sky_mips is None:
+            tiles, offsets, _ = self._get_hf()
+            self._sky_mips = skyline.sky_levels_from_hf(tiles, offsets,
+                                                        self.world.height)
+        tier = self._tier(uses)
+        env = skyline.build_skyline_env_device(
+            self._sky_mips, np.asarray(cam.pos, np.float64),
+            **self.SKY_TIERS[tier][0])
+        args = (env["E"], env["d0"], env["g"], env["K"])
+        self._sky_env = (key, args, tier, uses)
+        return args
+
+    def _tier(self, uses: int) -> int:
+        return max(t for t, (_, first) in enumerate(self.SKY_TIERS)
+                   if uses >= first)
+
+    def _current_dev(self):
+        """The world as extraction must read it: ``_dev``, or after
+        ``apply_edits`` the device's table and solid leaves."""
+        if not self._table_edited:
+            return self._dev
+        return DeviceSvo(
+            table=self.world.table.cpu().numpy().view(np.uint32),
+            root=EMPTY if self.world.root < 0 else self.world.root,
+            height=self.world.height, solid_leaf=self._solid_leaf,
+            space=getattr(self._dev, "space", None))
+
     def _get_soup(self):
-        """The world's box soup on the device (extracted on first use),
-        or None when primaries stay on the per-ray cast."""
+        """The world's box soup on the device (extracted on first use, then
+        patched by ``apply_edits``), or None when primaries stay on the
+        per-ray cast."""
         if not self.soup_world or self._hf_only():
             return None
         if self._soup is None:
-            soup = boxes.extract_boxes(self._dev)
-            if len(soup) == 0:  # a world without solid voxels
+            soup = boxes.extract_boxes(self._current_dev())
+            if len(soup) == 0:
                 self.soup_world = False
                 return None
-            self._soup = raster.soup_to_device(soup.lo, soup.size, soup.leaf,
-                                               soup.rgb, self.device)
-        return self._soup
+            self._soup = boxes.SoupPatcher(soup, self.device)
+        return self._soup.device_soup
 
     def _get_soup_bins(self, cam: vcam.Camera, soup):
         """The pose's jittered raster bins, cached per (pos, yaw, pitch)."""
@@ -179,9 +449,11 @@ class Renderer:
     def _engine_kw(self, cam: vcam.Camera):
         soup = self._get_soup()
         hf_mips, hf_offsets, terrain_rgb = self._get_hf()
+        env = self._get_sky_env(cam)
         return dict(soup=soup, soup_bins=self._get_soup_bins(cam, soup),
                     hf_mips=hf_mips, hf_offsets=hf_offsets,
-                    terrain_rgb=terrain_rgb)
+                    terrain_rgb=terrain_rgb, hf_edit_bounds=self._hf_bounds(),
+                    hf_sky_env=None if env is None else env[:3])
 
     def sample(self, cam: vcam.Camera, sun: np.ndarray):
         """One progressive step: 1 spectral path per pixel."""
@@ -227,16 +499,34 @@ class Renderer:
 
     def _hf_preview(self, cam: vcam.Camera, sun_t):
         """``preview_frame`` on the heightfield engine: exact primaries,
-        the same shading."""
+        the same shading. On unedited (or heightfield-exact) terrain the
+        frame cast resumed by the pose's envelope; with tracked edit
+        bounds the hybrid cast, its pre-edit walk resumed by the envelope
+        and placed blocks shaded by their own leaf."""
         hf_mips, hf_offsets, terrain_rgb = self._get_hf()
         if hf_mips is None:
             return None
-        r = heightfield.hf_frame_cast(
-            hf_mips, hf_offsets, self.world.height,
-            np.asarray(cam.pos, np.float32), cam.basis(), self.width,
-            self.height, terrain_rgb)
+        pos = np.asarray(cam.pos, np.float32)
+        bounds = self._hf_bounds()
+        env = self._get_sky_env(cam)
+        if bounds is None:
+            r = heightfield.hf_frame_cast(
+                hf_mips, hf_offsets, self.world.height, pos, cam.basis(),
+                self.width, self.height, terrain_rgb, sky_env=env)
+            rgb = r["rgb"]
+        else:
+            _, d = vcam.generate_rays(cam, self.width, self.height,
+                                      device=self.device)
+            w = self.world
+            r = heightfield.hf_raycast_edited(
+                hf_mips, hf_offsets, w.height, w.table, w.root, bounds,
+                torch.from_numpy(pos).to(self.device), d, sky_env=env)
+            rgb = torch.where((r["node"] >= 0)[..., None],
+                              leaf_rgb(w.table, r["node"]),
+                              terrain_rgb.expand(r["normal"].shape)) \
+                * r["hit"][..., None]
         lighting = dot(sun_t, r["normal"]) / 2.0 + 1.0
-        return r["rgb"] * lighting[..., None] * r["hit"][..., None]
+        return rgb * lighting[..., None] * r["hit"][..., None]
 
     def render(self, cam, sun, spp: int, batch: int = 8):
         done = 0

@@ -1,14 +1,20 @@
-"""Box soup of a terrain world: the geometry the rasterizer iterates over.
+"""Box soup of a world: the geometry the rasterizer iterates over.
 
-The port's copy of the terrain path of ``voxtracer/world/boxes.py``
-(numpy only). An unedited terrain world is a heightfield: voxel (x, y, z)
-is solid iff y < heights[x, z] (worldgen.rs:26-59). Its exposed voxels
-are found per column, merged into boxes, and every ray from non-solid
-space meets the same first surface in the soup as in the SVO traversal.
+The port's copy of ``voxtracer/world/boxes.py`` (numpy on the host, the
+patcher's arrays on a torch device). An unedited terrain world is a
+heightfield: voxel (x, y, z) is solid iff y < heights[x, z]
+(worldgen.rs:26-59). Its exposed voxels are found per column and merged
+into boxes. Any other world with ``solid_leaf`` (edited worlds,
+``from_dense`` worlds) is enumerated instance by instance from its
+octree: a subtree solid with one colour is one box, big cubes split,
+enclosed boxes culled, unit voxels merged into x-strips; a native space
+does the same in C++ (``extract_boxes_raw``). Either way every ray from
+non-solid space meets the same first surface in the soup as in the SVO
+traversal.
 
-Worlds that are not unedited terrain (edited worlds, ``from_dense``
-worlds) have no soup here: ``extract_boxes`` raises and the renderer
-keeps its per-ray primaries.
+``SoupPatcher`` keeps a device soup current through point edits: each
+edit replaces the boxes that hold the edited voxel by their pieces around
+it, and adds the voxel and any neighbour a deletion exposes.
 """
 
 from __future__ import annotations
@@ -16,6 +22,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+
+from voxtracer_torch.world.svo import EMPTY
 
 _BLOCK = 0  # SvoSpace cell kind of a leaf block (world/svo.py)
 
@@ -48,16 +57,105 @@ def terrain_heights(dev):
     return space.heights
 
 
-def extract_boxes(dev, max_strip: int = 16) -> BoxSoup:
-    """Box soup of an unedited terrain world (``voxtracer/world/boxes.py:
-    84-95``): raises ValueError for any other world."""
+def extract_boxes(dev, cull_enclosed: bool = True, max_size: int = 8,
+                  max_strip: int = 16) -> BoxSoup:
+    """Box soup of a serialized world (``voxtracer/world/boxes.py:48``).
+
+    Unedited terrain (an exact heightmap) takes ``extract_boxes_terrain``;
+    a native space its C++ extractor; any other world is enumerated from
+    its table: ``solid_leaf[n] >= 0`` marks a subtree solid with one
+    colour, emitted as one box (cubes above ``max_size`` split first).
+    ``cull_enclosed`` drops boxes all six of whose faces are covered by
+    solid voxels (no ray from empty space hits them first); it needs a
+    dense occupancy grid, so it is skipped above 2048^3. Unit voxels merge
+    into same-leaf x-strips of at most ``max_strip``. Raises ValueError
+    for a world without ``solid_leaf`` (a table read from a checkpoint)."""
+    H = dev.height
     heights = terrain_heights(dev)
-    if heights is None:
-        raise ValueError("extract_boxes: the world carries no unedited "
-                         "terrain heightmap")
-    leaf = terrain_leaf_id(dev)
-    rgb = np.ascontiguousarray(dev.table[leaf, :3]).view(np.float32)
-    return extract_boxes_terrain(heights, leaf, rgb, max_strip=max_strip)
+    if heights is not None:
+        leaf = terrain_leaf_id(dev)
+        rgb = np.ascontiguousarray(dev.table[leaf, :3]).view(np.float32)
+        return extract_boxes_terrain(heights, leaf, rgb, max_strip=max_strip)
+    solid = getattr(dev, "solid_leaf", None)
+    if solid is None:
+        raise ValueError("extract_boxes: the world has no solid_leaf")
+    table = dev.table
+    cull_enclosed = cull_enclosed and H <= 11
+    space = getattr(dev, "space", None)
+    if hasattr(space, "extract_boxes_raw"):
+        lo3, size3, leaf = space.extract_boxes_raw(
+            cull_enclosed=cull_enclosed, max_size=max_size,
+            max_strip=max_strip)
+        return BoxSoup(lo=lo3, size=size3, leaf=leaf,
+                       rgb=_leaf_rgb(table, leaf), height=H)
+    if dev.root == EMPTY:
+        return BoxSoup(lo=np.zeros((0, 3), np.int32),
+                       size=np.zeros((0, 3), np.int32),
+                       leaf=np.zeros(0, np.int32),
+                       rgb=np.zeros((0, 3), np.float32), height=H)
+
+    # breadth-first over instance positions: emit uniform solid subtrees
+    out_lo, out_sz, out_leaf = [], [], []
+    node = np.array([dev.root], np.int64)
+    pos = np.zeros((1, 3), np.int64)
+    offs8 = np.array([[i & 1, (i >> 1) & 1, (i >> 2) & 1] for i in range(8)],
+                     np.int64)
+    for level in range(H, -1, -1):
+        s = 1 << level
+        emit = solid[node] >= 0
+        if emit.any():
+            out_lo.append(pos[emit])
+            out_sz.append(np.full(int(emit.sum()), s, np.int64))
+            out_leaf.append(solid[node[emit]].astype(np.int64))
+        rest = ~emit
+        if not rest.any():
+            break
+        node, pos = node[rest], pos[rest]
+        child = table[node].astype(np.int64).reshape(-1)
+        cpos = (pos[:, None, :] + offs8[None] * (s >> 1)).reshape(-1, 3)
+        keep = child != EMPTY
+        node, pos = child[keep], cpos[keep]
+
+    lo = np.concatenate(out_lo).astype(np.int32)
+    size = np.concatenate(out_sz).astype(np.int32)
+    leaf = np.concatenate(out_leaf).astype(np.int32)
+    big = size > max_size
+    if big.any():
+        parts, sizes, leaves = [lo[~big]], [size[~big]], [leaf[~big]]
+        for s in np.unique(size[big]):
+            m = big & (size == s)
+            k = s // max_size
+            sub = np.stack(np.meshgrid(*[np.arange(k) * max_size] * 3,
+                                       indexing="ij"), axis=-1).reshape(-1, 3)
+            parts.append((lo[m][:, None, :] + sub[None]).reshape(-1, 3))
+            sizes.append(np.full(int(m.sum()) * len(sub), max_size,
+                                 size.dtype))
+            leaves.append(np.repeat(leaf[m], len(sub)))
+        lo = np.concatenate(parts)
+        size = np.concatenate(sizes)
+        leaf = np.concatenate(leaves)
+    if cull_enclosed and len(size):
+        keep = ~_enclosed_mask(lo, size, H)
+        lo, size, leaf = lo[keep], size[keep], leaf[keep]
+
+    unit = size == 1
+    lo_u, leaf_u = _merge_strips(lo[unit], leaf[unit], max_strip)
+    lo3 = np.concatenate([lo[~unit], lo_u[:, :3]])
+    size3 = np.concatenate(
+        [np.repeat(size[~unit][:, None], 3, axis=1),
+         np.stack([lo_u[:, 3], np.ones(len(lo_u), np.int64),
+                   np.ones(len(lo_u), np.int64)], axis=1)])
+    leaf = np.concatenate([leaf[~unit], leaf_u]).astype(np.int32)
+    return BoxSoup(lo=lo3.astype(np.int32), size=size3.astype(np.int32),
+                   leaf=leaf, rgb=_leaf_rgb(table, leaf), height=H)
+
+
+def _leaf_rgb(table, leaf):
+    """float32 (M, 3) albedo of the leaf slots ``leaf``."""
+    if not len(leaf):
+        return np.zeros((0, 3), np.float32)
+    return np.ascontiguousarray(
+        table[np.asarray(leaf, np.int64), :3]).view(np.float32)
 
 
 def extract_boxes_terrain(heights: np.ndarray, leaf: int, rgb,
@@ -212,3 +310,243 @@ def terrain_leaf_id(dev) -> int:
     if len(ids) == 0:
         raise ValueError("terrain_leaf_id: no block leaves in this world")
     return int(ids[0])
+
+
+def _merge_strips(lo: np.ndarray, leaf: np.ndarray, max_len: int = 16):
+    """Merge unit boxes into same-leaf runs along x, split at aligned
+    ``max_len`` boundaries. Returns (int64[K, 4] of [x, y, z, len],
+    int64[K] leaf)."""
+    if len(lo) == 0:
+        return np.zeros((0, 4), np.int64), np.zeros(0, np.int64)
+    order = np.lexsort((lo[:, 0], lo[:, 2], lo[:, 1]))
+    s = lo[order].astype(np.int64)
+    sl = leaf[order].astype(np.int64)
+    prev_adjacent = np.zeros(len(s), bool)
+    prev_adjacent[1:] = (
+        (s[1:, 1] == s[:-1, 1]) & (s[1:, 2] == s[:-1, 2])
+        & (s[1:, 0] == s[:-1, 0] + 1) & (sl[1:] == sl[:-1])
+        & (s[1:, 0] % max_len != 0))
+    starts = np.nonzero(~prev_adjacent)[0]
+    ends = np.r_[starts[1:], len(s)]
+    out = np.empty((len(starts), 4), np.int64)
+    out[:, :3] = s[starts]
+    out[:, 3] = ends - starts
+    return out, sl[starts]
+
+
+def _enclosed_mask(lo: np.ndarray, size: np.ndarray,
+                   height: int) -> np.ndarray:
+    """True for the (octree-aligned, cubic) boxes all six of whose
+    face-adjacent slabs are solid; a face on the world's boundary is
+    exposed. Each face test is one lookup in an AND-pool of the dense
+    occupancy grid over the face's two axes."""
+    n = 1 << height
+    occ = np.zeros((n, n, n), bool)
+    for s in np.unique(size):
+        blo = lo[size == s]
+        if s == 1:
+            occ[blo[:, 0], blo[:, 1], blo[:, 2]] = True
+            continue
+        k = n // s
+        g = np.zeros((k, k, k), bool)
+        c = blo // s
+        g[c[:, 0], c[:, 1], c[:, 2]] = True
+        occ.reshape(k, s, k, s, k, s)[...] |= g[:, None, :, None, :, None]
+
+    def pool2(a, ax1, ax2):
+        ix = [slice(None)] * 3
+        for ax in (ax1, ax2):
+            i0, i1 = list(ix), list(ix)
+            i0[ax] = slice(0, None, 2)
+            i1[ax] = slice(1, None, 2)
+            a = a[tuple(i0)] & a[tuple(i1)]
+        return a
+
+    # per size: the grid pooled over (y, z), (x, z) and (x, y)
+    pools = {1: (occ, occ, occ)}
+    s = 1
+    while s < int(size.max()):
+        p_yz, p_xz, p_xy = pools[s]
+        pools[2 * s] = (pool2(p_yz, 1, 2), pool2(p_xz, 0, 2),
+                        pool2(p_xy, 0, 1))
+        s *= 2
+
+    enclosed = np.ones(len(size), bool)
+    for s in np.unique(size):
+        m = size == s
+        blo = lo[m]
+        # the face's own two axes index the pool in cells of s
+        c = blo // s if s > 1 else blo
+        p_yz, p_xz, p_xy = pools[s]
+        cov = np.ones(len(blo), bool)
+        for ax, pool, (ia, ib) in ((0, p_yz, (1, 2)), (1, p_xz, (0, 2)),
+                                   (2, p_xy, (0, 1))):
+            v0 = blo[:, ax]
+            for idx, valid in ((v0 - 1, v0 - 1 >= 0),
+                               (v0 + s, v0 + s <= n - 1)):
+                ok = np.zeros(len(blo), bool)
+                key = [None, None, None]
+                key[ax] = np.clip(idx, 0, n - 1)[valid]
+                key[ia] = c[valid, ia]
+                key[ib] = c[valid, ib]
+                ok[valid] = pool[tuple(key)]
+                cov &= ok
+        enclosed[m] = cov
+    return enclosed
+
+
+class SoupPatcher:
+    """A device box soup kept current through point edits, in place
+    (``voxtracer/world/boxes.py:325``).
+
+    Host copies of the soup sit beside the device tensors, both with
+    ``overlay`` spare rows that the rasterizer is not handed until used. Editing
+    voxel v (delete or overwrite) kills every box that holds v and adds
+    its pieces around v (at most 6: x-slabs, then y-slabs of the middle,
+    then z-slabs); a solid new value adds a unit box for v; a delete adds
+    a unit box for each solid face neighbour, since the culls may have
+    left those out (a duplicate box gives the same first hit). The patched
+    soup's first hits equal ``extract_boxes`` of the edited world.
+
+    ``apply`` returns False when the overlay is full or the soup and the
+    world disagree; the caller then rebuilds. The boxes that hold v are
+    found through an index of the soup's rows by the xz tile of
+    ``INDEX_TILE`` columns each box lies in (every extracted box does:
+    runs and cubes split at aligned multiples of ``max_strip`` and
+    ``max_size``), plus the rows added since and any box that spans tiles,
+    so an edit scans a few hundred rows, not the soup (the JAX package
+    scans every row)."""
+
+    INDEX_TILE = 16
+
+    def __init__(self, soup: BoxSoup, device, overlay: int = 4096):
+        m = len(soup)
+        self.height = soup.height
+        self.lo = np.concatenate([soup.lo.astype(np.int32),
+                                  np.zeros((overlay, 3), np.int32)])
+        self.size = np.concatenate([soup.size.astype(np.int32),
+                                    np.zeros((overlay, 3), np.int32)])
+        self.leaf = np.concatenate([soup.leaf.astype(np.int32),
+                                    np.full(overlay, -1, np.int32)])
+        rgb = np.concatenate([soup.rgb.astype(np.float32),
+                              np.zeros((overlay, 3), np.float32)])
+        self.n_used = m
+        self.capacity = m + overlay
+        attr = np.concatenate([self.leaf.view(np.float32)[:, None], rgb],
+                              axis=1)
+        self._d = tuple(torch.from_numpy(a).to(device)
+                        for a in (self.lo, self.size, attr))
+        # rows by the tile they lie in, as (sorted keys, rows in that order)
+        t = self.INDEX_TILE
+        self._tiles_z = -(-(1 << self.height) // t)
+        lo = self.lo[:m].astype(np.int64)
+        hi = lo + np.maximum(self.size[:m].astype(np.int64), 1) - 1
+        one = (lo[:, 0] // t == hi[:, 0] // t) & (lo[:, 2] // t == hi[:, 2] // t)
+        rows = np.nonzero(one)[0]
+        keys = (lo[rows, 0] // t) * self._tiles_z + lo[rows, 2] // t
+        order = np.argsort(keys, kind="stable")
+        self._keys, self._rows = keys[order], rows[order]
+        self._extra = list(np.nonzero(~one)[0])  # rows scanned every edit
+
+    @property
+    def device_soup(self):
+        """(box_lo, box_size, box_attr) on the device: the used rows (views
+        of the spare-row tensors, so the rasterizer sees no spare row)."""
+        return tuple(a[:self.n_used] for a in self._d)
+
+    def apply(self, edits, space) -> bool:
+        """``edits``: the (x, y, z) voxels already changed in ``space``.
+        Patches the host and device arrays; False: rebuild instead."""
+        rows = []  # (row, lo, size, leaf, rgb) of the boxes added
+        kills = []
+
+        def emit(lo3, size3, leaf, rgb):
+            if self.n_used >= self.capacity:
+                return False
+            r = self.n_used
+            self.n_used += 1
+            self.lo[r] = lo3
+            self.size[r] = size3
+            self.leaf[r] = leaf
+            self._extra.append(r)
+            rows.append((r, lo3, size3, leaf, rgb))
+            return True
+
+        n_world = 1 << self.height
+        for exyz in edits:
+            v = np.asarray(exyz, np.int64)
+            key = (v[0] // self.INDEX_TILE) * self._tiles_z \
+                + v[2] // self.INDEX_TILE
+            a, b = np.searchsorted(self._keys, [key, key + 1])
+            cand = np.sort(np.concatenate(
+                [self._rows[a:b], np.asarray(self._extra, np.int64)]))
+            blo, bsz = self.lo[cand], self.size[cand]
+            inside = cand[(blo <= v).all(axis=1) & (v < blo + bsz).all(axis=1)
+                          & (bsz > 0).any(axis=1)]
+            for bi in inside:
+                blo = self.lo[bi].astype(np.int64)
+                bhi = blo + self.size[bi].astype(np.int64)
+                bleaf = int(self.leaf[bi])
+                kills.append(int(bi))
+                self.size[bi] = 0
+                pieces = []
+                lo_c, hi_c = blo.copy(), bhi.copy()
+                for ax in range(3):
+                    if v[ax] > lo_c[ax]:
+                        psz = hi_c - lo_c
+                        psz[ax] = v[ax] - lo_c[ax]
+                        pieces.append((lo_c.copy(), psz))
+                    if v[ax] + 1 < hi_c[ax]:
+                        plo = lo_c.copy()
+                        plo[ax] = v[ax] + 1
+                        psz = hi_c - lo_c
+                        psz[ax] = hi_c[ax] - v[ax] - 1
+                        pieces.append((plo, psz))
+                    lo_c[ax] = v[ax]
+                    hi_c[ax] = v[ax] + 1
+                if pieces:
+                    # the box is one colour: any voxel of a piece has it
+                    brgb = space.get(tuple(int(c) for c in pieces[0][0]))
+                    if brgb is None:
+                        return False
+                    for plo, psz in pieces:
+                        if not emit(plo, psz, bleaf, brgb):
+                            return False
+            new_rgb = space.get(tuple(int(c) for c in v))
+            if new_rgb is not None:
+                leaf = space.leaf_at(tuple(int(c) for c in v))
+                if leaf is None or not emit(v, (1, 1, 1), int(leaf),
+                                            new_rgb):
+                    return False
+                continue
+            for ax in range(3):
+                for dv in (-1, 1):
+                    nb = v.copy()
+                    nb[ax] += dv
+                    if not 0 <= nb[ax] < n_world:
+                        continue
+                    rgb = space.get(tuple(int(c) for c in nb))
+                    if rgb is None:
+                        continue
+                    leaf = space.leaf_at(tuple(int(c) for c in nb))
+                    if leaf is None or not emit(nb, (1, 1, 1), int(leaf),
+                                                rgb):
+                        return False
+
+        d_lo, d_size, d_attr = self._d
+        dev = d_lo.device
+        if kills:
+            d_size[torch.as_tensor(kills, dtype=torch.int64, device=dev)] = 0
+        if rows:
+            idx = torch.as_tensor([r[0] for r in rows], dtype=torch.int64,
+                                  device=dev)
+            attr = np.zeros((len(rows), 4), np.float32)
+            for i, (_, _, _, leaf, rgb) in enumerate(rows):
+                attr[i, 0] = np.int32(leaf).view(np.float32)
+                attr[i, 1:] = rgb
+            d_lo[idx] = torch.from_numpy(
+                np.stack([np.asarray(r[1], np.int32) for r in rows])).to(dev)
+            d_size[idx] = torch.from_numpy(
+                np.stack([np.asarray(r[2], np.int32) for r in rows])).to(dev)
+            d_attr[idx] = torch.from_numpy(attr).to(dev)
+        return True

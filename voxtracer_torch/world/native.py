@@ -11,9 +11,9 @@ renamed into place. There is no silent fallback: without a compiler
 ``load_library`` raises, and ``available()`` says so beforehand.
 
 ``NativeSvoSpace`` mirrors the ``SvoSpace`` surface the rest of the port
-uses (get/set/leaf_at/height/capacity/num_nodes/serialize/mem_usage) plus
-the bulk ``build_terrain``. The native box extractor and the serialize
-delta belong to the edits slice and are not bound yet.
+uses (get/set/leaf_at/height/capacity/num_nodes/serialize/
+serialize_delta/mem_usage, the edit counters) plus the bulk
+``build_terrain`` and the native box extractor ``extract_boxes_raw``.
 """
 
 from __future__ import annotations
@@ -55,7 +55,22 @@ _SIGNATURES = {
     "vx_set": ((_P, _U32, _U32, _U32, ctypes.c_int, ctypes.c_float,
                 ctypes.c_float, ctypes.c_float), None),
     "vx_serialize": ((_P, ctypes.POINTER(_U32)), _U32),
+    "vx_solid_leaf": ((_P, ctypes.POINTER(ctypes.c_int32)), None),
+    "vx_synced": ((_P,), ctypes.c_int),
+    "vx_delta_size": ((_P,), _U32),
+    "vx_delta_drain": ((_P, ctypes.POINTER(_U32), ctypes.POINTER(_U32),
+                        ctypes.POINTER(ctypes.c_int32)), None),
+    "vx_extract_boxes": ((_P, ctypes.c_int, ctypes.c_int, ctypes.c_int), _P),
+    "vx_boxes_count": ((_P,), _U32),
+    "vx_boxes_fill": ((_P, ctypes.POINTER(ctypes.c_int32),
+                       ctypes.POINTER(ctypes.c_int32),
+                       ctypes.POINTER(ctypes.c_int32)), None),
+    "vx_boxes_free": ((_P,), None),
 }
+
+
+def _ptr(a: np.ndarray, ctype=_U32):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
 
 
 def available() -> bool:
@@ -105,6 +120,8 @@ class NativeSvoSpace:
     def __init__(self):
         self._lib = load_library()
         self._h = self._lib.vx_new()
+        self.edited = False  # any point edit since construction
+        self.edit_count = 0  # set() calls (the library reports no no-ops)
 
     def __del__(self):
         if getattr(self, "_h", None):
@@ -152,13 +169,16 @@ class NativeSvoSpace:
         return None if v < 0 else int(v)
 
     def set(self, p, rgb):
-        """Point edit: place a block (rgb) or clear (None)."""
+        """Point edit: place a block (rgb) or clear (None). Every call
+        counts as an edit: it sets ``edited``, bumps ``edit_count`` and
+        clears ``heights_exact``."""
         x, y, z = int(p[0]), int(p[1]), int(p[2])
         n = 1 << self.height()
         if not (0 <= x < n and 0 <= y < n and 0 <= z < n):
             raise ValueError(f"voxel {(x, y, z)} outside [0, {n})^3")
-        # a worldgen heightmap no longer describes the world
+        self.edited = True
         self.heights_exact = False
+        self.edit_count += 1
         if rgb is None:
             self._lib.vx_set(self._h, x, y, z, 0, 0.0, 0.0, 0.0)
         else:
@@ -168,7 +188,44 @@ class NativeSvoSpace:
     def serialize(self) -> DeviceSvo:
         cap = max(self.capacity(), 1)
         table = np.full((cap, 8), EMPTY, np.uint32)
-        root = self._lib.vx_serialize(
-            self._h, table.ctypes.data_as(ctypes.POINTER(_U32)))
+        root = self._lib.vx_serialize(self._h, _ptr(table))
+        solid = np.full((cap,), -1, np.int32)
+        self._lib.vx_solid_leaf(self._h, _ptr(solid, ctypes.c_int32))
         return DeviceSvo(table=table, root=int(root), height=self.height(),
-                         space=self)
+                         solid_leaf=solid, space=self)
+
+    def serialize_delta(self):
+        """The rows changed since the last ``serialize`` or
+        ``serialize_delta``, or None before a first ``serialize``
+        (``SvoSpace.serialize_delta``'s contract)."""
+        if not self._lib.vx_synced(self._h):
+            return None
+        k = int(self._lib.vx_delta_size(self._h))
+        rows = np.empty(k, np.uint32)
+        vals = np.empty((k, 8), np.uint32)
+        solid = np.empty(k, np.int32)
+        self._lib.vx_delta_drain(self._h, _ptr(rows), _ptr(vals),
+                                 _ptr(solid, ctypes.c_int32))
+        return (rows.astype(np.int64), vals, solid,
+                int(self._lib.vx_root(self._h)), self.height(),
+                self.capacity())
+
+    def extract_boxes_raw(self, cull_enclosed=True, max_size=8,
+                          max_strip=16):
+        """The box soup of the octree by the native extractor (the
+        pipeline of ``boxes.extract_boxes``): ``(lo int32[M, 3], size
+        int32[M, 3], leaf int32[M])``."""
+        r = self._lib.vx_extract_boxes(self._h, int(bool(cull_enclosed)),
+                                       int(max_size), int(max_strip))
+        try:
+            m = int(self._lib.vx_boxes_count(r))
+            lo = np.empty((m, 3), np.int32)
+            size = np.empty((m, 3), np.int32)
+            leaf = np.empty(m, np.int32)
+            if m:
+                i32 = ctypes.c_int32
+                self._lib.vx_boxes_fill(r, _ptr(lo, i32), _ptr(size, i32),
+                                        _ptr(leaf, i32))
+        finally:
+            self._lib.vx_boxes_free(r)
+        return lo, size, leaf

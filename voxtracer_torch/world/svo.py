@@ -6,7 +6,9 @@ identical subtrees share one node, nodes are reference-counted, point
 edits path-copy the spine. ``serialize`` flattens it to a uint32
 ``[capacity, 8]`` table: interior rows hold 8 child slots (EMPTY for an
 absent octant), leaf rows hold the RGB albedo as three float32 bit
-patterns. Octant child index: bit0 = x, bit1 = y, bit2 = z.
+patterns. Octant child index: bit0 = x, bit1 = y, bit2 = z. After a first
+``serialize`` the space tracks the slots each edit allocates or frees,
+and ``serialize_delta`` hands out only those rows.
 
 ``upload`` turns any object with numpy ``.table/.root/.height`` — this
 module's ``DeviceSvo`` or the JAX package's — into a ``DeviceWorld`` on a
@@ -45,7 +47,15 @@ class SvoSpace:
         self._payload = []  # node id -> (r,g,b) u32 bits | tuple of 8 child ids
         self._refcount = []
         self._level = []
+        self._solid = []  # node id -> uniform solid-leaf id | -1
         self._free = []
+        # slots allocated or freed since the last serialize/serialize_delta,
+        # tracked once a first serialize exists (_synced)
+        self._dirty: set = set()
+        self._synced = False
+        self.edited = False  # any mutating point edit since construction
+        self.edit_count = 0  # mutating point edits
+        self.set_calls = 0  # set() calls, no-ops included
         self.root: Optional[int] = None
 
     def _alloc(self, kind, payload, level) -> int:
@@ -61,6 +71,9 @@ class SvoSpace:
             self._payload.append(payload)
             self._refcount.append(0)
             self._level.append(level)
+            self._solid.append(-1)
+        if self._synced:
+            self._dirty.add(nid)
         return nid
 
     def create_block(self, rgb) -> int:
@@ -69,6 +82,7 @@ class SvoSpace:
         nid = self._intern.get(key)
         if nid is None:
             nid = self._alloc(_BLOCK, key[1:], 0)
+            self._solid[nid] = nid
             self._intern[key] = nid
         return nid
 
@@ -88,6 +102,13 @@ class SvoSpace:
                     self._refcount[c] += 1
                     level = max(level, self._level[c] + 1)
             nid = self._alloc(_CHILDREN, children, level)
+            # a subtree that is solid with one colour throughout: children
+            # never change once interned, so this is set once
+            if all(c is not None for c in children):
+                sl = self._solid[children[0]]
+                if sl >= 0 and all(self._solid[c] == sl
+                                   for c in children[1:]):
+                    self._solid[nid] = sl
             self._intern[key] = nid
         return nid
 
@@ -102,7 +123,10 @@ class SvoSpace:
             kind, payload = self._kind[nid], self._payload[nid]
             self._kind[nid] = None
             self._payload[nid] = None
+            self._solid[nid] = -1
             self._free.append(nid)
+            if self._synced:
+                self._dirty.add(nid)
             if kind == _CHILDREN:
                 for c in payload:
                     if c is not None:
@@ -142,15 +166,33 @@ class SvoSpace:
         r, g, b = self._payload[node]
         return (_bits_f32(r), _bits_f32(g), _bits_f32(b))
 
+    def leaf_at(self, p) -> Optional[int]:
+        """Slot of the block leaf at p (its row in the device table), or
+        None for air."""
+        x, y, z = int(p[0]), int(p[1]), int(p[2])
+        node = self.root
+        for level in range(self.height() - 1, -1, -1):
+            if node is None:
+                return None
+            c = 1 << level
+            idx = (x >= c) | ((y >= c) << 1) | ((z >= c) << 2)
+            node = self._payload[node][idx]
+            x -= c if x >= c else 0
+            y -= c if y >= c else 0
+            z -= c if z >= c else 0
+        return node
+
     def set(self, p, rgb: Optional[tuple]):
         """Path-copying point edit: place a block (rgb) or clear (None)
-        inside [0, 2^height)^3 (svo.rs:102-144)."""
+        inside [0, 2^height)^3 (svo.rs:102-144). ``set_calls`` counts every
+        call, ``edit_count`` the ones that change the world; a change sets
+        ``edited`` and clears ``heights_exact`` (the renderer re-proves it
+        for edits that keep the world a heightfield)."""
         x, y, z = int(p[0]), int(p[1]), int(p[2])
         n = 1 << self.height()
         if not (0 <= x < n and 0 <= y < n and 0 <= z < n):
             raise ValueError(f"voxel {(x, y, z)} outside [0, {n})^3")
-        # a worldgen heightmap no longer describes the world
-        self.heights_exact = False
+        self.set_calls += 1
         stack = []
         node = self.root
         for level in range(self.height() - 1, -1, -1):
@@ -168,6 +210,9 @@ class SvoSpace:
                 return
         elif rgb is None:
             return
+        self.edited = True
+        self.heights_exact = False
+        self.edit_count += 1
         new_node = self.create_block(rgb) if rgb is not None else None
         while stack:
             nd, idx = stack.pop()
@@ -187,15 +232,40 @@ class SvoSpace:
         cap = max(self.capacity(), 1)
         table = np.full((cap, 8), EMPTY, dtype=np.uint32)
         for nid, kind in enumerate(self._kind):
-            if kind == _BLOCK:
-                table[nid, :3] = self._payload[nid]
-            elif kind == _CHILDREN:
-                for i, c in enumerate(self._payload[nid]):
-                    if c is not None:
-                        table[nid, i] = c
+            self._write_row(table[nid], nid, kind)
+        solid = np.full((cap,), -1, dtype=np.int32)
+        solid[:len(self._solid)] = self._solid
         root = EMPTY if self.root is None else self.root
+        self._dirty.clear()
+        self._synced = True
         return DeviceSvo(table=table, root=root, height=self.height(),
-                         space=self)
+                         solid_leaf=solid, space=self)
+
+    def _write_row(self, row, nid, kind):
+        if kind == _BLOCK:
+            row[:3] = self._payload[nid]
+        elif kind == _CHILDREN:
+            for i, c in enumerate(self._payload[nid]):
+                if c is not None:
+                    row[i] = c
+
+    def serialize_delta(self):
+        """The rows changed since the last ``serialize`` or
+        ``serialize_delta``: ``(rows int64[K] ascending, vals uint32[K, 8],
+        solid int32[K], root, height, capacity)``, or None before a first
+        ``serialize``. Freed slots come as all-EMPTY rows, so the delta
+        applied to the last table gives ``serialize``'s table exactly."""
+        if not self._synced:
+            return None
+        rows = np.array(sorted(self._dirty), dtype=np.int64)
+        vals = np.full((len(rows), 8), EMPTY, dtype=np.uint32)
+        solid = np.full((len(rows),), -1, dtype=np.int32)
+        for k, nid in enumerate(rows):
+            self._write_row(vals[k], nid, self._kind[nid])
+            solid[k] = self._solid[nid]
+        self._dirty.clear()
+        root = EMPTY if self.root is None else self.root
+        return rows, vals, solid, root, self.height(), self.capacity()
 
     def mem_usage(self) -> int:
         """Rough bytes estimate (table + intern map), for worldgen logs."""
@@ -206,12 +276,15 @@ class SvoSpace:
 class DeviceSvo:
     """Flat SVO on the host: ``table`` uint32[capacity, 8], ``root`` slot
     index or EMPTY, ``height`` tree height (world edge = 2^height),
-    ``space`` the ``SvoSpace`` that serialized it (world/boxes.py reads its
+    ``solid_leaf`` int32[capacity] the leaf of each subtree that is solid
+    with one colour (else -1; world/boxes.py emits such a subtree as one
+    box), ``space`` the space that serialized it (world/boxes.py reads its
     terrain heightmap)."""
 
     table: np.ndarray
     root: int
     height: int
+    solid_leaf: Optional[np.ndarray] = None
     space: object = None
 
 
