@@ -79,10 +79,14 @@ Phases, each printing its lines; any failure exits non-zero:
    rays, a bounce-1 indirect cast, the NEE cast, batch-8 width with 1%,
    10% and 50% active) against its plain version and K2, each with its
    bound and walk shape. K5 on each envelope tier's table at 409,440
-   camera rays and at batch-8 width against its plain version (rung
-   counts up to the graze share, t_min within 1e-6 relative; the bound
-   charges the table rows the rays reach), the walks
-   it resumes equal to the full walks in every lane; each tier's build
+   camera rays and at batch-8 width against its plain version, each set
+   in image order (pixel tiles, as the main path calls it) and in lane
+   order, the two equal by bits (rung counts up to the graze share,
+   t_min within 1e-6 relative; the bound charges the table rows the rays
+   reach; the row search's L2 sectors a lane and L1 lines a warp
+   replayed from the set's indices in both orders, for the binary and
+   the two-level search), the walks it resumes equal to the full walks
+   in every lane; each tier's build
    ms. Prints worldgen, octree and pack seconds, device memory in use,
    paths/px/s, the checkpoint's seconds and size, a batch-8 call with and
    without the envelope (equal radiance by bits; ms in turns), the
@@ -1427,6 +1431,85 @@ def _sky_bound(d, E, bin_w):
                   B * (K5_RAY_OPS + steps * K5_STEP_OPS))
 
 
+def _k5_warps(shape, dev):
+    """The warp of each lane of an (S, H, W) image set (lane order s, y,
+    x) when K5 walks it in pixel tiles (sky_tmin.cu: a block of 8 columns
+    x TY rows x SG samples, a warp one column of it)."""
+    import torch
+
+    S, H, W = shape
+    sg = 1 << min(int(np.log2(S)), 5)
+    ty = 32 // sg
+    gx, gy = -(-W // 8), -(-H // ty)
+    s = torch.arange(S, device=dev)[:, None, None]
+    y = torch.arange(H, device=dev)[None, :, None]
+    x = torch.arange(W, device=dev)[None, None, :]
+    block = ((s // sg) * gy + y // ty) * gx + x // 8
+    return (block * 8 + x % 8).reshape(-1)
+
+
+def _k5_search_reads(E, S, d, shape, bin_w):
+    """What K5's row search reads, replayed in PyTorch from this set's
+    own indices, for each lane order (``lanes``: a thread a lane, warps
+    of 32 consecutive lanes; ``tiles``: the image's pixel tiles,
+    _k5_warps) and each search (``binary``: the first form's,
+    ceil(log2(K + 1)) loads over E; ``two-level``: sky_tmin.cu's, a
+    binary search over the summary row, then one in a block of 16 rungs
+    of E): ``sectors_a_lane``, the distinct 32-B sectors a warp's live
+    lanes read at each dependent load, summed over warps and loads, over
+    the lanes (the L2 traffic when nothing stays in L1); and
+    ``lines_a_warp``, the distinct 128-B lines a warp's search touches in
+    all (its L1 footprint). Directions and t_min are not counted."""
+    import torch
+
+    from voxtracer_torch.kernels import skyline
+
+    bins, K = E.shape
+    nblk = S.shape[1]
+    B = d.shape[0]
+    cb, _, tan = skyline.lane_slopes(d, bin_w, bins)
+
+    def search(flat, base, lo, hi, w, lines):
+        """A lower-bound search of each lane's [lo, hi) at flat[base + .]:
+        its result and the sectors summed over its dependent loads; the
+        (warp, line) keys it touches go into ``lines``."""
+        n = 0
+        while True:
+            live = lo < hi
+            if not live.any():
+                return lo, n
+            mid = (lo + hi) >> 1
+            at = (base + mid)[live]
+            n += torch.unique(w[live] * (1 << 40) + (at >> 3)).numel()
+            lines.append(torch.unique(w[live] * (1 << 40) + (at >> 5)))
+            below = flat[torch.where(live, base + mid, 0)] < tan
+            lo = torch.where(live & below, mid + 1, lo)
+            hi = torch.where(live & ~below, mid, hi)
+
+    out = {}
+    zero = torch.zeros_like(cb)
+    s_line0 = -(-int(E.numel()) // 32)  # S's lines numbered after E's
+    for order, w in (("lanes", torch.arange(B, device=d.device) // 32),
+                     ("tiles", _k5_warps(shape, d.device))):
+        warps = torch.unique(w).numel()
+        lines = []
+        _, n = search(E.reshape(-1), cb * K, zero, zero + K, w, lines)
+        out[f"{order}, binary"] = dict(
+            sectors_a_lane=n / B,
+            lines_a_warp=torch.unique(torch.cat(lines)).numel() / warps)
+        lines = []
+        c, n1 = search(S.reshape(-1), cb * nblk, zero, zero + nblk, w, lines)
+        lines = [k + s_line0 for k in lines]
+        lo = torch.clamp(c, max=nblk - 1) * skyline.SUMMARY_BLOCK
+        hi = torch.where(c < nblk, torch.clamp(
+            lo + skyline.SUMMARY_BLOCK, max=K) - 1, lo)
+        _, n2 = search(E.reshape(-1), cb * K, lo, hi, w, lines)
+        out[f"{order}, two-level"] = dict(
+            sectors_a_lane=(n1 + n2) / B,
+            lines_a_warp=torch.unique(torch.cat(lines)).numel() / warps)
+    return out
+
+
 def _batch8_primaries(renderer, cam, dev):
     """The jittered camera rays of a batch-8 call, (8 * RAYS, 3)."""
     import random
@@ -1447,13 +1530,17 @@ def _batch8_primaries(renderer, cam, dev):
 def phase_envelope(renderer, cam, dev):
     """K5 on the 8192^3 world, each of the Renderer's envelope tiers:
     the tier's build ms; K5 against its plain version at 409,440
-    pixel-centre camera rays and at batch-8 width (jittered primaries):
-    rung counts (a t_min off by more than 1e-6 relative) up to the graze
-    share of the lanes (their count, budget and max abs error go into the
-    record too), max abs error over the rest; the walk K5's t_min
-    resumes (init_desc 3) against the full walk, hit, t and normal by
-    bits in every lane. Returns the record of the batch-8 set at tier 1,
-    the tier the held pose of the main path runs most."""
+    pixel-centre camera rays and at batch-8 width (jittered primaries),
+    each set in image order (pixel tiles, as the main path calls it) and
+    in lane order: rung counts (a t_min off by more than 1e-6 relative)
+    up to the graze share of the lanes (their count, budget and max abs
+    error go into the record too), max abs error over the rest; the row
+    search's reads in each lane order and search (_k5_search_reads)
+    beside the bound's bytes in sectors; the walk K5's t_min resumes
+    (init_desc 3) against the full walk, hit, t and normal by bits in
+    every lane. Returns the record of the batch-8 set at tier 1 in image
+    order, the tier and order the held pose of the main path runs
+    most."""
     import torch
 
     from voxtracer_torch.kernels import heightfield, skyline
@@ -1467,8 +1554,9 @@ def phase_envelope(renderer, cam, dev):
           f"{1e3 * (time.monotonic() - t0):.1f} ms, "
           f"{len(pack['coarse'])} coarse levels")
     _, cd = _camera_rays(cam, dev)
-    sets = (("camera rays", cd), ("batch-8 primaries",
-                                   _batch8_primaries(renderer, cam, dev)))
+    sets = (("camera rays", cd, (1, HEIGHT, WIDTH)),
+            ("batch-8 primaries", _batch8_primaries(renderer, cam, dev),
+             (8, HEIGHT, WIDTH)))
     origin = torch.as_tensor(pos, device=dev)
     hmax_w = heightfield.terrain_max(tiles, offs)
     rec = None
@@ -1481,31 +1569,66 @@ def phase_envelope(renderer, cam, dev):
                 pack, np.asarray(cam.pos, np.float64), **kw)
             torch.cuda.synchronize()
             builds.append(1e3 * (time.monotonic() - t0))
-        E = env["E"]
+        E, S = env["E"], env["S"]
         consts = skyline._consts(E.shape[0], env["d0"], env["g"])
         print(f"envelope tier {tier} {kw} (from use {first} of a pose): "
               f"build {sorted(round(b, 2) for b in builds)} ms, table "
-              f"{tuple(E.shape)}")
-        for name, d in sets:
+              f"{tuple(E.shape)}, summary {tuple(S.shape)}")
+        for name, d, shape in sets:
             B = d.shape[0]
-
-            def kernel():
-                return skyline.skyline_env_tmin(E, d, env["d0"], env["g"],
-                                                env["K"])
-
-            def plain():
-                return skyline.skyline_env_tmin_plain(E, d, *consts)
-
-            k, p = kernel(), plain()
-            torch.cuda.synchronize()
-            off = (k - p).abs() > 1e-6 * p.abs()
-            n_off = int(off.sum())
-            budget = int(np.ceil(B * GRAZE_SHARE))
-            err = float((k - p).abs()[~off].max())
-            err_off = float((k - p).abs()[off].max()) if n_off else 0.0
-            ms = _ms_fresh(lambda: None, kernel, 10)
-            plain_ms = _ms(plain, 2)
+            p = skyline.skyline_env_tmin_plain(E, d, *consts)
+            plain_ms = _ms(lambda: skyline.skyline_env_tmin_plain(
+                E, d, *consts), 2)
             bound_ms, bound_by = _sky_bound(d, E, consts[0])
+            rows = skyline.azimuth_bin(d, consts[0], E.shape[0]).unique()
+            bound_sectors = (B * 16 + rows.numel() * E.shape[1] * 4) / 32 / B
+            reads = _k5_search_reads(E, S, d, shape, consts[0])
+            print(f"sky_tmin tier {tier}, {name}: the row search replayed "
+                  "from this set's indices (L2 sectors a lane, L1 lines a "
+                  "warp): " + ", ".join(
+                      f"{k} {v['sectors_a_lane']:.4f}, "
+                      f"{v['lines_a_warp']:.2f}" for k, v in reads.items())
+                  + f"; the bound's bytes {bound_sectors:.4f} sectors a "
+                  "lane (directions, t_min and each reached row once)")
+            out = {}
+            for order, dd in (("image order", d.reshape(shape + (3,))),
+                              ("lane order", d)):
+
+                def kernel(dd=dd):
+                    return skyline.skyline_env_tmin(
+                        E, dd, env["d0"], env["g"], env["K"], summary=S)
+
+                before = skyline.launches
+                k = kernel().reshape(-1)
+                torch.cuda.synchronize()
+                if skyline.launches != before + 1:
+                    raise AssertionError("sky_tmin: one launch a call")
+                off = (k - p).abs() > 1e-6 * p.abs()
+                n_off = int(off.sum())
+                budget = int(np.ceil(B * GRAZE_SHARE))
+                err = float((k - p).abs()[~off].max())
+                err_off = float((k - p).abs()[off].max()) if n_off else 0.0
+                ms = _ms_fresh(lambda: None, kernel, 10)
+                out[order] = dict(k=k, ms=ms, lanes_off=n_off,
+                                  lanes_off_budget=budget, max_abs_err=err,
+                                  max_abs_err_off_lanes=err_off)
+                print(f"sky_tmin tier {tier}, {name} ({B} lanes), {order}: "
+                      f"{n_off} lanes off the plain version (budget "
+                      f"{budget}; max abs err {err_off:.3e} there), max abs "
+                      f"err {err:.3e} elsewhere, "
+                      f"{float((k > 0).float().mean()):.4f} certified, "
+                      f"{float((k >= 1e37).float().mean()):.4f} all-miss; "
+                      f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                      f"{bound_ms:.4f} ms ({bound_by}), "
+                      f"{100 * bound_ms / ms:.1f}% of the bound")
+                if n_off > budget or not np.isfinite(err):
+                    raise AssertionError(f"sky_tmin tier {tier}, {name}, "
+                                         f"{order}: {n_off} lanes off")
+            img = out["image order"]
+            k = img.pop("k")
+            if not torch.equal(k, out["lane order"].pop("k")):
+                raise AssertionError(f"sky_tmin tier {tier}, {name}: the "
+                                     "two lane orders differ")
 
             def walk(t_min):
                 return heightfield.hf_raycast(
@@ -1520,25 +1643,19 @@ def phase_envelope(renderer, cam, dev):
                         .any(-1)).sum())
             walk_ms = (_ms_fresh(lambda: None, lambda: walk(None), 3),
                        _ms_fresh(lambda: None, lambda: walk(k), 3))
-            print(f"sky_tmin tier {tier}, {name} ({B} lanes): {n_off} lanes "
-                  f"off the plain version (budget {budget}; max abs err "
-                  f"{err_off:.3e} there), max abs err {err:.3e} elsewhere, "
-                  f"{float((k > 0).float().mean()):.4f} "
-                  f"certified, {float((k >= 1e37).float().mean()):.4f} "
-                  f"all-miss; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-                  f"bound {bound_ms:.4f} ms ({bound_by}); resumed walk "
-                  f"against the full walk: {diff} lanes differ (budget 0), "
-                  f"K4 {walk_ms[1]:.3f} ms resumed against {walk_ms[0]:.3f} "
-                  "ms full")
-            if n_off > budget or diff or not np.isfinite(err):
-                raise AssertionError(f"sky_tmin tier {tier}, {name}: {n_off} "
-                                     f"lanes off, {diff} resumed lanes differ")
+            print(f"sky_tmin tier {tier}, {name}: resumed walk against the "
+                  f"full walk: {diff} lanes differ (budget 0), K4 "
+                  f"{walk_ms[1]:.3f} ms resumed against {walk_ms[0]:.3f} ms "
+                  "full")
+            if diff:
+                raise AssertionError(f"sky_tmin tier {tier}, {name}: {diff} "
+                                     "resumed lanes differ")
             if tier == 1 and name == "batch-8 primaries":
-                rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, max_abs_err=err,
-                           library_ms=None, lanes_off=n_off,
-                           lanes_off_budget=budget,
-                           max_abs_err_off_lanes=err_off)
+                rec = dict(img, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None,
+                           ms_lane_order=out["lane order"]["ms"],
+                           search_reads=reads,
+                           bound_sectors_a_lane=bound_sectors)
     return rec
 
 

@@ -452,13 +452,7 @@ def test_hf_cast_at_8192_matches_plain(cuda):
         assert k["hit"].any() and not k["hit"].all()
 
 
-@pytest.mark.parametrize("tier", [0, 1, 2])
-def test_sky_tmin_matches_plain(cuda, tier):
-    """K5 on each of the Renderer's envelope tiers for an 8192^3 world's
-    camera rays and random directions: rung counts as the plain version's
-    in all but 2 lanes of 4096, t_min within 1e-6 relative elsewhere (the
-    card's atan2f/exp2f and torch's may round apart; usually none differ);
-    the resumed walk equals the full walk."""
+def _sky_env(cuda, tier):
     from voxtracer_torch.core import camera as vcam
     from voxtracer_torch.kernels import skyline
     from voxtracer_torch.render.driver import Renderer
@@ -470,16 +464,48 @@ def test_sky_tmin_matches_plain(cuda, tier):
     env = skyline.build_skyline_env_device(
         skyline.sky_levels_from_hf(*pack), np.asarray(cam.pos, np.float64),
         **Renderer.SKY_TIERS[tier][0])
-    o, d = vcam.generate_rays(cam, 853, 480, device=cuda)
-    d = d.reshape(-1, 3).contiguous()
-    before = skyline.launches
-    got = skyline.skyline_env_tmin(env["E"], d, env["d0"], env["g"], env["K"])
-    assert skyline.launches == before + 1
-    want = skyline.skyline_env_tmin_plain(
-        env["E"], d, *skyline._consts(8192, env["d0"], env["g"]))
+    return pack, cam, env
+
+
+def _sky_orders(env, d, want):
+    """K5 on the (S, H, W, 3) rays ``d`` in image order and flattened in
+    lane order: one launch a call, the two equal by bits, rung counts as
+    the plain version's ``want`` in all but 2 lanes of 4096 (t_min within
+    1e-6 relative elsewhere). Returns the image order's t_min, flat."""
+    from voxtracer_torch.kernels import skyline
+
+    outs = []
+    for dd in (d, d.reshape(-1, 3)):
+        before = skyline.launches
+        got = skyline.skyline_env_tmin(env["E"], dd, env["d0"], env["g"],
+                                       env["K"], summary=env["S"])
+        assert skyline.launches == before + 1
+        assert got.shape == dd.shape[:-1]
+        outs.append(got.reshape(-1))
     torch.cuda.synchronize()
-    off = (got - want).abs() > 1e-6 * want.abs()
-    assert int(off.sum()) <= 2 * d.shape[0] // 4096
+    assert torch.equal(outs[0], outs[1])
+    off = (outs[0] - want).abs() > 1e-6 * want.abs()
+    assert int(off.sum()) <= 2 * want.shape[0] // 4096
+    return outs[0]
+
+
+@pytest.mark.parametrize("tier", [0, 1, 2])
+def test_sky_tmin_matches_plain(cuda, tier):
+    """K5 on each of the Renderer's envelope tiers for an 8192^3 world's
+    camera rays, in image order (pixel tiles) and lane order: rung counts
+    as the plain version's in all but 2 lanes of 4096, t_min within 1e-6
+    relative elsewhere (the card's atan2f/exp2f and torch's may round
+    apart; usually none differ); the resumed walk equals the full walk."""
+    from voxtracer_torch.core import camera as vcam
+    from voxtracer_torch.kernels import skyline
+
+    pack, cam, env = _sky_env(cuda, tier)
+    o, d = vcam.generate_rays(cam, 853, 480, device=cuda)
+    want = skyline.skyline_env_tmin_plain(
+        env["E"], d.reshape(-1, 3), *skyline._consts(8192, env["d0"],
+                                                     env["g"]))
+    got = _sky_orders(env, d[None].contiguous(), want)
+    d = d.reshape(-1, 3).contiguous()
     start = o.reshape(-1, 3).contiguous()
     dist = torch.full((d.shape[0],), traverse.FAR, device=cuda)
     full = heightfield.hf_raycast(*pack, start, d, dist)
@@ -487,3 +513,26 @@ def test_sky_tmin_matches_plain(cuda, tier):
                                      init_desc=3)
     for key in ("hit", "t", "normal", "voxel"):
         assert torch.equal(full[key], resumed[key]), key
+
+
+@pytest.mark.parametrize("tier", [0, 1])
+@pytest.mark.parametrize("S,W,H", [(8, 853, 480), (3, 101, 37)])
+def test_sky_tmin_jittered_samples_match_plain(cuda, tier, S, W, H):
+    """K5 on S jittered samples of a frame (the batch-8 call's primaries,
+    and a ragged frame whose last sample group is part masked), in both
+    lane orders, against the plain version (test above's budget)."""
+    from voxtracer_torch.core import camera as vcam
+    from voxtracer_torch.kernels import skyline
+
+    _, cam, env = _sky_env(cuda, tier)
+    py, px = vcam.pixel_grid(W, H, cuda)
+    ndc = vcam.pixel_ndc(px, py, W, H)
+    jit = torch.as_tensor(np.random.default_rng(S).uniform(
+        0, 1, (S, H, W, 2)).astype(np.float32), device=cuda)
+    d = vcam.ray_directions(cam.basis(), ndc[None].expand(S, H, W, 2),
+                            jitter=jit, height=H).contiguous()
+    want = skyline.skyline_env_tmin_plain(
+        env["E"], d.reshape(-1, 3), *skyline._consts(8192, env["d0"],
+                                                     env["g"]))
+    got = _sky_orders(env, d, want)
+    assert (got > 0).float().mean() > 0.3

@@ -320,8 +320,9 @@ def test_sky_env_tiers_by_pose_reuse(monkeypatch):
     monkeypatch.setattr(tdrv, "render_samples", spy)
     sun = np.array([0.8, 10.2743, 3.7])
     r.sample_batch(cam2, sun, 2)
-    E, d0, g = seen["hf_sky_env"]
-    assert E is r._sky_env[1][0] and seen["soup"] is None
+    E, d0, g, K, S = seen["hf_sky_env"]
+    assert E is r._sky_env[1][0] and S is r._sky_env[1][4]
+    assert seen["soup"] is None
     b = tdrv.Renderer(space.serialize(), 32, 16, max_bounces=3, fog_steps=8,
                       seed=0, device="cpu", use_soup=False)
     monkeypatch.setattr(tdrv.Renderer, "_get_sky_env", lambda self, c: None)

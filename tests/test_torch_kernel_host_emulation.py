@@ -1,7 +1,8 @@
 """The CUDA sources of K2 (csrc/svo_cast.cu), K4 (csrc/hf_cast.cu), K1
 (csrc/fog_march.cu), lane fetch (csrc/lanes.cuh) included, K3
-(csrc/resolve_fold.cu) and K5 (csrc/sky_tmin.cu), compiled for the host and run under a small emulation of the CUDA
-features they use: every thread of a block is a std::thread, the 32
+(csrc/resolve_fold.cu) and K5 (csrc/sky_tmin.cu), compiled for the host
+and run under a small emulation of the CUDA features they use: every
+thread of a block is a std::thread (grids of up to three axes), the 32
 threads of a warp meet at a barrier for each warp collective
 (__ballot_sync, __shfl_sync, __shfl_xor_sync, __syncwarp), blocks run one
 after another, and the "card" has 2 SMs of 2 blocks. It runs the
@@ -24,8 +25,12 @@ about one segment. K5 calls atan2f, hypotf and exp2f, which may differ
 from torch's in the last bit: a lane whose azimuth or slope lies on a
 boundary may land one bin or one rung over (at most 2 lanes in 4096, the
 smoke's graze share), and every other lane's t_min is within 1e-6
-relative; its binary search over the row must give the full count's rung
-(the nondecreasing rows make them one).
+relative; its two-level search over the row must give the full count's
+rung (the nondecreasing rows make them one), in image order (pixel
+tiles, directions and t_min through shared memory, ragged edges masked)
+and in lane order alike. Against the binary search of the kernel's first
+form (BSEARCH_SKY_TMIN, built under the same shim and host libm), t_min is
+equal by bits in every lane: the same rung everywhere.
 
 Needs g++ with C++20 (<barrier>); skips without it.
 """
@@ -135,13 +140,20 @@ struct alignas(16) int4 { int x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return float4{x, y, z, w};
 }
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
+};
 template <class K, class... A>
-void emu_launch(K kernel, int blocks, int threads, size_t smem, cudaStream_t,
+void emu_launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t,
                 A... args) {
   blockDim.x = threads;
-  gridDim.x = blocks;
+  gridDim.x = grid.x;
+  gridDim.y = grid.y;
+  gridDim.z = grid.z;
   std::vector<int> dyn(smem / sizeof(int) + 1);
-  for (int b = 0; b < blocks; ++b) {
+  for (unsigned b = 0; b < grid.x * grid.y * grid.z; ++b) {
     std::barrier<> block_bar(threads);
     g_block_bar = &block_bar;
     g_dyn_smem = dyn.data();
@@ -150,7 +162,9 @@ void emu_launch(K kernel, int blocks, int threads, size_t smem, cudaStream_t,
     for (int x = 0; x < threads; ++x)
       ts.emplace_back([&, x, b] {
         threadIdx.x = x;
-        blockIdx.x = b;
+        blockIdx.x = b % grid.x;
+        blockIdx.y = b / grid.x % grid.y;
+        blockIdx.z = b / grid.x / grid.y;
         t_warp = &warps[x / 32];
         kernel(args...);
       });
@@ -167,6 +181,81 @@ FOLD_MUTANTS = {
     "fold_merge_by_t": ("if (js >= 0 && res[0] < lim[q]) {",
                         "if (js >= 0 && res[0] <= lim[q]) {"),
 }
+
+# K5 in its first form, a thread a lane and a binary search of the row
+# (C entry: E, bins, K, dir, n, bin_w, log2_d0, log2_g, far, t_min,
+# stream): the new kernel must find the same rung in every lane
+BSEARCH_SKY_TMIN = r"""
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+namespace {
+constexpr float kTwoPi = 6.28318548202514648f;
+constexpr float kRelMargin = 1e-5f;
+constexpr float kAbsMargin = 1e-6f;
+constexpr float kEnvSlack = 2.0f;
+constexpr float kBig = 3e38f;
+struct SkyArgs {
+  const float* E;
+  const float* dir;
+  float* t_min;
+  int bins, K, n;
+  float bin_w, log2_d0, log2_g, far;
+};
+__global__ void sky_tmin_kernel(const SkyArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  const float dx = a.dir[3 * i], dy = a.dir[3 * i + 1],
+              dz = a.dir[3 * i + 2];
+  float m = fmodf(atan2f(dz, dx), kTwoPi);
+  if (m < 0.0f) m = m + kTwoPi;
+  int cb = (int)floorf(m / a.bin_w);
+  cb = cb < 0 ? 0 : (cb > a.bins - 1 ? a.bins - 1 : cb);
+  const float xz = hypotf(dx, dz);
+  float slope;
+  if (xz > 0.0f)
+    slope = dy / fmaxf(xz, 1e-30f);
+  else
+    slope = dy >= 0.0f ? kBig : -kBig;
+  const float tan_adj = fabsf(slope) >= kBig
+                            ? slope
+                            : slope - (kRelMargin * fabsf(slope) + kAbsMargin);
+  const float* row = a.E + (int64_t)cb * a.K;
+  int lo = 0, hi = a.K;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(row + mid) < tan_adj)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  const int ks = lo;
+  float t;
+  if (ks == 0) {
+    t = 0.0f;
+  } else if (ks == a.K) {
+    t = a.far;
+  } else {
+    const float dk = exp2f(a.log2_d0 + (float)(ks - 1) * a.log2_g);
+    t = fmaxf(dk - kEnvSlack, 0.0f) / fmaxf(xz, 1e-30f);
+  }
+  a.t_min[i] = t;
+}
+}  // namespace
+extern "C" int voxt_sky_tmin(const void* E, int bins, int K, const void* dir,
+                             int n, float bin_w, float log2_d0, float log2_g,
+                             float far, void* t_min, void* stream) {
+  if (n <= 0) return 0;
+  SkyArgs a{(const float*)E, (const float*)dir, (float*)t_min, bins, K, n,
+            bin_w, log2_d0, log2_g, far};
+  sky_tmin_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+"""
+BSEARCH_SIGNATURE = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                     ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                     ctypes.c_void_p, ctypes.c_void_p)
 
 # lane-fetch settings (static percent, chunk, refill): the wrappers' and
 # the corners
@@ -195,6 +284,7 @@ def host_kernels(tmp_path_factory):
     sources = {name: (build.CSRC / f"{name}.cu").read_text()
                for name in ("svo_cast", "fog_march", "hf_cast", "sky_tmin")}
     sources["resolve_fold"] = fold_src
+    sources["sky_bsearch"] = BSEARCH_SKY_TMIN
     for name, (old, new) in FOLD_MUTANTS.items():
         assert fold_src.count(old) == 1, name
         sources[name] = fold_src.replace(old, new)
@@ -214,11 +304,14 @@ def host_kernels(tmp_path_factory):
         assert p.returncode == 0, err
         lib = ctypes.CDLL(str(so))
         entries = [f"voxt_{name}"] \
-            if name in ("svo_cast", "fog_march", "hf_cast", "sky_tmin") else ["voxt_resolve_fold", "voxt_resolve_fold_seg"]
+            if name in ("svo_cast", "fog_march", "hf_cast", "sky_tmin") \
+            else ["voxt_sky_tmin"] if name == "sky_bsearch" \
+            else ["voxt_resolve_fold", "voxt_resolve_fold_seg"]
         fns = []
         for entry in entries:
             fn = getattr(lib, entry)
-            fn.argtypes = list(build.SIGNATURES[entry])
+            fn.argtypes = list(BSEARCH_SIGNATURE if name == "sky_bsearch"
+                               else build.SIGNATURES[entry])
             fn.restype = ctypes.c_int
             fns.append(fn)
         libs[name] = fns[0] if len(fns) == 1 else tuple(fns)
@@ -471,11 +564,7 @@ def test_sky_tmin_source_equals_plain(host_kernels, hf_world, tier):
               [0, 0, 0]]
     d = torch.cat([cd.reshape(-1, 3), torch.from_numpy(rd)]).contiguous()
     consts = skyline._consts(E.shape[0], env["d0"], env["g"])
-    got = torch.full((d.shape[0],), 7.0)
-    err = host_kernels["sky_tmin"](E.data_ptr(), E.shape[0], E.shape[1],
-                                   d.data_ptr(), d.shape[0], *consts,
-                                   skyline.FAR, got.data_ptr(), None)
-    assert err == 0
+    got = _sky_host(host_kernels["sky_tmin"], E, env["S"], d, consts)
     want = skyline.skyline_env_tmin_plain(E, d, *consts)
     rel = (got - want).abs() / want.abs().clamp_min(1e-30)
     off = rel > 1e-6
@@ -489,6 +578,100 @@ def test_sky_tmin_source_equals_plain(host_kernels, hf_world, tier):
                                            None, got, 3)
     for key in ("hit", "t", "normal", "voxel"):
         assert torch.equal(full[key], resumed[key]), key
+
+
+def _sky_host(fn, E, S, d, consts, image=(0, 0, 0)):
+    """K5's C entry on (B, 3) directions ``d``, as lanes (s, y, x) of
+    the image shape ``image`` (S, H, W), or in lane order for (0, 0, 0)."""
+    from voxtracer_torch.kernels import skyline
+
+    got = torch.full((d.shape[0],), 7.0)
+    err = fn(E.data_ptr(), S.data_ptr(), E.shape[0], E.shape[1], S.shape[1],
+             d.data_ptr(), d.shape[0], *image, *consts, skyline.FAR,
+             got.data_ptr(), None)
+    assert err == 0
+    return got
+
+
+def _sky_table(rng, bins, K):
+    """A (bins, K) table shaped like a built envelope: rows nondecreasing
+    over slopes that camera rays reach, a -3e38 floor over the first
+    rungs of a third of the rows, +inf from some rung on in a fifth, and
+    runs of equal rungs."""
+    steps = rng.exponential(1.2 / K, (bins, K)).astype(np.float32)
+    steps[rng.random((bins, K)) < 0.3] = 0.0
+    E = np.cumsum(steps, axis=1) + rng.uniform(-1.2, -0.2, (bins, 1))
+    E = E.astype(np.float32)
+    floor = rng.random(bins) < 1 / 3
+    E[floor, : max(K // 8, 1)] = -3e38
+    inf_from = rng.integers(K // 2, K, bins)
+    inf = rng.random(bins) < 1 / 5
+    E[inf[:, None] & (np.arange(K)[None, :] >= inf_from[:, None])] = np.inf
+    return torch.from_numpy(np.maximum.accumulate(E, axis=1))
+
+
+def _sky_rays(shape, rng):
+    """Directions of the image shape (S, H, W) (jittered samples of one
+    frame; pixel centres at S = 1) from a camera whose view wraps azimuth
+    0 / 2 pi, as (S * H * W, 3); or (B,) random directions, axis-parallel
+    and vertical ones among them."""
+    if len(shape) == 1:
+        rd = rng.normal(size=(shape[0], 3)).astype(np.float32)
+        rd[:6] = [[0, 1, 0], [0, -1, 0], [1, 0, 0], [0, 0, -1], [-1, 0, 0],
+                  [0, 0, 0]]
+        return torch.from_numpy(rd)
+    S, H, W = shape
+    cam = vcam.Camera(pos=(5.0, 30.0, 7.0), yaw=1.3, pitch=0.22)
+    py, px = vcam.pixel_grid(W, H)
+    ndc = vcam.pixel_ndc(px, py, W, H)
+    if S == 1:
+        d = vcam.ray_directions(cam.basis(), ndc)[None]
+    else:
+        jit = rng.uniform(0, 1, (S, H, W, 2)).astype(np.float32)
+        d = vcam.ray_directions(cam.basis(), ndc[None].expand(S, H, W, 2),
+                                jitter=torch.from_numpy(jit), height=H)
+    return d.reshape(-1, 3).contiguous()
+
+
+@pytest.mark.parametrize("K", [37, 64, 100, 256, 512])
+@pytest.mark.parametrize("shape", [(1, 37, 29), (8, 13, 21), (3, 9, 10),
+                                   (1000,)])
+def test_sky_tmin_source_orders_and_searches(host_kernels, shape, K):
+    """K5 from its source on image-shaped sets (S = 1 and 8, and S = 3,
+    whose second sample group is half masked; W and H no multiples of the
+    tile) in image and lane order, and on a set of random directions in
+    lane order, against the plain version (module doc's budget) and
+    against the binary search by bits in every lane: tables with K a
+    multiple of 16 and not (100: a partial last block; 37: blocks read a
+    float at a time), -3e38 floors and +inf blocks; the view wraps azimuth
+    0 / 2 pi."""
+    from voxtracer_torch.kernels import skyline
+
+    rng = np.random.default_rng(K + len(shape))
+    bins = 8192
+    E = _sky_table(rng, bins, K)
+    S = skyline.env_summary(E)
+    d = _sky_rays(shape, rng)
+    consts = skyline._consts(bins, 4.0, 1.01)
+    cb = skyline.azimuth_bin(d, consts[0], bins)
+    if len(shape) == 3:
+        assert int(cb.min()) < 64 and int(cb.max()) > bins - 64  # wraps
+    want = skyline.skyline_env_tmin_plain(E, d, *consts)
+    ref = torch.full((d.shape[0],), 7.0)
+    assert host_kernels["sky_bsearch"](
+        E.data_ptr(), bins, K, d.data_ptr(), d.shape[0], *consts,
+        skyline.FAR, ref.data_ptr(), None) == 0
+    orders = [(0, 0, 0)] + ([shape] if len(shape) == 3 else [])
+    for image in orders:
+        got = _sky_host(host_kernels["sky_tmin"], E, S, d, consts, image)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), \
+            image
+        rel = (got - want).abs() / want.abs().clamp_min(1e-30)
+        off = rel > 1e-6
+        assert int(off.sum()) <= max(2, 2 * d.shape[0] // 4096), image
+    # every kind of lane occurs: no certificate, a rung, all-miss
+    assert (want == 0).any() and (want >= 1e37).any()
+    assert ((want > 0) & (want < 1e37)).float().mean() > 0.2
 
 
 def _fog_host(fn, args, active, n_steps, fetch):

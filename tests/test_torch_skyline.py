@@ -164,6 +164,56 @@ def test_tmin_lookup_matches_jax(world):
         assert ((got >= 1e37) == (want >= 1e37))[~off].all()
 
 
+def _two_level(E, S, cb, tan_adj):
+    """The rungs of row ``cb`` below ``tan_adj`` from the summary S (the
+    blocks of 16 rungs wholly below) and the one block of E that holds
+    the bound, as K5 finds them; returns (k*, block), block ==
+    ceil(K / 16) where every rung lies below."""
+    K = E.shape[1]
+    nblk = S.shape[1]
+    blk = (S[cb] < tan_adj[:, None]).sum(dim=1)
+    k = (torch.clamp(blk, max=nblk - 1) * 16)[:, None] + torch.arange(16)
+    inside = (k < K) & (blk < nblk)[:, None]
+    vals = E[cb[:, None], torch.clamp(k, max=K - 1)]
+    cnt = ((vals < tan_adj[:, None]) & inside).sum(dim=1)
+    return torch.where(blk < nblk, blk * 16 + cnt, K), blk
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(bins=8192, K=256, ratio=32),
+                                dict(bins=8192, K=512, ratio=128),
+                                dict(bins=2048, K=100, ratio=16)])
+def test_two_level_count_equals_full_count(world, kw):
+    """K5's two-level search in PyTorch (_two_level: the summary's blocks
+    below the slope, then one block of E) gives the full count's rung in
+    every lane, on the default table, the Renderer's two table shapes and
+    a K that is no multiple of 16; the summary is E's last rung of each
+    block of 16; E still matches JAX's device build."""
+    heights = world["heights"]
+    origin = (0.55 * N, float(heights.max()) + 4.0, 0.4 * N)
+    env = _port_env(world["tpack"], origin, **kw)
+    E, S = env["E"], env["S"]
+    bins, K = E.shape
+    nblk = -(-K // 16)
+    assert S.shape == (bins, nblk)
+    last = [min(16 * j + 15, K - 1) for j in range(nblk)]
+    assert torch.equal(S, E[:, last])
+    cam = tcam.Camera(pos=origin, yaw=2.2, pitch=0.15)
+    _, cd = tcam.generate_rays(cam, 64, 64)
+    d = torch.from_numpy(np.concatenate(
+        [_rand_dirs(np.random.default_rng(4), 4096),
+         cd.reshape(-1, 3).numpy()]))
+    bin_w = tsky._consts(bins, env["d0"], env["g"])[0]
+    cb, _, tan_adj = tsky.lane_slopes(d, bin_w, bins)
+    full = (E[cb] < tan_adj[:, None]).sum(dim=1)
+    ks, blk = _two_level(E, S, cb, tan_adj)
+    assert torch.equal(ks, full)
+    assert (full == 0).any() and ((full > 0) & (full < K)).any()
+    assert ((blk < nblk) == (full < K)).all()
+    jdev = jsky.build_skyline_env_device(
+        jsky.sky_levels_from_hf(*world["jpack"]), origin, **kw)
+    _close(np.asarray(jdev["E"]), E.numpy())
+
+
 def test_patch_sky_levels_matches_rebuild(world):
     """tests/test_skyline_env.py:210-235: the patched pyramid equals the
     port's rebuild and JAX's patch, bit for bit; above 16 columns it

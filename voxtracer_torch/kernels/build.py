@@ -65,8 +65,10 @@ SIGNATURES = {
     # counter, static_pct, chunk, refill, stream
     "voxt_hf_cast": (_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                      _P, _P, _P, _P, _I, _P, _I, _I, _I, _P),
-    # E, bins, K, dir, n, bin_w, log2_d0, log2_g, far, t_min, stream
-    "voxt_sky_tmin": (_P, _I, _I, _P, _I, _F, _F, _F, _F, _P, _P),
+    # E, S, bins, K, sw, dir, n, img_s, img_h, img_w, bin_w, log2_d0,
+    # log2_g, far, t_min, stream
+    "voxt_sky_tmin": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _F, _F,
+                      _F, _P, _P),
 }
 
 # the persistent kernels index lanes (and 3 floats a lane) in int32

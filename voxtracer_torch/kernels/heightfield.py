@@ -40,7 +40,7 @@ import torch
 from voxtracer_torch.core import camera as vcam
 from voxtracer_torch.core.vecmath import hmax, hmin
 from voxtracer_torch.kernels import build
-from voxtracer_torch.kernels.skyline import skyline_env_tmin
+from voxtracer_torch.kernels.skyline import env_tmin
 from voxtracer_torch.kernels.traverse import EPS, FAR, _lanes, svo_raycast
 
 MAX_LEVELS = 16  # row starts the kernel holds in shared memory
@@ -189,7 +189,7 @@ def hf_raycast(tiles, offsets: tuple, height: int, start, d, distance=FAR,
     optional (...,) bool lane mask. ``t_min``: optional per-ray
     (broadcastable) resume: the walk starts at ``max(world entry t,
     t_min)``, and the caller guarantees the ray is in air up to and
-    including it. ``sky_env``: optional ``(E, d0, g[, K])``, the horizon
+    including it. ``sky_env``: optional ``(E, d0, g[, K[, S]])``, the horizon
     envelope built for ``start`` (kernels/skyline.py), in place of
     ``t_min``: each ray resumes at its certified-air ``t_min`` from K5,
     which changes no output bit. ``init_desc``: start the walk that many
@@ -209,8 +209,8 @@ def hf_raycast(tiles, offsets: tuple, height: int, start, d, distance=FAR,
     if sky_env is not None:
         if t_min is not None:
             raise ValueError("hf_raycast: give t_min or sky_env, not both")
-        t_min = skyline_env_tmin(sky_env[0], d, *sky_env[1:]) \
-            .reshape(batch_shape)
+        # the rays in their batch shape: an image's go to K5 as one
+        t_min = env_tmin(sky_env, d.reshape(batch_shape + (3,)))
     if init_desc is None:
         init_desc = 3 if sky_env is not None else 0
     if t_min is not None:
@@ -617,8 +617,8 @@ def hf_frame_cast(tiles, offsets: tuple, height: int, cam_pos, cam_basis,
     ``ray_dirs``: optional (H, W, 3) directions (jittered primaries);
     default the pixel centres, made op by op as ``camera.generate_rays``
     makes them. ``terrain_node``: the leaf reported for hits.
-    ``sky_env``: optional ``(E, d0, g, K)``, the horizon envelope built
-    for ``cam_pos`` (kernels/skyline.py): every ray resumes at its
+    ``sky_env``: optional ``(E, d0, g[, K[, S]])``, the horizon envelope
+    built for ``cam_pos`` (kernels/skyline.py): every ray resumes at its
     certified-air ``t_min``, which changes no output bit. ``init_desc``:
     the walk's start depth (hf_raycast); None takes 3 with an envelope
     and 0 without, as the JAX package does."""

@@ -241,18 +241,18 @@ def _hf_env_primary(hf_mips, hf_offsets: tuple, height: int, cam_pos, d,
                     terrain_rgb, hf_sky_env):
     """The uncapped first hit of every camera ray ``d`` (..., 3) on the
     heightfield, each walk resumed at its certified-air ``t_min`` from the
-    pose's envelope ``hf_sky_env = (E, d0, g)`` and started 3 tile levels
-    down (``voxtracer/kernels/integrator.py:567``). The resumed walk
-    equals the walk from the start, and an uncapped first hit is what
-    bounce 0's capped cast would return below the cap, so the radiance is
-    the same bit for bit."""
+    pose's envelope ``hf_sky_env = (E, d0, g[, K[, S]])`` and started 3
+    tile levels down (``voxtracer/kernels/integrator.py:567``). The
+    resumed walk equals the walk from the start, and an uncapped first
+    hit is what bounce 0's capped cast would return below the cap, so the
+    radiance is the same bit for bit."""
     sh = d.shape[:-1]
     pos = torch.as_tensor(cam_pos, dtype=torch.float32).to(d.device)
-    pr = heightfield.hf_raycast(hf_mips, hf_offsets, height, pos,
-                                d.reshape(-1, 3), sky_env=hf_sky_env)
+    # d keeps its (k, H, W) shape: K5 walks an image in pixel tiles
+    pr = heightfield.hf_raycast(hf_mips, hf_offsets, height, pos, d,
+                                sky_env=hf_sky_env)
     trgb = torch.as_tensor(terrain_rgb, dtype=torch.float32).to(d.device)
-    return dict(hit=pr["hit"].reshape(sh), t=pr["t"].reshape(sh),
-                normal=pr["normal"].reshape(sh + (3,)),
+    return dict(hit=pr["hit"], t=pr["t"], normal=pr["normal"],
                 rgb=trgb.expand(sh + (3,)))
 
 
@@ -287,8 +287,8 @@ def render_sample(table, root: int, height: int, lut, cam_pos, cam_basis,
     first bounce is then rasterized, against ``soup_bins`` (the pose's
     jittered ``raster.raster_bins``) when given. ``hf_*``/``terrain_rgb``:
     the heightfield pack for ``trace_paths``; without edit bounds the
-    rasterizer's fallback rides it too. ``hf_sky_env``: ``(E, d0, g)``,
-    the envelope built for ``cam_pos``; taken for the primaries when
+    rasterizer's fallback rides it too. ``hf_sky_env``: ``(E, d0, g[, K[,
+    S]])``, the envelope built for ``cam_pos``; taken for the primaries when
     ``hf_mips`` is given, without a soup and without edit bounds (as in
     the JAX package). Returns the (H, W, 3) radiance on the table's
     device."""

@@ -1,7 +1,10 @@
 """Per-pose horizon envelope: every primary ray resumes its heightfield walk
 in certified air (the port of ``voxtracer/kernels/skyline.py``'s device
 path). CUDA kernel K5 (csrc/sky_tmin.cu) is the per-ray lookup; its plain
-PyTorch version is ``skyline_env_tmin_plain``.
+PyTorch version is ``skyline_env_tmin_plain``. K5 searches a row in two
+levels: ``env_summary`` (every ``SUMMARY_BLOCK``-th rung of each row, made
+with the table) names the block of 16 rungs that holds ``k*``, then that
+block of ``E`` is searched.
 
 For rays from one origin over a heightfield, a ray at azimuth ``a`` with
 elevation slope ``tan = d_y / |d_xz|`` passes over a column at horizontal
@@ -43,6 +46,7 @@ ENV_SLACK = 2.0     # voxels shaved off per-ray envelope resumes (f32)
 FAR = 3e38          # t_min of a ray that provably misses all terrain
 PATCH_COLS = 16     # patch_sky_levels rebuilds above this many columns
 PLAIN_CHUNK = 1 << 20  # lanes a chunk of the plain lookup gathers rows for
+SUMMARY_BLOCK = 16  # rungs of E that one entry of the summary stands for
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 
@@ -288,7 +292,20 @@ def build_skyline_env_device(pack, origin, bins: int = 4096, ratio: int = 16,
     E = _env_device(pack["flat"], pack["coarse"], origin, pack["offsets"],
                     bins, ratio, K, float(d0), height, float(cls_step))
     g = (4.0 * (1 << height) / d0) ** (1.0 / (K - 1.0))
-    return dict(E=E, d0=float(d0), g=float(g), bins=bins, K=K)
+    return dict(E=E, S=env_summary(E), d0=float(d0), g=float(g), bins=bins,
+                K=K)
+
+
+def env_summary(E):
+    """K5's first search level for the table E (bins, K): (bins, ceil(K /
+    16)) float32, entry j of a row the row's rung ``min(16 j + 15, K -
+    1)``, the last of block j, so the entries below a slope count the
+    blocks wholly below it."""
+    K = E.shape[1]
+    last = torch.clamp(torch.arange(1, -(-K // SUMMARY_BLOCK) + 1,
+                                    device=E.device) * SUMMARY_BLOCK - 1,
+                       max=K - 1)
+    return E[:, last]
 
 
 def _consts(bins: int, d0: float, g: float):
@@ -300,47 +317,73 @@ def _consts(bins: int, d0: float, g: float):
 
 
 def skyline_env_tmin(E, d, d0: float, g: float, K: int | None = None,
-                     far: float = FAR):
+                     far: float = FAR, summary=None):
     """Per-ray certified-air ``t_min`` from an envelope table, in the
     parameterization of ``d`` itself (directions of any length from the
     envelope's origin).
 
-    E: (bins, K) float32; d: (B, 3) float32 on E's device. Returns (B,)
-    float32: 0 where nothing certifies, ``far`` where the ray provably
-    misses all terrain, else ``(d_{k*-1} - ENV_SLACK) / |d_xz|``. K5 on a
-    CUDA tensor, ``skyline_env_tmin_plain`` on a CPU tensor."""
+    E: (bins, K) float32; d: (..., 3) float32 on E's device: (B, 3) rays
+    in any order, or an image's, (H, W, 3) or (S, H, W, 3) (S samples of
+    one H x W frame), which K5 walks in pixel tiles so that rays with one
+    row of E share a warp. ``summary``: ``env_summary(E)``, made here when
+    not given. Returns ``d.shape[:-1]`` float32: 0 where nothing
+    certifies, ``far`` where the ray provably misses all terrain, else
+    ``(d_{k*-1} - ENV_SLACK) / |d_xz|``. K5 on a CUDA tensor,
+    ``skyline_env_tmin_plain`` on a CPU tensor."""
     bins, k = E.shape
     if K is not None and K != k:
         raise ValueError(f"skyline_env_tmin: K {K} != E's {k}")
-    d = d.reshape(-1, 3)
     consts = _consts(bins, d0, g)
     if d.device.type == "cpu":
-        return skyline_env_tmin_plain(E, d, *consts, far=far)
+        return skyline_env_tmin_plain(E, d.reshape(-1, 3), *consts, far=far) \
+            .reshape(d.shape[:-1])
     if d.device.type == "cuda":
-        return _skyline_env_tmin_cuda(E, d, *consts, far)
+        if summary is None:
+            summary = env_summary(E)
+        return _skyline_env_tmin_cuda(E, summary, d, *consts, far)
     raise ValueError(f"skyline_env_tmin: unsupported device {d.device}")
 
 
-def _skyline_env_tmin_cuda(E, d, bin_w, log2_d0, log2_g, far):
+def env_tmin(sky_env, d):
+    """``skyline_env_tmin`` of the rays ``d`` (..., 3) from an envelope
+    tuple ``(E, d0, g[, K[, S]])``, S the summary (``Renderer.
+    _get_sky_env`` gives all five)."""
+    E, d0, g, *rest = sky_env
+    return skyline_env_tmin(E, d, d0, g, *rest[:1],
+                            summary=rest[1] if len(rest) > 1 else None)
+
+
+def _skyline_env_tmin_cuda(E, S, d, bin_w, log2_d0, log2_g, far):
     global launches
     dev = d.device
     if E.device != dev or E.dtype != torch.float32 or E.dim() != 2 \
             or not E.is_contiguous():
         raise ValueError("skyline_env_tmin: E must be a contiguous float32 "
                          f"(bins, K) tensor on {dev}")
+    if S.device != dev or S.dtype != torch.float32 or S.dim() != 2 \
+            or not S.is_contiguous() or S.shape != (
+                E.shape[0], -(-E.shape[1] // SUMMARY_BLOCK)):
+        raise ValueError("skyline_env_tmin: summary must be env_summary(E)")
     if d.dtype != torch.float32 or not d.is_contiguous():
         raise ValueError("skyline_env_tmin: d must be contiguous float32")
-    if E.numel() >= 1 << 31 or d.shape[0] > build.MAX_LANES:
+    shape = d.shape[:-1]
+    B = d.numel() // 3
+    # (S, H, W): an image's rays, leading axes folded into S; (0, 0, 0):
+    # lane order
+    img = (B // max(shape[-2] * shape[-1], 1), shape[-2], shape[-1]) \
+        if len(shape) >= 2 else (0, 0, 0)
+    if E.numel() >= 1 << 31 or S.numel() >= 1 << 31 \
+            or B > build.MAX_LANES:
         raise ValueError("skyline_env_tmin: too large for 32-bit indices")
-    B = d.shape[0]
-    out = torch.empty((B,), dtype=torch.float32, device=dev)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
     if B == 0:
         return out
     lib = build.library()
     with torch.cuda.device(dev):
-        err = lib.voxt_sky_tmin(E.data_ptr(), E.shape[0], E.shape[1],
-                                d.data_ptr(), B, bin_w, log2_d0, log2_g,
-                                far, out.data_ptr(),
+        err = lib.voxt_sky_tmin(E.data_ptr(), S.data_ptr(), E.shape[0],
+                                E.shape[1], S.shape[1], d.data_ptr(), B,
+                                *img, bin_w, log2_d0, log2_g, far,
+                                out.data_ptr(),
                                 torch.cuda.current_stream().cuda_stream)
     build.check(err, "skyline_env_tmin")
     launches += 1
@@ -355,6 +398,20 @@ def azimuth_bin(d, bin_w: float, bins: int):
     return torch.clamp(cb, 0, bins - 1)
 
 
+def lane_slopes(d, bin_w: float, bins: int):
+    """Each (B, 3) direction's row of the table (``azimuth_bin``), its
+    horizontal length |d_xz| and its margin-adjusted elevation slope
+    ``tan_adj``, the value the row is searched for."""
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    xz = torch.hypot(dx, dz)
+    big = torch.full_like(dy, 3e38)
+    tan = torch.where(xz > 0.0, dy / torch.clamp_min(xz, 1e-30),
+                      torch.where(dy >= 0.0, big, -big))
+    tan_adj = torch.where(torch.abs(tan) >= 3e38, tan,
+                          tan - (REL_MARGIN * torch.abs(tan) + ABS_MARGIN))
+    return azimuth_bin(d, bin_w, bins), xz, tan_adj
+
+
 def skyline_env_tmin_plain(E, d, bin_w: float, log2_d0: float, log2_g: float,
                            far: float = FAR):
     """Plain PyTorch version of K5 on (B, 3) directions, with the
@@ -365,15 +422,7 @@ def skyline_env_tmin_plain(E, d, bin_w: float, log2_d0: float, log2_g: float,
     bins, K = E.shape
     out = []
     for s in range(0, d.shape[0], PLAIN_CHUNK):
-        dd = d[s:s + PLAIN_CHUNK]
-        dx, dy, dz = dd[:, 0], dd[:, 1], dd[:, 2]
-        cb = azimuth_bin(dd, bin_w, bins)
-        xz = torch.hypot(dx, dz)
-        big = torch.full_like(dy, 3e38)
-        tan = torch.where(xz > 0.0, dy / torch.clamp_min(xz, 1e-30),
-                          torch.where(dy >= 0.0, big, -big))
-        tan_adj = torch.where(torch.abs(tan) >= 3e38, tan,
-                              tan - (REL_MARGIN * torch.abs(tan) + ABS_MARGIN))
+        cb, xz, tan_adj = lane_slopes(d[s:s + PLAIN_CHUNK], bin_w, bins)
         ks = (E[cb] < tan_adj[:, None]).sum(dim=1)
         dk = torch.exp2(log2_d0 + (ks - 1).to(torch.float32) * log2_g)
         t = torch.clamp_min(dk - ENV_SLACK, 0.0) / torch.clamp_min(xz, 1e-30)

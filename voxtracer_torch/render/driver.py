@@ -132,7 +132,7 @@ class Renderer:
         self._hf = None  # lazy: (tiles, offsets, terrain rgb), or False
         self._bins = self._bins_key = None
         self._sky_mips = None  # the envelope's pyramid pack (per world)
-        self._sky_env = None  # (pose key, (E, d0, g, K), tier, uses)
+        self._sky_env = None  # (pose key, (E, d0, g, K, S), tier, uses)
         self._edit_bounds = None  # list of (2, 3) boxes covering edits
         self._bounds_t = None  # the list as a tensor on the device
         sp = getattr(device_svo, "space", None)
@@ -359,8 +359,9 @@ class Renderer:
         return self._bounds_t
 
     def _get_sky_env(self, cam: vcam.Camera):
-        """The pose's horizon envelope ``(E, d0, g, K)`` for an hf-only
-        world, or None. Built on the device from the world's pyramid
+        """The pose's horizon envelope ``(E, d0, g, K, S)`` (S: K5's
+        summary, ``skyline.env_summary``) for an hf-only world, or None.
+        Built on the device from the world's pyramid
         (derived once from the heightfield pack); richer tables as a pose
         is held: ``SKY_TIERS`` by the uses of one ``cam.pos``, a new pose
         back at tier 0. Not for edits that left the heightmap stale with
@@ -389,7 +390,7 @@ class Renderer:
         env = skyline.build_skyline_env_device(
             self._sky_mips, np.asarray(cam.pos, np.float64),
             **self.SKY_TIERS[tier][0])
-        args = (env["E"], env["d0"], env["g"], env["K"])
+        args = (env["E"], env["d0"], env["g"], env["K"], env["S"])
         self._sky_env = (key, args, tier, uses)
         return args
 
@@ -453,7 +454,7 @@ class Renderer:
         return dict(soup=soup, soup_bins=self._get_soup_bins(cam, soup),
                     hf_mips=hf_mips, hf_offsets=hf_offsets,
                     terrain_rgb=terrain_rgb, hf_edit_bounds=self._hf_bounds(),
-                    hf_sky_env=None if env is None else env[:3])
+                    hf_sky_env=env)
 
     def sample(self, cam: vcam.Camera, sun: np.ndarray):
         """One progressive step: 1 spectral path per pixel."""

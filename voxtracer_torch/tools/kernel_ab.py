@@ -20,6 +20,19 @@ a batch-8 main-path call.
     python -m voxtracer_torch.tools.kernel_ab hf_cast --old-csrc DIR \
         [--variant DIR ...] [--log2-size L] [--reps N]
 
+    # the envelope lookup (K5) of this tree against that of a tree from
+    # before its redesign (a thread a lane, a binary search of the row)
+    # and against variant trees (copies of this tree's csrc/ with
+    # sky_tmin.cu edited; --edits adds the named edits of SKY_EDITS made
+    # here), K5 alone built from each; at 8192^3 on tiers 0 and 1, the
+    # camera rays and batch-8 primaries at 853x480 and a 1920x1080
+    # frame's camera rays; in turns (old, new in image order, new in lane
+    # order, each variant, then the reverse), every output equal by bits
+    # to the old kernel's; ptxas reports of each, and the row search's L2
+    # sectors a lane and L1 lines a warp (chip_smoke._k5_search_reads)
+    python -m voxtracer_torch.tools.kernel_ab sky_tmin --old-csrc DIR \
+        [--variant DIR ...] [--edits] [--reps N]
+
     # ms per batch-8 sample_batch call and per Renderer.preview_frame
     # (a shaded frame on the rasterizer, bins cached) at 1024^3, 853x480,
     # and one torch.profiler window over each, for whichever
@@ -60,6 +73,9 @@ _L = ctypes.c_longlong
 # the old tree's C entry point: K3 as one block per tile
 OLD_RESOLVE_FOLD = (_P, _P, _P, _P, _P, _L, _P, _F, _F, _F, _F, _F,
                     _P, _P, _P, _I, _I, _I, _P)
+# the old tree's K5 entry: E, bins, K, dir, n, bin_w, log2_d0, log2_g,
+# far, t_min, stream
+OLD_SKY_TMIN = (_P, _I, _I, _P, _I, _F, _F, _F, _F, _P, _P)
 KERNEL_NAMES = ("svo_cast_kernel", "fog_march_kernel", "resolve_fold_kernel",
                 "hf_cast_kernel", "sky_tmin_kernel")
 # (ray tile, spans) of the resolve fold; 0 is the launcher's own choice
@@ -430,6 +446,238 @@ def run_hf(old_csrc: Path, variants, reps: int, log2_size: int):
         sys.stdout.flush()
 
 
+# K5 variants made from this tree's sky_tmin.cu: lists of (old text,
+# new text). The search edits put another search that sets ks in place
+# of the two binary searches (from _SEARCH_START to _SEARCH_END): one
+# binary search over E, the first form's (bsearch-tiles: the order's
+# effect alone); the summary counted with float4 loads, then the block
+# (count-two-level: 2 dependent reads; K a multiple of 64, as the A/B's
+# tables); the summary counted, then a binary search in the block
+# (count-then-bsearch). direct-tiles: image order, but each thread reads
+# its direction and writes its t_min itself (what the staging through
+# shared memory buys); float-staging: the directions staged a float a
+# thread, each float's segment and offset computed apart; with-fmod: the
+# azimuth through fmodf(atan2f, 2 pi), the identity on atan2f's range.
+# Diagnostic edits change the output and are not held equal: no-search
+# (a rung from the slope's sign, no table read) times the kernel without
+# its search.
+_SEARCH_START = ("  // level 1: c = the summary entries below tan_adj, the "
+                 "blocks of the\n")
+_SEARCH_END = "  if (ks == 0) return 0.0f;\n"
+_BELOW4 = ("(v.x < tan_adj) + (v.y < tan_adj) + (v.z < tan_adj) + "
+           "(v.w < tan_adj)")
+_COUNT_SUMMARY = (
+    "  const int nblk = (a.K + kBlk - 1) / kBlk;\n"
+    "  const float4* s4 =\n"
+    "      reinterpret_cast<const float4*>(a.S + (int64_t)cb * a.sw);\n"
+    "  int c = 0;\n"
+    "#pragma unroll 8\n"
+    "  for (int j = 0; j < (a.sw >> 2); ++j) {\n"
+    "    const float4 v = __ldg(s4 + j);\n"
+    f"    c += {_BELOW4};\n"
+    "  }\n")
+_SEARCHES = {
+    "bsearch-tiles": (
+        "  const float* row = a.E + (int64_t)cb * a.K;\n"
+        "  int lo = 0, hi = a.K;\n"
+        "  while (lo < hi) {\n"
+        "    const int mid = (lo + hi) >> 1;\n"
+        "    if (__ldg(row + mid) < tan_adj) lo = mid + 1; else hi = mid;\n"
+        "  }\n"
+        "  const int ks = lo;\n"),
+    "count-two-level": _COUNT_SUMMARY + (
+        "  int ks = a.K;\n"
+        "  if (c < nblk) {\n"
+        "    const float4* b4 = reinterpret_cast<const float4*>(\n"
+        "        a.E + (int64_t)cb * a.K + c * kBlk);\n"
+        "    const int quads = (min(kBlk, a.K - c * kBlk) + 3) >> 2;\n"
+        "    int cnt = 0;\n"
+        "#pragma unroll\n"
+        "    for (int j = 0; j < kBlk / 4; ++j)\n"
+        "      if (j < quads) {\n"
+        "        const float4 v = __ldg(b4 + j);\n"
+        f"        cnt += {_BELOW4};\n"
+        "      }\n"
+        "    ks = c * kBlk + cnt;\n"
+        "  }\n"),
+    "count-then-bsearch": _COUNT_SUMMARY + (
+        "  int ks = a.K;\n"
+        "  if (c < nblk) {\n"
+        "    const float* row = a.E + (int64_t)cb * a.K;\n"
+        "    int hi = min(c * kBlk + kBlk, a.K) - 1;\n"
+        "    ks = c * kBlk;\n"
+        "    while (ks < hi) {\n"
+        "      const int mid = (ks + hi) >> 1;\n"
+        "      if (__ldg(row + mid) < tan_adj) ks = mid + 1; else hi = mid;\n"
+        "    }\n"
+        "  }\n"),
+    "no-search": "  const int ks = tan_adj < 0.0f ? 1 : a.K / 2;\n",
+}
+SKY_EDITS = {name: [(_SEARCH_START, code + "#if 0\n" + _SEARCH_START),
+                    (_SEARCH_END, "#endif\n" + _SEARCH_END)]
+             for name, code in _SEARCHES.items()}
+SKY_EDITS["direct-tiles"] = [
+    ("  if (mine) {\n    float* p = sdir",
+     "  if (false) {\n    float* p = sdir"),
+    ("      const float* p = sdir + r * kSegPad + 3 * xl;\n"
+     "      sout[r * kOutPad + xl] = ray_tmin(p[0], p[1], p[2], a);",
+     "      const int i = ((s0 + ss) * a.img_h + y0 + yy) * a.img_w + x0 + xl;"
+     "\n      const float* p = a.dir + 3 * i;\n"
+     "      a.t_min[i] = ray_tmin(p[0], p[1], p[2], a);"),
+    ("  if (mine) a.t_min[pix] =", "  if (false) a.t_min[pix] =")]
+SKY_EDITS["float-staging"] = [
+    ("  if (mine) {\n    float* p = sdir",
+     "  for (int f = threadIdx.x; f < kSegs * kSeg; f += kThreads) {\n"
+     "    const int qf = f / kSeg, ef = f - qf * kSeg;\n"
+     "    const int sf = s0 + (qf >> a.ty_log);\n"
+     "    const int yf = y0 + (qf & ((1 << a.ty_log) - 1));\n"
+     "    if (sf < a.img_s && yf < a.img_h &&\n"
+     "        ef < 3 * min(kTileX, a.img_w - x0))\n"
+     "      sdir[qf * kSegPad + ef] = a.dir[((int64_t)sf * a.img_h + yf)"
+     " * a.img_w * 3 + 3 * x0 + ef];\n"
+     "  }\n"
+     "  if (false) {\n    float* p = sdir")]
+SKY_EDITS["with-fmod"] = [("  float m = atan2f(dz, dx);\n",
+                           "  float m = fmodf(atan2f(dz, dx), kTwoPi);\n")]
+SKY_DIAGNOSTIC = ("no-search",)
+
+
+def _sky_edit_tree(name: str) -> Path:
+    """A copy of this tree's csrc/ with the SKY_EDITS edit ``name`` made
+    to sky_tmin.cu, under the build directory; returns its path."""
+    from voxtracer_torch.kernels import build
+
+    src = (build.CSRC / "sky_tmin.cu").read_text()
+    for old, new in SKY_EDITS[name]:
+        if src.count(old) != 1:
+            raise ValueError(f"edit {name}: {old!r} not found once")
+        src = src.replace(old, new)
+    out = build.BUILD_DIR / "ab_sky_edits" / name
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "sky_tmin.cu").write_text(src)
+    return out
+
+
+def _sky_library(csrc: Path, old: bool):
+    """K5 alone, built from ``csrc`` into its own library; returns it and
+    ptxas's report. ``old``: the entry of the first form (OLD_SKY_TMIN)."""
+    from voxtracer_torch.kernels import build
+
+    out = build.BUILD_DIR / f"ab_sky_{build._source_hash(csrc)}.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    report = build.compile_library(csrc, out, sources=("sky_tmin.cu",))
+    lib = ctypes.CDLL(str(out))
+    lib.voxt_sky_tmin.argtypes = list(
+        OLD_SKY_TMIN if old else build.SIGNATURES["voxt_sky_tmin"])
+    lib.voxt_sky_tmin.restype = ctypes.c_int
+    return lib, report
+
+
+def run_sky(old_csrc: Path, variants, edits: bool, reps: int):
+    """K5 of this tree against a tree from before its redesign and
+    against variant trees, on the envelope tiers 0 and 1 of the 8192^3
+    world at the smoke pose: camera rays and batch-8 primaries at
+    853x480, a 1920x1080 frame's camera rays. Timed in turns, every
+    output equal by bits to the old kernel's; one JSON line a set."""
+    sys.path.insert(0, str(Path.cwd()))
+    import torch
+
+    import chip_smoke as cs
+    from voxtracer_torch.core import camera as vcam
+    from voxtracer_torch.kernels import build
+    from voxtracer_torch.kernels import heightfield as hf
+    from voxtracer_torch.kernels import skyline
+    from voxtracer_torch.render.driver import Renderer
+    from voxtracer_torch.world import worldgen
+
+    smi = card()
+    print(smi)
+    variants = list(variants) + ([_sky_edit_tree(n) for n in SKY_EDITS]
+                                 if edits else [])
+    trees = [old_csrc, Path(build.CSRC), *variants]
+    with ThreadPoolExecutor(len(trees)) as pool:
+        built = list(pool.map(_sky_library, trees,
+                              [True] + [False] * (len(trees) - 1)))
+    vnames = [v.name for v in variants]
+    for name, (_, report) in zip(["old", "new", *vnames], built):
+        for src, regs, props in _ptxas_lines(report):
+            print(f"ptxas {name} {src}: {regs}; {props}")
+    old_lib, new_lib = built[0][0], built[1][0]
+    # (name, library, image order)
+    runs = [("old", old_lib, False), ("new", new_lib, True),
+            ("new, lane order", new_lib, False),
+            *((n, lib, True) for n, (lib, _) in zip(vnames, built[2:]))]
+
+    dev = torch.device("cuda")
+    L = cs.FULL_LOG2_SIZE
+    pack = hf.build_height_mips(worldgen.heightmap(L, device=dev), device=dev)
+    levels = skyline.sky_levels_from_hf(*pack)
+    cam = cs._smoke_camera(L)
+    _, cd = cs._camera_rays(cam, dev)
+    _, hd = vcam.generate_rays(cam, 1920, 1080, device=dev)
+    sets = [("camera rays", cd, (1, cs.HEIGHT, cs.WIDTH)),
+            ("batch-8 primaries", cs._batch8_primaries(None, cam, dev),
+             (8, cs.HEIGHT, cs.WIDTH)),
+            ("1920x1080 camera rays", hd.reshape(-1, 3).contiguous(),
+             (1, 1080, 1920))]
+    stream = torch.cuda.current_stream().cuda_stream
+    for tier in (0, 1):
+        env = skyline.build_skyline_env_device(
+            levels, np.asarray(cam.pos, np.float64),
+            **Renderer.SKY_TIERS[tier][0])
+        E, S = env["E"], env["S"]
+        bins, K = E.shape
+        consts = skyline._consts(bins, env["d0"], env["g"])
+        for set_name, d, shape in sets:
+            B = d.shape[0]
+            outs = [torch.empty((B,), dtype=torch.float32, device=dev)
+                    for _ in runs]
+
+            def call(k):
+                _, lib, image = runs[k]
+                if lib is old_lib:
+                    err = lib.voxt_sky_tmin(
+                        E.data_ptr(), bins, K, d.data_ptr(), B, *consts,
+                        skyline.FAR, outs[k].data_ptr(), stream)
+                else:
+                    err = lib.voxt_sky_tmin(
+                        E.data_ptr(), S.data_ptr(), bins, K, S.shape[1],
+                        d.data_ptr(), B, *(shape if image else (0, 0, 0)),
+                        *consts, skyline.FAR, outs[k].data_ptr(), stream)
+                assert err == 0
+
+            for k in range(len(runs)):
+                call(k)
+            torch.cuda.synchronize()
+            for k in range(1, len(runs)):
+                if runs[k][0] in SKY_DIAGNOSTIC:
+                    continue
+                if not torch.equal(outs[k].view(torch.int32),
+                                   outs[0].view(torch.int32)):
+                    n = int((outs[k].view(torch.int32)
+                             != outs[0].view(torch.int32)).sum())
+                    raise AssertionError(f"sky_tmin {set_name} tier {tier}: "
+                                         f"{runs[k][0]} differs from old in "
+                                         f"{n} lanes")
+            turns = list(range(len(runs)))
+            turns += turns[::-1]
+            ms = {name: [] for name, _, _ in runs}
+            for k in turns:
+                ms[runs[k][0]].append(cs._ms_fresh(
+                    lambda: None, lambda k=k: call(k), reps))
+            bound_ms, bound_by = cs._sky_bound(d, E, consts[0])
+            print(json.dumps(dict(
+                case=f"sky_tmin {set_name} at {1 << L}^3, tier {tier}",
+                card=smi, lanes=B, table=[bins, K], summary=list(S.shape),
+                bound_ms=bound_ms, bound_by=bound_by,
+                search_reads=cs._k5_search_reads(E, S, d, shape, consts[0]),
+                ms=ms, equal_to_old_by_bits=[
+                    n for n, _, _ in runs[1:] if n not in SKY_DIAGNOSTIC],
+                diagnostic_not_held_equal=[
+                    n for n, _, _ in runs if n in SKY_DIAGNOSTIC])))
+            sys.stdout.flush()
+
+
 def run_kernels(old_csrc: Path, sweep: bool, reps: int):
     sys.path.insert(0, str(Path.cwd()))
     from voxtracer_torch.kernels import build
@@ -559,6 +807,11 @@ def main(argv=None) -> int:
     h.add_argument("--variant", type=Path, action="append", default=[])
     h.add_argument("--reps", type=int, default=10)
     h.add_argument("--log2-size", type=int, default=10)
+    k5 = sub.add_parser("sky_tmin")
+    k5.add_argument("--old-csrc", type=Path, required=True)
+    k5.add_argument("--variant", type=Path, action="append", default=[])
+    k5.add_argument("--edits", action="store_true")
+    k5.add_argument("--reps", type=int, default=20)
     e = sub.add_parser("e2e")
     e.add_argument("--reps", type=int, default=3)
     e.add_argument("--engine", choices=("package", "hf", "svo", "both"),
@@ -571,6 +824,8 @@ def main(argv=None) -> int:
         run_kernels(a.old_csrc, a.sweep, a.reps)
     elif a.mode == "hf_cast":
         run_hf(a.old_csrc, a.variant, a.reps, a.log2_size)
+    elif a.mode == "sky_tmin":
+        run_sky(a.old_csrc, a.variant, a.edits, a.reps)
     elif a.mode == "fetch":
         run_fetch(a.reps)
     else:
