@@ -93,6 +93,26 @@ Phases, each printing its lines; any failure exits non-zero:
    preview frame's ms with and without the envelope, and a profile window
    over a batch-8 call.
 
+9. the per-pose culled view at 1024^3 (run between 6 and 7;
+   world/active.py, which the Renderer does not rasterize through): its
+   share of the soup, the horizon build, the cull and the jittered bins
+   on the view against bins on the full soup (ms), raster_cast_exact on
+   the view against the full soup (0 pixels in any output), the batch-8
+   call's jittered primaries on the view equal by bits to the full
+   soup's on every lane where that is the SVO cast's hit (the lanes off
+   the SVO cast on either soup within GRAZE_SHARE), and a rasterized
+   preview after each move of a walk on either soup. Then ROADMAP A10:
+   the default Renderer against one in hf-only mode at 1024^3, previews
+   at a held pose and after moves, and ms per batch-8 call, in turns.
+10. a scripted interactive session (app/interactive.py) at 1024^3,
+   853x480 (after 7): moves, a look, del, place, r and save; ms of each
+   fast preview after a move and after an edit, of each sample; every
+   pick held by bits to the plain SVO cast of the same ray on the card.
+11. BASELINE config 1: the 256^3 grid from_heightmap at 640x360,
+   dense_raycast against K2 on the grid's from_dense octree (hit, normal
+   and voxel up to GRAZE_SHARE, t to the raster parity tolerance), with
+   the ms of each.
+
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -113,6 +133,8 @@ REPO = Path(__file__).resolve().parent
 WIDTH, HEIGHT = 853, 480
 LOG2_SIZE = 10
 FULL_LOG2_SIZE = 13  # the reference's 8192^3 world (worldgen.rs:17)
+# BASELINE config 1: primary rays into a dense 256^3 grid at 640x360
+DENSE_LOG2_SIZE, DENSE_WIDTH, DENSE_HEIGHT = 8, 640, 360
 RAYS = WIDTH * HEIGHT  # 409,440 paths per sample
 WIDE = 8 * RAYS  # the lanes of a batch-8 call
 MASK_SHARES = (0.01, 0.10, 0.50)  # live lanes in the masked wide sets
@@ -1861,6 +1883,422 @@ def phase_edits(space, dev):
 
 
 
+def _q(a):
+    """p50 / max of a list of milliseconds."""
+    a = np.asarray(a, np.float64)
+    return f"p50 {np.percentile(a, 50):.3f} / max {a.max():.3f}"
+
+
+def _walk(cam, steps, step=10.0):
+    """Poses of an interactive walk: ``steps`` moves of ``step`` voxels
+    along the view's horizontal forward axis (the session's ``w``)."""
+    from voxtracer_torch.core import camera as vcam
+
+    fwd = vcam.camera_basis(cam.yaw, 0.0).numpy() @ np.array([0., 0., 1.])
+    return [vcam.Camera(pos=tuple(np.asarray(cam.pos) + fwd * step * k),
+                        yaw=cam.yaw, pitch=cam.pitch) for k in range(steps)]
+
+
+def _wall_ms(fn, reps):
+    """Milliseconds of each of ``reps`` calls on the host clock, the card
+    synchronized before and after each (host dispatch included)."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.monotonic() - t0))
+    return out
+
+
+def phase_cull(space, soup_t, world, dev):
+    """The per-pose culled view at 1024^3, 853x480 (world/active.py): its
+    share of the soup; the horizon build, cull and bins against bins on
+    the full soup; the exact frame on the view against the full soup's
+    (every output, 0 pixels); the batch-8 call's jittered primaries on
+    the view against the full soup's and the SVO cast's; and a preview
+    after each move of a walk (re-cull, bins, frame) on either soup. The
+    Renderer does not rasterize through the view (PERF.md section 6)."""
+    import torch
+
+    from voxtracer_torch.kernels import raster
+    from voxtracer_torch.world import active, occlusion
+
+    cam = _smoke_camera(LOG2_SIZE)
+    op = np.asarray(cam.pos, np.float32)
+    basis = cam.basis()
+    m = soup_t[0].shape[0]
+    act = active.ActiveSoup(soup_t, WIDTH, HEIGHT, heights=space.heights)
+    rows = act.active(op, basis)
+    share = act.n_active / m
+    budget = act._trans_budget()
+
+    def horizon():
+        return occlusion.build_horizon(act._hmin2, op, act.occl_slack,
+                                       act._nd, act._pool)
+
+    tables = horizon()
+    horizon_ms = _wall_ms(horizon, 5)
+    cull_ms = _wall_ms(lambda: active._cull(
+        *soup_t, op, basis.numpy(), act._fx, act._fy, act.keep_radius,
+        budget, occl=tables, nd=act._nd, occl_slack=budget, pool=act._pool),
+        5)
+    frustum_ms = _wall_ms(lambda: active._cull(
+        *soup_t, op, basis.numpy(), act._fx, act._fy, act.keep_radius,
+        budget), 5)
+
+    def bins(s, c=cam):
+        return raster.raster_bins(*s, np.asarray(c.pos, np.float32),
+                                  c.basis(), LOG2_SIZE, WIDTH, HEIGHT,
+                                  jittered=True)
+
+    def fresh_view():
+        act._pose = None
+        return act.active(op, basis)
+
+    view_ms = _wall_ms(fresh_view, 5)
+    bins_view = _wall_ms(lambda: bins(rows), 5)
+    bins_full = _wall_ms(lambda: bins(soup_t), 5)
+    both = _wall_ms(lambda: bins(fresh_view()), 5)
+    print(f"cull 1024^3 {WIDTH}x{HEIGHT}: view {act.n_active} of {m} boxes "
+          f"({100 * share:.2f}%; pool {act._pool}, slack {act.occl_slack}, "
+          f"validity {budget} voxels); ms over 5 calls: horizon build "
+          f"{_q(horizon_ms)}, cull with the horizon {_q(cull_ms)}, frustum "
+          f"alone {_q(frustum_ms)}, ActiveSoup.active (both) "
+          f"{_q(view_ms)}; jittered bins on the view {_q(bins_view)} "
+          f"against the full soup {_q(bins_full)}; build + cull + bins "
+          f"{_q(both)}")
+    if not 0 < act.n_active < m:
+        raise AssertionError("the view culled nothing or everything")
+    w = dict(table=world.table, root=world.root)
+    got = raster.raster_cast_exact(*rows, op, basis, LOG2_SIZE, WIDTH, HEIGHT,
+                                   **w)
+    want = raster.raster_cast_exact(*soup_t, op, basis, LOG2_SIZE, WIDTH,
+                                    HEIGHT, **w)
+    diff = {k: int((_bits(got[k]) != _bits(want[k])).reshape(RAYS, -1)
+                   .any(-1).sum())
+            for k in ("hit", "t", "normal", "rgb", "node", "voxel")}
+    print(f"cull: raster_cast_exact on the view against the full soup, "
+          f"pixels that differ per output {diff} (budget 0); fallback tiles "
+          f"{got['n_fallback']} / {want['n_fallback']}")
+    if any(diff.values()):
+        raise AssertionError("the culled frame differs from the full soup's")
+
+    # the main path's primaries: where the full soup's rasterized hit is
+    # the traversal's first hit, the view must give it by bits; a ray that
+    # slips through a box's corner (its float32 slab interval under an
+    # ulp) and on through the terrain's interior, which has no boxes, may
+    # meet a box the horizon proof rightly culled. Such lanes are the
+    # graze class: off the SVO cast on either soup, within GRAZE_SHARE.
+    changed, off, off_view = _cull_primaries(rows, soup_t, world, cam, dev)
+    lanes = changed.numel()
+    graze = int(np.ceil(lanes * GRAZE_SHARE))
+    stray = int((changed & ~off).sum())
+    print(f"cull: batch-8 jittered primaries on the view against the full "
+          f"soup: {int(changed.sum())} of {lanes} lanes differ, of them "
+          f"where the full soup's hit is the SVO cast's {stray} (budget 0); "
+          f"lanes off the SVO cast: full soup {int(off.sum())}, view "
+          f"{int(off_view.sum())} (budget {graze} each)")
+    if stray or int(off.sum()) > graze or int(off_view.sum()) > graze:
+        raise AssertionError("the view's primaries differ from the full "
+                             "soup's where they are exact")
+
+    def preview(c, soup_of):
+        s = soup_of(c)
+        return raster.raster_cast(
+            *s, np.asarray(c.pos, np.float32), c.basis(), LOG2_SIZE, WIDTH,
+            HEIGHT, bins=bins(s, c), want_voxel=False)
+
+    soup_of = dict(view=lambda c: act.active(c.pos, c.basis()),
+                   full=lambda c: soup_t)
+    prev = {name: [] for name in soup_of}
+    for name in ("view", "full", "full", "view"):
+        for c in _walk(cam, 7)[1:]:
+            prev[name] += _wall_ms(lambda: preview(c, soup_of[name]), 1)
+    print(f"cull: a rasterized preview after each 10-voxel move of a walk "
+          f"(a new pose: bins and, on the view, a re-cull), in turns: view "
+          f"{_q(prev['view'])} against full soup {_q(prev['full'])}")
+    return dict(n_active=act.n_active, boxes=m)
+
+
+def _cull_primaries(rows, soup_t, world, cam, dev):
+    """The batch-8 call's jittered primaries (the seeds of a Renderer's
+    first call, seed 0) rasterized on the view ``rows`` and on the full
+    soup, each with its own jittered bins and the exact fallback on K2,
+    against K2's cast of the same rays. Returns three masks (8, H, W):
+    the lanes where the two soups differ, and the lanes where the full
+    soup's and the view's hit are not K2's (hit, normal, or t beyond
+    rtol 1e-4 / atol 1e-3)."""
+    import random
+
+    import torch
+
+    from voxtracer_torch.core import rng as vrng
+    from voxtracer_torch.kernels import integrator, raster, traverse
+
+    op = np.asarray(cam.pos, np.float32)
+    basis = cam.basis()
+    rng = random.Random(0)
+    seeds = [vrng.host_frame_seed(rng) for _ in range(8)]
+    d = torch.stack([integrator._primary(op, basis, s, WIDTH, HEIGHT, dev)[1]
+                     for s in seeds])
+    a, b = (raster.raster_cast_exact(
+        *s, op, basis, LOG2_SIZE, WIDTH, HEIGHT, table=world.table,
+        root=world.root, ray_dirs=d, want_voxel=False)
+        for s in (rows, soup_t))
+    k2 = traverse.svo_raycast(world.table, world.root, world.height,
+                              torch.as_tensor(op, device=dev), d)
+    changed = (a["hit"] != b["hit"]) | (_bits(a["t"]) != _bits(b["t"])) \
+        | (a["normal"] != b["normal"]).any(-1) | (a["rgb"] != b["rgb"]).any(-1)
+
+    def off(x):
+        both = x["hit"] & k2["hit"]
+        return (x["hit"] != k2["hit"]) | (both & (
+            (x["normal"] != k2["normal"]).any(-1)
+            | ~torch.isclose(x["t"], k2["t"], rtol=1e-4, atol=1e-3)))
+
+    off_full, off_view = off(b), off(a)
+    for lane in changed.nonzero()[:8].tolist():
+        i = tuple(lane)
+        print(f"  lane (sample, y, x) {i}: view hit {bool(a['hit'][i])} t "
+              f"{float(a['t'][i])!r}, full soup hit {bool(b['hit'][i])} t "
+              f"{float(b['t'][i])!r}, K2 hit {bool(k2['hit'][i])} t "
+              f"{float(k2['t'][i])!r} voxel {k2['voxel'][i].tolist()}")
+    return changed, off_full, off_view
+
+
+def phase_primary_engines(space, dev):
+    """ROADMAP A10 at 1024^3, 853x480: the default Renderer (rasterized
+    primaries below ``HF_FRAME_SIZE``) against one with ``HF_FRAME_SIZE``
+    lowered to the world's edge (hf-only: K4 resumed by the pose's
+    envelope through K5, previews ``hf_frame_cast``), in turns in one
+    process: ``preview_frame`` held at the smoke pose and after each
+    10-voxel move of a walk, and ms per batch-8 call. The hf-only
+    preview is exact: it may differ from the rasterized one only at the
+    rays that one leaves open and up to GRAZE_SHARE."""
+    import torch
+
+    from voxtracer_torch.render.driver import Renderer
+
+    cam = _smoke_camera(LOG2_SIZE)
+    sun = np.asarray([0.8, 10.2743, 3.7])
+    rs = {name: Renderer(space.serialize(), WIDTH, HEIGHT, seed=0,
+                         device=dev) for name in ("raster", "hf")}
+    rs["hf"].HF_FRAME_SIZE = 1 << LOG2_SIZE
+    if rs["raster"]._hf_only() or not rs["hf"]._hf_only():
+        raise AssertionError("the Renderers do not run the engines asked "
+                             "for")
+    imgs = {}
+    for name, r in rs.items():
+        r.sample_batch(cam, sun, 8)
+        imgs[name] = r.preview_frame(cam, sun)
+    torch.cuda.synchronize()
+    held = {name: [] for name in rs}
+    walk = {name: [] for name in rs}
+    batch = {name: [] for name in rs}
+    for name in ("raster", "hf", "hf", "raster"):
+        r = rs[name]
+        held[name] += _wall_ms(lambda: r.preview_frame(cam, sun), 3)
+        for c in _walk(cam, 7)[1:]:
+            walk[name] += _wall_ms(lambda: r.preview_frame(c, sun), 1)
+        batch[name] += _wall_ms(lambda: r.sample_batch(cam, sun, 8), 2)
+    open_rays = _unresolved(rs["raster"], cam)
+    px = int((imgs["raster"] != imgs["hf"]).any(-1).sum())
+    budget = int(np.ceil(RAYS * GRAZE_SHARE))
+    print(f"primary engines 1024^3 {WIDTH}x{HEIGHT}, in turns raster, hf, "
+          f"hf, raster: preview_frame at a held pose raster "
+          f"{_q(held['raster'])} against hf-only {_q(held['hf'])}; after "
+          f"a 10-voxel move raster {_q(walk['raster'])} against hf-only "
+          f"{_q(walk['hf'])}; ms per batch-8 call raster "
+          f"{[round(x, 2) for x in batch['raster']]}, hf-only "
+          f"{[round(x, 2) for x in batch['hf']]}; previews at the smoke "
+          f"pose: {px} pixels differ (budget {budget} + the {open_rays} "
+          f"rays the rasterized preview leaves open)")
+    if not torch.isfinite(imgs["hf"]).all() or not imgs["hf"].max() > 0 \
+            or px > budget + open_rays:
+        raise AssertionError("the hf-only preview differs from the "
+                             "rasterized one")
+
+
+def phase_interact(dev):
+    """A scripted interactive session (app/interactive.py) at 1024^3,
+    853x480, on the card: moves, a look, del, place, r and save; the ms
+    of each fast preview after a move and after an
+    edit, and of each idle sample; every pick held by bits to the plain
+    SVO cast of the same ray on the card."""
+    import os
+
+    import torch
+
+    from voxtracer_torch.app import cli, interactive
+    from voxtracer_torch.core import camera as vcam
+    from voxtracer_torch.kernels import traverse
+    from voxtracer_torch.render import driver
+
+    script = ["pose", "w", "w", "look 0.05 0.02", "d", "w", "a",
+              None, None, "look 0.0 0.35", "del", "place", "w", "del",
+              "place", "a", "r", None, None, "save shot.png", "pose", "q"]
+    state = dict(cmd=None, edited=False)
+    times = {"move": [], "move after edits": [], "edit": [], "r": [],
+             "idle sample": [], "sample": []}
+    picks = []
+    orig_prev = driver.Renderer.preview_frame
+    orig_sample = driver.Renderer.sample
+    orig_pick = interactive.center_pick
+
+    def kind():
+        cmd = state["cmd"]
+        if cmd in ("del", "place"):
+            return "edit"
+        if cmd == "r":
+            return "r"
+        return "move after edits" if state["edited"] else "move"
+
+    def preview(self, cam, sun):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = orig_prev(self, cam, sun)
+        torch.cuda.synchronize()
+        times[kind()].append(1e3 * (time.monotonic() - t0))
+        return out
+
+    def sample(self, cam, sun):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        orig_sample(self, cam, sun)
+        torch.cuda.synchronize()
+        times["idle sample" if state["cmd"] is None else "sample"].append(
+            1e3 * (time.monotonic() - t0))
+
+    def pick(world, pos, yaw, pitch):
+        got = orig_pick(world, pos, yaw, pitch)
+        start = torch.as_tensor(np.asarray(pos, np.float32)[None],
+                                device=dev)
+        d = vcam.camera_basis(yaw, pitch)[:, 2][None].to(dev)
+        plain = traverse.svo_raycast_plain(
+            world.table, world.root, world.height, start, d,
+            torch.full((1,), traverse.FAR, device=dev), skip_t0=False)
+        ref = None if not bool(plain["hit"][0]) else (
+            plain["voxel"][0].cpu().numpy(), plain["normal"][0].cpu().numpy())
+        same = (got is None and ref is None) or (
+            got is not None and ref is not None
+            and np.array_equal(got[0], ref[0])
+            and np.array_equal(got[1], ref[1].astype(np.int64)))
+        picks.append((got is not None, same))
+        state["edited"] |= got is not None
+        return got
+
+    feed = iter(script)
+
+    def next_cmd(_):
+        state["cmd"] = next(feed)
+        return state["cmd"]
+
+    logs = []
+    args = cli.build_parser().parse_args(
+        ["interact", "--log2-size", str(LOG2_SIZE), "--width", str(WIDTH),
+         "--height", str(HEIGHT)])
+    cwd = os.getcwd()
+    driver.Renderer.preview_frame = preview
+    driver.Renderer.sample = sample
+    interactive.center_pick = pick
+    t0 = time.monotonic()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            interactive.run_interactive(args, input_fn=next_cmd,
+                                        log=logs.append, device=dev)
+            shot = Path(tmp) / "shot.png"
+            ok_files = shot.exists() and (Path(tmp) / "preview.png").exists()
+    finally:
+        os.chdir(cwd)
+        driver.Renderer.preview_frame = orig_prev
+        driver.Renderer.sample = orig_sample
+        interactive.center_pick = orig_pick
+    wall = time.monotonic() - t0
+    for line in logs:
+        if not line.startswith("["):
+            print(f"  interact: {line}")
+    dirs_ms = _ms(lambda: vcam.generate_rays(_smoke_camera(LOG2_SIZE), WIDTH,
+                                             HEIGHT, device=dev), 10)
+    edits = sum(line.startswith(("deleted", "placed")) for line in logs)
+    print(f"interact 1024^3 {WIDTH}x{HEIGHT}, {len(script)} commands in "
+          f"{wall:.1f} s (world build included): fast preview ms after a "
+          f"move {_q(times['move'])} (n "
+          f"{len(times['move'])}), after an edit {_q(times['edit'])} (n "
+          f"{len(times['edit'])}), after a move once edited "
+          f"{_q(times['move after edits'])}, after r {_q(times['r'])}; "
+          f"ms per idle sample {_q(times['idle sample'])}, per sample after "
+          f"a command {_q(times['sample'])}; {edits} edits; picks {picks} "
+          f"(hit, equal to the plain cast by bits); camera directions "
+          f"{dirs_ms:.3f} ms a frame")
+    if not ok_files or edits < 2 or not all(same for _, same in picks) \
+            or not any(hit for hit, _ in picks):
+        raise AssertionError("the interactive session failed its checks")
+
+
+def phase_dense(dev):
+    """BASELINE config 1 at full size: the 256^3 grid from_heightmap,
+    camera rays at 640x360 through dense_raycast against K2 on the grid's
+    from_dense octree, lane for lane up to GRAZE_SHARE; the ms of each,
+    and the shaded frames of both."""
+    import torch
+
+    from voxtracer_torch.core import camera as vcam
+    from voxtracer_torch.kernels import shade, traverse
+    from voxtracer_torch.world import dense, svo, worldgen
+
+    W, H, log2 = DENSE_WIDTH, DENSE_HEIGHT, DENSE_LOG2_SIZE
+    n = 1 << log2
+    t0 = time.monotonic()
+    grid = dense.from_heightmap(worldgen.heightmap(log2, device=dev), n)
+    t1 = time.monotonic()
+    dev_svo = svo.from_dense(grid.solid, grid.rgb).serialize()
+    t2 = time.monotonic()
+    dw = grid.to_device(dev)
+    world = svo.upload(dev_svo.table, dev_svo.root, dev_svo.height, dev)
+    cam = _smoke_camera(log2)
+    o, d = vcam.generate_rays(cam, W, H, device=dev)
+    traverse.dense_host_reads = 0
+    a = traverse.dense_raycast(dw.solid, o, d, n)
+    reads = traverse.dense_host_reads
+    b = traverse.svo_raycast(world.table, world.root, world.height, o, d)
+    # the DDA sums its boundary t step by step, the octree walk takes it
+    # from the cell's planes: t agrees to the raster parity tolerance, the
+    # rest lane for lane up to the graze share
+    fa_, fb_ = ({k: v.reshape(W * H, *v.shape[2:]) for k, v in r.items()}
+                for r in (a, b))
+    lanes, kinds = _cast_mismatch(fa_, dict(fb_, t=fa_["t"]))
+    both = fa_["hit"] & fb_["hit"]
+    t_off = int((both & ~torch.isclose(fa_["t"], fb_["t"], rtol=1e-4,
+                                       atol=1e-3)).sum())
+    t_rel = float(((fa_["t"] - fb_["t"]).abs()
+                   / fb_["t"].clamp_min(1.0))[both].max())
+    budget = int(np.ceil(W * H * GRAZE_SHARE))
+    dense_ms = _ms(lambda: traverse.dense_raycast(dw.solid, o, d, n), 3)
+    k2_ms = _ms(lambda: traverse.svo_raycast(world.table, world.root,
+                                             world.height, o, d), 10)
+    sun = _sun(dev)
+    fa = shade.dense_primary_frame(dw.solid, dw.rgb, n, o, d, sun)
+    fb = shade.svo_primary_frame(world.table, world.root, world.height, o, d,
+                                 sun)
+    frame_diff = float((fa - fb).abs().max())
+    print(f"dense {n}^3 {W}x{H}: from_heightmap {t1 - t0:.2f} s, from_dense "
+          f"{t2 - t1:.2f} s ({dev_svo.table.shape[0]} node rows); "
+          f"dense_raycast {dense_ms:.3f} ms ({reads} host reads of "
+          f"alive.any(), one a step), K2 on the same rays {k2_ms:.3f} ms; "
+          f"{int(a['hit'].sum())} hits; lanes differing in hit, normal or "
+          f"voxel {lanes} {kinds} (budget {budget}), t beyond rtol 1e-4 / "
+          f"atol 1e-3 {t_off} (largest relative difference {t_rel:.2e}); "
+          f"shaded frames max abs difference {frame_diff:.2e}")
+    if lanes + t_off > budget or not a["hit"].any() \
+            or not torch.isfinite(fa).all():
+        raise AssertionError("dense_raycast disagrees with K2")
+
+
 def phase_full(dev):
     """The main path at full width: the reference's 8192^3 world from the
     native builder, a Renderer in hf-only mode, the headless loop with
@@ -1956,8 +2394,13 @@ def main() -> int:
     phase_primaries(soup_r, svo_r)
     del soup_r, svo_r
     phase_engines(space, dev)
+    phase_cull(space, soup_t, world, dev)
+    phase_primary_engines(space, dev)
     phase_edits(space, dev)
     del space, dev_svo, world, soup, soup_t, pack
+    torch.cuda.empty_cache()
+    phase_interact(dev)
+    phase_dense(dev)
     torch.cuda.empty_cache()
     full, sky_rec = phase_full(dev)
 

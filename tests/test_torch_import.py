@@ -15,7 +15,12 @@ import voxtracer_torch
 names = [m.name for m in pkgutil.walk_packages(voxtracer_torch.__path__,
                                                "voxtracer_torch.")]
 for must in ("voxtracer_torch.tools.kernel_ab",
-             "voxtracer_torch.kernels.skyline"):
+             "voxtracer_torch.kernels.skyline",
+             "voxtracer_torch.app.interactive",
+             "voxtracer_torch.world.active",
+             "voxtracer_torch.world.occlusion",
+             "voxtracer_torch.world.dense",
+             "voxtracer_torch.utils.profiling"):
     assert must in names, names
 for name in names:
     importlib.import_module(name)
@@ -50,6 +55,7 @@ def test_port_sources_name_no_jax_module():
     files.append(REPO / "chip_smoke.py")
     assert REPO / "voxtracer_torch" / "tools" / "kernel_ab.py" in files
     assert REPO / "voxtracer_torch" / "kernels" / "skyline.py" in files
+    assert REPO / "voxtracer_torch" / "app" / "interactive.py" in files
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

@@ -480,3 +480,94 @@ def test_heightfield_fallback_equals_jax(terrain, monkeypatch):
         assert np.array_equal(got[f].numpy(), np.asarray(want[f])), f
     assert np.allclose(got["t"].numpy(), np.asarray(want["t"]), rtol=1e-4,
                        atol=1e-3)
+
+
+@pytest.mark.parametrize("which,pos,yaw,pitch", [
+    ("terrain", REF_POSE["pos"], REF_POSE["yaw"], REF_POSE["pitch"]),
+    ("terrain", (30.0, 34.0, 12.0), 0.9, -0.3),
+    ("clutter", (16.21, 17.13, -9.37), 0.11, 0.23),
+])
+def test_want_voxel_equals_svo_cast_and_jax(terrain, clutter, which, pos,
+                                            yaw, pitch):
+    """want_voxel (the default): each pixel's leaf id and hit voxel,
+    gathered from the winning box, equal the SVO cast's on the same rays
+    and the JAX package's raster_cast_exact(want_voxel=True); the
+    shading-only form gives the same hit, t, normal and rgb."""
+    world = terrain if which == "terrain" else clutter
+    w, soup, dev = world["w"], world["soup"], world["dev"]
+    cam = tcam.Camera(pos=pos, yaw=yaw, pitch=pitch)
+    op = np.asarray(pos, np.float32)
+    W, H = 64, 40
+    kw = dict(table=w.table, root=w.root)
+    got = traster.raster_cast_exact(*world["args"], op, cam.basis(), w.height,
+                                    W, H, **kw)
+    plain = traster.raster_cast_exact(*world["args"], op, cam.basis(),
+                                      w.height, W, H, want_voxel=False, **kw)
+    assert "node" not in plain
+    for f in ("hit", "t", "normal", "rgb"):
+        assert torch.equal(got[f], plain[f]), f
+    _, d = tcam.generate_rays(cam, W, H)
+    rr = ttrav.svo_raycast(w.table, w.root, w.height, torch.from_numpy(op), d)
+    assert got["hit"].any()
+    assert torch.equal(got["hit"], rr["hit"])
+    assert torch.equal(got["node"], rr["node"])
+    assert torch.equal(got["voxel"], rr["voxel"])
+    want = jraster.raster_cast_exact(
+        jnp.asarray(soup.lo), jnp.asarray(soup.size),
+        jnp.asarray(jraster.pack_box_attr(soup)), op, np.asarray(cam.basis()),
+        dev.height, W, H, table=jnp.asarray(dev.table.view(np.int32)),
+        root=np.int32(dev.root), near_slots=256)
+    for f in ("hit", "node", "voxel", "normal", "rgb"):
+        assert np.array_equal(got[f].numpy(), np.asarray(want[f])), f
+
+
+@pytest.mark.parametrize("KS", [1, 2])
+def test_want_voxel_through_both_fallbacks(terrain, monkeypatch, KS):
+    """Starved bins leave tiles open: the SVO fallback merges K2's node
+    and voxel, the heightfield fallback the walk's voxel and the given
+    terrain leaf, as the JAX package's apply_fallback_hf; k jittered
+    samples resolved in one pass equal separate casts."""
+    from voxtracer.kernels import heightfield as jhf
+
+    from voxtracer_torch.kernels import heightfield as thf
+    from voxtracer_torch.world.boxes import terrain_leaf_id
+
+    _starved(monkeypatch)
+    w, soup, dev = terrain["w"], terrain["soup"], terrain["dev"]
+    cam = tcam.Camera(**REF_POSE)
+    op = np.asarray(cam.pos, np.float32)
+    W, H = 64, 48
+    ds = None if KS == 1 else _jitter_dirs(cam, W, H, range(KS))
+    bins = traster.raster_bins(*terrain["args"], op, cam.basis(), w.height, W,
+                               H, cand_k=2, jittered=ds is not None)
+    heights = np.asarray(dev.space.heights)
+    tiles, offs, _ = thf.build_height_mips(heights, device="cpu")
+    leaf = terrain_leaf_id(dev)
+    svo = traster.raster_cast_exact(*terrain["args"], op, cam.basis(),
+                                    w.height, W, H, table=w.table,
+                                    root=w.root, bins=bins, ray_dirs=ds)
+    hf = traster.raster_cast_exact(*terrain["args"], op, cam.basis(),
+                                   w.height, W, H, bins=bins, ray_dirs=ds,
+                                   hf=(tiles, offs, soup.rgb[0]),
+                                   terrain_node=leaf)
+    assert svo["n_fallback"] > 4
+    for f in ("hit", "t", "normal", "rgb", "node", "voxel"):
+        assert torch.equal(svo[f], hf[f]), f
+    for k in range(KS):
+        one = traster.raster_cast_exact(
+            *terrain["args"], op, cam.basis(), w.height, W, H, table=w.table,
+            root=w.root, bins=bins, ray_dirs=None if ds is None else ds[k])
+        for f in ("node", "voxel"):
+            assert torch.equal(svo[f] if KS == 1 else svo[f][k], one[f]), f
+    if KS > 1:
+        return
+    flat, joffs, _ = jhf.build_height_mips(heights)
+    want = jraster.raster_cast_exact(
+        jnp.asarray(soup.lo), jnp.asarray(soup.size),
+        jnp.asarray(jraster.pack_box_attr(soup)), op, np.asarray(cam.basis()),
+        dev.height, W, H, hf_mips=flat, hf_offsets=joffs,
+        terrain_rgb=jnp.asarray(soup.rgb[0]), terrain_node=leaf, cand_k=8,
+        widen_k=8, widen2_k=8, widen3_k=8)
+    assert int(np.asarray(want["n_fallback"])) > 4
+    for f in ("hit", "node", "voxel", "normal"):
+        assert np.array_equal(hf[f].numpy(), np.asarray(want[f])), f

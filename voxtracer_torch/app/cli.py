@@ -14,9 +14,15 @@ Subcommands, with the flags and defaults of ``voxtracer/app/cli.py``:
   the heightfield engine with no box soup.
 * ``combine`` — average frames/*.exr across iters into movie/*.png
   (main.rs:312-370).
+* ``interact`` — the terminal fly camera and block editor
+  (app/interactive.py), commands on stdin.
 
-``render`` and ``headless`` run on the CUDA card and refuse to start
-without one; the library's ``Renderer(..., device="cpu")`` is the CPU path.
+``render --mode shaded --engine raster`` rasterizes the pose's
+frustum-culled view of the soup (world/active.py) above
+``ACTIVE_SOUP_THRESHOLD`` boxes.
+``render``, ``headless`` and ``interact`` run on the CUDA card and refuse
+to start without one; the library's ``Renderer(..., device="cpu")`` and
+``run_interactive(..., device="cpu")`` are the CPU path.
 
 Run: ``python -m voxtracer_torch.app.cli headless --max-frames 1``.
 """
@@ -29,6 +35,10 @@ import time
 
 import numpy as np
 import torch
+
+# above this box count, shaded raster frames take the frustum-culled view
+# (world/active.py) instead of the whole soup
+ACTIVE_SOUP_THRESHOLD = 4_000_000
 
 
 def _add_common(p):
@@ -49,6 +59,14 @@ def _add_common(p):
     p.add_argument("--max-bounces", type=int, default=24)
     p.add_argument("--fog-steps", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--noise-device", choices=("cpu", "default"),
+                   default="default",
+                   help="where worldgen evaluates the heightmap's noise: "
+                        "'cpu', or 'default' for the card the session "
+                        "renders on (the default here: the noise is plain "
+                        "PyTorch with no compile step, so the card is "
+                        "fastest; the JAX package defaults to 'cpu' because "
+                        "its one-shot compiles cost more than a host eval)")
 
 
 def _device():
@@ -58,14 +76,20 @@ def _device():
     return "cuda"
 
 
-def _build_world(args, log=print):
+def _build_world(args, log=print, device=None):
+    """The terrain world, its noise on the CPU or on ``device`` (the
+    card when None) as ``--noise-device`` says."""
     from voxtracer_torch.world import worldgen
 
+    if args.noise_device == "cpu":
+        device = "cpu"
+    elif device is None:
+        device = _device()
     t0 = time.monotonic()
     space = worldgen.generate(log2_size=args.log2_size,
                               seed_scale=args.seed_scale,
                               seed_noise=args.seed_noise,
-                              device=_device())
+                              device=device)
     log(f"worldgen total {time.monotonic() - t0:.2f}s")
     return space
 
@@ -131,6 +155,12 @@ def _render_shaded(args):
         print(f"box soup: {len(soup)} boxes")
         soup_t = raster.soup_to_device(soup.lo, soup.size, soup.leaf, soup.rgb,
                                        dev)
+        if len(soup) > ACTIVE_SOUP_THRESHOLD:
+            from voxtracer_torch.world.active import ActiveSoup
+
+            act = ActiveSoup(soup_t, args.width, args.height)
+            soup_t = act.active(cam.pos, cam.basis())
+            print(f"active set: {act.n_active} boxes")
 
         def frame():
             return raster.raster_primary_frame(
@@ -178,6 +208,12 @@ def cmd_combine(args):
     combine(args.frames_dir, args.movie_dir)
 
 
+def cmd_interact(args):
+    from voxtracer_torch.app.interactive import run_interactive
+
+    run_interactive(args, device=_device())
+
+
 def build_parser():
     ap = argparse.ArgumentParser(prog="voxtracer_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -208,6 +244,11 @@ def build_parser():
     p.add_argument("--frames-dir", default="frames")
     p.add_argument("--movie-dir", default="movie")
     p.set_defaults(fn=cmd_combine)
+
+    p = sub.add_parser("interact", help="terminal fly camera + editing")
+    _add_common(p)
+    p.add_argument("--spp", type=int, default=4)
+    p.set_defaults(fn=cmd_interact)
     return ap
 
 

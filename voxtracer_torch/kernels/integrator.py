@@ -222,7 +222,8 @@ def _raster_primary(table, root, height, cam_pos, cam_basis, d, width_px,
     = (hf_mips, hf_offsets, terrain_rgb) puts the fallback on K4."""
     pr = raster.raster_cast_exact(
         soup[0], soup[1], soup[2], cam_pos, cam_basis, height, width_px,
-        height_px, table=table, root=root, ray_dirs=d, bins=soup_bins, hf=hf)
+        height_px, table=table, root=root, ray_dirs=d, bins=soup_bins, hf=hf,
+        want_voxel=False)
     # a single sample comes back without its leading axis
     lead = pr["hit"].dim()
     return {k: pr[k].reshape(d.shape[:-1] + pr[k].shape[lead:])

@@ -1,8 +1,11 @@
 """Tile-binned box rasterization: primary visibility from the box soup.
 
-The port of ``voxtracer/kernels/raster.py`` in its shading-only form
-(``want_voxel=False``: the winner's albedo rides the resolve carry).
-Pipeline:
+The port of ``voxtracer/kernels/raster.py``. The winner's albedo rides
+the resolve carry; with ``want_voxel`` (the default, as in the JAX
+package) the frame also carries each pixel's leaf id (``node``) and hit
+voxel, gathered from the winning box, for picking and editing.
+Shading-only callers (the integrator, previews) pass
+``want_voxel=False``. Pipeline:
 
 1. ``raster_bins`` (pose only): project every box's corners, conservative
    pixel bbox, frustum cull; pick each box's emission tier by the
@@ -51,7 +54,7 @@ from voxtracer_torch.core.vecmath import dot, rdiv
 from voxtracer_torch.kernels.heightfield import hf_raycast
 from voxtracer_torch.kernels.resolve import (dequant, resolve_fold,
                                              resolve_fold_seg)
-from voxtracer_torch.kernels.traverse import FAR, leaf_rgb, svo_raycast
+from voxtracer_torch.kernels.traverse import EPS, FAR, leaf_rgb, svo_raycast
 
 NEAR_EPS = 1.0e-4  # camera-space z below which corners are unprojectable
 TILE = 8  # screen tile edge (pixels)
@@ -331,7 +334,7 @@ def raster_bins(box_lo, box_size, box_attr, cam_pos, cam_basis,
 
 def raster_cast(box_lo, box_size, box_attr, cam_pos, cam_basis,
                 tree_height: int, W: int, H: int, distance=FAR,
-                ray_dirs=None, bins=None):
+                ray_dirs=None, bins=None, want_voxel: bool = True):
     """Rasterize the box soup for one camera: per-pixel nearest hit.
 
     box_lo/box_size int32 (M, 3), box_attr float32 (M, 4) (``soup_to_device``);
@@ -344,8 +347,12 @@ def raster_cast(box_lo, box_size, box_attr, cam_pos, cam_basis,
     ``ray_dirs`` is given).
 
     Returns a dict: hit (..., H, W) bool, t (0 on a miss), normal (...,
-    3), rgb (..., 3); the counters n_pair, n_near, n_tier, n_widen (tiles
-    entering each widen round) and n_fallback; fb_tiles (F,) the tiles
+    3), rgb (..., 3); with ``want_voxel`` also node (..., H, W) int32, the
+    winner's leaf slot (-1 on a miss), and voxel (..., 3) int32, the hit
+    voxel (the entry point floored in mirrored space and clamped to the
+    box, the entry axis on the hit plane; 0 on a miss); the counters
+    n_pair, n_near, n_tier, n_widen (tiles entering each widen round) and
+    n_fallback; fb_tiles (F,) the tiles
     still not provably complete, fb_need (F, k*64) the rays among them
     that need a re-cast (``apply_fallback``) and fb_tmin (F,) each such
     tile's nearest unfolded distance bound: a needy ray's hit is provably
@@ -440,12 +447,43 @@ def raster_cast(box_lo, box_size, box_attr, cam_pos, cam_basis,
                          -torch.sign(d_flat), 0.0)
     t_out = torch.where(hit, t_px, 0.0)
     squeeze = (lambda a: a[0]) if KS == 1 else (lambda a: a)
-    return dict(
+    out = dict(
         hit=squeeze(hit), t=squeeze(t_out), normal=squeeze(normal),
         rgb=squeeze(rgb), n_pair=bins["n_pair"], n_near=n_near,
         n_tier=bins["n_tier"], n_widen=n_widen, n_fallback=int(fb.numel()),
         fb_tiles=fb.to(i32), fb_need=fb_need, fb_tmin=fb_drop,
     )
+    if want_voxel:
+        node, voxel = _winner_voxel(box_lo, box_size, box_attr, cam_np,
+                                    tree_height, hit, pl_px, t_px, axis,
+                                    d_flat)
+        out.update(node=squeeze(node), voxel=squeeze(voxel))
+    return out
+
+
+def _winner_voxel(box_lo, box_size, box_attr, cam_np, tree_height: int, hit,
+                  pl_px, t_px, axis, d):
+    """Each pixel's winning box (``pl_px >> 2``) as its leaf id and its
+    hit voxel: the entry point floored in mirrored space and clamped to
+    the box, the entry axis on the hit plane, then un-mirrored."""
+    owner = torch.where(hit, pl_px >> 2, 0).long()
+    node = torch.where(
+        hit, box_attr[:, 0].contiguous().view(torch.int32)[owner], -1)
+    wlo = box_lo[owner].to(torch.float32)
+    whi = wlo + box_size[owner].to(torch.float32)
+    bound = float(1 << tree_height)
+    cam = torch.as_tensor(cam_np, device=d.device)
+    flip = d < 0.0
+    dd = torch.clamp_min(torch.abs(d), EPS)
+    s0 = torch.where(flip, bound - cam, cam)
+    mlo = torch.where(flip, bound - whi, wlo)
+    mhi = torch.where(flip, bound - wlo, whi)
+    pm = s0 + dd * t_px[..., None]
+    vox = torch.minimum(torch.maximum(torch.floor(pm), mlo), mhi - 1.0)
+    axes = torch.arange(3, dtype=torch.int32, device=d.device)
+    vox = torch.where(axis[..., None] == axes, mlo, vox).to(torch.int32)
+    voxel = torch.where(flip, (1 << tree_height) - vox - 1, vox)
+    return node, torch.where(hit[..., None], voxel, 0)
 
 
 def _fb_expand(res, basis, W: int, H: int, ray_dirs):
@@ -510,18 +548,23 @@ def apply_fallback(res, table, root: int, tree_height: int, cam_pos,
     out["t"] = put(res["t"], torch.where(fb_hit, fr["t"], 0.0))
     out["normal"] = put(res["normal"], fr["normal"] * keep)
     out["rgb"] = put(res["rgb"], leaf_rgb(table, fr["node"]) * keep)
+    if "node" in res:
+        out["node"] = put(res["node"], torch.where(fb_hit, fr["node"], -1))
+        out["voxel"] = put(res["voxel"], fr["voxel"] * fb_hit[..., None])
     return out
 
 
 def apply_fallback_hf(res, hf_mips, hf_offsets: tuple, tree_height: int,
                       cam_pos, cam_basis, W: int, H: int, terrain_rgb,
-                      distance=FAR, ray_dirs=None):
+                      terrain_node: int = -1, distance=FAR, ray_dirs=None):
     """``apply_fallback`` on the heightfield walk (K4) instead of the SVO
     cast: exact on UNEDITED terrain, where the two agree lane for lane and
     every hit has the one terrain colour. Each tile's walk resumes two
     voxels before its nearest unfolded distance bound (``fb_tmin``): a
     needy ray's hit is provably no nearer, and the slack keeps the
-    resume strictly in air."""
+    resume strictly in air. With ``want_voxel`` outputs, a re-cast hit's
+    ``node`` is ``terrain_node`` (the JAX package's default -1; parity
+    callers pass the world's terrain leaf)."""
     dev = hf_mips.device
     basis = torch.as_tensor(cam_basis, dtype=torch.float32).to(dev)
     fd, need, put = _fb_expand(res, basis, W, H, ray_dirs)
@@ -537,25 +580,31 @@ def apply_fallback_hf(res, hf_mips, hf_offsets: tuple, tree_height: int,
     out["t"] = put(res["t"], torch.where(fb_hit, fr["t"], 0.0))
     out["normal"] = put(res["normal"], fr["normal"] * keep)
     out["rgb"] = put(res["rgb"], trgb * keep)
+    if "node" in res:
+        out["node"] = put(res["node"], torch.where(fb_hit, terrain_node, -1)
+                          .to(torch.int32))
+        out["voxel"] = put(res["voxel"], fr["voxel"] * fb_hit[..., None])
     return out
 
 
 def raster_cast_exact(box_lo, box_size, box_attr, cam_pos, cam_basis,
                       tree_height: int, W: int, H: int, table=None,
                       root=None, distance=FAR, ray_dirs=None, bins=None,
-                      hf=None):
+                      hf=None, want_voxel: bool = True,
+                      terrain_node: int = -1):
     """``raster_cast`` plus the exact per-ray fallback: on the SVO cast
     when the node table is given, on the heightfield walk when ``hf`` =
     (hf_mips, hf_offsets, terrain_rgb) of an UNEDITED terrain world is.
     Then every pixel is the SVO traversal's first hit."""
     res = raster_cast(box_lo, box_size, box_attr, cam_pos, cam_basis,
                       tree_height, W, H, distance=distance,
-                      ray_dirs=ray_dirs, bins=bins)
+                      ray_dirs=ray_dirs, bins=bins, want_voxel=want_voxel)
     if not res["n_fallback"]:
         return res
     if hf is not None:
         return apply_fallback_hf(res, hf[0], hf[1], tree_height, cam_pos,
-                                 cam_basis, W, H, hf[2], distance=distance,
+                                 cam_basis, W, H, hf[2],
+                                 terrain_node=terrain_node, distance=distance,
                                  ray_dirs=ray_dirs)
     if table is not None and root is not None:
         res = apply_fallback(res, table, root, tree_height, cam_pos,
@@ -571,7 +620,8 @@ def raster_primary_frame(box_lo, box_size, box_attr, tree_height: int,
     the rasterizer: the same image as ``shade.svo_primary_frame``. Pass
     table/root to resolve incomplete tiles exactly."""
     r = raster_cast_exact(box_lo, box_size, box_attr, cam_pos, cam_basis,
-                          tree_height, W, H, table=table, root=root, **kw)
+                          tree_height, W, H, table=table, root=root,
+                          want_voxel=False, **kw)
     sun = torch.as_tensor(sun, dtype=torch.float32).to(box_lo.device)
     lighting = dot(sun, r["normal"]) / 2.0 + 1.0
     return r["rgb"] * lighting[..., None] * r["hit"][..., None]

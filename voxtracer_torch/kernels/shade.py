@@ -7,7 +7,8 @@ reference left commented out (software.rs:270-271), ``lighting *=
 shadow/2 + 0.5``, and a simple sky gradient for misses. Both are fully
 deterministic, so they anchor the goldens ``primary_64w`` and
 ``shadow_64w``; ``kernels/raster.raster_primary_frame`` renders the same
-image as ``svo_primary_frame`` on the rasterizer.
+image as ``svo_primary_frame`` on the rasterizer, and the ``dense_*``
+frames the same on a dense grid (BASELINE configs 1 and 2).
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import torch
 
 from voxtracer_torch.core.sampling import COS_SUN_RADIUS
 from voxtracer_torch.core.vecmath import dot
-from voxtracer_torch.kernels.traverse import leaf_rgb, svo_raycast
+from voxtracer_torch.kernels.traverse import (dense_raycast, leaf_rgb,
+                                              svo_raycast)
 
 ZENITH = (0.25, 0.45, 0.85)
 HORIZON = (0.65, 0.75, 0.9)
@@ -26,6 +28,16 @@ def _svo_cast(table, root: int, height: int):
     def cast(start, d):
         r = svo_raycast(table, root, height, start, d)
         return r, leaf_rgb(table, r["node"])
+
+    return cast
+
+
+def _dense_cast(solid, rgb, size: int):
+    def cast(start, d):
+        r = dense_raycast(solid, start, d, size)
+        v = r["voxel"].long()
+        col = rgb[v[..., 0], v[..., 1], v[..., 2]]
+        return r, torch.where(r["hit"][..., None], col, 0.0)
 
     return cast
 
@@ -69,3 +81,13 @@ def svo_primary_frame(table, root: int, height: int, start, d, sun):
 def svo_shadow_frame(table, root: int, height: int, start, d, sun):
     """Shaded frame with hard sun shadows through the SVO cast."""
     return shade_shadow(_svo_cast(table, root, height), start, d, sun)
+
+
+def dense_primary_frame(solid, rgb, size: int, start, d, sun):
+    """Shaded primary frame through the dense-grid DDA (config 1)."""
+    return shade_primary(_dense_cast(solid, rgb, size), start, d, sun)
+
+
+def dense_shadow_frame(solid, rgb, size: int, start, d, sun):
+    """Shaded frame with hard sun shadows on the dense grid (config 2)."""
+    return shade_shadow(_dense_cast(solid, rgb, size), start, d, sun)

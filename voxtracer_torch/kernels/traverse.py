@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from voxtracer_torch.core.vecmath import hmax, hmin, to_bits
+from voxtracer_torch.core.vecmath import hmax, hmin, rdiv, to_bits
 from voxtracer_torch.kernels import build
 
 EPS = 1.0e-6  # raytrace.wgsl:53
@@ -32,6 +32,7 @@ MAX_HEIGHT = 15  # the kernel's node stack holds height + 1 <= 16 slots
 STATIC_PCT, CHUNK, REFILL = 75, 32, 4
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+dense_host_reads = 0  # dense_raycast's alive.any() reads since the last reset
 # loop steps summed over lanes by the plain version since the last reset:
 # the kernel takes the same steps, so this is its work for these rays
 plain_lane_steps = 0
@@ -263,3 +264,78 @@ def leaf_rgb(table, node):
     idx = torch.clamp_min(node, 0).to(torch.int64)
     rgb = table[idx][..., :3].contiguous().view(torch.float32)
     return torch.where((node >= 0)[..., None], rgb, 0.0)
+
+
+def dense_raycast(solid, start, d, size: int, distance=FAR):
+    """Amanatides-Woo DDA through a dense bool (N, N, N) occupancy grid
+    indexed [x, y, z] (``voxtracer/kernels/traverse.py:dense_raycast``,
+    the config-1 reference path): slab entry into [0, N]^3, the entry
+    face's normal for a hit in the first voxel, then one voxel a step
+    along the smallest boundary t, ties broken x before y before z.
+
+    A jnp loop in the JAX package, plain PyTorch here on ``solid``'s
+    device: every lane steps in lockstep, and the loop ends on one host
+    read of ``alive.any()`` a step (counted in ``dense_host_reads``).
+    Returns hit, t, normal and voxel like ``svo_raycast`` (no node)."""
+    global dense_host_reads
+    n = size
+    i32 = torch.int32
+    start, d_in, distance, _, batch_shape = _lanes(start, d, distance, None)
+    B = d_in.shape[0]
+    dev = d_in.device
+
+    dd = torch.where(torch.abs(d_in) < EPS,
+                     torch.where(d_in < 0, -EPS, EPS), d_in)
+    inv = rdiv(1.0, dd)
+    step = torch.where(dd > 0, 1, -1).to(i32)
+    lo = (0.0 - start) * inv
+    hi = (float(n) - start) * inv
+    tmin_ax = torch.minimum(lo, hi)
+    tmax_ax = torch.maximum(lo, hi)
+    t = torch.clamp_min(hmax(tmin_ax), 0.0)
+    t_exit = torch.minimum(hmin(tmax_ax), distance)
+    alive = t <= t_exit
+
+    p = start + dd * t[:, None]
+    voxel = torch.clamp(torch.floor(p).to(i32), 0, n - 1)
+    ex = (tmin_ax[:, 0] == t) & (t > 0)
+    ey = ~ex & (tmin_ax[:, 1] == t) & (t > 0)
+    ez = ~ex & ~ey & (tmin_ax[:, 2] == t) & (t > 0)
+    axis = torch.stack([ex, ey, ez], dim=-1)
+    tmax = ((voxel + (step > 0).to(i32)).to(torch.float32) - start) * inv
+    tdelta = torch.abs(inv)
+    step_f = step.to(torch.float32)
+    flat = solid.reshape(-1)
+
+    hit = torch.zeros((B,), dtype=torch.bool, device=dev)
+    hit_t = torch.zeros((B,), dtype=torch.float32, device=dev)
+    hit_normal = torch.zeros((B, 3), dtype=torch.float32, device=dev)
+    hit_voxel = torch.zeros((B, 3), dtype=i32, device=dev)
+    while True:
+        dense_host_reads += 1
+        if not bool(alive.any()):
+            break
+        gidx = (voxel[:, 0].long() * n + voxel[:, 1]) * n + voxel[:, 2]
+        rec = alive & flat[torch.clamp(gidx, 0, n * n * n - 1)]
+        hit = hit | rec
+        hit_t = torch.where(rec, t, hit_t)
+        hit_normal = torch.where(rec[:, None],
+                                 -torch.where(axis, step_f, 0.0), hit_normal)
+        hit_voxel = torch.where(rec[:, None], voxel, hit_voxel)
+        # step to the next voxel along the smallest tmax axis, x > y > z
+        m = hmin(tmax)
+        ax = tmax == m[:, None]
+        ax = ax & (torch.cumsum(ax.to(i32), dim=-1) == 1)
+        v_new = voxel + torch.where(ax, step, 0)
+        out = ((v_new < 0).any(dim=-1) | (v_new >= n).any(dim=-1)
+               | (m > distance))
+        upd = alive & ~rec
+        alive = upd & ~out
+        voxel = torch.where(upd[:, None], v_new, voxel)
+        tmax = torch.where(upd[:, None], tmax + torch.where(ax, tdelta, 0.0),
+                           tmax)
+        t = torch.where(upd, m, t)
+        axis = torch.where(upd[:, None], ax, axis)
+    return dict(hit=hit.reshape(batch_shape), t=hit_t.reshape(batch_shape),
+                normal=hit_normal.reshape(batch_shape + (3,)),
+                voxel=hit_voxel.reshape(batch_shape + (3,)))

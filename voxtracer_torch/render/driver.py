@@ -494,7 +494,7 @@ class Renderer:
         r = raster.raster_cast(
             *soup, np.asarray(cam.pos, np.float32), cam.basis(),
             self.world.height, self.width, self.height,
-            bins=self._get_soup_bins(cam, soup))
+            bins=self._get_soup_bins(cam, soup), want_voxel=False)
         lighting = dot(sun_t, r["normal"]) / 2.0 + 1.0
         return r["rgb"] * lighting[..., None] * r["hit"][..., None]
 

@@ -287,6 +287,55 @@ class DeviceSvo:
     solid_leaf: Optional[np.ndarray] = None
     space: object = None
 
+    def leaf_colors(self):
+        """float32[capacity, 3] view of the leaf RGB bit patterns."""
+        return np.ascontiguousarray(self.table[:, :3]).view(np.float32)
+
+
+def from_dense(grid_solid: np.ndarray, grid_rgb: np.ndarray) -> SvoSpace:
+    """Build an SvoSpace from a dense cubic grid (test and edit-scale
+    worlds), ``voxtracer/world/svo.py:from_dense`` step for step, so the
+    slots and the serialized table are the JAX package's by bits.
+
+    grid_solid: bool[N, N, N] (N a power of two), grid_rgb: float32[N, N,
+    N, 3], both indexed [x, y, z]. Bottom-up: the leaves are the distinct
+    colours in ``np.unique`` order, then each level's distinct child rows
+    in ``np.unique`` order, children in the order x | y<<1 | z<<2."""
+    n = grid_solid.shape[0]
+    if n < 2 or n & (n - 1) or grid_solid.shape != (n, n, n):
+        raise ValueError(f"from_dense: grid {grid_solid.shape} is not a cube "
+                         "of a power-of-two edge >= 2")
+    space = SvoSpace()
+    ids = np.full(grid_solid.shape, -1, dtype=np.int64)
+    solid_idx = np.argwhere(grid_solid)
+    colors = grid_rgb[grid_solid]
+    color_bits = colors.astype(np.float32).view(np.uint32).reshape(-1, 3)
+    uniq, inv = np.unique(color_bits, axis=0, return_inverse=True)
+    leaf_ids = np.array([space.create_block(tuple(u.view(np.float32)))
+                         for u in uniq], dtype=np.int64)
+    if len(solid_idx):
+        ids[tuple(solid_idx.T)] = leaf_ids[inv.reshape(-1)]
+    level_ids = ids
+    while level_ids.shape[0] > 1:
+        m = level_ids.shape[0] // 2
+        octs = np.stack([level_ids[ox::2, oy::2, oz::2]
+                         for oz in (0, 1) for oy in (0, 1) for ox in (0, 1)],
+                        axis=-1)  # (m, m, m, 8) in child-index order
+        flat = octs.reshape(-1, 8)
+        nonempty = (flat != -1).any(axis=1)
+        new_ids = np.full(m * m * m, -1, dtype=np.int64)
+        if nonempty.any():
+            uniq_rows, inv_rows = np.unique(flat[nonempty], axis=0,
+                                            return_inverse=True)
+            created = np.array([space.create_children(
+                [None if c == -1 else int(c) for c in row])
+                for row in uniq_rows], dtype=np.int64)
+            new_ids[nonempty] = created[inv_rows.reshape(-1)]
+        level_ids = new_ids.reshape(m, m, m)
+    root = None if level_ids[0, 0, 0] == -1 else int(level_ids[0, 0, 0])
+    space.set_root(root)
+    return space
+
 
 @dataclass
 class DeviceWorld:
