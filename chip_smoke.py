@@ -112,6 +112,23 @@ Phases, each printing its lines; any failure exits non-zero:
    dense_raycast against K2 on the grid's from_dense octree (hit, normal
    and voxel up to GRAZE_SHARE, t to the raster parity tolerance), with
    the ms of each.
+12. multi-device rendering (voxtracer_torch/dist; before 7, on the
+   unedited world, and in 8 at 8192^3) on the mesh [cuda:0] * 4: at 1024^3 the sample-sharded step
+   with the default Renderer's soup and heightfield pack equal by bits
+   to the mesh-order sum of four render_sample calls (K1, K3, K4
+   launched), the tile-sharded step (K3 on the bands' tile runs) equal
+   by bits to the full frame, Renderer(devices=[cuda:0] * 4).sample()
+   against four single samples (the first step by bits, the second
+   within rtol 1e-5 / atol 1e-4), a two-process job (torch.multiprocessing,
+   gloo named, both ranks on cuda:0, 2 shards each: ranks equal by bits,
+   within rtol 1e-6 / atol 1e-6 of the one-process step; its tile step
+   gathered through the host equal to the full frame) and a one-rank
+   NCCL group's all_reduce (equal by bits); at 8192^3 the hf-only steps
+   with the envelope as call args equal those without, the serial sum
+   and the full frame by bits, and 7 bands (483 rows cropped to 480);
+   K1, K4 and K5 launched. ms per step against the serial calls (in
+   turns), ms of the sum and of the all_reduce, and a world replica's
+   bytes, each with the card's name and power limit.
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -164,6 +181,7 @@ GRAZE_SHARE = 2 / 4096
 # one, both engines round every operation alike, and its first run found
 # 0 of 409,440 (PERF.md)
 EDGE_GRAZE_BUDGET = 0
+CARD = "card not read"  # nvidia-smi's name and power limit (phase_card)
 
 
 def _ms(fn, reps: int) -> float:
@@ -2299,6 +2317,392 @@ def phase_dense(dev):
         raise AssertionError("dense_raycast disagrees with K2")
 
 
+def _zero_launches():
+    from voxtracer_torch.kernels import (fog, heightfield, resolve, skyline,
+                                         traverse)
+
+    fog.launches = traverse.launches = resolve.launches = 0
+    heightfield.launches = skyline.launches = 0
+
+
+def _launches():
+    from voxtracer_torch.kernels import (fog, heightfield, resolve, skyline,
+                                         traverse)
+
+    return dict(fog_march=fog.launches, svo_cast=traverse.launches,
+                resolve_fold=resolve.launches, hf_cast=heightfield.launches,
+                sky_tmin=skyline.launches)
+
+
+def _nbytes(*xs) -> int:
+    """Bytes of the tensors in ``xs`` (tuples and dicts searched)."""
+    import torch
+
+    n = 0
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            n += x.numel() * x.element_size()
+        elif isinstance(x, (tuple, list)):
+            n += _nbytes(*x)
+        elif isinstance(x, dict):
+            n += _nbytes(*x.values())
+    return n
+
+
+def _wall_ms_sync(fn):
+    """Milliseconds of one call on the host clock, the card synchronized
+    before and after; returns (ms, fn's result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.monotonic() - t0), out
+
+
+def _in_turns(name, step, serial, n):
+    """The sharded step against its ``n`` serial calls in turns (step,
+    serial, serial, step); returns the step's and the serial result."""
+    a1, out = _wall_ms_sync(step)
+    b1, ref = _wall_ms_sync(serial)
+    b2, _ = _wall_ms_sync(serial)
+    a2, _ = _wall_ms_sync(step)
+    print(f"{name}: ms per step {a1:.1f}, {a2:.1f} against {n} serial calls "
+          f"{b1:.1f}, {b2:.1f} (host clock, synchronized; in turns; {CARD})")
+    return out, ref
+
+
+def _sum_ms(frames, dev):
+    """ms of the mesh-order sum of the shards' frames onto the first
+    device (CUDA events)."""
+    def add():
+        total = frames[0]
+        for f in frames[1:]:
+            total = total + f.to(dev)
+        return total
+
+    return _ms(add, 20)
+
+
+def _dist_world(renderer, cam):
+    """The default Renderer's world as the sharded steps take it: table,
+    LUT and keywords (soup, heightfield pack), and the pose's bins."""
+    soup = renderer._get_soup()
+    hf_mips, hf_offsets, terrain_rgb = renderer._get_hf()
+    w = renderer.world
+    kw = dict(max_bounces=renderer.max_bounces, fog_steps=renderer.fog_steps,
+              soup=soup, hf_mips=hf_mips, hf_offsets=hf_offsets,
+              terrain_rgb=terrain_rgb)
+    return w, kw, renderer._get_soup_bins(cam, soup)
+
+
+def _dist_rank(rank, port, tmp, n_local, seeds_np):
+    """One rank of the two-process job (torch.multiprocessing): gloo
+    named, both ranks on cuda:0, ``n_local`` shards each; writes its
+    sample step's frame to ``tmp/frame.<rank>.npy`` and its tile step's
+    (the bands gathered through the host: gloo gathers no CUDA tensors)
+    to ``tmp/tile.<rank>.npy``."""
+    import torch
+
+    from voxtracer_torch.dist import multihost, shard
+    from voxtracer_torch.kernels import raster
+
+    got = torch.load(Path(tmp) / "world.pt", weights_only=False)
+    multihost.init(f"127.0.0.1:{port}", world_size=2, rank=rank,
+                   local_devices=["cuda:0"] * n_local, backend="gloo")
+    import torch.distributed as dist
+
+    try:
+        mesh = multihost.global_mesh(["cuda:0"] * n_local)
+        table, lut = multihost.replicate_world_global(
+            mesh, got["table"].numpy(), got["lut"].numpy())
+        dev = mesh.devices[0]
+        soup = tuple(a.to(dev) for a in got["soup"])
+        kw = dict(got["kw"], soup=soup, hf_mips=got["hf_mips"].to(dev),
+                  terrain_rgb=got["terrain_rgb"].to(dev))
+        step = shard.sample_sharded_step(mesh, table, got["root"],
+                                         got["height"], lut, WIDTH, HEIGHT,
+                                         **kw)
+        pos, basis, sun = got["pos"], got["basis"], got["sun"].to(dev)
+        bins = raster.raster_bins(*soup, pos, basis, got["height"], WIDTH,
+                                  HEIGHT, jittered=True)
+        seeds = multihost.global_seeds(
+            mesh, seeds_np[multihost.local_rows(mesh)])
+        frame = step(seeds, pos, basis, sun, soup_bins=bins)
+        np.save(Path(tmp) / f"frame.{rank}.npy", multihost.local_frame(frame))
+        tstep = shard.tile_sharded_step(mesh, table, got["root"],
+                                        got["height"], lut, WIDTH, HEIGHT,
+                                        **kw)
+        tile = tstep(seeds_np[0], pos, basis, sun, soup_bins=bins)
+        np.save(Path(tmp) / f"tile.{rank}.npy", multihost.local_frame(tile))
+        print(f"rank {rank} of {mesh.world_size}: backend "
+              f"{dist.get_backend()}, devices "
+              f"{[str(d) for d in mesh.devices]}, shards "
+              f"{multihost.local_rows(mesh)}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist(space, dev):
+    """Multi-device rendering at 1024^3, 853x480 on one card, the mesh
+    ``[cuda:0] * 4`` (dist/): the sample-sharded step with the default
+    Renderer's soup and heightfield pack equal by bits to the mesh-order
+    sum of four render_sample calls; the tile-sharded step (K3 on band
+    tile lists) equal by bits to the full frame; Renderer(devices=) against
+    four single samples; a two-process gloo job on the card; a one-rank
+    NCCL group. Returns the launch counts of the sharded steps."""
+    import torch
+    import torch.distributed as dist
+
+    from voxtracer_torch.dist import shard
+    from voxtracer_torch.dist.mesh import make_mesh
+    from voxtracer_torch.kernels.integrator import render_sample
+    from voxtracer_torch.render.driver import Renderer
+
+    cam = _smoke_camera(LOG2_SIZE)
+    pos, basis = np.asarray(cam.pos, np.float32), cam.basis()
+    sun = _sun(dev)
+    base = Renderer(space.serialize(), WIDTH, HEIGHT, seed=0, device=dev)
+    if not base.soup_world or base._get_hf()[0] is None or base._hf_only():
+        raise AssertionError("the terrain world did not take the soup and "
+                             "heightfield engines")
+    w, kw, bins = _dist_world(base, cam)
+    mesh = make_mesh(devices=[dev] * 4)
+    rep_bytes = _nbytes(w.table, base.lut, kw["soup"], kw["hf_mips"],
+                        kw["terrain_rgb"])
+    print(f"dist 1024^3: mesh {[str(d) for d in mesh.devices]} "
+          f"({len(mesh.distinct)} distinct); a world replica (table, LUT, soup, heightfield pack) "
+          f"{rep_bytes / 2**20:.1f} MiB, shared by the repeated device; "
+          f"device memory in use {torch.cuda.memory_allocated() / 2**20:.1f} "
+          f"MiB ({CARD})")
+    rng = np.random.default_rng(20261018)
+    seeds = rng.integers(0, 2**32, (4, 3), dtype=np.uint64).astype(np.uint32)
+
+    def single(seed, **band):
+        return render_sample(w.table, w.root, w.height, base.lut, pos, basis,
+                             sun, seed, WIDTH, HEIGHT, soup_bins=bins,
+                             **band, **kw)
+
+    def serial():
+        total = single(seeds[0])
+        for s in seeds[1:]:
+            total = total + single(s)
+        return total
+
+    counts = {}
+    step = shard.sample_sharded_step(mesh, w.table, w.root, w.height, base.lut,
+                                     WIDTH, HEIGHT, **kw)
+    torch.cuda.synchronize()
+    _zero_launches()
+    out = step(seeds, pos, basis, sun, soup_bins=bins)
+    torch.cuda.synchronize()
+    counts["sample"] = _launches()
+    _expect_launches("sample-sharded step", counts["sample"],
+                     ("fog_march", "resolve_fold", "hf_cast"), ("svo_cast",))
+    out, ref = _in_turns("sample-sharded step, 4 shards", lambda: step(
+        seeds, pos, basis, sun, soup_bins=bins), serial, 4)
+    print(f"  mesh-order sum of 4 frames: "
+          f"{_sum_ms([out] * 4, mesh.devices[0]):.4f} ms (CUDA events); "
+          f"launches {counts['sample']}; equal by bits to the serial sum: "
+          f"{torch.equal(out, ref)}; finite "
+          f"{bool(torch.isfinite(out).all())}, "
+          f"mean {float(out.mean()) / 4:.6f}")
+    if not torch.equal(out, ref) or not torch.isfinite(out).all() \
+            or not out.mean() > 0:
+        raise AssertionError("the sample-sharded step differs from the "
+                             "serial sum")
+
+    tstep = shard.tile_sharded_step(mesh, w.table, w.root, w.height, base.lut,
+                                    WIDTH, HEIGHT, **kw)
+    seed = seeds[0]
+    torch.cuda.synchronize()
+    _zero_launches()
+    tout = tstep(seed, pos, basis, sun, soup_bins=bins)
+    torch.cuda.synchronize()
+    counts["tile"] = _launches()
+    _expect_launches("tile-sharded step (band tile lists)", counts["tile"],
+                     ("fog_march", "resolve_fold", "hf_cast"), ("svo_cast",))
+    tout, full = _in_turns(
+        "tile-sharded step, 4 bands of 120 rows",
+        lambda: tstep(seed, pos, basis, sun, soup_bins=bins),
+        lambda: single(seed), 1)
+    same = tstep.out_rows == HEIGHT and torch.equal(tout[:HEIGHT], full)
+    print(f"  launches {counts['tile']} (K3 on the bands' tile runs); "
+          f"out_rows {tstep.out_rows}; equal by bits to the full frame: "
+          f"{same}")
+    if not same:
+        raise AssertionError("the tile-sharded step differs from the frame")
+
+    # Renderer(devices=): the step total is the serial sum (the buffer
+    # starts at 0); a second step matches 4 more single samples within
+    # the JAX package's tolerance (tests/test_dist.py)
+    r4 = Renderer(space.serialize(), WIDTH, HEIGHT, seed=5,
+                  devices=[dev] * 4)
+    r1 = Renderer(space.serialize(), WIDTH, HEIGHT, seed=5, device=dev)
+    sun_np = np.asarray([0.8, 10.2743, 3.7])
+    ms4, _ = _wall_ms_sync(lambda: r4.sample(cam, sun_np))
+    ms1, _ = _wall_ms_sync(lambda: [r1.sample(cam, sun_np) for _ in range(4)])
+    first = torch.equal(r4.acc.buffer, r1.acc.buffer)
+    r4.sample(cam, sun_np)
+    for _ in range(4):
+        r1.sample(cam, sun_np)
+    close = torch.allclose(r4.acc.buffer, r1.acc.buffer, rtol=1e-5, atol=1e-4)
+    print(f"Renderer(devices=[cuda:0] * 4).sample(): {ms4:.1f} ms against 4 "
+          f"single sample() {ms1:.1f} ms (first calls, bins built); step "
+          f"total equal by bits to the serial sum: {first}; after a second "
+          f"step {r4.acc.samples} samples within rtol 1e-5 / atol 1e-4 of "
+          f"{r1.acc.samples} single: {close}")
+    if not first or not close or r4.acc.samples != 8:
+        raise AssertionError("Renderer(devices=) differs from single samples")
+    del r4, r1
+
+    # a two-process job: gloo named, both ranks on cuda:0, 2 shards each
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(dict(table=w.table.cpu(), lut=base.lut.cpu(), root=w.root,
+                        height=w.height,
+                        soup=tuple(a.cpu() for a in kw["soup"]),
+                        hf_mips=kw["hf_mips"].cpu(),
+                        terrain_rgb=kw["terrain_rgb"].cpu(),
+                        kw=dict(max_bounces=kw["max_bounces"],
+                                fog_steps=kw["fog_steps"],
+                                hf_offsets=kw["hf_offsets"]),
+                        pos=pos, basis=basis.cpu(), sun=sun.cpu()),
+                   Path(tmp) / "world.pt")
+        t0 = time.monotonic()
+        mp.spawn(_dist_rank, args=(_free_port(), tmp, 2, seeds), nprocs=2,
+                 join=True)
+        f0, f1 = (np.load(Path(tmp) / f"frame.{r}.npy") for r in range(2))
+        t0_, t1_ = (np.load(Path(tmp) / f"tile.{r}.npy") for r in range(2))
+    wall = time.monotonic() - t0
+    tiles_equal = np.array_equal(t0_, t1_) \
+        and np.array_equal(t0_[:HEIGHT], full.cpu().numpy())
+    ranks_equal = np.array_equal(f0, f1)
+    close = np.allclose(f0, out.cpu().numpy(), rtol=1e-6, atol=1e-6)
+    print(f"two-process job (torch.multiprocessing, backend gloo named, "
+          f"both ranks on cuda:0, 2 shards each, all_reduce on CUDA "
+          f"tensors): {wall:.1f} s wall with start-up; ranks equal by bits: "
+          f"{ranks_equal}; within rtol 1e-6 / atol 1e-6 of the one-process "
+          f"4-shard step: {close} (max abs diff "
+          f"{float(np.abs(f0 - out.cpu().numpy()).max()):.3e}); the tile "
+          f"step's 4 bands gathered through the host equal on both ranks "
+          f"and to the full frame by bits: {tiles_equal}")
+    if not ranks_equal or not close or not tiles_equal:
+        raise AssertionError("the two-process job differs")
+
+    # NCCL with one rank: the step's all_reduce through a real group
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        nmesh = make_mesh(devices=[dev] * 4, group=dist.group.WORLD)
+        nstep = shard.sample_sharded_step(nmesh, w.table, w.root, w.height,
+                                          base.lut, WIDTH, HEIGHT, **kw)
+        nout = nstep(seeds, pos, basis, sun, soup_bins=bins)
+        x = out.clone()
+        ar_ms = _ms(lambda: dist.all_reduce(x, group=dist.group.WORLD), 20)
+        same = torch.equal(nout, out)
+        print(f"one-rank group, backend {dist.get_backend()}: the step's "
+              f"all_reduce of a {tuple(out.shape)} frame {ar_ms:.4f} ms "
+              f"(CUDA events); equal by bits to the in-process step: {same}")
+        if not same:
+            raise AssertionError("the NCCL step differs")
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
+def phase_dist_full(renderer, cam, dev):
+    """The hf-only sharded steps at 8192^3, 853x480 on ``[cuda:0] * 4``,
+    one call of each kind: the envelope as call args against none, both
+    equal by bits (the JAX dryrun's out5 == out4, out7 == out7p), to the
+    serial sum and to the full frame; then a remainder band (7 shards,
+    483 rows cropped to 480). Returns the launch counts of the env steps."""
+    import torch
+
+    from voxtracer_torch.dist import shard
+    from voxtracer_torch.dist.mesh import make_mesh
+    from voxtracer_torch.kernels.integrator import render_sample
+
+    pos, basis = np.asarray(cam.pos, np.float32), cam.basis()
+    sun = _sun(dev)
+    hf_mips, hf_offsets, terrain_rgb = renderer._get_hf()
+    env = renderer._get_sky_env(cam)
+    w = renderer.world
+    kw = dict(max_bounces=renderer.max_bounces, fog_steps=renderer.fog_steps,
+              hf_mips=hf_mips, hf_offsets=hf_offsets, terrain_rgb=terrain_rgb)
+    mesh = make_mesh(devices=[dev] * 4)
+    env_r = tuple(shard.replicate(mesh, a) if torch.is_tensor(a) else a
+                  for a in env)
+    rep_bytes = _nbytes(w.table, renderer.lut, hf_mips, terrain_rgb)
+    print(f"dist 8192^3 (hf-only): a world replica (table, LUT, heightfield "
+          f"pack) {rep_bytes / 2**20:.1f} MiB, the envelope "
+          f"{_nbytes(env) / 2**20:.2f} MiB a pose; device memory in use "
+          f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB ({CARD})")
+    rng = np.random.default_rng(20261019)
+    seeds = rng.integers(0, 2**32, (4, 3), dtype=np.uint64).astype(np.uint32)
+    step = shard.sample_sharded_step(mesh, w.table, w.root, w.height,
+                                     renderer.lut, WIDTH, HEIGHT, **kw)
+    torch.cuda.synchronize()
+    _zero_launches()
+    ms_env, out5 = _wall_ms_sync(lambda: step(seeds, pos, basis, sun, *env_r))
+    counts = dict(sample=_launches())
+    ms_plain, out4 = _wall_ms_sync(lambda: step(seeds, pos, basis, sun))
+
+    def single(seed, **band):
+        return render_sample(w.table, w.root, w.height, renderer.lut, pos,
+                             basis, sun, seed, WIDTH, HEIGHT, hf_sky_env=env,
+                             **band, **kw)
+
+    def serial():
+        total = single(seeds[0])
+        for s in seeds[1:]:
+            total = total + single(s)
+        return total
+
+    ms_serial, ref = _wall_ms_sync(serial)
+    ok_s = torch.equal(out5, out4) and torch.equal(out5, ref)
+    print(f"sample-sharded step 8192^3, 4 shards: {ms_env:.1f} ms with the "
+          f"envelope as call args, {ms_plain:.1f} without, 4 serial calls "
+          f"{ms_serial:.1f} (host clock, synchronized; {CARD}); launches "
+          f"{counts['sample']}; with == without == serial sum by bits: "
+          f"{ok_s}")
+    tstep = shard.tile_sharded_step(mesh, w.table, w.root, w.height,
+                                    renderer.lut, WIDTH, HEIGHT, **kw)
+    _zero_launches()
+    ms_t, out7 = _wall_ms_sync(lambda: tstep(seeds[0], pos, basis, sun,
+                                             *env_r))
+    counts["tile"] = _launches()
+    _, out7p = _wall_ms_sync(lambda: tstep(seeds[0], pos, basis, sun))
+    ms_full, full = _wall_ms_sync(lambda: single(seeds[0]))
+    step7 = shard.tile_sharded_step(make_mesh(devices=[dev] * 7), w.table,
+                                    w.root, w.height, renderer.lut, WIDTH,
+                                    HEIGHT, **kw)
+    out_r = step7(seeds[0], pos, basis, sun, *env_r)
+    ok_t = torch.equal(out7, out7p) and torch.equal(out7[:HEIGHT], full) \
+        and step7.out_rows == 483 and torch.equal(out_r[:HEIGHT], full)
+    print(f"tile-sharded step 8192^3, 4 bands: {ms_t:.1f} ms against the "
+          f"full frame {ms_full:.1f} ms; launches {counts['tile']}; with == "
+          f"without == full frame by bits, and 7 bands of 69 rows "
+          f"({step7.out_rows} cropped to {HEIGHT}) == full frame: {ok_t}")
+    for name in ("sample", "tile"):
+        _expect_launches(f"8192^3 {name}-sharded step", counts[name],
+                         ("fog_march", "hf_cast", "sky_tmin"),
+                         ("svo_cast", "resolve_fold"))
+    if not ok_s or not ok_t or not torch.isfinite(out5).all():
+        raise AssertionError("the 8192^3 sharded steps differ")
+    return counts
+
+
 def phase_full(dev):
     """The main path at full width: the reference's 8192^3 world from the
     native builder, a Renderer in hf-only mode, the headless loop with
@@ -2345,6 +2749,7 @@ def phase_full(dev):
                                            "sky_tmin"),
                      ("svo_cast", "resolve_fold"))
     phase_envelope_path(renderer, cam)
+    phase_dist_full(renderer, cam, dev)
     _profile(f"{n}^3 main path", renderer, cam, ("fog_march", "hf_cast",
                                                  "sky_tmin"))
     sun = np.asarray([0.8, 10.2743, 3.7])
@@ -2359,9 +2764,10 @@ def phase_full(dev):
 
 
 def main() -> int:
+    global CARD
     import torch
 
-    phase_card()
+    CARD = phase_card()
     phase_build()
     dev = torch.device("cuda")
     rng = np.random.default_rng(20261016)
@@ -2396,6 +2802,7 @@ def main() -> int:
     phase_engines(space, dev)
     phase_cull(space, soup_t, world, dev)
     phase_primary_engines(space, dev)
+    phase_dist(space, dev)
     phase_edits(space, dev)
     del space, dev_svo, world, soup, soup_t, pack
     torch.cuda.empty_cache()

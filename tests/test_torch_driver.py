@@ -126,13 +126,29 @@ def test_cli_headless_combine_render(tmp_path, monkeypatch):
     assert (tmp_path / "movie" / "0.png").exists()
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(monkeypatch):
     """Renderer, generate and heightmap run on the card unless the caller
-    asks for the CPU."""
+    asks for the CPU; so do make_mesh, the Renderer's sharded step
+    (``devices=``) and multihost.init: without a card they raise, given
+    CPU devices they run there."""
     import inspect
+
+    from voxtracer_torch.dist import mesh as tmesh
+    from voxtracer_torch.dist import multihost
 
     for fn in (tdrv.Renderer.__init__, tgen.generate, tgen.heightmap):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dev = tgen.generate(log2_size=4, verbose=False, device="cpu").serialize()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmesh.make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tdrv.Renderer(dev, 16, 8, devices=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multihost.init("127.0.0.1:1", world_size=2, rank=0)
+    r = tdrv.Renderer(dev, 16, 8, max_bounces=2, fog_steps=4,
+                      devices=["cpu"] * 2)
+    assert r.device == torch.device("cpu") and r.mesh.size == 2
 
 
 def test_soup_built_once_bins_once_per_pose(monkeypatch):

@@ -20,7 +20,10 @@ for must in ("voxtracer_torch.tools.kernel_ab",
              "voxtracer_torch.world.active",
              "voxtracer_torch.world.occlusion",
              "voxtracer_torch.world.dense",
-             "voxtracer_torch.utils.profiling"):
+             "voxtracer_torch.utils.profiling",
+             "voxtracer_torch.dist.mesh",
+             "voxtracer_torch.dist.shard",
+             "voxtracer_torch.dist.multihost"):
     assert must in names, names
 for name in names:
     importlib.import_module(name)

@@ -22,7 +22,10 @@ frustum-culled view of the soup (world/active.py) above
 ``ACTIVE_SOUP_THRESHOLD`` boxes.
 ``render``, ``headless`` and ``interact`` run on the CUDA card and refuse
 to start without one; the library's ``Renderer(..., device="cpu")`` and
-``run_interactive(..., device="cpu")`` are the CPU path.
+``run_interactive(..., device="cpu")`` are the CPU path. ``--devices N``
+(``render --mode path``, ``headless``, ``interact``) shards each sample
+step over the first N cards (dist/shard.py); more than the machine has is
+an error.
 
 Run: ``python -m voxtracer_torch.app.cli headless --max-frames 1``.
 """
@@ -59,6 +62,10 @@ def _add_common(p):
     p.add_argument("--max-bounces", type=int, default=24)
     p.add_argument("--fog-steps", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--devices", type=int, default=None,
+                   help="shard path-traced sampling over the first N CUDA "
+                        "cards (sample sharding, one sum per step); more "
+                        "than the machine has is an error")
     p.add_argument("--noise-device", choices=("cpu", "default"),
                    default="default",
                    help="where worldgen evaluates the heightmap's noise: "
@@ -74,6 +81,15 @@ def _device():
         raise RuntimeError("torch.cuda.is_available() is false: the CLI "
                            "renders on a CUDA card")
     return "cuda"
+
+
+def _devices(args, device):
+    """The Renderer's ``devices`` for ``--devices N``: N cards (the mesh
+    raises when fewer exist), or N shards of a CPU session."""
+    n = args.devices
+    if n is None or n <= 1:
+        return None
+    return ["cpu"] * n if torch.device(device).type == "cpu" else n
 
 
 def _build_world(args, log=print, device=None):
@@ -108,9 +124,10 @@ def _camera(args):
 def _renderer(args, space):
     from voxtracer_torch.render.driver import Renderer
 
+    dev = _device()
     return Renderer(space.serialize(), args.width, args.height,
                     max_bounces=args.max_bounces, fog_steps=args.fog_steps,
-                    seed=args.seed, device=_device())
+                    seed=args.seed, device=dev, devices=_devices(args, dev))
 
 
 def cmd_render(args):
@@ -122,8 +139,9 @@ def cmd_render(args):
     t0 = time.monotonic()
     r.render(cam, np.asarray(args.sun, np.float64), args.spp)
     dt = time.monotonic() - t0
-    print(f"{args.spp} spp in {dt:.2f}s = "
-          f"{args.spp * args.width * args.height / dt / 1e6:.2f} Mpaths/s")
+    spp = r.acc.samples  # with --devices, whole steps of N samples
+    print(f"{spp} spp in {dt:.2f}s = "
+          f"{spp * args.width * args.height / dt / 1e6:.2f} Mpaths/s")
     if args.out:
         r.save_png(args.out)
         print("wrote", args.out)

@@ -105,7 +105,7 @@ def run_interactive(args, input_fn=None, log=print,
     renderer = Renderer(space.serialize(), args.width, args.height,
                         max_bounces=args.max_bounces,
                         fog_steps=args.fog_steps, seed=args.seed,
-                        device=device)
+                        device=device, devices=cli._devices(args, device))
     refresh_every = max(args.spp, 1)
     fast = False
     preview = "preview.png"

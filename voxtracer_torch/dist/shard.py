@@ -1,0 +1,284 @@
+"""Multi-device render steps over a mesh (the counterpart of
+``voxtracer/dist/shard.py``'s ``shard_map`` steps).
+
+Two strategies:
+
+* **sample sharding**: every mesh entry traces the whole frame with its
+  own seed; the shards' radiance is summed in mesh order onto the mesh's
+  first device (the psum's counterpart), then, when the mesh has a process
+  group, ``all_reduce(SUM)`` across processes. The fixed order makes the
+  in-process step equal by bits to the serial sum ``s0 + s1 + ...`` of the
+  same ``render_sample`` calls.
+* **tile sharding**: entry i (global shard index ``rank * size + i``)
+  renders the rows ``[i * rows, (i + 1) * rows)``, ``rows = ceil(H / n)``;
+  the bands are concatenated (gathered across processes) into a frame of
+  ``step.out_rows`` rows, which the caller crops to H.
+
+The world (node table, LUT, soup, heightfield pack) is read-only and
+closes over a step with one copy on each distinct device of the mesh
+(``replicate_world``); a repeated device shares its copy. Per-pose
+accelerators ride a step as call args: the culled soup view
+(``dynamic_soup``), the horizon envelope ``(E, d0, g[, K, S])`` and the
+pose's jittered raster bins (``soup_bins=``). A call arg given as a
+``Replicated`` is used as it is; a tensor is copied to each distinct
+device on every call, so the Renderer replicates them once per pose.
+
+Each distinct device's shards run from a host thread of their own:
+``trace_paths`` reads the host once a bounce, so one thread launching
+the cards' shards in turn would run the cards in turn. The results are
+combined only after every thread has joined, in mesh order, so the sum
+does not depend on which thread finishes first. On one device the
+shards run in turn in the caller's thread. (The kernels' launch counters
+are plain module integers: shards running on several cards at once can
+lose an increment.)
+"""
+
+from __future__ import annotations
+
+import contextlib
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from voxtracer_torch.kernels.integrator import render_sample
+
+
+class Replicated:
+    """One copy of a read-only value (a tensor, or a tuple or dict of
+    them) on each distinct device of a mesh."""
+
+    def __init__(self, copies: dict):
+        self.copies = copies
+
+    def on(self, device):
+        return self.copies[torch.device(device)]
+
+
+def _to(x, dev):
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to(a, dev) for a in x)
+    if isinstance(x, dict):
+        return {k: _to(v, dev) for k, v in x.items()}
+    return x
+
+
+def replicate(mesh, x) -> Replicated:
+    """``x`` on each distinct device of ``mesh``; a tensor already on one
+    of them is used there without a copy. A ``Replicated`` passes."""
+    if isinstance(x, Replicated):
+        return x
+    return Replicated({d: _to(x, d) for d in mesh.distinct})
+
+
+def replicate_world(mesh, table, lut, soup=None, hf_mips=None):
+    """Pin the read-only world and LUT (and the box soup and heightfield
+    pack when given) to every distinct device of ``mesh``: ``(table, lut[,
+    soup][, hf_mips])`` as ``Replicated`` values, which the steps take in
+    place of tensors."""
+    out = (replicate(mesh, table), replicate(mesh, lut))
+    if soup is not None:
+        out += (replicate(mesh, tuple(soup)),)
+    if hf_mips is not None:
+        out += (replicate(mesh, hf_mips),)
+    return out
+
+
+def _device_ctx(dev):
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def run_shards(mesh, fn):
+    """``[fn(i, device) for each mesh entry i]``: each distinct device's
+    entries in order from a host thread of its own (the caller's thread
+    when the mesh has one distinct device). Returns the results in mesh
+    order, after every thread has joined."""
+    by_dev: dict = {}
+    for i, d in enumerate(mesh.devices):
+        by_dev.setdefault(d, []).append(i)
+    out = [None] * mesh.size
+
+    def work(dev, idx):
+        with _device_ctx(dev):
+            for i in idx:
+                out[i] = fn(i, dev)
+
+    if len(by_dev) == 1:
+        work(*next(iter(by_dev.items())))
+        return out
+    with ThreadPoolExecutor(len(by_dev)) as ex:
+        futures = [ex.submit(work, d, idx) for d, idx in by_dev.items()]
+        for f in futures:
+            f.result()  # re-raises a shard's error
+    return out
+
+
+def _call_args(mesh, extra, dynamic_soup: bool):
+    """The per-pose call args ``(soup view or None, envelope or None)``,
+    each replicated over the mesh."""
+    extra = [replicate(mesh, a) if isinstance(a, (torch.Tensor, Replicated))
+             else a for a in extra]
+    dyn = None
+    if dynamic_soup:
+        if len(extra) < 3:
+            raise ValueError("dynamic_soup: the step takes (soup_lo, "
+                             "soup_size, soup_attr) after the sun")
+        dyn, extra = extra[:3], extra[3:]
+    return dyn, (extra or None)
+
+
+def _on(x, dev):
+    return x.on(dev) if isinstance(x, Replicated) else x
+
+
+class _World:
+    """A step's closed-over world, replicated over the mesh, as
+    ``render_sample``'s keywords on one device."""
+
+    def __init__(self, mesh, table, root: int, height: int, lut, width_px,
+                 height_px, max_bounces, fog_steps, soup, hf_mips,
+                 hf_offsets, terrain_rgb):
+        self.table = replicate(mesh, table)
+        self.lut = replicate(mesh, lut)
+        self.soup = None if soup is None else replicate(
+            mesh, soup if isinstance(soup, Replicated) else tuple(soup))
+        self.hf = None if hf_mips is None else (
+            replicate(mesh, hf_mips), replicate(mesh, terrain_rgb))
+        self.fixed = dict(root=root, height=height, width_px=width_px,
+                          height_px=height_px, max_bounces=max_bounces,
+                          fog_steps=fog_steps, hf_offsets=hf_offsets)
+
+    def kw(self, dev, cam_pos, cam_basis, sun, dyn, env, soup_bins):
+        if dyn is not None:
+            soup = tuple(_on(a, dev) for a in dyn)
+        else:
+            soup = None if self.soup is None else self.soup.on(dev)
+        kw = dict(self.fixed, table=self.table.on(dev), lut=self.lut.on(dev),
+                  cam_pos=cam_pos, cam_basis=cam_basis, sun=_on(sun, dev),
+                  soup=soup,
+                  soup_bins=None if soup_bins is None else soup_bins.on(dev))
+        if self.hf is not None:
+            kw.update(hf_mips=self.hf[0].on(dev),
+                      terrain_rgb=self.hf[1].on(dev),
+                      hf_sky_env=None if env is None
+                      else tuple(_on(a, dev) for a in env))
+        return kw
+
+
+def _check_soup(soup, dynamic_soup: bool):
+    if dynamic_soup and soup is not None:
+        raise ValueError("dynamic_soup replaces the closed-over soup")
+
+
+def sample_sharded_step(mesh, table, root: int, height: int, lut,
+                        width_px: int, height_px: int, max_bounces: int = 8,
+                        fog_steps: int = 64, soup=None, hf_mips=None,
+                        hf_offsets: tuple | None = None, terrain_rgb=None,
+                        dynamic_soup: bool = False):
+    """Build a step ``(seeds (size, 3) uint32, cam_pos, cam_basis, sun,
+    *extra, soup_bins=None) -> the radiance (H, W, 3) summed over every
+    shard``, on the mesh's first device (every process holds the same sum).
+
+    ``seeds``: this process's rows, one per mesh entry
+    (``multihost.global_seeds``). ``soup``: (box_lo, box_size, box_attr),
+    rasterized primaries on every shard. ``hf_mips``/``hf_offsets``/
+    ``terrain_rgb``: the heightfield engine on every shard (an unedited
+    world's: the step takes no edit bounds). ``dynamic_soup``: the soup
+    is no closure but the first three call args after the sun (the
+    pose's culled view); the remaining call args are the envelope, taken
+    by the hf-only primaries. ``soup_bins``: the pose's jittered
+    ``raster_bins`` of the soup the shards rasterize (a ``Replicated``,
+    or one device's, copied per call)."""
+    _check_soup(soup, dynamic_soup)
+    world = _World(mesh, table, root, height, lut, width_px, height_px,
+                   max_bounces, fog_steps, soup, hf_mips, hf_offsets,
+                   terrain_rgb)
+
+    def step(seeds, cam_pos, cam_basis, sun, *extra, soup_bins=None):
+        seeds = np.asarray(seeds, np.uint32).reshape(-1, 3)
+        if seeds.shape[0] != mesh.size:
+            raise ValueError(f"sample_sharded_step: {seeds.shape[0]} seed "
+                             f"rows for {mesh.size} shards")
+        dyn, env = _call_args(mesh, extra, dynamic_soup)
+        bins = None if soup_bins is None else replicate(mesh, soup_bins)
+        sun_r = replicate(mesh, sun)
+        parts = run_shards(mesh, lambda i, dev: render_sample(
+            frame_seed=seeds[i],
+            **world.kw(dev, cam_pos, cam_basis, sun_r, dyn, env, bins)))
+        first = mesh.devices[0]
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p.to(first)
+        if mesh.group is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(total, op=dist.ReduceOp.SUM, group=mesh.group)
+        return total
+
+    return step
+
+
+def tile_sharded_step(mesh, table, root: int, height: int, lut,
+                      width_px: int, height_px: int, max_bounces: int = 8,
+                      fog_steps: int = 64, soup=None, hf_mips=None,
+                      hf_offsets: tuple | None = None, terrain_rgb=None,
+                      dynamic_soup: bool = False):
+    """Build a step ``(seed (3,) uint32, cam_pos, cam_basis, sun, *extra,
+    soup_bins=None) -> (step.out_rows, W, 3)``: every shard renders its
+    band of ``ceil(H / n)`` rows of the same full-frame sample, n the
+    shards over every process; crop ``[:height_px]``. With a soup each
+    band rasterizes its TILE-aligned run of rows against the full-frame
+    pose bins (``render_sample(row0=, rows=)``); the padded bands must
+    then fit the tile-padded frame, else this raises (use sample
+    sharding). Arguments and call args as ``sample_sharded_step``.
+
+    Across processes the bands are all-gathered; with the gloo backend
+    the frame crosses through the host, since gloo gathers no CUDA
+    tensors."""
+    _check_soup(soup, dynamic_soup)
+    ndev = mesh.global_size
+    # remainder band: every shard renders ceil(H/n) rows of the same
+    # full-frame camera mapping; the soup's banded resolve slices from the
+    # tile-padded frame, so the padded total must fit it
+    rows = -(-height_px // ndev)
+    if rows * ndev > max(height_px, -(-height_px // 8) * 8) \
+            and (soup is not None or dynamic_soup):
+        raise ValueError(
+            f"tile sharding cannot pad {height_px} rows over {ndev} "
+            f"shards with a soup (padded {rows * ndev} rows exceed the "
+            f"tile-padded frame); use sample sharding")
+    world = _World(mesh, table, root, height, lut, width_px, height_px,
+                   max_bounces, fog_steps, soup, hf_mips, hf_offsets,
+                   terrain_rgb)
+
+    def step(seed, cam_pos, cam_basis, sun, *extra, soup_bins=None):
+        seed = np.asarray(seed, np.uint32).reshape(3)
+        dyn, env = _call_args(mesh, extra, dynamic_soup)
+        bins = None if soup_bins is None else replicate(mesh, soup_bins)
+        sun_r = replicate(mesh, sun)
+        base = mesh.rank * mesh.size
+        parts = run_shards(mesh, lambda i, dev: render_sample(
+            frame_seed=seed, row0=(base + i) * rows, rows=rows,
+            **world.kw(dev, cam_pos, cam_basis, sun_r, dyn, env, bins)))
+        first = mesh.devices[0]
+        frame = torch.cat([p.to(first) for p in parts])
+        if mesh.group is not None:
+            frame = _all_gather(frame, mesh.group)
+        return frame
+
+    step.out_rows = rows * ndev
+    return step
+
+
+def _all_gather(t, group):
+    """The ranks' ``t`` stacked along rows, in rank order."""
+    import torch.distributed as dist
+
+    stage = t.device.type == "cuda" and dist.get_backend(group) == "gloo"
+    src = t.cpu() if stage else t
+    outs = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(outs, src, group=group)
+    return torch.cat(outs).to(t.device)

@@ -24,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -75,6 +76,7 @@ SIGNATURES = {
 MAX_LANES = 1 << 28
 
 _lib = None
+_lib_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -143,15 +145,17 @@ def ptxas_report() -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; the sharded steps
+    call it from one thread per card, so one thread builds)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _lib = lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 

@@ -204,9 +204,14 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
     return state, color
 
 
-def _primary(cam_pos, cam_basis, frame_seed, width_px, height_px, device):
-    """Seeded per-pixel state, jittered camera rays and wavelengths."""
-    py, px = vcam.pixel_grid(width_px, height_px, device)
+def _primary(cam_pos, cam_basis, frame_seed, width_px, height_px, device,
+             row0: int = 0, rows: int | None = None):
+    """Seeded per-pixel state, jittered camera rays and wavelengths of the
+    frame rows [row0, row0 + rows) (all rows by default), each pixel
+    seeded and mapped by its row in the full frame."""
+    py, px = vcam.pixel_grid(width_px, height_px if rows is None else rows,
+                             device)
+    py = py + row0
     state = vrng.seed_pixels(frame_seed, px, py)
     state, rnd = vrng.random3(state)
     ld = vcam.pixel_ndc(px, py, width_px, height_px)
@@ -216,14 +221,17 @@ def _primary(cam_pos, cam_basis, frame_seed, width_px, height_px, device):
 
 
 def _raster_primary(table, root, height, cam_pos, cam_basis, d, width_px,
-                    height_px, soup, soup_bins, hf=None):
+                    height_px, soup, soup_bins, hf=None, band=None):
     """The first world hit of every jittered camera ray from the box soup
     (one k-batched resolve when ``d`` has a leading sample axis); ``hf``
-    = (hf_mips, hf_offsets, terrain_rgb) puts the fallback on K4."""
+    = (hf_mips, hf_offsets, terrain_rgb) puts the fallback on K4;
+    ``band`` = (row0, rows), TILE-aligned, when ``d`` holds those rows of
+    the frame only."""
+    row0, rows = band if band is not None else (0, None)
     pr = raster.raster_cast_exact(
         soup[0], soup[1], soup[2], cam_pos, cam_basis, height, width_px,
         height_px, table=table, root=root, ray_dirs=d, bins=soup_bins, hf=hf,
-        want_voxel=False)
+        want_voxel=False, band_row0=row0, band_rows=rows)
     # a single sample comes back without its leading axis
     lead = pr["hit"].dim()
     return {k: pr[k].reshape(d.shape[:-1] + pr[k].shape[lead:])
@@ -259,15 +267,17 @@ def _hf_env_primary(hf_mips, hf_offsets: tuple, height: int, cam_pos, d,
 
 def _first_hits(table, root, height, cam_pos, cam_basis, d, width_px,
                 height_px, soup, soup_bins, hf_mips, hf_offsets, terrain_rgb,
-                hf_edit_bounds, hf_sky_env):
+                hf_edit_bounds, hf_sky_env, band=None):
     """Bounce 0's world hits when an engine other than the bounce cast
     serves them: the rasterizer with a soup, the envelope-resumed walk on
-    unedited terrain with an envelope; else None."""
+    unedited terrain with an envelope; else None. ``band``: the
+    rasterizer's TILE-aligned (row0, rows) when ``d`` is a band."""
     if soup is not None:
         return _raster_primary(
             table, root, height, cam_pos, cam_basis, d, width_px, height_px,
             soup, soup_bins,
-            hf=_fallback_hf(hf_mips, hf_offsets, terrain_rgb, hf_edit_bounds))
+            hf=_fallback_hf(hf_mips, hf_offsets, terrain_rgb, hf_edit_bounds),
+            band=band)
     if hf_mips is not None and hf_sky_env is not None \
             and hf_edit_bounds is None:
         return _hf_env_primary(hf_mips, hf_offsets, height, cam_pos, d,
@@ -275,12 +285,28 @@ def _first_hits(table, root, height, cam_pos, cam_basis, d, width_px,
     return None
 
 
+def _aligned_band(row0: int, rows: int, height_px: int):
+    """The TILE-aligned run of frame rows ``(r0a, rp)`` that a band [row0,
+    row0 + rows) rasterizes, and the band's offset in it
+    (``voxtracer/kernels/integrator.py:709-742``): whole tiles with one
+    to spare, inside the tile-padded frame."""
+    TILE = raster.TILE
+    th_f = -(-height_px // TILE)
+    rp = min(-(-rows // TILE) * TILE + TILE, th_f * TILE)
+    r0a = min(max(row0 // TILE * TILE, 0), th_f * TILE - rp)
+    if not 0 <= row0 - r0a <= rp - rows:
+        raise ValueError(f"render_sample: rows [{row0}, {row0 + rows}) lie "
+                         f"outside the {th_f * TILE}-row tiled frame")
+    return r0a, rp, row0 - r0a
+
+
 def render_sample(table, root: int, height: int, lut, cam_pos, cam_basis,
                   sun, frame_seed, width_px: int, height_px: int,
                   max_bounces: int = 24, fog_steps: int = 64, soup=None,
                   soup_bins=None, hf_mips=None,
                   hf_offsets: tuple | None = None, terrain_rgb=None,
-                  hf_edit_bounds=None, hf_sky_env=None):
+                  hf_edit_bounds=None, hf_sky_env=None, row0: int = 0,
+                  rows: int | None = None):
     """One progressive sample, 1 spectral path per pixel
     (raytrace.wgsl:415-430): seed from (frame_seed, pixel), draw jitter
     and wavelength, trace. ``soup``: optional (box_lo, box_size,
@@ -291,14 +317,32 @@ def render_sample(table, root: int, height: int, lut, cam_pos, cam_basis,
     rasterizer's fallback rides it too. ``hf_sky_env``: ``(E, d0, g[, K[,
     S]])``, the envelope built for ``cam_pos``; taken for the primaries when
     ``hf_mips`` is given, without a soup and without edit bounds (as in
-    the JAX package). Returns the (H, W, 3) radiance on the table's
-    device."""
+    the JAX package). ``row0``/``rows``: render only the frame rows
+    [row0, row0 + rows) (the tile-sharded step's band); every pixel is
+    seeded and mapped by its row in the full ``height_px`` frame, so the
+    band's rows are the full frame's, bit for bit, and rows past the
+    frame's edge are traced like any other. With a soup the band
+    rasterizes its TILE-aligned run of rows (``_aligned_band``). Returns
+    the (rows, W, 3) radiance on the table's device ((H, W, 3) for the
+    whole frame)."""
     dev = table.device
+    if rows is None:
+        rows = height_px
+    band = None
+    r0a, rp, off = row0, rows, 0
+    if soup is not None and rows != height_px:
+        r0a, rp, off = _aligned_band(row0, rows, height_px)
+        band = (r0a, rp)
     state, d, wavelength = _primary(cam_pos, cam_basis, frame_seed, width_px,
-                                    height_px, dev)
+                                    height_px, dev, r0a, rp)
     primary = _first_hits(table, root, height, cam_pos, cam_basis, d,
                           width_px, height_px, soup, soup_bins, hf_mips,
-                          hf_offsets, terrain_rgb, hf_edit_bounds, hf_sky_env)
+                          hf_offsets, terrain_rgb, hf_edit_bounds, hf_sky_env,
+                          band)
+    if band is not None:
+        state, d, wavelength = (a[off:off + rows]
+                                for a in (state, d, wavelength))
+        primary = {k: v[off:off + rows] for k, v in primary.items()}
     pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
     _, radiance = trace_paths(table, root, height, lut, pos, d, wavelength,
                               sun.to(dev), state, max_bounces, fog_steps,

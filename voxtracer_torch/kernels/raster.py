@@ -27,6 +27,10 @@ Shading-only callers (the integrator, previews) pass
    first record it has not folded; a tile is open while that bound is
    nearer than that t. Tiles still open after the last round are listed
    with the rays that need a re-cast.
+   A band of TILE-aligned rows (``band_row0``/``band_rows``, the tile
+   sharded step's) resolves only its run of tiles against the full-frame
+   bins: K3 folds the band's run of the sorted records, their tile ids
+   made band-local (``_band_records``), into a carry sized to the band.
 3. ``apply_fallback`` re-casts those rays with the SVO cast (kernel K2),
    so ``raster_cast_exact`` gives the traversal's first hit; on unedited
    terrain ``apply_fallback_hf`` re-casts them with the heightfield walk
@@ -40,8 +44,8 @@ host read of the tier counts per pose, widens every incomplete tile and
 re-casts every still-incomplete one, so nothing can overflow and nothing
 is dropped. That costs host reads: one per pose (the tier counts), and
 per cast one per widen round entered (the list of open tiles) plus one
-for the fallback list when the last round ran. ``host_reads`` counts
-them.
+for the fallback list when the last round ran, and for a band one more
+(its run of records). ``host_reads`` counts them.
 """
 
 from __future__ import annotations
@@ -99,18 +103,23 @@ def _ray_dirs_for_pixels(px, py, basis, width, height):
     return vcam.ray_directions(basis, ld)
 
 
-def tile_rays(basis, W: int, H: int, ray_dirs=None):
+def tile_rays(basis, W: int, H: int, ray_dirs=None, band_row0: int = 0,
+              band_rows: int | None = None):
     """Rays in raster tile layout: ``d_t`` (NT, KS*64, 3) with r = sample
     * 64 + intile, ``ok_t`` (NT, KS*64) marking real pixels, and the
     padded frame ``d_pad`` (KS, HP, WP, 3), whose padding pixels repeat
     the edge. ``ray_dirs``: None (pixel centers of the camera ``basis``,
-    KS = 1), (H, W, 3) or (KS, H, W, 3) directions."""
+    KS = 1), (H, W, 3) or (KS, H, W, 3) directions. ``band_row0`` /
+    ``band_rows`` (TILE-aligned): the tiles of the frame rows [band_row0,
+    band_row0 + band_rows) only; ``ray_dirs`` is then band-shaped, and a
+    band row past the frame's edge takes its own ray but is no real
+    pixel."""
     TW = -(-W // TILE)
-    TH = -(-H // TILE)
+    TH = -(-H // TILE) if band_rows is None else band_rows // TILE
     NT = TW * TH
     WP, HP = TW * TILE, TH * TILE
     dev = basis.device
-    ys = torch.arange(HP, dtype=torch.int32, device=dev)
+    ys = band_row0 + torch.arange(HP, dtype=torch.int32, device=dev)
     xs = torch.arange(WP, dtype=torch.int32, device=dev)
     if ray_dirs is None:
         pyp, pxp = torch.meshgrid(ys, xs, indexing="ij")
@@ -121,8 +130,9 @@ def tile_rays(basis, W: int, H: int, ray_dirs=None):
         rd = ray_dirs.to(torch.float32)
         if rd.dim() == 3:
             rd = rd[None]
-        d_pad = rd[:, torch.clamp_max(ys, H - 1).long()][
-            :, :, torch.clamp_max(xs, W - 1).long()]
+        rows = (torch.clamp_max(ys, H - 1) if band_rows is None
+                else ys - band_row0)
+        d_pad = rd[:, rows.long()][:, :, torch.clamp_max(xs, W - 1).long()]
     KS = d_pad.shape[0]
     R = KS * TILE * TILE
     d_t = d_pad.reshape(KS, TH, TILE, TW, TILE, 3).permute(
@@ -332,9 +342,29 @@ def raster_bins(box_lo, box_size, box_attr, cam_pos, cam_basis,
     )
 
 
+def _band_records(bins, t0: int, n: int):
+    """The sorted records of the tiles [t0, t0 + n) for a band's fold:
+    the run of ``spairs`` from the band's first record through the first
+    record past it (a later tile's, or the sentinel row), copied with
+    every key's tile made band-local (minus ``t0 << dmin_bits``; the
+    distance bits stay), and each band tile's first record in that run.
+    K3 indexes its carry by the tile a record names, so a carry sized to
+    the band needs band-local ids. One host read (the run's ends)."""
+    global host_reads
+    DB, skey = bins["dmin_bits"], bins["skey"]
+    edges = torch.tensor([t0 << DB, (t0 + n) << DB], dtype=torch.int32,
+                         device=skey.device)
+    s0, s1 = torch.searchsorted(skey, edges, out_int32=True).tolist()
+    host_reads += 1
+    recs = bins["spairs"][s0:s1 + 1].clone()
+    recs[:, 0] -= t0 << DB
+    return recs, (bins["seg_start"][t0:t0 + n] - s0).contiguous()
+
+
 def raster_cast(box_lo, box_size, box_attr, cam_pos, cam_basis,
                 tree_height: int, W: int, H: int, distance=FAR,
-                ray_dirs=None, bins=None, want_voxel: bool = True):
+                ray_dirs=None, bins=None, want_voxel: bool = True,
+                band_row0: int = 0, band_rows: int | None = None):
     """Rasterize the box soup for one camera: per-pixel nearest hit.
 
     box_lo/box_size int32 (M, 3), box_attr float32 (M, 4) (``soup_to_device``);
@@ -344,7 +374,13 @@ def raster_cast(box_lo, box_size, box_attr, cam_pos, cam_basis,
     3) for k jitter samples of the same pose resolved in one pass (bit
     for bit k separate casts); outputs then carry the leading k axis when
     k > 1. ``bins``: the pose's ``raster_bins`` (jittered when
-    ``ray_dirs`` is given).
+    ``ray_dirs`` is given). ``band_row0``/``band_rows`` (both multiples
+    of TILE): resolve only the frame rows [band_row0, band_row0 +
+    band_rows), a contiguous run of the row-major tiles, against the
+    full-frame ``bins`` (the voxtracer/kernels/raster.py band selection);
+    ``ray_dirs`` and the outputs are then band-shaped (band_rows rows,
+    rows past the frame's edge included), and ``fb_tiles`` keep the
+    frame's tile ids.
 
     Returns a dict: hit (..., H, W) bool, t (0 on a miss), normal (...,
     3), rgb (..., 3); with ``want_voxel`` also node (..., H, W) int32, the
@@ -370,17 +406,30 @@ def raster_cast(box_lo, box_size, box_attr, cam_pos, cam_basis,
                            tree_height, W, H, jittered=ray_dirs is not None)
     DB = bins["dmin_bits"]
     spairs, seg_start, K = bins["spairs"], bins["seg_start"], bins["cand_k"]
+    if band_rows is None:
+        t0, TB, HB = 0, TH, H
+    else:
+        if band_row0 % TILE or band_rows % TILE or not 0 < band_rows \
+                or not 0 <= band_row0 <= TH * TILE - band_rows:
+            raise ValueError(f"raster_cast: band rows [{band_row0}, "
+                             f"{band_row0 + band_rows}) are not whole tiles "
+                             f"of the {TH * TILE}-row tiled frame")
+        t0, TB, HB = band_row0 // TILE * TW, band_rows // TILE, band_rows
+        spairs, seg_start = _band_records(bins, t0, TW * TB)
+    NTA = TW * TB  # the tiles this call resolves
 
-    if ray_dirs is None and bins["center_rays"] is not None:
+    if ray_dirs is None and band_rows is None \
+            and bins["center_rays"] is not None:
         d_t, ok_t, d_pad = bins["center_rays"]
     else:
-        d_t, ok_t, d_pad = tile_rays(basis, W, H, ray_dirs)
+        d_t, ok_t, d_pad = tile_rays(basis, W, H, ray_dirs, band_row0,
+                                     band_rows)
     KS = d_pad.shape[0]
     R = KS * TILE * TILE
 
-    tb = torch.full((NT, R), torch.inf, device=dev)
-    plb = torch.full((NT, R), -1, dtype=i32, device=dev)
-    rgbb = torch.zeros((NT, R, 3), device=dev)
+    tb = torch.full((NTA, R), torch.inf, device=dev)
+    plb = torch.full((NTA, R), -1, dtype=i32, device=dev)
+    rgbb = torch.zeros((NTA, R, 3), device=dev)
     # near pre-pass: one shared list against every tile
     n_near = bins["near_rows"].shape[0]
     if n_near:
@@ -429,19 +478,19 @@ def raster_cast(box_lo, box_size, box_attr, cam_pos, cam_basis,
     fb_need = tb[fb] >= fb_drop[:, None]
 
     # ---- untile
-    HP, WP = TH * TILE, TW * TILE
+    HP, WP = TB * TILE, TW * TILE
 
     def untile(a):
         rest = a.shape[2:]
-        return a.reshape((TH, TW, KS, TILE, TILE) + rest).permute(
+        return a.reshape((TB, TW, KS, TILE, TILE) + rest).permute(
             (2, 0, 3, 1, 4) + tuple(range(5, 5 + len(rest)))).reshape(
-            (KS, HP, WP) + rest)[:, :H, :W]
+            (KS, HP, WP) + rest)[:, :HB, :W]
 
     t_px, pl_px, rgb_px = untile(tb), untile(plb), untile(rgbb)
     hit = torch.isfinite(t_px) & (pl_px >= 0)
     axis = torch.where(hit, pl_px & 3, 3)
     rgb = torch.where(hit[..., None], rgb_px, 0.0)
-    d_flat = d_pad[:, :H, :W]
+    d_flat = d_pad[:, :HB, :W]
     axes = torch.arange(3, dtype=i32, device=dev)
     normal = torch.where((axis[..., None] == axes) & hit[..., None],
                          -torch.sign(d_flat), 0.0)
@@ -451,7 +500,7 @@ def raster_cast(box_lo, box_size, box_attr, cam_pos, cam_basis,
         hit=squeeze(hit), t=squeeze(t_out), normal=squeeze(normal),
         rgb=squeeze(rgb), n_pair=bins["n_pair"], n_near=n_near,
         n_tier=bins["n_tier"], n_widen=n_widen, n_fallback=int(fb.numel()),
-        fb_tiles=fb.to(i32), fb_need=fb_need, fb_tmin=fb_drop,
+        fb_tiles=(fb + t0).to(i32), fb_need=fb_need, fb_tmin=fb_drop,
     )
     if want_voxel:
         node, voxel = _winner_voxel(box_lo, box_size, box_attr, cam_np,
@@ -486,13 +535,16 @@ def _winner_voxel(box_lo, box_size, box_attr, cam_np, tree_height: int, hit,
     return node, torch.where(hit[..., None], voxel, 0)
 
 
-def _fb_expand(res, basis, W: int, H: int, ray_dirs):
+def _fb_expand(res, basis, W: int, H: int, ray_dirs, band_row0: int = 0):
     """raster_cast's fallback tiles as rays: ``(fd, need, put)`` with
     ``fd`` (F, k*64, 3) the directions in raster_cast's tile layout,
     ``need`` the re-cast mask and ``put(dst, src)`` scattering re-cast
-    lanes into the frame arrays."""
+    lanes into the frame arrays. A banded ``res`` (``band_row0``) keeps
+    the frame's tile ids while its arrays and ``ray_dirs`` hold the band's
+    rows; lanes of rows past the frame's edge are cast, never put."""
     KS = res["hit"].shape[0] if res["hit"].dim() == 3 else 1
-    P = W * H
+    HB = res["hit"].shape[-2]  # the band's rows (H for the whole frame)
+    P = W * HB
     PF = KS * P
     TW = -(-W // TILE)
     fb = res["fb_tiles"]
@@ -511,11 +563,13 @@ def _fb_expand(res, basis, W: int, H: int, ray_dirs):
         rd = ray_dirs.to(torch.float32)
         if rd.dim() == 3:
             rd = rd[None]
-        fd = rd[:, torch.clamp_max(fpy, H - 1).long(),
+        fd = rd[:, torch.clamp(fpy - band_row0, 0, HB - 1).long(),
                 torch.clamp_max(fpx, W - 1).long()].permute(1, 0, 2, 3)
     fd = fd.reshape(F, -1, 3)
     need = res["fb_need"]
-    pid_tile = torch.where((fpx < W) & (fpy < H), fpy * W + fpx, -1)
+    fpy_l = fpy - band_row0  # the band's rows
+    pid_tile = torch.where((fpx < W) & (fpy < H) & (fpy_l >= 0)
+                           & (fpy_l < HB), fpy_l * W + fpx, -1)
     kk = torch.arange(KS, dtype=torch.int32, device=dev)[None, :, None]
     need3 = need.reshape(F, KS, TILE * TILE)
     fpid = torch.where(need3 & (pid_tile[:, None, :] >= 0),
@@ -532,11 +586,13 @@ def _fb_expand(res, basis, W: int, H: int, ray_dirs):
 
 
 def apply_fallback(res, table, root: int, tree_height: int, cam_pos,
-                   cam_basis, W: int, H: int, distance=FAR, ray_dirs=None):
+                   cam_basis, W: int, H: int, distance=FAR, ray_dirs=None,
+                   band_row0: int = 0):
     """Exact per-ray re-resolve of the rays ``raster_cast`` could not
-    prove complete, with the SVO cast (K2), merged into its result."""
+    prove complete, with the SVO cast (K2), merged into its result. A
+    banded ``res`` passes its ``band_row0``."""
     basis = torch.as_tensor(cam_basis, dtype=torch.float32).to(table.device)
-    fd, need, put = _fb_expand(res, basis, W, H, ray_dirs)
+    fd, need, put = _fb_expand(res, basis, W, H, ray_dirs, band_row0)
     cam = torch.as_tensor(_host_vec(cam_pos), device=table.device)
     fr = svo_raycast(table, root, tree_height, cam, fd, distance=distance,
                      active=need)
@@ -556,7 +612,8 @@ def apply_fallback(res, table, root: int, tree_height: int, cam_pos,
 
 def apply_fallback_hf(res, hf_mips, hf_offsets: tuple, tree_height: int,
                       cam_pos, cam_basis, W: int, H: int, terrain_rgb,
-                      terrain_node: int = -1, distance=FAR, ray_dirs=None):
+                      terrain_node: int = -1, distance=FAR, ray_dirs=None,
+                      band_row0: int = 0):
     """``apply_fallback`` on the heightfield walk (K4) instead of the SVO
     cast: exact on UNEDITED terrain, where the two agree lane for lane and
     every hit has the one terrain colour. Each tile's walk resumes two
@@ -564,10 +621,11 @@ def apply_fallback_hf(res, hf_mips, hf_offsets: tuple, tree_height: int,
     needy ray's hit is provably no nearer, and the slack keeps the
     resume strictly in air. With ``want_voxel`` outputs, a re-cast hit's
     ``node`` is ``terrain_node`` (the JAX package's default -1; parity
-    callers pass the world's terrain leaf)."""
+    callers pass the world's terrain leaf). A banded ``res`` passes its
+    ``band_row0``."""
     dev = hf_mips.device
     basis = torch.as_tensor(cam_basis, dtype=torch.float32).to(dev)
-    fd, need, put = _fb_expand(res, basis, W, H, ray_dirs)
+    fd, need, put = _fb_expand(res, basis, W, H, ray_dirs, band_row0)
     cam = torch.as_tensor(_host_vec(cam_pos), device=dev)
     t_min = torch.clamp_min(res["fb_tmin"][:, None] - 2.0, 0.0)
     fr = hf_raycast(hf_mips, hf_offsets, tree_height, cam, fd,
@@ -591,25 +649,28 @@ def raster_cast_exact(box_lo, box_size, box_attr, cam_pos, cam_basis,
                       tree_height: int, W: int, H: int, table=None,
                       root=None, distance=FAR, ray_dirs=None, bins=None,
                       hf=None, want_voxel: bool = True,
-                      terrain_node: int = -1):
+                      terrain_node: int = -1, band_row0: int = 0,
+                      band_rows: int | None = None):
     """``raster_cast`` plus the exact per-ray fallback: on the SVO cast
     when the node table is given, on the heightfield walk when ``hf`` =
     (hf_mips, hf_offsets, terrain_rgb) of an UNEDITED terrain world is.
-    Then every pixel is the SVO traversal's first hit."""
+    Then every pixel is the SVO traversal's first hit. ``band_row0``/
+    ``band_rows``: one band of the frame (``raster_cast``)."""
     res = raster_cast(box_lo, box_size, box_attr, cam_pos, cam_basis,
                       tree_height, W, H, distance=distance,
-                      ray_dirs=ray_dirs, bins=bins, want_voxel=want_voxel)
+                      ray_dirs=ray_dirs, bins=bins, want_voxel=want_voxel,
+                      band_row0=band_row0, band_rows=band_rows)
     if not res["n_fallback"]:
         return res
     if hf is not None:
         return apply_fallback_hf(res, hf[0], hf[1], tree_height, cam_pos,
                                  cam_basis, W, H, hf[2],
                                  terrain_node=terrain_node, distance=distance,
-                                 ray_dirs=ray_dirs)
+                                 ray_dirs=ray_dirs, band_row0=band_row0)
     if table is not None and root is not None:
         res = apply_fallback(res, table, root, tree_height, cam_pos,
                              cam_basis, W, H, distance=distance,
-                             ray_dirs=ray_dirs)
+                             ray_dirs=ray_dirs, band_row0=band_row0)
     return res
 
 

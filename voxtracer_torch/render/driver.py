@@ -91,6 +91,10 @@ class Renderer:
     stays on: edits that keep the world a heightfield patch the pack (and
     the envelope's pyramid); any other edit adds a box to a list of edit
     bounds, and the casts re-cast on the SVO the lanes that can see one.
+
+    With ``devices`` every ``sample()`` is one sample-sharded step over a
+    mesh (``dist/shard.py``): one sample on each mesh entry, summed in
+    mesh order, N samples a call (``_dist``).
     """
 
     HF_FRAME_SIZE = 4096  # world edge from which terrain worlds skip the soup
@@ -103,9 +107,27 @@ class Renderer:
     def __init__(self, device_svo, width: int, height: int,
                  max_bounces: int = 24, fog_steps: int = 64,
                  seed: int | None = None, device="cuda",
-                 use_soup: bool = True, use_hf: bool = True):
+                 use_soup: bool = True, use_hf: bool = True, devices=None):
         """``device_svo``: any object with numpy ``.table/.root/.height``
-        (this package's ``DeviceSvo`` or the JAX package's)."""
+        (this package's ``DeviceSvo`` or the JAX package's). ``devices``:
+        shard ``sample()`` over the first N CUDA cards (an int; fewer
+        cards raise) or over a list of devices (repeats allowed; ``["cpu"]
+        * 8`` on the CPU); the Renderer's device is then the mesh's
+        first. None, 1 or a list of one device: single-device (on that
+        device)."""
+        self.mesh = None
+        if devices is not None and not isinstance(devices, int):
+            devices = list(devices)
+            if len(devices) == 1:
+                device, devices = devices[0], None
+        if isinstance(devices, int) and devices <= 1:
+            devices = None
+        if devices is not None:
+            from voxtracer_torch.dist.mesh import make_mesh
+
+            self.mesh = make_mesh(devices) if isinstance(devices, int) \
+                else make_mesh(devices=devices)
+            device = self.mesh.devices[0]
         self.device = torch.device(device)
         self.width = width
         self.height = height
@@ -135,6 +157,7 @@ class Renderer:
         self._sky_env = None  # (pose key, (E, d0, g, K, S), tier, uses)
         self._edit_bounds = None  # list of (2, 3) boxes covering edits
         self._bounds_t = None  # the list as a tensor on the device
+        self._dist_step = None  # the sharded step, built on first use
         sp = getattr(device_svo, "space", None)
         self._seen_edit_count = getattr(sp, "edit_count", 0)
         self._seen_set_calls = getattr(sp, "set_calls", 0)
@@ -230,6 +253,7 @@ class Renderer:
             self._soup = None
             self.soup_world = False
         self._bins = self._bins_key = None
+        self._dist_step = None  # its replicas hold the old world
         self._seen_edit_count = getattr(space, "edit_count",
                                         self._seen_edit_count)
         self._seen_set_calls = getattr(space, "set_calls",
@@ -423,12 +447,16 @@ class Renderer:
             self._soup = boxes.SoupPatcher(soup, self.device)
         return self._soup.device_soup
 
+    @staticmethod
+    def _pose_key(cam: vcam.Camera):
+        return (tuple(np.asarray(cam.pos, np.float64).tolist()),
+                float(cam.yaw), float(cam.pitch))
+
     def _get_soup_bins(self, cam: vcam.Camera, soup):
         """The pose's jittered raster bins, cached per (pos, yaw, pitch)."""
         if soup is None:
             return None
-        key = (tuple(np.asarray(cam.pos, np.float64).tolist()),
-               float(cam.yaw), float(cam.pitch))
+        key = self._pose_key(cam)
         if self._bins_key != key:
             self._bins = raster.raster_bins(
                 *soup, np.asarray(cam.pos, np.float32), cam.basis(),
@@ -456,9 +484,75 @@ class Renderer:
                     terrain_rgb=terrain_rgb, hf_edit_bounds=self._hf_bounds(),
                     hf_sky_env=env)
 
+    def _dist(self):
+        """The sample-sharded step over the mesh, built on first use after
+        each world change (``update_space`` and ``apply_edits`` drop it):
+        the table, LUT, soup and heightfield pack close over it, one copy
+        on each distinct device. A world with edit bounds shards without
+        the heightfield pack (the SVO cast), as the JAX package's does."""
+        if self._dist_step is None:
+            from voxtracer_torch.dist import shard
+
+            hf_mips, hf_offsets, terrain_rgb = self._get_hf()
+            if self._hf_bounds() is not None:
+                hf_mips = hf_offsets = terrain_rgb = None
+            soup = self._get_soup()
+            self._dist_soup = None if soup is None \
+                else shard.replicate(self.mesh, soup)
+            w = self.world
+            self._dist_step = shard.sample_sharded_step(
+                self.mesh, w.table, w.root, w.height, self.lut, self.width,
+                self.height, max_bounces=self.max_bounces,
+                fog_steps=self.fog_steps, soup=self._dist_soup,
+                hf_mips=hf_mips, hf_offsets=hf_offsets,
+                terrain_rgb=terrain_rgb)
+            self._dist_hf = hf_mips is not None
+            self._dist_bins_key = self._dist_env = None
+        return self._dist_step
+
+    def _dist_call_args(self, cam: vcam.Camera):
+        """The sharded step's per-pose call args, copied to each distinct
+        device once per pose: the hf-only envelope, and the soup's
+        jittered bins (cached per pose and per device; the Renderer's own
+        device shares the single-device cache)."""
+        from voxtracer_torch.dist.shard import Replicated, replicate
+
+        extra = ()
+        env = self._get_sky_env(cam) if self._dist_hf else None
+        if env is not None:
+            if self._dist_env is None or self._dist_env[0] is not env:
+                self._dist_env = (env, tuple(
+                    replicate(self.mesh, a) if torch.is_tensor(a) else a
+                    for a in env))
+            extra = self._dist_env[1]
+        if self._dist_soup is None:
+            return extra, None
+        key = self._pose_key(cam)
+        if self._dist_bins_key != key:
+            pos, basis = np.asarray(cam.pos, np.float32), cam.basis()
+            self._dist_bins = Replicated({
+                d: self._get_soup_bins(cam, self._dist_soup.on(d))
+                if d == self.device else raster.raster_bins(
+                    *self._dist_soup.on(d), pos, basis, self.world.height,
+                    self.width, self.height, jittered=True)
+                for d in self.mesh.distinct})
+            self._dist_bins_key = key
+        return extra, self._dist_bins
+
     def sample(self, cam: vcam.Camera, sun: np.ndarray):
-        """One progressive step: 1 spectral path per pixel."""
+        """One progressive step: 1 spectral path per pixel; with
+        ``devices`` one on each mesh entry, N samples a call, their frame
+        seeds drawn in turn from ``host_rng`` as N single calls draw them."""
         sun_t = self._begin(cam, sun)
+        if self.mesh is not None:
+            step = self._dist()
+            seeds = np.stack([vrng.host_frame_seed(self.host_rng)
+                              for _ in range(self.mesh.size)])
+            extra, bins = self._dist_call_args(cam)
+            total = step(seeds, np.asarray(cam.pos, np.float32), cam.basis(),
+                         sun_t, *extra, soup_bins=bins)
+            self.acc.add(total, self.mesh.global_size)
+            return
         seed = vrng.host_frame_seed(self.host_rng)
         radiance = render_sample(
             *self._args(cam), sun_t, seed, self.width, self.height,
@@ -467,7 +561,8 @@ class Renderer:
         self.acc.add(radiance)
 
     def sample_batch(self, cam: vcam.Camera, sun: np.ndarray, k: int):
-        """Accumulate k samples traced as one batch."""
+        """Accumulate k samples traced as one batch (on the Renderer's
+        device, with or without ``devices``)."""
         sun_t = self._begin(cam, sun)
         seeds = np.stack([vrng.host_frame_seed(self.host_rng)
                           for _ in range(k)])
@@ -532,6 +627,10 @@ class Renderer:
     def render(self, cam, sun, spp: int, batch: int = 8):
         done = 0
         while done < spp:
+            if self.mesh is not None:
+                self.sample(cam, sun)  # one step: a sample on each shard
+                done += self.mesh.global_size
+                continue
             k = min(batch, spp - done)
             if k == 1:
                 self.sample(cam, sun)
@@ -560,7 +659,9 @@ def headless_run(renderer: Renderer, cam: vcam.Camera, out_dir="frames",
     the whole render state to ``checkpoint_path`` whenever the frame's
     sample count is a multiple of it (render/checkpoint.py). ``batch`` > 1
     traces that many samples per call (Renderer.sample_batch); each
-    sample's radiance is the same either way."""
+    sample's radiance is the same either way. A Renderer with ``devices``
+    takes one sharded step a call (N samples; a frame whose count is no
+    multiple of N ends with the first count past it)."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     sun = np.asarray(sun_start, np.float64)
@@ -577,7 +678,7 @@ def headless_run(renderer: Renderer, cam: vcam.Camera, out_dir="frames",
                 # holds the last frame's samples until the sun step
                 # restarts it
                 k = min(batch, frame_samples - done_samples)
-                if k > 1:
+                if k > 1 and renderer.mesh is None:
                     renderer.sample_batch(cam, sun, k)
                 else:
                     renderer.sample(cam, sun)
