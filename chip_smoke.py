@@ -8,8 +8,9 @@ Phases, each printing its lines; any failure exits non-zero:
 1. card: fails unless torch sees a CUDA device; prints nvidia-smi's name
    and power limit.
 2. build: compiles kernels K1 (fog march), K2 (SVO cast), K3 (resolve
-   fold), K4 (heightfield walk) and K5 (the horizon envelope's per-ray
-   t_min) from voxtracer_torch/kernels/csrc with
+   fold), K4 (heightfield walk), K5 (the horizon envelope's per-ray
+   t_min), K6 (beam walk), K7 (beam resolve) and K8 (bit-grid DDA) from
+   voxtracer_torch/kernels/csrc with
    nvcc, one process per source, loads them, and prints ptxas's
    registers, stack frame and spills for each; compiles the native world
    builder (native/svo_native.cpp) with g++.
@@ -129,6 +130,28 @@ Phases, each printing its lines; any failure exits non-zero:
    K1, K4 and K5 launched. ms per step against the serial calls (in
    turns), ms of the sum and of the all_reduce, and a world replica's
    bytes, each with the card's name and power limit.
+
+13. the JAX package's selectable engines. At 1024^3 (before 7, on the
+   unedited world): the beam engine at the JAX bench's 1920x1080 (tile 8,
+   K 64, 512 steps, 6 rounds; 853 is not a multiple of 8): K6 (walk) and
+   K7 (resolve) equal by bits to their plain versions on the first two
+   rounds (candidates, resumed state, all resolve outputs), the frame
+   against K2's per-ray cast (GRAZE_SHARE) with its rounds and fallback
+   tiles, the shadow frame against the per-ray one (SHADOW_SHARE), the
+   CLI's render --engine beam once, and beam_primary_frame with K6's and
+   K7's counts read around it; the bit-grid DDA on the pyramid built from
+   the heightmap: K8 equal by bits to its plain version and against K2
+   (hit, t at rtol 1e-5 / atol 2e-4, voxel, normal: GRAZE_SHARE) on
+   camera, random and batch-8 NEE sets, and one batch-8
+   render_samples(bitworld=) call (K8 counted) against the SVO engine's
+   radiance under the golden contract. After 11: the card's heightmap
+   against the CPU's at 2^10 and 2^13, by bits. In 8, at 8192^3: sun maps
+   (batch-8 radiance and trace_paths' state equal by bits with and
+   without, the share of NEE lanes proved lit, K4's NEE launch with and
+   without), hf_frame_cast with cone=, sky=, sky_env= and their
+   compositions equal by bits to the unprefixed frame (ms each), and the
+   beam engine on the 8192^3 octree (K6 and K7 on the first round, the
+   frame against K2).
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -2318,20 +2341,22 @@ def phase_dense(dev):
 
 
 def _zero_launches():
-    from voxtracer_torch.kernels import (fog, heightfield, resolve, skyline,
-                                         traverse)
+    from voxtracer_torch.kernels import (beam, bitdda, fog, heightfield,
+                                         resolve, skyline, traverse)
 
     fog.launches = traverse.launches = resolve.launches = 0
-    heightfield.launches = skyline.launches = 0
+    heightfield.launches = skyline.launches = bitdda.launches = 0
+    beam.walk_launches = beam.resolve_launches = 0
 
 
 def _launches():
-    from voxtracer_torch.kernels import (fog, heightfield, resolve, skyline,
-                                         traverse)
+    from voxtracer_torch.kernels import (beam, bitdda, fog, heightfield,
+                                         resolve, skyline, traverse)
 
     return dict(fog_march=fog.launches, svo_cast=traverse.launches,
                 resolve_fold=resolve.launches, hf_cast=heightfield.launches,
-                sky_tmin=skyline.launches)
+                sky_tmin=skyline.launches, beam_walk=beam.walk_launches,
+                beam_resolve=beam.resolve_launches, bit_dda=bitdda.launches)
 
 
 def _nbytes(*xs) -> int:
@@ -2760,7 +2785,555 @@ def phase_full(dev):
     print(f"preview frame {n}^3 {WIDTH}x{HEIGHT} (hf_frame_cast, exact, "
           f"resumed by the envelope): {ms:.3f} ms, mean "
           f"{float(img.mean()):.6f}")
+    phase_sunmaps(renderer, cam, dev)
+    phase_prefix(renderer, cam, dev)
+    phase_beam_full(renderer, cam, dev)
     return counts, sky_rec
+
+
+# ---- the JAX package's selectable engines: sun maps, the beam engine
+# (K6, K7), the bit-grid DDA (K8) and the frame-cast prefixes ----------
+
+# the JAX bench's beam frame (bench.py:471-489): 1920x1080, tile 8, K 64,
+# 512 steps, 6 rounds
+BEAM_WIDTH, BEAM_HEIGHT = 1920, 1080
+BEAM_KW = dict(tile=8, K=64, max_steps=512, rounds=6)
+# float operations counted in the .cu sources: K6 per expanded node (8
+# cells x 3 axes of slab bounds, the emits), K7 per (ray, candidate) slab
+# test, K8 per DDA step of a lane
+K6_STEP_OPS, K7_PAIR_OPS, K8_STEP_OPS = 300, 40, 40
+# the shadow frame against the per-ray one: share of values beyond
+# atol 1e-4 (tests/test_beam.py)
+SHADOW_SHARE = 1e-3
+
+
+def _state_copy(state):
+    return {k: v.clone() for k, v in state.items()}
+
+
+def _beam_bound(K, n_c, steps, before, after, rows):
+    """K6's bound for one round: the beams' bounds in (48 B); of the
+    resumable state, the scalars (h, words, cap, alive: 21 B a beam) and
+    the entries pending at the round's start in (a mask word for each
+    level that has one, 8 B an entry: id and entry t), the elements the
+    round changed out; the candidates out (lvl in every slot, off and rgb
+    in the ``n_c`` used ones, ok and t_safe); each distinct 160 B aug row
+    the round expands (``rows``, from the plain walk) once; and the
+    expansions' float operations (``steps``, counted by the plain
+    walk)."""
+    import torch
+
+    Bb = before["h"].shape[0]
+    pend = before["mask_stk"]
+    n_pend = int(((pend[..., None] >> torch.arange(8, device=pend.device))
+                  & 1).sum())
+    state_in = Bb * 21 + int((pend != 0).sum()) * 4 + n_pend * 8
+    state_out = sum(int((before[k] != after[k]).sum())
+                    * before[k].element_size() for k in before)
+    n_rows = int(torch.unique(torch.cat(rows)).numel()) if rows else 0
+    nbytes = (Bb * 48 + state_in + state_out + Bb * (K * 4 + 5) + n_c * 24
+              + n_rows * 160)
+    return _bound(nbytes, steps * K6_STEP_OPS)
+
+
+def _resolve_bound(Bb, P, K):
+    """K7's bound: candidates (28 B a slot), directions (12 B a ray) in,
+    41 B a ray out; K slab tests a ray."""
+    return _bound(Bb * K * 28 + Bb * P * (12 + 41), Bb * P * K * K7_PAIR_OPS)
+
+
+def _beam_kernels(name, world, aug, cam, dev, rounds, rec=None):
+    """K6 and K7 against their plain versions, every output and the
+    resumed state by bits, on the ``rounds`` first rounds of the beam
+    frame at BEAM_WIDTH x BEAM_HEIGHT; with ``rec``, the first round's
+    times and bounds."""
+    import torch
+
+    from voxtracer_torch.core import camera as vcam
+    from voxtracer_torch.kernels import beam
+
+    H_ = world.height
+    K, steps_max = BEAM_KW["K"], BEAM_KW["max_steps"]
+    _, d = vcam.generate_rays(cam, BEAM_WIDTH, BEAM_HEIGHT, device=dev)
+    dt = beam._group(d, 8).contiguous()
+    o = torch.as_tensor(np.asarray(cam.pos, np.float32), device=dev)
+    ob = o.expand(dt.shape[0], 3)
+    pre = beam._beam_bounds(H_, ob, ob, torch.amin(dt, 1), torch.amax(dt, 1))
+    init = beam._initial_state(world.root, H_, pre["incoherent"])
+    st_k, st_p = _state_copy(init), _state_copy(init)
+    Bb, P = dt.shape[:2]
+    for r in range(rounds):
+        ck = beam._beam_walk_cuda(aug, H_, pre, st_k, K, steps_max, True)
+        before = beam.plain_beam_steps
+        beam.plain_rows = rows = []
+        t0 = time.monotonic()
+        cp = beam.beam_walk_plain(aug, H_, pre, st_p, K, steps_max, True)
+        torch.cuda.synchronize()
+        plain_walk_ms = 1e3 * (time.monotonic() - t0)
+        beam.plain_rows = None
+        steps = beam.plain_beam_steps - before
+        for key in ("lvl", "off", "rgb", "ok", "t_safe"):
+            if not torch.equal(ck[key], cp[key]):
+                raise AssertionError(f"beam_walk {name} round {r}: {key} "
+                                     "differs from the plain walk")
+        for key in st_k:
+            if not torch.equal(st_k[key], st_p[key]):
+                raise AssertionError(f"beam_walk {name} round {r}: state "
+                                     f"{key} differs from the plain walk")
+        rk = beam._resolve_cuda(ck["lvl"], ck["off"], ck["rgb"], o, dt, H_,
+                                True)
+        rp = beam.resolve_candidates_plain(cp["lvl"], cp["off"], cp["rgb"], o,
+                                           dt, H_, True)
+        for key in ("hit", "t", "normal", "rgb", "voxel"):
+            if not torch.equal(rk[key], rp[key]):
+                bad = (rk[key] != rp[key]).reshape(Bb * P, -1).any(1).sum()
+                raise AssertionError(f"resolve_candidates {name} round {r}: "
+                                     f"{key} differs in {int(bad)} rays")
+        n_c = int((ck["lvl"] >= 0).sum())
+        line = (f"beam {name} round {r} ({Bb} beams of {P} rays, K {K}): K6 "
+                f"and K7 equal to their plain versions (candidates, state, "
+                f"all five resolve outputs); {n_c} candidates, "
+                f"{int(ck['ok'].sum())} beams done, {steps} beam-steps")
+        if rec is not None and r == 0:
+            st0 = _state_copy(init)
+
+            def restore():
+                for k in st0:
+                    st0[k].copy_(init[k])
+
+            walk_ms = _ms_fresh(restore, lambda: beam._beam_walk_cuda(
+                aug, H_, pre, st0, K, steps_max, True), 5)
+            res_ms = _ms(lambda: beam._resolve_cuda(
+                ck["lvl"], ck["off"], ck["rgb"], o, dt, H_, True), 5)
+            plain_res_ms = _ms(lambda: beam.resolve_candidates_plain(
+                cp["lvl"], cp["off"], cp["rgb"], o, dt, H_, True), 1)
+            wb, wby = _beam_bound(K, n_c, steps, init, st_p, rows)
+            rb, rby = _resolve_bound(Bb, P, K)
+            rec["walk"].update(ms=walk_ms, plain_ms=plain_walk_ms,
+                               bound_ms=wb, bound_by=wby, library_ms=None)
+            rec["resolve"].update(ms=res_ms, plain_ms=plain_res_ms,
+                                  bound_ms=rb, bound_by=rby, library_ms=None)
+            for key in ("t", "normal", "rgb"):
+                err = float((rk[key] - rp[key]).abs().max())
+                rec["resolve"]["max_abs_err"] = max(
+                    rec["resolve"]["max_abs_err"], err)
+            line += (f"; K6 {walk_ms:.4f} ms (plain {plain_walk_ms:.1f} ms), "
+                     f"bound {wb:.4f} ms ({wby}); K7 {res_ms:.4f} ms (plain "
+                     f"{plain_res_ms:.1f} ms), bound {rb:.4f} ms ({rby})")
+        print(line)
+
+
+def _beam_frames(name, world, aug, cam, dev):
+    """The beam frame at BEAM_WIDTH x BEAM_HEIGHT against K2's per-ray
+    cast (GRAZE_SHARE), the shadow frame against the per-ray shadow frame
+    (SHADOW_SHARE); ms per frame, rounds and fallback tiles."""
+    import torch
+
+    from voxtracer_torch.core import camera as vcam
+    from voxtracer_torch.kernels import beam, shade, traverse
+
+    o, d = vcam.generate_rays(cam, BEAM_WIDTH, BEAM_HEIGHT, device=dev)
+    op = np.asarray(cam.pos, np.float32)
+    w = (world.table, world.root, world.height)
+
+    def frame():
+        return beam.beam_primary_frame_cast(world.table, aug, world.root,
+                                            world.height, op, d, **BEAM_KW)
+
+    r = frame()
+    stats = dict(beam.last_frame_stats)
+    ref = traverse.svo_raycast(*w, o, d)
+    lanes, kinds = _cast_mismatch(r, ref)
+    share = lanes / d[..., 0].numel()
+    ms = _ms(frame, 3)
+    k2_ms = _ms(lambda: traverse.svo_raycast(*w, o, d), 3)
+    sun = _sun(dev)
+    sb = beam.beam_shadow_frame(world.table, aug, world.root, world.height,
+                                op, d, sun, tile=8, K=64, max_steps=512)
+    ss = shade.svo_shadow_frame(*w, o, d, sun)
+    shadow_off = float(((sb - ss).abs() > 1e-4).float().mean())
+    shadow_ms = _ms(lambda: beam.beam_shadow_frame(
+        world.table, aug, world.root, world.height, op, d, sun, tile=8, K=64,
+        max_steps=512), 2)
+    print(f"beam frame {name} {BEAM_WIDTH}x{BEAM_HEIGHT} ({BEAM_KW}): "
+          f"{ms:.3f} ms a frame (K2's per-ray cast {k2_ms:.3f} ms), "
+          f"{stats['rounds']} rounds, {stats['fallback_tiles']} of "
+          f"{stats['tiles']} tiles ({stats['fallback_pixels']} pixels) on "
+          f"the per-ray fallback; lanes off K2's cast {lanes} {kinds} "
+          f"({share:.2e}, budget {GRAZE_SHARE:.2e}); shadow frame "
+          f"{shadow_ms:.3f} ms, values beyond 1e-4 of the per-ray shadow "
+          f"frame {shadow_off:.2e} (budget {SHADOW_SHARE:.0e}); {CARD}")
+    if share > GRAZE_SHARE or shadow_off > SHADOW_SHARE \
+            or not r["hit"].any() or not torch.isfinite(sb).all():
+        raise AssertionError(f"the beam frame {name} disagrees with K2")
+
+
+def phase_beam(space, dev):
+    """The beam engine at 1024^3 (the main path's world; 853 is not a
+    multiple of 8, so the frames are the JAX bench's 1920x1080): K6 and K7
+    against their plain versions, the frames against K2, the CLI's
+    ``render --engine beam``, then the beam frame through its entry point
+    with K6 and K7's counts read around it. Returns the records and the
+    counts."""
+    import torch
+
+    from voxtracer_torch.app import cli
+    from voxtracer_torch.kernels import beam
+    from voxtracer_torch.world import svo
+
+    dev_svo = space.serialize()
+    world = svo.upload(dev_svo.table, dev_svo.root, dev_svo.height, dev)
+    t0 = time.monotonic()
+    aug = torch.from_numpy(beam.build_aug_table(
+        dev_svo.table, dev_svo.solid_leaf)).to(dev)
+    print(f"beam 1024^3: augmented rows {tuple(aug.shape)} "
+          f"({aug.numel() * 4 / 2**20:.1f} MiB) in "
+          f"{time.monotonic() - t0:.2f} s")
+    cam = _smoke_camera(LOG2_SIZE)
+    rec = dict(walk=dict(max_abs_err=0.0), resolve=dict(max_abs_err=0.0))
+    _beam_kernels("1024^3", world, aug, cam, dev, 2, rec)
+    _beam_frames("1024^3", world, aug, cam, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "beam.png"
+        t0 = time.monotonic()
+        cli.main(["render", "--mode", "shaded", "--engine", "beam",
+                  "--log2-size", str(LOG2_SIZE), "--width", str(BEAM_WIDTH),
+                  "--height", str(BEAM_HEIGHT), "--out", str(out)])
+        if not out.exists():
+            raise AssertionError("render --engine beam wrote no frame")
+        print(f"CLI render --engine beam at 1024^3: {time.monotonic() - t0:.1f}"
+              " s with the world build")
+    # the beam frame through its entry point, counts read around it
+    from voxtracer_torch.core import camera as vcam
+
+    _, d = vcam.generate_rays(cam, BEAM_WIDTH, BEAM_HEIGHT, device=dev)
+    torch.cuda.synchronize()
+    _zero_launches()
+    img = beam.beam_primary_frame(world.table, aug, world.root, world.height,
+                                  np.asarray(cam.pos, np.float32), d,
+                                  _sun(dev), **BEAM_KW)
+    torch.cuda.synchronize()
+    counts = _launches()
+    print(f"beam path (beam_primary_frame, 1024^3 {BEAM_WIDTH}x"
+          f"{BEAM_HEIGHT}): launches {counts}, mean {float(img.mean()):.6f}")
+    _expect_launches("beam path", counts, ("beam_walk", "beam_resolve"))
+    if not torch.isfinite(img).all() or not img.mean() > 0:
+        raise AssertionError("the beam frame is empty")
+    return rec, counts
+
+
+def phase_beam_full(renderer, cam, dev):
+    """The beam engine on the reference's 8192^3 octree at 1920x1080:
+    K6 and K7 against their plain versions on the first round, the frame
+    against K2."""
+    import torch
+
+    from voxtracer_torch.kernels import beam
+
+    dev_svo = renderer._dev
+    t0 = time.monotonic()
+    aug = torch.from_numpy(beam.build_aug_table(
+        dev_svo.table, dev_svo.solid_leaf)).to(dev)
+    print(f"beam {1 << FULL_LOG2_SIZE}^3: augmented rows {tuple(aug.shape)} "
+          f"({aug.numel() * 4 / 2**20:.1f} MiB) in "
+          f"{time.monotonic() - t0:.2f} s")
+    _beam_kernels(f"{1 << FULL_LOG2_SIZE}^3", renderer.world, aug, cam, dev,
+                  1)
+    _beam_frames(f"{1 << FULL_LOG2_SIZE}^3", renderer.world, aug, cam, dev)
+    del aug
+    torch.cuda.empty_cache()
+
+
+def _bit_bound(B, n_act, steps, sectors):
+    """K8's bound: rays in (28 B a live lane) and out (29 B a lane), each
+    distinct 32 B sector of the pyramid the walk reads once (``sectors``,
+    from the plain version), and the steps' float operations."""
+    return _bound(B * 29 + n_act * 28 + sectors * 32, steps * K8_STEP_OPS)
+
+
+def phase_bitdda(space, dev):
+    """The bit-grid DDA at 1024^3 from the heightmap: K8 against its plain
+    version and against K2 on camera, random and batch-8 NEE sets; one
+    batch-8 render_samples(bitworld=) call with K8's count read around it,
+    against the SVO engine's radiance. Returns the record and the
+    counts."""
+    import torch
+
+    from voxtracer_torch.core import sampling
+    from voxtracer_torch.core.spectra import build_wl_to_rgb_lut
+    from voxtracer_torch.core.vecmath import dot
+    from voxtracer_torch.kernels import bitdda, integrator, traverse
+    from voxtracer_torch.world import bitgrid, svo
+
+    dev_svo = space.serialize()
+    world = svo.upload(dev_svo.table, dev_svo.root, dev_svo.height, dev)
+    t0 = time.monotonic()
+    grid = bitgrid.from_heightmap(np.asarray(space.heights))
+    bw = grid.to_device(dev)
+    gbytes = _nbytes(*bw)
+    print(f"bit grid {grid.size}^3 from the heightmap: {time.monotonic() - t0:.1f}"
+          f" s; top {grid.top.nbytes} B, regions {grid.regions.nbytes / 2**20:.2f}"
+          f" MiB, bricks {grid.bricks.nbytes / 2**20:.1f} MiB")
+    cam = _smoke_camera(LOG2_SIZE)
+    o, d = _camera_rays(cam, dev)
+    rng = np.random.default_rng(20261018)
+    n = float(grid.size)
+    t = lambda a: torch.as_tensor(a, device=dev).contiguous()  # noqa: E731
+    start = t((rng.random((RAYS, 3), np.float32) * np.float32(n)))
+    rd = rng.normal(size=(RAYS, 3)).astype(np.float32)
+    rd = t(rd / np.linalg.norm(rd, axis=-1, keepdims=True))
+    prim = traverse.svo_raycast(world.table, world.root, world.height, o, d)
+    hit = prim["hit"]
+    pos = torch.where(hit[:, None], o + d * prim["t"][:, None], o)
+    pos8 = pos.repeat(8, 1)
+    state = t(rng.integers(0, 2**32, (WIDE, 3), dtype=np.uint32)
+              .astype(np.int64))
+    _, sun_dir = sampling.sample_sun(state, _sun(dev))
+    nee = hit.repeat(8) & (dot(sun_dir, prim["normal"].repeat(8, 1)) > 0.0)
+    sets = [("camera", o, d, None), ("random", start, rd, None),
+            ("batch-8 NEE", pos8, sun_dir.contiguous(), nee)]
+    rec = dict(max_abs_err=0.0)
+    for name, s0, dd, act in sets:
+        def kernel():
+            return bitdda.bitgrid_raycast(*bw, grid.size, s0, dd, active=act)
+
+        k = kernel()
+        before = bitdda.plain_lane_steps
+        bitdda.plain_sectors = words = []
+        p = bitdda.bitgrid_raycast_plain(*bw, grid.size, s0, dd,
+                                         torch.full_like(dd[:, 0],
+                                                         traverse.FAR),
+                                         True, act)
+        bitdda.plain_sectors = None
+        steps = bitdda.plain_lane_steps - before
+        sectors = int(torch.unique(torch.cat(words)).numel()) if words else 0
+        del words
+        for key in ("hit", "t", "normal", "voxel"):
+            if not torch.equal(k[key], p[key]):
+                bad = (k[key] != p[key]).reshape(dd.shape[0], -1).any(1).sum()
+                raise AssertionError(f"bit_dda {name}: {key} differs in "
+                                     f"{int(bad)} lanes")
+        ref = traverse.svo_raycast(world.table, world.root, world.height, s0,
+                                   dd, active=act)
+        both = k["hit"] & ref["hit"]
+        hit_off = int((k["hit"] != ref["hit"]).sum())
+        t_off = int((both & ~torch.isclose(k["t"], ref["t"], rtol=1e-5,
+                                           atol=2e-4)).sum())
+        nv_off = int((both & ((k["voxel"] != ref["voxel"]).any(1)
+                              | (k["normal"] != ref["normal"]).any(1))).sum())
+        B = dd.shape[0]
+        n_act = B if act is None else int(act.sum())
+        off = hit_off + t_off + nv_off
+        ms = _ms(kernel, 5)
+        k2_ms = _ms(lambda: traverse.svo_raycast(
+            world.table, world.root, world.height, s0, dd, active=act), 5)
+        bound_ms, bound_by = _bit_bound(B, n_act, steps, sectors)
+        line = (f"bit_dda {name} ({B} lanes, {n_act} active): all four "
+                f"outputs equal to the plain version; against K2: hit "
+                f"{hit_off}, t beyond rtol 1e-5 / atol 2e-4 {t_off}, voxel "
+                f"or normal {nv_off} lanes (budget {GRAZE_SHARE:.2e} of the "
+                f"active); K8 {ms:.4f} ms, K2 {k2_ms:.4f} ms, {steps} "
+                f"lane-steps, {sectors} distinct 32 B sectors read "
+                f"({sectors * 32 / 2**20:.2f} of {gbytes / 2**20:.1f} MiB), "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
+        if name == "camera":
+            plain_ms = _ms(lambda: bitdda.bitgrid_raycast_plain(
+                *bw, grid.size, s0, dd, torch.full_like(dd[:, 0],
+                                                        traverse.FAR)), 1)
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=None)
+            line += f", plain {plain_ms:.1f} ms"
+        print(line)
+        if off > GRAZE_SHARE * max(n_act, 1):
+            raise AssertionError(f"bit_dda {name} disagrees with K2")
+    # one batch-8 call of the path tracer on the bit grid
+    lut = torch.from_numpy(build_wl_to_rgb_lut()).to(dev)
+    seeds = np.arange(24, dtype=np.uint32).reshape(8, 3) + 7
+    args = (world.table, world.root, world.height, lut,
+            np.asarray(cam.pos, np.float32), cam.basis(), _sun(dev), seeds,
+            WIDTH, HEIGHT)
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.monotonic()
+    img = integrator.render_samples(*args, bitworld=bw, bit_size=grid.size)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.monotonic() - t0)
+    counts = _launches()
+    ref = integrator.render_samples(*args)
+    a, b = (x.cpu().numpy() / 8 for x in (img, ref))
+    frac = float((np.abs(a - b) > 1e-3).mean())
+    mrel = float(abs(a.mean() / b.mean() - 1.0))
+    print(f"bit-grid path (render_samples(bitworld=), batch 8, 1024^3 "
+          f"{WIDTH}x{HEIGHT}): {wall:.1f} ms (host clock, synchronized), "
+          f"launches {counts}; against the SVO engine: {frac:.2e} of values "
+          f"beyond 1e-3, means {mrel:.2e} apart (budget {GOLDEN_FRAC}, "
+          f"{GOLDEN_MEAN_REL}); {CARD}")
+    _expect_launches("bit-grid path", counts, ("fog_march", "bit_dda"))
+    if frac > GOLDEN_FRAC or mrel > GOLDEN_MEAN_REL or not np.isfinite(a).all():
+        raise AssertionError("the bit-grid path disagrees with the SVO engine")
+    return rec, counts
+
+
+def phase_sunmaps(renderer, cam, dev):
+    """Sun maps at 8192^3 (hf-only, the main path's pose and sun):
+    batch-8 calls with and without the maps equal by bits (radiance, and
+    trace_paths' radiance and RNG state); the share of NEE lanes the maps
+    prove lit; K4's NEE launch with and without the maps; ms a call."""
+    import torch
+
+    from voxtracer_torch.core import sampling
+    from voxtracer_torch.core.spectra import fog_density
+    from voxtracer_torch.core.vecmath import dot
+    from voxtracer_torch.kernels import (atmosphere, heightfield, integrator,
+                                         sunshadow)
+
+    from voxtracer_torch.render.driver import _heights
+
+    sun = _sun(dev)
+    t0 = time.monotonic()
+    maps = sunshadow.upload(sunshadow.build(_heights(renderer._dev),
+                                            sun.cpu().numpy()), dev)
+    build_s = time.monotonic() - t0
+    if maps is None:
+        raise AssertionError("the main path's sun is gated")
+    seeds = np.arange(24, dtype=np.uint32).reshape(8, 3) + 101
+    kw = renderer._engine_kw(cam)
+    kw.pop("sun_maps", None)
+    args = (*renderer._args(cam), sun, seeds, WIDTH, HEIGHT)
+    ms = {}
+    for turn, m in enumerate((None, maps, maps, None)):
+        w, img = _wall_ms_sync(lambda: integrator.render_samples(
+            *args, **kw, sun_maps=m))
+        ms.setdefault(m is None, []).append(w)
+        if turn == 0:
+            ref = img
+        elif not torch.equal(img, ref):
+            raise AssertionError("batch-8 radiance differs with the maps")
+    # trace_paths' radiance and state from the camera hits
+    tiles, offsets, trgb = renderer._get_hf()
+    o, d = _camera_rays(cam, dev)
+    rng = np.random.default_rng(20261019)
+    state = torch.as_tensor(rng.integers(0, 2**32, (WIDE, 3), dtype=np.uint32)
+                            .astype(np.int64), device=dev)
+    wl = torch.as_tensor(rng.random(WIDE, np.float32), device=dev)
+    tp = (renderer.world.table, renderer.world.root, renderer.world.height,
+          renderer.lut, o.repeat(8, 1), d.repeat(8, 1), wl, sun, state)
+    hkw = dict(hf_mips=tiles, hf_offsets=offsets, terrain_rgb=trgb)
+    s1, c1 = integrator.trace_paths(*tp, 4, 64, **hkw)
+    s2, c2 = integrator.trace_paths(*tp, 4, 64, **hkw, sun_maps=maps)
+    if not torch.equal(s1, s2) or not torch.equal(c1, c2):
+        raise AssertionError("trace_paths' state or radiance differs with "
+                             "the maps")
+    # K4's NEE launch from the camera hits, at batch-8 width
+    prim = heightfield.hf_raycast(tiles, offsets, renderer.world.height,
+                                  o, d)
+    hit = prim["hit"].repeat(8)
+    pos = torch.where(prim["hit"][:, None], o + d * prim["t"][:, None],
+                      o).repeat(8, 1).contiguous()
+    density = fog_density(wl)
+    st, sun_dir = sampling.sample_sun(state, sun)
+    facing = hit & (dot(sun_dir, prim["normal"].repeat(8, 1)) > 0.0)
+    st, sp = atmosphere.raycast_planet(st, pos, sun_dir, density,
+                                       active=facing)
+    act = facing & ~sp["hit"]
+    lit = sunshadow.sun_clear(maps, pos)
+    share = float((act & lit).sum()) / max(int(act.sum()), 1)
+    sun_dir = sun_dir.contiguous()
+    cast = lambda a: heightfield.hf_raycast(  # noqa: E731
+        tiles, offsets, renderer.world.height, pos, sun_dir, active=a)
+    full = cast(act)
+    part = cast(act & ~lit)
+    if not torch.equal(full["hit"] & ~lit, part["hit"] & ~lit) \
+            or bool((full["hit"] & lit).any()):
+        raise AssertionError("a lane the maps prove lit is occluded")
+    nee_ms = [_ms(lambda: cast(act), 5), _ms(lambda: cast(act & ~lit), 5),
+              _ms(lambda: cast(act & ~lit), 5), _ms(lambda: cast(act), 5)]
+    print(f"sun maps {1 << FULL_LOG2_SIZE}^3 (build {build_s:.1f} s host, "
+          f"t_near {tuple(maps['t_near'].shape)}): batch-8 radiance and "
+          f"trace_paths' radiance and state equal with and without; "
+          f"{share:.4f} of {int(act.sum())} NEE lanes proved lit; K4's NEE "
+          f"launch without/with/with/without {[round(x, 4) for x in nee_ms]}"
+          f" ms (CUDA events); ms a batch-8 call without {ms[True]}, with "
+          f"{ms[False]} (host clock, in turns); {CARD}")
+
+
+def phase_prefix(renderer, cam, dev):
+    """hf_frame_cast at 8192^3 with cone=, sky=, sky_env= and their
+    compositions: every frame equal by bits to the unprefixed cast; ms
+    per frame and per prefix."""
+    import torch
+
+    from voxtracer_torch.kernels import conemarch, heightfield, skyline
+
+    from voxtracer_torch.render.driver import _heights
+
+    heights = _heights(renderer._dev)
+    tiles, offsets, trgb = renderer._get_hf()
+    H_ = renderer.world.height
+    op = np.asarray(cam.pos, np.float32)
+    basis = cam.basis()
+    t0 = time.monotonic()
+    cone = conemarch.build_cone_mips(heights, device=dev)
+    t1 = time.monotonic()
+    sky_mips = skyline.build_sky_mips(heights)
+    t2 = time.monotonic()
+    sky = skyline.build_skyline(sky_mips, op)
+    t3 = time.monotonic()
+    env = renderer._get_sky_env(cam)
+    print(f"prefixes {1 << H_}^3: cone pyramid {t1 - t0:.2f} s, sky pyramid "
+          f"{t2 - t1:.2f} s, the pose's skyline {1e3 * (t3 - t2):.1f} ms "
+          f"(host)")
+
+    def frame(**kw):
+        return heightfield.hf_frame_cast(tiles, offsets, H_, op, basis, WIDTH,
+                                         HEIGHT, trgb, terrain_node=0, **kw)
+
+    base = frame()
+    lines = []
+    for name, kw in (("none", {}), ("cone", dict(cone=cone)),
+                     ("sky", dict(sky=sky)),
+                     ("cone+sky", dict(cone=cone, sky=sky)),
+                     ("sky_env", dict(sky_env=env)),
+                     ("cone+sky+sky_env", dict(cone=cone, sky=sky,
+                                               sky_env=env))):
+        f = frame(**kw)
+        for k in base:
+            if not torch.equal(f[k], base[k]):
+                raise AssertionError(f"hf_frame_cast({name}): {k} differs "
+                                     "from the unprefixed frame")
+        lines.append(f"{name} {_ms(lambda: frame(**kw), 3):.3f}")
+    dc, sig, _ = conemarch.frame_tile_bundles(basis, WIDTH, HEIGHT,
+                                              device=dev)
+    cone_ms = _ms(lambda: conemarch.cone_prefix(cone[0], cone[1], cone[2],
+                                                H_, op, dc, sig), 3)
+    sky_ms, _ = _wall_ms_sync(lambda: skyline.tile_sky(
+        sky, np.asarray(basis, np.float32), WIDTH, HEIGHT))
+    mask = skyline.tile_sky(sky, np.asarray(basis, np.float32), WIDTH, HEIGHT)
+    print(f"prefixes {1 << H_}^3 {WIDTH}x{HEIGHT}: every frame equal by bits "
+          f"to the unprefixed cast; ms a frame {', '.join(lines)} (CUDA "
+          f"events); cone_prefix alone {cone_ms:.3f} ms; tile_sky {sky_ms:.2f}"
+          f" ms host, {int(mask.sum())} of {mask.size} tiles certified; "
+          f"{CARD}")
+
+
+def phase_terrain_card(dev):
+    """The terrain on the card against the CPU's: worldgen.heightmap at
+    2^10 and 2^13, equal by bits."""
+    from voxtracer_torch.world import worldgen
+
+    for log2 in (LOG2_SIZE, FULL_LOG2_SIZE):
+        t0 = time.monotonic()
+        a = worldgen.heightmap(log2, device=dev)
+        t1 = time.monotonic()
+        b = worldgen.heightmap(log2, device="cpu")
+        t2 = time.monotonic()
+        same = np.array_equal(a, b)
+        print(f"terrain {1 << log2}^2: the card's heightmap against the "
+              f"CPU's: equal by bits {same} (card {t1 - t0:.2f} s, CPU "
+              f"{t2 - t1:.2f} s)")
+        if not same:
+            raise AssertionError(f"the {1 << log2}^2 heightmap differs "
+                                 "between the card and the CPU")
 
 
 def main() -> int:
@@ -2803,11 +3376,14 @@ def main() -> int:
     phase_cull(space, soup_t, world, dev)
     phase_primary_engines(space, dev)
     phase_dist(space, dev)
+    beam_rec, beam_counts = phase_beam(space, dev)
+    bit_rec, bit_counts = phase_bitdda(space, dev)
     phase_edits(space, dev)
     del space, dev_svo, world, soup, soup_t, pack
     torch.cuda.empty_cache()
     phase_interact(dev)
     phase_dense(dev)
+    phase_terrain_card(dev)
     torch.cuda.empty_cache()
     full, sky_rec = phase_full(dev)
 
@@ -2832,6 +3408,18 @@ def main() -> int:
              source="voxtracer_torch/kernels/csrc/sky_tmin.cu",
              replaces="voxtracer/kernels/skyline.py:441",
              launches=full["sky_tmin"], **sky_rec),
+        dict(name="beam_walk", route="cuda",
+             source="voxtracer_torch/kernels/csrc/beam_walk.cu",
+             replaces="voxtracer/kernels/beam.py:94",
+             launches=beam_counts["beam_walk"], **beam_rec["walk"]),
+        dict(name="beam_resolve", route="cuda",
+             source="voxtracer_torch/kernels/csrc/beam_resolve.cu",
+             replaces="voxtracer/kernels/beam.py:369",
+             launches=beam_counts["beam_resolve"], **beam_rec["resolve"]),
+        dict(name="bit_dda", route="cuda",
+             source="voxtracer_torch/kernels/csrc/bit_dda.cu",
+             replaces="voxtracer/kernels/bitdda.py:44",
+             launches=bit_counts["bit_dda"], **bit_rec),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -131,3 +131,18 @@ def test_color_matches(fn, rng):
         assert np.array_equal(want, got)
     else:
         assert np.abs(want - got).max() <= 2 * ULP1
+
+
+def test_sqrt_correctly_rounded(rng):
+    """``vecmath.sqrt`` is the correctly rounded float32 root (the JAX
+    package's ``jnp.sqrt``, and the card's) on every CPU build; some CPU
+    builds of torch return a float32 ``torch.sqrt`` one ulp off in about
+    one lane in six. The float64 root rounded once is the reference."""
+    x = np.concatenate([rng.random(20000, np.float32) * np.float32(10),
+                        rng.random(20000, np.float32) * np.float32(3e4),
+                        np.float32([0.0, 1.0, 4.0, 2.0, 1e-30, 3.4e38])])
+    want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    got = tvec.sqrt(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert np.array_equal(got, np.asarray(jnp.sqrt(jnp.asarray(x))))

@@ -1,6 +1,8 @@
 """CUDA kernels K1 (fog march), K2 (SVO cast), K3 (resolve fold), K4
-(heightfield walk) and K5 (envelope lookup) against their plain PyTorch
-versions, on the card. Every test skips when
+(heightfield walk), K5 (envelope lookup), K6 (beam walk), K7 (beam
+resolve) and K8 (bit-grid DDA) against their plain PyTorch versions, and
+the terrain built on the card against the CPU's, on the card. Every test
+skips when
 torch sees no CUDA device (decided inside the fixture, not at import).
 
 Run on the card from the repository root (the repository's conftest
@@ -536,3 +538,108 @@ def test_sky_tmin_jittered_samples_match_plain(cuda, tier, S, W, H):
                                                      env["g"]))
     got = _sky_orders(env, d, want)
     assert (got > 0).float().mean() > 0.3
+
+
+@pytest.fixture(scope="module")
+def beam_world(cuda):
+    from voxtracer_torch.kernels import beam
+
+    dev = worldgen.generate(log2_size=7, verbose=False,
+                            device="cpu").serialize()
+    w = svo.upload(dev.table, dev.root, dev.height, cuda)
+    aug = torch.from_numpy(beam.build_aug_table(dev.table, dev.solid_leaf))
+    return w, aug.to(cuda)
+
+
+@pytest.mark.parametrize("K,steps", [(64, 512), (8, 512), (16, 30)])
+def test_beam_walk_and_resolve_match_plain(cuda, beam_world, K, steps):
+    """K6 and K7 against their plain versions over three resumed rounds
+    of a 1080p-shaped tile grid: candidates, state and resolve by bits."""
+    from voxtracer_torch.core import camera as vcam
+    from voxtracer_torch.kernels import beam
+
+    w, aug = beam_world
+    cam = vcam.Camera(pos=(80.3, 70.2, 20.1), yaw=2.6, pitch=-0.25)
+    _, d = vcam.generate_rays(cam, 320, 184, device=cuda)
+    dt = beam._group(d, 8).contiguous()
+    o = torch.tensor(cam.pos, dtype=torch.float32, device=cuda)
+    ob = o.expand(dt.shape[0], 3)
+    pre = beam._beam_bounds(w.height, ob, ob, torch.amin(dt, 1),
+                            torch.amax(dt, 1))
+    init = beam._initial_state(w.root, w.height, pre["incoherent"])
+    st_k = {k: v.clone() for k, v in init.items()}
+    st_p = {k: v.clone() for k, v in init.items()}
+    hits = 0
+    for _ in range(3):
+        before = (beam.walk_launches, beam.resolve_launches)
+        ck = beam._beam_walk_cuda(aug, w.height, pre, st_k, K, steps, True)
+        rk = beam.resolve_candidates(ck["lvl"], ck["off"], ck["rgb"], o, dt,
+                                     w.height)
+        assert (beam.walk_launches, beam.resolve_launches) == \
+            (before[0] + 1, before[1] + 1)
+        cp = beam.beam_walk_plain(aug, w.height, pre, st_p, K, steps)
+        rp = beam.resolve_candidates_plain(cp["lvl"], cp["off"], cp["rgb"],
+                                           o, dt, w.height)
+        torch.cuda.synchronize()
+        for key in cp:
+            assert torch.equal(ck[key], cp[key]), key
+        for key in st_p:
+            assert torch.equal(st_k[key], st_p[key]), key
+        for key in rp:
+            assert torch.equal(rk[key], rp[key]), key
+        hits += int(rp["hit"].sum())
+    assert hits > 0
+
+
+def test_beam_frame_matches_svo_cast(cuda, beam_world):
+    from voxtracer_torch.core import camera as vcam
+    from voxtracer_torch.kernels import beam
+
+    w, aug = beam_world
+    cam = vcam.Camera(pos=(80.3, 70.2, 20.1), yaw=2.6, pitch=-0.25)
+    o, d = vcam.generate_rays(cam, 320, 184, device=cuda)
+    r = beam.beam_primary_frame_cast(w.table, aug, w.root, w.height,
+                                     np.asarray(cam.pos, np.float32), d)
+    ref = traverse.svo_raycast(w.table, w.root, w.height, o, d)
+    assert torch.equal(r["hit"], ref["hit"]) and r["hit"].any()
+    hit = r["hit"]
+    assert torch.equal(r["t"][hit], ref["t"][hit])
+    assert torch.equal(r["voxel"][hit], ref["voxel"][hit])
+
+
+@pytest.mark.parametrize("B,frac", [(1, None), (1000, 0.5), (65536, None)])
+def test_bit_dda_matches_plain(cuda, B, frac):
+    from voxtracer_torch.kernels import bitdda
+    from voxtracer_torch.world import bitgrid
+
+    rng = np.random.default_rng(B)
+    solid = rng.random((128, 128, 128)) < 0.05
+    grid = bitgrid.from_dense(solid)
+    bw = grid.to_device(cuda)
+    start = rng.random((B, 3)).astype(np.float32) * 200 - 36
+    d = rng.normal(size=(B, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    dist = np.where(rng.random(B) < 0.3, rng.random(B) * 150.0,
+                    1e12).astype(np.float32)
+    start, d, dist = (torch.as_tensor(a, device=cuda) for a in (start, d,
+                                                               dist))
+    active = None if frac is None else torch.as_tensor(rng.random(B) < frac,
+                                                       device=cuda)
+    before = bitdda.launches
+    got = bitdda.bitgrid_raycast(*bw, grid.size, start, d, distance=dist,
+                                 active=active)
+    assert bitdda.launches == before + 1
+    want = bitdda.bitgrid_raycast_plain(*bw, grid.size, start, d, dist, True,
+                                        active)
+    torch.cuda.synchronize()
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("log2", [10, 13])
+def test_heightmap_on_the_card_equals_cpu(cuda, log2):
+    """The worlds the card builds are the reference's terrain: the
+    heightmap made on the card equals the CPU's by bits."""
+    a = worldgen.heightmap(log2, device=cuda)
+    b = worldgen.heightmap(log2, device="cpu")
+    assert np.array_equal(a, b)

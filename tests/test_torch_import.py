@@ -23,7 +23,12 @@ for must in ("voxtracer_torch.tools.kernel_ab",
              "voxtracer_torch.utils.profiling",
              "voxtracer_torch.dist.mesh",
              "voxtracer_torch.dist.shard",
-             "voxtracer_torch.dist.multihost"):
+             "voxtracer_torch.dist.multihost",
+             "voxtracer_torch.kernels.sunshadow",
+             "voxtracer_torch.kernels.beam",
+             "voxtracer_torch.kernels.bitdda",
+             "voxtracer_torch.kernels.conemarch",
+             "voxtracer_torch.world.bitgrid"):
     assert must in names, names
 for name in names:
     importlib.import_module(name)

@@ -1,6 +1,7 @@
 """The CUDA sources of K2 (csrc/svo_cast.cu), K4 (csrc/hf_cast.cu), K1
 (csrc/fog_march.cu), lane fetch (csrc/lanes.cuh) included, K3
-(csrc/resolve_fold.cu) and K5 (csrc/sky_tmin.cu), compiled for the host
+(csrc/resolve_fold.cu), K5 (csrc/sky_tmin.cu), K6 (csrc/beam_walk.cu),
+K7 (csrc/beam_resolve.cu) and K8 (csrc/bit_dda.cu), compiled for the host
 and run under a small emulation of the CUDA features they use: every
 thread of a block is a std::thread (grids of up to three axes), the 32
 threads of a warp meet at a barrier for each warp collective
@@ -32,6 +33,11 @@ and in lane order alike. Against the binary search of the kernel's first
 form (BSEARCH_SKY_TMIN, built under the same shim and host libm), t_min is
 equal by bits in every lane: the same rung everywhere.
 
+K6, K7 and K8 must equal their plain versions bit for bit: the walk's
+candidates and its resumed state over several rounds (with pauses), the
+resolve's five outputs with a shared origin and with one origin a ray,
+and the bit-grid DDA's four outputs with caps and masks.
+
 Needs g++ with C++20 (<barrier>); skips without it.
 """
 
@@ -46,8 +52,8 @@ import torch
 
 from voxtracer_torch.core import camera as vcam
 from voxtracer_torch.core.spectra import fog_density
-from voxtracer_torch.kernels import (build, fog, heightfield, resolve,
-                                     traverse)
+from voxtracer_torch.kernels import (beam, bitdda, build, fog, heightfield,
+                                     resolve, traverse)
 from voxtracer_torch.world import svo, worldgen
 
 torch.set_num_threads(2)
@@ -282,7 +288,8 @@ def host_kernels(tmp_path_factory):
     procs = []
     fold_src = (build.CSRC / "resolve_fold.cu").read_text()
     sources = {name: (build.CSRC / f"{name}.cu").read_text()
-               for name in ("svo_cast", "fog_march", "hf_cast", "sky_tmin")}
+               for name in ("svo_cast", "fog_march", "hf_cast", "sky_tmin",
+                            "beam_walk", "beam_resolve", "bit_dda")}
     sources["resolve_fold"] = fold_src
     sources["sky_bsearch"] = BSEARCH_SKY_TMIN
     for name, (old, new) in FOLD_MUTANTS.items():
@@ -304,7 +311,8 @@ def host_kernels(tmp_path_factory):
         assert p.returncode == 0, err
         lib = ctypes.CDLL(str(so))
         entries = [f"voxt_{name}"] \
-            if name in ("svo_cast", "fog_march", "hf_cast", "sky_tmin") \
+            if name in ("svo_cast", "fog_march", "hf_cast", "sky_tmin",
+                        "beam_walk", "beam_resolve", "bit_dda") \
             else ["voxt_sky_tmin"] if name == "sky_bsearch" \
             else ["voxt_resolve_fold", "voxt_resolve_fold_seg"]
         fns = []
@@ -931,3 +939,140 @@ def test_resolve_fold_seg_source_equals_plain(host_kernels, NT, R, k,
         rest = np.setdiff1d(np.arange(NT), tiles.numpy())
         _bits_equal([g[rest] for g in got], [c[rest] for c in carry])
         assert (want[0] < carry[0]).any()
+
+
+@pytest.fixture(scope="module")
+def clutter():
+    """tests/test_beam.py's 32^3 random fill and its augmented rows."""
+    rng = np.random.default_rng(5)
+    solid = rng.random((32, 32, 32)) < 0.2
+    rgb = rng.random((32, 32, 32, 3)).astype(np.float32)
+    rgb[~solid] = 0
+    dev = svo.from_dense(solid, rgb).serialize()
+    w = svo.upload(dev.table, dev.root, dev.height, "cpu")
+    return w, torch.from_numpy(beam.build_aug_table(dev.table,
+                                                    dev.solid_leaf))
+
+
+def _beam_tiles(pos, yaw, pitch, W=64, H=40):
+    cam = vcam.Camera(pos=pos, yaw=yaw, pitch=pitch)
+    _, d = vcam.generate_rays(cam, W, H)
+    return torch.tensor(pos, dtype=torch.float32), beam._group(d, 8) \
+        .contiguous()
+
+
+def _walk_host(fn, aug, height, pre, state, K, max_steps):
+    Bb = pre["ilo"].shape[0]
+    out = dict(lvl=torch.full((Bb, K), 7, dtype=torch.int32),
+               off=torch.full((Bb, K, 3), 7, dtype=torch.int32),
+               rgb=torch.full((Bb, K, 3), 7.0),
+               ok=torch.full((Bb,), True), t_safe=torch.full((Bb,), 7.0))
+    err = fn(aug.data_ptr(), height, pre["olo"].data_ptr(),
+             pre["ohi"].data_ptr(), pre["ilo"].data_ptr(),
+             pre["ihi"].data_ptr(), pre["mirror"].data_ptr(),
+             pre["incoherent"].data_ptr(), K, max_steps, 1,
+             state["h"].data_ptr(), state["ids_stk"].data_ptr(),
+             state["mask_stk"].data_ptr(), state["entry_stk"].data_ptr(),
+             state["words"].data_ptr(), state["cap"].data_ptr(),
+             state["alive"].data_ptr(), out["lvl"].data_ptr(),
+             out["off"].data_ptr(), out["rgb"].data_ptr(),
+             out["ok"].data_ptr(), out["t_safe"].data_ptr(), Bb, None)
+    assert err == 0
+    return out
+
+
+def _resolve_host(fn, c, origin, d, height):
+    Bb, P, _ = d.shape
+    out = dict(hit=torch.full((Bb, P), True), t=torch.full((Bb, P), 7.0),
+               normal=torch.full((Bb, P, 3), 7.0),
+               rgb=torch.full((Bb, P, 3), 7.0),
+               voxel=torch.full((Bb, P, 3), 7, dtype=torch.int32))
+    err = fn(c["lvl"].data_ptr(), c["off"].data_ptr(), c["rgb"].data_ptr(),
+             origin.data_ptr(), int(origin.dim() != 1), d.data_ptr(), height,
+             1, out["hit"].data_ptr(), out["t"].data_ptr(),
+             out["normal"].data_ptr(), out["rgb"].data_ptr(),
+             out["voxel"].data_ptr(), Bb, P, c["lvl"].shape[1], None)
+    assert err == 0
+    return out
+
+
+@pytest.mark.parametrize("pos,yaw,pitch,K,steps", [
+    ((16.1234567, 16.0721311, -10.0412399), 0.0137, 0.0213, 64, 2048),
+    ((5.3, 30.1, 4.2), 0.8, -0.7, 8, 2048),    # pauses on most tiles
+    ((16.5, 16.5, 16.5), 0.3, -0.2, 16, 40),   # inside; the step budget
+])
+def test_beam_walk_and_resolve_source_equal_plain(host_kernels, clutter,
+                                                  pos, yaw, pitch, K, steps):
+    w, aug = clutter
+    o, dt = _beam_tiles(pos, yaw, pitch)
+    ob = o.expand(dt.shape[0], 3)
+    pre = beam._beam_bounds(w.height, ob, ob, torch.amin(dt, 1),
+                            torch.amax(dt, 1))
+    init = beam._initial_state(w.root, w.height, pre["incoherent"])
+    st_k = {k: v.clone() for k, v in init.items()}
+    st_p = {k: v.clone() for k, v in init.items()}
+    for _ in range(3):
+        got = _walk_host(host_kernels["beam_walk"], aug, w.height, pre, st_k,
+                         K, steps)
+        want = beam.beam_walk_plain(aug, w.height, pre, st_p, K, steps)
+        for key in want:
+            assert np.array_equal(got[key].numpy(), want[key].numpy()), key
+        for key in st_p:
+            assert torch.equal(st_k[key], st_p[key]), key
+        res = _resolve_host(host_kernels["beam_resolve"], got, o, dt,
+                            w.height)
+        ref = beam.resolve_candidates_plain(want["lvl"], want["off"],
+                                            want["rgb"], o, dt, w.height)
+        for key in ref:
+            assert np.array_equal(res[key].numpy().view(np.uint8),
+                                  ref[key].numpy().view(np.uint8)), key
+    assert (want["lvl"] >= 0).any() or bool(st_p["alive"].any())
+    # one origin a ray (the shadow pass): hit points toward a sun
+    sun = torch.tensor([0.3, 0.9, 0.2])
+    sun = sun / torch.linalg.norm(sun)
+    r = beam.resolve_candidates_plain(want["lvl"], want["off"], want["rgb"],
+                                      o, dt, w.height)
+    p = (o + dt * r["t"][..., None] - dt * 1e-3).contiguous()
+    sd = sun.expand(p.shape).contiguous()
+    res = _resolve_host(host_kernels["beam_resolve"], got, p, sd, w.height)
+    ref = beam.resolve_candidates_plain(want["lvl"], want["off"], want["rgb"],
+                                        p, sd, w.height)
+    for key in ref:
+        assert np.array_equal(res[key].numpy().view(np.uint8),
+                              ref[key].numpy().view(np.uint8)), key
+
+
+@pytest.mark.parametrize("B,frac,skip_t0", [(1, 1.0, 1), (777, 0.5, 1),
+                                            (4099, None, 0)])
+def test_bit_dda_source_equals_plain(host_kernels, B, frac, skip_t0):
+    from voxtracer_torch.world import bitgrid
+
+    rng = np.random.default_rng(B)
+    solid = rng.random((64, 64, 64)) < 0.1
+    grid = bitgrid.from_dense(solid)
+    bw = grid.to_device("cpu")
+    start = rng.random((B, 3)).astype(np.float32) * 160 - 45
+    start[: B // 8] = np.floor(start[: B // 8])
+    d = rng.normal(size=(B, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    dist = np.where(rng.random(B) < 0.3, rng.random(B) * 90.0,
+                    1e12).astype(np.float32)
+    start, d, dist = (torch.from_numpy(a) for a in (start, d, dist))
+    active = None if frac is None else torch.from_numpy(rng.random(B) < frac)
+    got = dict(hit=torch.full((B,), True), t=torch.full((B,), 7.0),
+               normal=torch.full((B, 3), 7.0),
+               voxel=torch.full((B, 3), 7, dtype=torch.int32))
+    err = host_kernels["bit_dda"](
+        bw[0].data_ptr(), bw[0].shape[0], bw[1].data_ptr(), bw[2].data_ptr(),
+        grid.size, start.data_ptr(), d.data_ptr(), dist.data_ptr(),
+        None if active is None else active.data_ptr(), skip_t0,
+        got["hit"].data_ptr(), got["t"].data_ptr(), got["normal"].data_ptr(),
+        got["voxel"].data_ptr(), B, None)
+    assert err == 0
+    want = bitdda.bitgrid_raycast_plain(*bw, grid.size, start, d, dist,
+                                        bool(skip_t0), active)
+    for key in want:
+        assert np.array_equal(got[key].numpy().view(np.uint8),
+                              want[key].numpy().view(np.uint8)), key
+    if B > 1:
+        assert want["hit"].any()

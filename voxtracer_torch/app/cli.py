@@ -3,10 +3,13 @@
 Subcommands, with the flags and defaults of ``voxtracer/app/cli.py``:
 
 * ``render --mode path`` — render one path-traced frame to PNG and/or EXR.
-* ``render --mode shaded|shadow --engine raster|ray`` — one deterministic
-  shaded frame (kernels/shade.py): ``shaded`` on the box rasterizer
-  (default) or the per-ray SVO cast, ``shadow`` always on the SVO cast;
-  prints the frame's milliseconds on the card.
+* ``render --mode shaded|shadow --engine raster|beam|ray`` — one
+  deterministic shaded frame (kernels/shade.py): ``shaded`` on the box
+  rasterizer (default), the beam engine (kernels/beam.py, K6 and K7) or
+  the per-ray SVO cast; ``shadow`` on the beam engine or the SVO cast. The
+  beam engine takes frames whose width and height are multiples of 8, as
+  in the JAX package; other sizes render per ray. Prints which engine
+  rendered the frame and its milliseconds on the card.
 * ``headless`` — the day-cycle batch job: N samples per frame, EXR dump,
   sun schedule, throughput prints (main.rs:112-145); ``--checkpoint-every
   N`` snapshots the render state. ``--log2-size 13`` is the reference's
@@ -168,7 +171,9 @@ def _render_shaded(args):
     sun = np.asarray(args.sun, np.float64)
     sun_t = torch.as_tensor((sun / np.linalg.norm(sun)).astype(np.float32),
                             device=dev)
+    engine = "ray"
     if args.engine == "raster" and args.mode == "shaded":
+        engine = "raster"
         soup = boxes.extract_boxes(sdev)
         print(f"box soup: {len(soup)} boxes")
         soup_t = raster.soup_to_device(soup.lo, soup.size, soup.leaf, soup.rgb,
@@ -185,6 +190,19 @@ def _render_shaded(args):
                 *soup_t, w.height, np.asarray(cam.pos, np.float32),
                 cam.basis(), sun_t, args.width, args.height, table=w.table,
                 root=w.root)
+    elif args.engine == "beam" and args.height % 8 == 0 \
+            and args.width % 8 == 0:
+        from voxtracer_torch.kernels import beam
+
+        engine = "beam"
+        aug = torch.from_numpy(beam.build_aug_table(
+            sdev.table, sdev.solid_leaf)).to(dev)
+        frame_fn = (beam.beam_primary_frame if args.mode == "shaded"
+                    else beam.beam_shadow_frame)
+
+        def frame():
+            return frame_fn(w.table, aug, w.root, w.height,
+                            np.asarray(cam.pos, np.float32), d, sun_t)
     elif args.mode == "shaded":
         def frame():
             return shade.svo_primary_frame(w.table, w.root, w.height, o, d,
@@ -200,7 +218,8 @@ def _render_shaded(args):
     torch.cuda.synchronize()
     dt = time.monotonic() - t0
     rays = args.width * args.height * (1 if args.mode == "shaded" else 2)
-    print(f"frame in {dt * 1e3:.1f} ms = {rays / dt / 1e6:.2f} Mrays/s")
+    print(f"{engine} engine: frame in {dt * 1e3:.1f} ms = "
+          f"{rays / dt / 1e6:.2f} Mrays/s")
     if args.out:
         film.save_png(args.out, img.cpu().numpy())
         print("wrote", args.out)
@@ -240,7 +259,8 @@ def build_parser():
     _add_common(p)
     p.add_argument("--mode", choices=("path", "shaded", "shadow"),
                    default="path")
-    p.add_argument("--engine", choices=("raster", "ray"), default="raster",
+    p.add_argument("--engine", choices=("raster", "beam", "ray"),
+                   default="raster",
                    help="primary-visibility engine for --mode shaded")
     p.add_argument("--spp", type=int, default=16)
     p.add_argument("--out", default="frame.png")

@@ -13,7 +13,7 @@ import math
 import torch
 
 from voxtracer_torch.core import rng as vrng
-from voxtracer_torch.core.vecmath import cross, dot, normalize
+from voxtracer_torch.core.vecmath import cross, dot, normalize, sqrt
 
 PI = math.pi
 SUN_ANGULAR_RADIUS = 0.535 * PI / 180.0  # raytrace.wgsl:237
@@ -25,7 +25,7 @@ SUN_COLOR = 10000.0  # raytrace.wgsl:239
 def random_disk(state, n):
     """Uniform unit-disk sample in the tangent plane of n (two draws)."""
     state, rand = vrng.random3(state)
-    r = torch.sqrt(rand[..., 0])
+    r = sqrt(rand[..., 0])
     angle = rand[..., 1] * 2.0 * PI
     px = r * torch.cos(angle)
     py = r * torch.sin(angle)
@@ -39,7 +39,7 @@ def cos_hemisphere(state, n):
     """Cosine-weighted hemisphere direction around n."""
     state, disk = random_disk(state, n)
     d2 = dot(disk, disk)[..., None]
-    return state, disk + n * torch.sqrt(torch.clamp_min(1.0 - d2, 0.0))
+    return state, disk + n * sqrt(torch.clamp_min(1.0 - d2, 0.0))
 
 
 def sample_sun(state, sun):
@@ -47,7 +47,7 @@ def sample_sun(state, sun):
     state, rand = vrng.random3(state)
     z = rand[..., 0] * (1.0 - COS_SUN_RADIUS) + COS_SUN_RADIUS
     angle = rand[..., 1] * 2.0 * PI
-    s = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    s = sqrt(torch.clamp_min(1.0 - z * z, 0.0))
     px = torch.cos(angle) * s
     py = torch.sin(angle) * s
     state, rand2 = vrng.random3(state)

@@ -8,6 +8,10 @@ Division by a constant goes through ``div``/``rdiv``: PyTorch computes
 ``x / c`` for a Python number c as ``x * (1/c)`` on a card, and ``c / x``
 as ``x.reciprocal() * c`` everywhere, each two roundings where the JAX
 package and the CUDA kernels do one correctly rounded division.
+
+Square roots go through ``sqrt``: some CPU builds of PyTorch return a
+float32 ``torch.sqrt`` that is one ulp off in about one lane in six (the
+JAX package's and the card's are correctly rounded).
 """
 
 from __future__ import annotations
@@ -27,6 +31,16 @@ def rdiv(c: float, x: torch.Tensor) -> torch.Tensor:
     return torch.div(torch.tensor(c, dtype=x.dtype, device=x.device), x)
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root on every device. On the CPU
+    it is taken in float64 and rounded once: the float64 root lies at
+    least 8 of its ulps from any float32 tie, so a float64 root a few
+    ulps off still rounds to the correct float32."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
 def dot(a, b):
     """Batched dot product over the trailing axis, keepdims=False."""
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
@@ -40,7 +54,7 @@ def cross(a, b):
 
 
 def normalize(a):
-    return a / torch.sqrt(dot(a, a))[..., None]
+    return a / sqrt(dot(a, a))[..., None]
 
 
 def hmax(a):

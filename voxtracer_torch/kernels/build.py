@@ -30,7 +30,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("fog_march.cu", "svo_cast.cu", "resolve_fold.cu", "hf_cast.cu",
-           "sky_tmin.cu")
+           "sky_tmin.cu", "beam_walk.cu", "beam_resolve.cu", "bit_dda.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
@@ -70,6 +70,19 @@ SIGNATURES = {
     # log2_g, far, t_min, stream
     "voxt_sky_tmin": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _F, _F,
                       _F, _P, _P),
+    # aug, height, olo, ohi, ilo, ihi, mirror, incoherent, K, max_steps,
+    # skip_t0, h, ids_stk, mask_stk, entry_stk, words, cap, alive,
+    # cand_lvl, cand_off, cand_rgb, ok, t_safe, n, stream
+    "voxt_beam_walk": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    # lvl, off, rgb, origin, origin_per_ray, dir, height, skip_t0, hit, t,
+    # normal, rgb_out, voxel, n_beams, P, K, stream
+    "voxt_beam_resolve": (_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P,
+                          _P, _I, _I, _I, _P),
+    # top, top_words, regions, bricks, size, start, dir, distance, active,
+    # skip_t0, hit, t, normal, voxel, n, stream
+    "voxt_bit_dda": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                     _I, _P),
 }
 
 # the persistent kernels index lanes (and 3 floats a lane) in int32

@@ -13,7 +13,7 @@ import math
 import numpy as np
 import torch
 
-from voxtracer_torch.core.vecmath import div
+from voxtracer_torch.core.vecmath import div, sqrt
 from voxtracer_torch.kernels import build
 
 PLANET_RADIUS = 6371000.0  # raytrace.wgsl:262
@@ -99,14 +99,14 @@ def _sphere_span(start, direction):
     b = 2.0 * (px * dx + pyr * dy + pz * dz)
     c = pp - FOG_RADIUS * FOG_RADIUS
     det = b * b - 4.0 * c
-    sq = torch.sqrt(torch.clamp_min(det, 0.0))
+    sq = sqrt(torch.clamp_min(det, 0.0))
     t0 = torch.clamp_min((-b - sq) / 2.0, 0.0)
     t1 = (-b + sq) / 2.0
     valid = (det >= 0.0) & (t1 >= 0.0)
 
     c_pl = pp - PLANET_RADIUS * PLANET_RADIUS
     det_pl = b * b - 4.0 * c_pl
-    sq_pl = torch.sqrt(torch.clamp_min(det_pl, 0.0))
+    sq_pl = sqrt(torch.clamp_min(det_pl, 0.0))
     t0_pl = (-b - sq_pl) / 2.0
     surf = valid & (det_pl >= 0.0) & (t0_pl > 0.0)
     t1 = torch.where(surf, t0_pl, t1)
@@ -127,7 +127,7 @@ def _altitude(p, direction, t):
     sx = px + direction[..., 0] * t
     sy = pyr + direction[..., 1] * t
     sz = pz + direction[..., 2] * t
-    return torch.sqrt(sx * sx + sy * sy + sz * sz) - PLANET_RADIUS
+    return sqrt(sx * sx + sy * sy + sz * sz) - PLANET_RADIUS
 
 
 def fog_march_plain(start, direction, density, y0, n_steps: int = 64,

@@ -607,7 +607,8 @@ def hf_raycast_edited(tiles, offsets: tuple, height: int, table, root: int,
 def hf_frame_cast(tiles, offsets: tuple, height: int, cam_pos, cam_basis,
                   width_px: int, height_px: int, terrain_rgb,
                   terrain_node: int = -1, ray_dirs=None, distance=FAR,
-                  init_desc: int | None = None, sky_env=None):
+                  init_desc: int | None = None, sky_env=None, cone=None,
+                  sky=None):
     """Full-frame primary visibility on UNEDITED terrain: one
     ``hf_raycast`` over every pixel's camera ray, as the
     ``raster_cast_exact`` result (hit/t/normal/node/rgb/voxel, each (H,
@@ -621,7 +622,17 @@ def hf_frame_cast(tiles, offsets: tuple, height: int, cam_pos, cam_basis,
     built for ``cam_pos`` (kernels/skyline.py): every ray resumes at its
     certified-air ``t_min``, which changes no output bit. ``init_desc``:
     the walk's start depth (hf_raycast); None takes 3 with an envelope
-    and 0 without, as the JAX package does."""
+    and 0 without, as the JAX package does.
+
+    ``cone``: optional ``conemarch.build_cone_mips`` output: each 8x8
+    pixel tile resumes at its cone-march prefix (``S * nmin``).
+    ``sky``: optional ``skyline.build_skyline`` dict for ``cam_pos``:
+    tiles whose every ray provably misses the terrain resume past the
+    world (``skyline.tile_sky``, a host mask). Both certify air for every
+    ray of the tile, jittered ones included, and compose with each other
+    and with ``sky_env`` by max (``voxtracer/kernels/heightfield.py:
+    853-870``); the frame is the same bit for bit. Unedited terrain
+    only."""
     dev = tiles.device
     W, H = width_px, height_px
     if ray_dirs is None:
@@ -630,8 +641,35 @@ def hf_frame_cast(tiles, offsets: tuple, height: int, cam_pos, cam_basis,
         ray_dirs = vcam.ray_directions(basis, vcam.pixel_ndc(px, py, W, H))
     cam = torch.as_tensor(cam_pos, dtype=torch.float32).to(dev)
     d = ray_dirs.to(torch.float32).reshape(H, W, 3)
+    t_min = None
+    if cone is not None or sky is not None:
+        tm = None
+        if cone is not None:
+            from voxtracer_torch.kernels.conemarch import (cone_prefix,
+                                                           frame_tile_bundles)
+
+            dc, sig, nmin = frame_tile_bundles(cam_basis, W, H, tile=8,
+                                               device=dev)
+            tm = cone_prefix(cone[0], cone[1], cone[2], height, cam_pos, dc,
+                             sig) * nmin
+        if sky is not None:
+            from voxtracer_torch.kernels.skyline import tile_sky
+
+            mask = torch.from_numpy(tile_sky(
+                sky, np.asarray(cam_basis, np.float32), W, H, tile=8)).to(dev)
+            sky_tm = torch.where(mask, 1e30, 0.0)
+            tm = sky_tm if tm is None else torch.maximum(tm, sky_tm)
+        ty, tx = -(-H // 8), -(-W // 8)
+        tm = tm.reshape(ty, tx).repeat_interleave(8, 0) \
+            .repeat_interleave(8, 1)
+        t_min = tm[:H, :W]
+    if sky_env is not None and t_min is not None:
+        t_min = torch.maximum(t_min, env_tmin(sky_env, d))
+        if init_desc is None:
+            init_desc = 3
+        sky_env = None
     r = hf_raycast(tiles, offsets, height, cam, d, distance=distance,
-                   init_desc=init_desc, sky_env=sky_env)
+                   init_desc=init_desc, sky_env=sky_env, t_min=t_min)
     hit = r["hit"]
     trgb = torch.as_tensor(terrain_rgb, dtype=torch.float32).to(dev)
     return dict(

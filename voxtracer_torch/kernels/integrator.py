@@ -58,7 +58,8 @@ from voxtracer_torch.core.sampling import (COS_SUN_RADIUS, PI, SUN_COLOR,
                                            SUN_WEIGHT)
 from voxtracer_torch.core.spectra import fog_density, spectral_throughput
 from voxtracer_torch.core.vecmath import dot
-from voxtracer_torch.kernels import atmosphere, heightfield, raster
+from voxtracer_torch.kernels import (atmosphere, beam, bitdda,
+                                     heightfield, raster, sunshadow)
 from voxtracer_torch.kernels.traverse import FAR, leaf_rgb, svo_raycast
 
 # most blocked shadow rays block within a few voxels (terrain self-shadow;
@@ -72,7 +73,8 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
                 wavelength, sun, state, max_bounces: int = 24,
                 fog_steps: int = 64, primary=None, hf_mips=None,
                 hf_offsets: tuple | None = None, terrain_rgb=None,
-                hf_edit_bounds=None):
+                hf_edit_bounds=None, sun_maps=None, bitworld=None,
+                bit_size: int = 0):
     """Trace one spectral path per ray; returns (state, radiance (..., 3)).
 
     table/root/height: the node table (kernels.traverse conventions);
@@ -86,9 +88,20 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
     ``terrain_rgb``: the world's heightfield pack (pre-edit) and terrain
     colour; the casts then walk it (module doc). ``hf_edit_bounds``: (2,
     3) or (K, 2, 3) boxes covering every point edit since worldgen, which
-    keeps the walk on an edited world.
+    keeps the walk on an edited world. ``sun_maps``: the sun-visibility
+    thresholds of this (world, sun) (``sunshadow.upload(sunshadow.build(
+    ...))``), with the heightfield pack: NEE lanes the maps prove lit skip
+    the shadow walk, and the occlusion boolean is unchanged, so radiance
+    and state are the same bit for bit; dropped with edit bounds (the maps
+    prove pre-edit visibility only). ``bitworld``/``bit_size``: the
+    world's packed occupancy pyramid (``BitGrid.to_device``) and edge:
+    bounce and shadow casts then take the bit-grid DDA (K8), hits coloured
+    from the node table (``bitdda.svo_color_at``); as in the JAX package it
+    comes before the heightfield for those casts.
     """
     use_hf = hf_mips is not None
+    if hf_edit_bounds is not None:
+        sun_maps = None
     if use_hf:
         hmax_w = heightfield.terrain_max(hf_mips, hf_offsets)
         trgb = torch.as_tensor(terrain_rgb, dtype=torch.float32).to(
@@ -114,7 +127,13 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
                                       hmax_w=hmax_w)
 
     def nee_occluded(p, sun_dir, act):
+        if bitworld is not None:
+            return bitdda.bitgrid_raycast(*bitworld, bit_size, p, sun_dir,
+                                          active=act)["hit"]
         if use_hf:
+            if sun_maps is not None:
+                lit = sunshadow.sun_clear(sun_maps, p)
+                return cast(p, sun_dir, FAR, act & ~lit)["hit"] & ~lit
             return cast(p, sun_dir, FAR, act)["hit"]
         blocked = cast(p, sun_dir, NEE_NEAR, act)["hit"]
         return blocked | cast(p, sun_dir, FAR, act & ~blocked)["hit"]
@@ -127,6 +146,12 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
         if i == 0 and primary is not None:
             svo = primary
             svo_rgb = primary["rgb"]
+        elif bitworld is not None:
+            svo = bitdda.bitgrid_raycast(*bitworld, bit_size, pos, d,
+                                         distance=cap, active=alive)
+            svo_rgb = bitdda.svo_color_at(
+                table, root, height, svo["voxel"],
+                svo["hit"] & (svo["t"] <= cap) & alive)
         else:
             svo = cast(pos, d, cap, alive)
             if not use_hf:
@@ -265,19 +290,39 @@ def _hf_env_primary(hf_mips, hf_offsets: tuple, height: int, cam_pos, d,
                 rgb=trgb.expand(sh + (3,)))
 
 
+def _beam_primary(table, aug, root, height, cam_pos, d):
+    """The first world hit of every jittered camera ray on the beam engine
+    (``voxtracer/kernels/integrator.py:744-751``: 8x8 tiles, K 64, 1024
+    steps, 4 rounds), one frame at a time when ``d`` has a leading sample
+    axis."""
+    if d.shape[-3] % 8 or d.shape[-2] % 8:
+        raise ValueError("beam-primary path tracing needs 8-aligned "
+                         "dimensions")
+    frames = d.reshape((-1,) + d.shape[-3:])
+    parts = [beam.beam_primary_frame_cast(table, aug, root, height, cam_pos,
+                                          f, tile=8, K=64, max_steps=1024,
+                                          rounds=4) for f in frames]
+    return {k: torch.stack([p[k] for p in parts]).reshape(
+        d.shape[:-1] + parts[0][k].shape[2:])
+        for k in ("hit", "t", "normal", "rgb")}
+
+
 def _first_hits(table, root, height, cam_pos, cam_basis, d, width_px,
                 height_px, soup, soup_bins, hf_mips, hf_offsets, terrain_rgb,
-                hf_edit_bounds, hf_sky_env, band=None):
+                hf_edit_bounds, hf_sky_env, band=None, aug=None):
     """Bounce 0's world hits when an engine other than the bounce cast
-    serves them: the rasterizer with a soup, the envelope-resumed walk on
-    unedited terrain with an envelope; else None. ``band``: the
-    rasterizer's TILE-aligned (row0, rows) when ``d`` is a band."""
+    serves them: the rasterizer with a soup, else the beam engine with
+    ``aug``, else the envelope-resumed walk on unedited terrain with an
+    envelope; else None. ``band``: the rasterizer's TILE-aligned (row0,
+    rows) when ``d`` is a band."""
     if soup is not None:
         return _raster_primary(
             table, root, height, cam_pos, cam_basis, d, width_px, height_px,
             soup, soup_bins,
             hf=_fallback_hf(hf_mips, hf_offsets, terrain_rgb, hf_edit_bounds),
             band=band)
+    if aug is not None:
+        return _beam_primary(table, aug, root, height, cam_pos, d)
     if hf_mips is not None and hf_sky_env is not None \
             and hf_edit_bounds is None:
         return _hf_env_primary(hf_mips, hf_offsets, height, cam_pos, d,
@@ -306,7 +351,8 @@ def render_sample(table, root: int, height: int, lut, cam_pos, cam_basis,
                   soup_bins=None, hf_mips=None,
                   hf_offsets: tuple | None = None, terrain_rgb=None,
                   hf_edit_bounds=None, hf_sky_env=None, row0: int = 0,
-                  rows: int | None = None):
+                  rows: int | None = None, sun_maps=None, aug=None,
+                  bitworld=None, bit_size: int = 0):
     """One progressive sample, 1 spectral path per pixel
     (raytrace.wgsl:415-430): seed from (frame_seed, pixel), draw jitter
     and wavelength, trace. ``soup``: optional (box_lo, box_size,
@@ -322,7 +368,10 @@ def render_sample(table, root: int, height: int, lut, cam_pos, cam_basis,
     seeded and mapped by its row in the full ``height_px`` frame, so the
     band's rows are the full frame's, bit for bit, and rows past the
     frame's edge are traced like any other. With a soup the band
-    rasterizes its TILE-aligned run of rows (``_aligned_band``). Returns
+    rasterizes its TILE-aligned run of rows (``_aligned_band``).
+    ``aug``: the beam engine's rows (``beam.build_aug_table``) for the
+    primaries when there is no soup (8-aligned frames and bands);
+    ``sun_maps``, ``bitworld``/``bit_size``: as ``trace_paths``. Returns
     the (rows, W, 3) radiance on the table's device ((H, W, 3) for the
     whole frame)."""
     dev = table.device
@@ -338,7 +387,7 @@ def render_sample(table, root: int, height: int, lut, cam_pos, cam_basis,
     primary = _first_hits(table, root, height, cam_pos, cam_basis, d,
                           width_px, height_px, soup, soup_bins, hf_mips,
                           hf_offsets, terrain_rgb, hf_edit_bounds, hf_sky_env,
-                          band)
+                          band, aug)
     if band is not None:
         state, d, wavelength = (a[off:off + rows]
                                 for a in (state, d, wavelength))
@@ -348,7 +397,9 @@ def render_sample(table, root: int, height: int, lut, cam_pos, cam_basis,
                               sun.to(dev), state, max_bounces, fog_steps,
                               primary=primary, hf_mips=hf_mips,
                               hf_offsets=hf_offsets, terrain_rgb=terrain_rgb,
-                              hf_edit_bounds=hf_edit_bounds)
+                              hf_edit_bounds=hf_edit_bounds,
+                              sun_maps=sun_maps, bitworld=bitworld,
+                              bit_size=bit_size)
     return radiance
 
 
@@ -357,7 +408,8 @@ def render_samples(table, root: int, height: int, lut, cam_pos, cam_basis,
                    max_bounces: int = 24, fog_steps: int = 64, soup=None,
                    soup_bins=None, hf_mips=None,
                    hf_offsets: tuple | None = None, terrain_rgb=None,
-                   hf_edit_bounds=None, hf_sky_env=None):
+                   hf_edit_bounds=None, hf_sky_env=None, sun_maps=None,
+                   aug=None, bitworld=None, bit_size: int = 0):
     """k samples traced as one batch of k*H*W paths; returns the (H, W, 3)
     radiance SUM, added sample by sample in order, so it equals k
     render_sample calls summed in sequence, bit for bit. With a ``soup``
@@ -375,13 +427,15 @@ def render_samples(table, root: int, height: int, lut, cam_pos, cam_basis,
                                        width_px, height_px, jittered=True)
     primary = _first_hits(table, root, height, cam_pos, cam_basis, d,
                           width_px, height_px, soup, soup_bins, hf_mips,
-                          hf_offsets, terrain_rgb, hf_edit_bounds, hf_sky_env)
+                          hf_offsets, terrain_rgb, hf_edit_bounds, hf_sky_env,
+                          aug=aug)
     pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
     _, r = trace_paths(table, root, height, lut, pos, d, wavelength,
                        sun.to(dev), state, max_bounces, fog_steps,
                        primary=primary, hf_mips=hf_mips,
                        hf_offsets=hf_offsets, terrain_rgb=terrain_rgb,
-                       hf_edit_bounds=hf_edit_bounds)
+                       hf_edit_bounds=hf_edit_bounds, sun_maps=sun_maps,
+                       bitworld=bitworld, bit_size=bit_size)
     acc = r[0]
     for k in range(1, r.shape[0]):
         acc = acc + r[k]

@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from voxtracer_torch.core import camera as vcam
-from voxtracer_torch.core.vecmath import dot, rdiv
+from voxtracer_torch.core.vecmath import dot, rdiv, sqrt
 from voxtracer_torch.kernels.heightfield import hf_raycast
 from voxtracer_torch.kernels.resolve import (dequant, resolve_fold,
                                              resolve_fold_seg)
@@ -242,7 +242,7 @@ def raster_bins(box_lo, box_size, box_attr, cam_pos, cam_basis,
     # camera-to-box distance: a lower bound on any unit ray's entry t
     clamped = torch.minimum(torch.maximum(cam, lo_f), hi_f)
     rel = clamped - cam
-    dmin_b = torch.sqrt(dot(rel, rel))
+    dmin_b = sqrt(dot(rel, rel))
 
     # ---- tiers: one stable sort of a per-box code, one host read of the
     # counts; each tier's boxes come out in box-index order

@@ -431,3 +431,384 @@ def skyline_env_tmin_plain(E, d, bin_w: float, log2_d0: float, log2_g: float,
     if not out:
         return torch.empty((0,), dtype=torch.float32, device=d.device)
     return torch.cat(out)
+
+
+# ---- the tile skyline and the host envelope: host numpy copies of
+# voxtracer/kernels/skyline.py (build_sky_mips :91, build_skyline :139,
+# tile_sky :281, build_skyline_env :316, rays_sky :855). Per pose they
+# take milliseconds on the host and feed hf_frame_cast(sky=) a tile mask;
+# the device build above does not equal build_skyline_env by bits (float32
+# against float64), so the host one is kept for callers and tests that
+# want the reference's table.
+
+
+def build_sky_mips(heights):
+    """Max pyramid over CEILED column heights, coarse enough for the
+    skyline ladder. Returns a tuple of (n/2^L, n/2^L) f32 arrays,
+    level 0 first (= ceil(heights)). Built once per world (host numpy;
+    ~0.4 s at 8192^2) and reused by every per-pose build_skyline."""
+    h = np.ceil(np.asarray(heights, np.float32))
+    n = h.shape[0]
+    assert h.shape == (n, n) and (n & (n - 1)) == 0
+    levels = [h]
+    while levels[-1].shape[0] > 1:
+        m = levels[-1].shape[0] // 2
+        levels.append(
+            levels[-1].reshape(m, 2, m, 2).max(axis=(1, 3)))
+    return tuple(levels)
+
+
+def _cell_az_spread(ox, oz, x0, x1, z0, z1):
+    """Center azimuth and half-spread (radians) of the xz boxes
+    [x0,x1]x[z0,z1] seen from (ox, oz); boxes containing the origin
+    get half-spread pi (callers treat >= pi as all-bins)."""
+    cx = 0.5 * (x0 + x1) - ox
+    cz = 0.5 * (z0 + z1) - oz
+    ac = np.arctan2(cz, cx)
+    hw = np.zeros_like(ac)
+    for gx, gz in ((x0, z0), (x0, z1), (x1, z0), (x1, z1)):
+        d = np.arctan2(gz - oz, gx - ox) - ac
+        d = (d + np.pi) % (2.0 * np.pi) - np.pi
+        hw = np.maximum(hw, np.abs(d))
+    inside = (x0 <= ox) & (ox <= x1) & (z0 <= oz) & (oz <= z1)
+    return ac, np.where(inside, np.pi, hw)
+
+
+def _dilate_max_host(b, w):
+    """Wraparound sliding max of half-width w over the last axis, by
+    log-doubling shifts (max is idempotent: overlap is harmless)."""
+    out = b
+    s = 1
+    done = 0
+    while done < w:
+        step = min(s, w - done)
+        out = np.maximum(out,
+                         np.maximum(np.roll(out, step, -1),
+                                    np.roll(out, -step, -1)))
+        done += step
+        s = min(2 * s, w - done) if w - done > 0 else s
+    return out
+
+
+def build_skyline(sky_mips, origin, bins: int = 4096, ratio: int = 16,
+                  dil: int = 16):
+    """Conservative per-azimuth max terrain slope from ``origin``.
+
+    sky_mips: build_sky_mips output. Returns a dict:
+      ``B``     (bins,) f32 — upper bound on (h_top - o_y)/d over every
+                terrain column whose azimuth falls in the bin (each
+                cell padded one bin); a ray with tan strictly above
+                ``B[bin(az)]`` (plus REL/ABS_MARGIN) misses all terrain.
+      ``B_dil`` (bins,) f32 — ``B`` max-dilated by ``dil`` bins for
+                interval consumers (tile_sky gathers one center bin
+                for any interval of half-width <= dil).
+      ``B_max`` f32 scalar — global max (fallback for wide intervals).
+    Host f64 math throughout; ~10 ms per pose at flagship scale."""
+    o = np.asarray(origin, np.float64)
+    ox, oy, oz = float(o[0]), float(o[1]), float(o[2])
+    n = sky_mips[0].shape[0]
+    top = len(sky_mips) - 1
+    bin_w = 2.0 * np.pi / bins
+    # per-width-class center-bin scatter targets (class c covers cells
+    # with ceil(half-spread in bins) + 1 <= 2^c); widest class = all bins
+    n_cls = max(1, int(math.ceil(math.log2(max(bins, 2)))))
+    cls_b = np.full((n_cls, bins), -np.inf)
+    b_all = -np.inf  # bounds that cover every bin
+
+    for L in range(top + 1):
+        c = float(1 << L)
+        a_lo = ratio * c if L > 0 else 0.0
+        a_hi = ratio * c * 2.0
+        dim = n >> L
+        # window: cells whose PARENT could be nearer than a_hi; the top
+        # level has no parent gate, so it must never clip (soundness
+        # for origins far outside the grid)
+        ext = int(math.ceil(a_hi / c)) + 4
+        if L == top:
+            ext = max(ext, dim + abs(int(ox / c)) + abs(int(oz / c)))
+        ci0 = max(int(ox / c) - ext, 0)
+        ci1 = min(int(ox / c) + ext + 1, dim)
+        cj0 = max(int(oz / c) - ext, 0)
+        cj1 = min(int(oz / c) + ext + 1, dim)
+        if ci0 >= ci1 or cj0 >= cj1:
+            continue
+        ii = np.arange(ci0, ci1, dtype=np.float64)
+        jj = np.arange(cj0, cj1, dtype=np.float64)
+        x0 = (ii * c)[:, None] + np.zeros((1, jj.size))
+        z0 = (jj * c)[None, :] + np.zeros((ii.size, 1))
+        x1, z1 = x0 + c, z0 + c
+
+        def box_d(bx0, bx1, bz0, bz1):
+            dx = np.maximum(np.maximum(bx0 - ox, ox - bx1), 0.0)
+            dz = np.maximum(np.maximum(bz0 - oz, oz - bz1), 0.0)
+            dmin = np.hypot(dx, dz)
+            fx = np.maximum(np.abs(bx0 - ox), np.abs(bx1 - ox))
+            fz = np.maximum(np.abs(bz0 - oz), np.abs(bz1 - oz))
+            return dmin, np.hypot(fx, fz)
+
+        d_min, d_max = box_d(x0, x1, z0, z1)
+        # ladder membership: this level serves the annulus, the parent
+        # is too near for the next (gapless by chain maximality)
+        if L < top:
+            pc = 2.0 * c
+            px0 = np.floor(x0 / pc) * pc
+            pz0 = np.floor(z0 / pc) * pc
+            pd_min, _ = box_d(px0, px0 + pc, pz0, pz0 + pc)
+            sel = (d_min >= a_lo) & (pd_min < a_hi)
+        else:
+            sel = d_min >= a_lo
+        if not np.any(sel):
+            continue
+
+        hm = sky_mips[L][ci0:ci1, cj0:cj1].astype(np.float64)
+        num = hm + NUM_MARGIN - oy
+        # positive numerators divide by the TRUE d_min: a touching or
+        # origin-containing cell above the origin must block its bins
+        # outright (num/0 -> +inf; inf never certifies — the tan test
+        # is strict). Negative numerators divide by d_max (>= diag/2).
+        with np.errstate(divide="ignore", invalid="ignore"):
+            bound = np.where(
+                num >= 0.0,
+                num / d_min,
+                num / np.maximum(d_max, 1e-12),
+            )
+        bound = np.where(np.isnan(bound), np.inf, bound)
+        ac, hw = _cell_az_spread(ox, oz, x0, x1, z0, z1)
+        bound, ac, hw = bound[sel], ac[sel], hw[sel]
+
+        wide = hw >= np.pi * (1.0 - 1e-12)
+        if np.any(wide):
+            b_all = max(b_all, float(bound[wide].max()))
+        rest = ~wide
+        if np.any(rest):
+            wb = np.ceil(hw[rest] / bin_w).astype(np.int64) + 1
+            cls = np.ceil(np.log2(np.maximum(wb, 1))).astype(np.int64)
+            cls = np.minimum(cls, n_cls - 1)
+            cb = np.floor((ac[rest] % (2.0 * np.pi)) / bin_w)
+            cb = cb.astype(np.int64) % bins
+            np.maximum.at(cls_b, (cls, cb), bound[rest])
+
+    B = np.full((bins,), b_all)
+    for cidx in range(n_cls):
+        if np.all(np.isneginf(cls_b[cidx])):
+            continue
+        B = np.maximum(B, _dilate_max_host(cls_b[cidx],
+                                           min(1 << cidx, bins // 2)))
+    # bins no cell subtends (off-grid azimuths) certify every ray; +inf
+    # bins (terrain touching/above the origin) certify none
+    B = np.where(np.isneginf(B), np.float64(-3e38), B)
+    return dict(
+        B=B.astype(np.float32),
+        B_dil=_dilate_max_host(B, dil).astype(np.float32),
+        B_max=np.float32(B.max()),
+        bins=bins,
+        dil=dil,
+    )
+
+
+def _dir_boxes(cam_basis, width_px: int, height_px: int, tile: int):
+    """Per-tile component boxes (lo, hi) of the UNNORMALIZED jitter-
+    padded directions, host f64 (the f32 device dirs are 1-ulp
+    roundings of points inside these boxes; REL_MARGIN covers it)."""
+    W, H = width_px, height_px
+    tx = -(-W // tile)
+    ty = -(-H // tile)
+    x0 = (np.arange(tx) * tile).astype(np.float64)
+    x1 = np.minimum(x0 + tile - 1, W - 1)
+    y0 = (np.arange(ty) * tile).astype(np.float64)
+    y1 = np.minimum(y0 + tile - 1, H - 1)
+    pad = 0.5 + 1e-4
+    lx0 = (2.0 * (x0 - pad + 0.5) - W) / H
+    lx1 = (2.0 * (x1 + pad + 0.5) - W) / H
+    ly0 = (2.0 * (y0 - pad + 0.5) - H) / H
+    ly1 = (2.0 * (y1 + pad + 0.5) - H) / H
+    cx = np.stack([np.broadcast_to(a[None, :], (ty, tx))
+                   for a in (lx0, lx1, lx0, lx1)], -1)
+    cy = np.stack([np.broadcast_to(a[:, None], (ty, tx))
+                   for a in (ly0, ly0, ly1, ly1)], -1)
+    d_cam = np.stack([cx, -cy, np.ones_like(cx)], -1)
+    basis = np.asarray(cam_basis, np.float64)
+    dirs = d_cam.reshape(-1, 4, 3) @ basis.T
+    return dirs.min(axis=1), dirs.max(axis=1)
+
+
+def tile_sky(sky, cam_basis, width_px: int, height_px: int,
+             tile: int = 8):
+    """(T,) bool host mask: tiles whose EVERY ray (any sub-pixel
+    jitter) provably misses all terrain. Row-major 8x8 tile order
+    matching conemarch.frame_tile_bundles / the frame casts."""
+    lo, hi = _dir_boxes(cam_basis, width_px, height_px, tile)
+    # bundle tan lower bound: min dy over the box, against the worst
+    # |dxz| for the numerator's sign
+    dy_lo = lo[:, 1]
+    xz_hi = np.hypot(np.maximum(np.abs(lo[:, 0]), np.abs(hi[:, 0])),
+                     np.maximum(np.abs(lo[:, 2]), np.abs(hi[:, 2])))
+    nx = np.maximum(np.maximum(lo[:, 0], -hi[:, 0]), 0.0)
+    nz = np.maximum(np.maximum(lo[:, 2], -hi[:, 2]), 0.0)
+    xz_lo = np.hypot(nx, nz)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        tan_min = np.where(
+            dy_lo >= 0.0,
+            dy_lo / np.maximum(xz_hi, 1e-300),
+            dy_lo / np.maximum(xz_lo, 1e-300),
+        )
+    tan_adj = tan_min - (REL_MARGIN * np.abs(tan_min) + ABS_MARGIN)
+
+    bins = int(sky["bins"])
+    bin_w = 2.0 * np.pi / bins
+    ac, hw = _cell_az_spread(
+        0.0, 0.0, lo[:, 0], hi[:, 0], lo[:, 2], hi[:, 2])
+    wb = np.ceil(hw / bin_w).astype(np.int64) + 2
+    cb = (np.floor((ac % (2.0 * np.pi)) / bin_w).astype(np.int64)
+          % bins)
+    B = np.where((hw < np.pi) & (wb <= int(sky["dil"])),
+                 sky["B_dil"][cb].astype(np.float64),
+                 np.float64(sky["B_max"]))
+    return tan_adj > B
+
+
+def build_skyline_env(sky_mips, origin, bins: int = 4096,
+                      ratio: int = 16, K: int = 64, d0: float = 4.0):
+    """Per-azimuth, per-DISTANCE horizon envelope — the per-RAY
+    generalization of ``build_skyline`` (round 4).
+
+    The max-slope table certifies only all-terrain misses; the frame's
+    measured cost is the near-horizon band — rays (sky AND ground)
+    whose slope sits just above the terrain ahead of them, which graze
+    coarse mip maxima for thousands of voxels (docs/PERF_TPU.md round
+    3, TPU v5e: a perfect per-pixel t_min floors the flagship frame at
+    594 of 1031 ms; killing fully-sky TILES was neutral because the expensive
+    lanes live in mixed horizon tiles). This structure gives every ray
+    its own certified resume: ``E[az, k]`` bounds the max slope
+    ``(h_top + NUM_MARGIN - o_y) / d`` over every terrain column whose
+    azimuth is in bin ``az`` (padded as build_skyline) AND whose
+    horizontal distance is <= ``d_k`` of a log ladder
+    ``d_k = d0 * g^k`` (g set so d_{K-1} = 4n covers any in-grid
+    distance). ``E`` is monotone in k (cummax), so a ray with adjusted
+    slope ``tan`` is provably in air for horizontal distance
+    ``d_{k*-1}`` where ``k* = #{k : E[az,k] < tan}`` — and ``k* == K``
+    is the all-terrain miss (the old skyline test as the last rung).
+
+    Soundness inherits build_skyline's cell bounds (d_min for positive
+    numerators covers every point of the cell at ANY distance, azimuth
+    scatter pads >= 1 bin each side, NUM_MARGIN over cell tops);
+    the rung index uses an exact f64 searchsorted (smallest k with
+    d_k >= cell d_min), so every cell reachable within d_k is folded
+    into E[.., k]. Device consumers reconstruct d_{k*-1} with f32
+    exp2 (relative error ~1e-7, buried by ENV_SLACK).
+
+    Returns dict(E (bins, K) f32, d0, g, bins, K). Host f64; same
+    per-pose cost class as build_skyline (one cell sweep). Test-only in
+    the port: the Renderer builds its envelope on the card
+    (``build_skyline_env_device``).
+    """
+    o = np.asarray(origin, np.float64)
+    ox, oy, oz = float(o[0]), float(o[1]), float(o[2])
+    n = sky_mips[0].shape[0]
+    top = len(sky_mips) - 1
+    bin_w = 2.0 * np.pi / bins
+    ladder = d0 * ((4.0 * n / d0) ** (np.arange(K) / (K - 1.0)))
+    n_cls = max(1, int(math.ceil(math.log2(max(bins, 2)))))
+    cls_b = np.full((n_cls, K, bins), -np.inf)
+    all_k = np.full((K,), -np.inf)  # bounds covering every bin
+
+    for L in range(top + 1):
+        c = float(1 << L)
+        a_lo = ratio * c if L > 0 else 0.0
+        a_hi = ratio * c * 2.0
+        dim = n >> L
+        ext = int(math.ceil(a_hi / c)) + 4
+        if L == top:
+            ext = max(ext, dim + abs(int(ox / c)) + abs(int(oz / c)))
+        ci0 = max(int(ox / c) - ext, 0)
+        ci1 = min(int(ox / c) + ext + 1, dim)
+        cj0 = max(int(oz / c) - ext, 0)
+        cj1 = min(int(oz / c) + ext + 1, dim)
+        if ci0 >= ci1 or cj0 >= cj1:
+            continue
+        ii = np.arange(ci0, ci1, dtype=np.float64)
+        jj = np.arange(cj0, cj1, dtype=np.float64)
+        x0 = (ii * c)[:, None] + np.zeros((1, jj.size))
+        z0 = (jj * c)[None, :] + np.zeros((ii.size, 1))
+        x1, z1 = x0 + c, z0 + c
+
+        def box_d(bx0, bx1, bz0, bz1):
+            dx = np.maximum(np.maximum(bx0 - ox, ox - bx1), 0.0)
+            dz = np.maximum(np.maximum(bz0 - oz, oz - bz1), 0.0)
+            dmin = np.hypot(dx, dz)
+            fx = np.maximum(np.abs(bx0 - ox), np.abs(bx1 - ox))
+            fz = np.maximum(np.abs(bz0 - oz), np.abs(bz1 - oz))
+            return dmin, np.hypot(fx, fz)
+
+        d_min, d_max = box_d(x0, x1, z0, z1)
+        if L < top:
+            pc = 2.0 * c
+            px0 = np.floor(x0 / pc) * pc
+            pz0 = np.floor(z0 / pc) * pc
+            pd_min, _ = box_d(px0, px0 + pc, pz0, pz0 + pc)
+            sel = (d_min >= a_lo) & (pd_min < a_hi)
+        else:
+            sel = d_min >= a_lo
+        if not np.any(sel):
+            continue
+
+        hm = sky_mips[L][ci0:ci1, cj0:cj1].astype(np.float64)
+        num = hm + NUM_MARGIN - oy
+        with np.errstate(divide="ignore", invalid="ignore"):
+            bound = np.where(
+                num >= 0.0,
+                num / d_min,
+                num / np.maximum(d_max, 1e-12),
+            )
+        bound = np.where(np.isnan(bound), np.inf, bound)
+        ac, hw = _cell_az_spread(ox, oz, x0, x1, z0, z1)
+        bound, ac, hw = bound[sel], ac[sel], hw[sel]
+        # smallest rung whose ladder distance reaches the cell (exact
+        # f64 compare — no log rounding); beyond-ladder cells clip to
+        # the last rung, which only over-includes (conservative)
+        rung = np.minimum(
+            np.searchsorted(ladder, d_min[sel], side="left"), K - 1)
+
+        wide = hw >= np.pi * (1.0 - 1e-12)
+        if np.any(wide):
+            np.maximum.at(all_k, rung[wide], bound[wide])
+        rest = ~wide
+        if np.any(rest):
+            wb = np.ceil(hw[rest] / bin_w).astype(np.int64) + 1
+            cls = np.ceil(np.log2(np.maximum(wb, 1))).astype(np.int64)
+            cls = np.minimum(cls, n_cls - 1)
+            cb = np.floor((ac[rest] % (2.0 * np.pi)) / bin_w)
+            cb = cb.astype(np.int64) % bins
+            np.maximum.at(cls_b, (cls, rung[rest], cb), bound[rest])
+
+    E = np.broadcast_to(all_k[:, None], (K, bins)).copy()
+    for cidx in range(n_cls):
+        if np.all(np.isneginf(cls_b[cidx])):
+            continue
+        E = np.maximum(E, _dilate_max_host(cls_b[cidx],
+                                           min(1 << cidx, bins // 2)))
+    E = np.maximum.accumulate(E, axis=0)  # monotone in distance
+    E = np.where(np.isneginf(E), np.float64(-3e38), E)
+    g = (4.0 * n / d0) ** (1.0 / (K - 1.0))
+    return dict(E=np.ascontiguousarray(E.T.astype(np.float32)),
+                d0=float(d0), g=float(g), bins=bins, K=K)
+
+
+def rays_sky(sky, dirs):
+    """(B,) bool host mask for individual NORMALIZED (or any-scale)
+    directions from the skyline's origin: ray provably misses all
+    terrain. Exact-azimuth variant of tile_sky (tests; per-ray
+    consumers pay one B gather per lane on device instead). Test-only in
+    the port: nothing in ``voxtracer_torch`` calls it."""
+    d = np.asarray(dirs, np.float64).reshape(-1, 3)
+    bins = int(sky["bins"])
+    az = np.arctan2(d[:, 2], d[:, 0]) % (2.0 * np.pi)
+    cb = np.floor(az / (2.0 * np.pi / bins)).astype(np.int64) % bins
+    xz = np.hypot(d[:, 0], d[:, 2])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        tan = np.where(xz > 0.0, d[:, 1] / np.maximum(xz, 1e-300),
+                       np.where(d[:, 1] >= 0, np.inf, -np.inf))
+        tan_adj = np.where(
+            np.isinf(tan), tan,
+            tan - (REL_MARGIN * np.abs(tan) + ABS_MARGIN))
+    return tan_adj > sky["B"][cb].astype(np.float64)

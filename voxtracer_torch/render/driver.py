@@ -14,6 +14,7 @@ and the movie combine job (behavioural reference main.rs:112-145,
 
 from __future__ import annotations
 
+import os
 import random
 import time
 from pathlib import Path
@@ -26,7 +27,7 @@ from voxtracer_torch.core import rng as vrng
 from voxtracer_torch.core.color import srgb_encode
 from voxtracer_torch.core.spectra import build_wl_to_rgb_lut
 from voxtracer_torch.core.vecmath import dot
-from voxtracer_torch.kernels import heightfield, raster, skyline
+from voxtracer_torch.kernels import heightfield, raster, skyline, sunshadow
 from voxtracer_torch.kernels.integrator import render_sample, render_samples
 from voxtracer_torch.kernels.traverse import leaf_rgb
 from voxtracer_torch.render import checkpoint, film
@@ -138,6 +139,7 @@ class Renderer:
         self.lut = torch.from_numpy(build_wl_to_rgb_lut()).to(self.device)
         self.acc = Accumulator(width, height, self.device)
         self.host_rng = random.Random(seed)
+        self._sun_unit = None  # the sun of the current sample (_begin)
         self.update_space(device_svo)
 
     def update_space(self, device_svo):
@@ -158,6 +160,7 @@ class Renderer:
         self._edit_bounds = None  # list of (2, 3) boxes covering edits
         self._bounds_t = None  # the list as a tensor on the device
         self._dist_step = None  # the sharded step, built on first use
+        self._sun_maps_key = self._sun_maps = None  # per (world, sun)
         sp = getattr(device_svo, "space", None)
         self._seen_edit_count = getattr(sp, "edit_count", 0)
         self._seen_set_calls = getattr(sp, "set_calls", 0)
@@ -335,6 +338,7 @@ class Renderer:
             else:
                 self._sky_mips = None
             self._sky_env = None  # the pose's table read the old heights
+            self._sun_maps_key = self._sun_maps = None
         return True
 
     def _get_hf(self):
@@ -418,6 +422,30 @@ class Renderer:
         self._sky_env = (key, args, tier, uses)
         return args
 
+    def _get_sun_maps(self, sun_unit):
+        """The sun-visibility thresholds of this (world, sun)
+        (``kernels/sunshadow.py``) on the device, or None: NEE lanes the
+        maps prove lit skip the shadow walk, radiance equal by bits. As in
+        the JAX package (``voxtracer/render/driver.py:953``): opt-in by
+        ``VOXT_SUNMAPS=1``, the heightfield engine only, an unedited or
+        heightfield-exact world, cached per sun (the headless day cycle
+        steps the sun once a frame); a gated sun (low or near vertical)
+        gives None."""
+        if os.environ.get("VOXT_SUNMAPS") != "1" or sun_unit is None:
+            return None
+        sp = getattr(self._dev, "space", None)
+        if getattr(sp, "edited", False) \
+                and not getattr(sp, "heights_exact", False):
+            return None  # the maps prove pre-edit visibility only
+        if self._get_hf()[0] is None:
+            return None
+        key = np.asarray(sun_unit, np.float32).tobytes()
+        if self._sun_maps_key != key:
+            self._sun_maps = sunshadow.upload(
+                sunshadow.build(_heights(self._dev), sun_unit), self.device)
+            self._sun_maps_key = key
+        return self._sun_maps
+
     def _tier(self, uses: int) -> int:
         return max(t for t, (_, first) in enumerate(self.SKY_TIERS)
                    if uses >= first)
@@ -468,6 +496,7 @@ class Renderer:
         sun = np.asarray(sun, np.float64)
         sun_unit = (sun / np.linalg.norm(sun)).astype(np.float32)
         self.acc.begin_sample(cam.pos, cam.yaw, cam.pitch, sun_unit)
+        self._sun_unit = sun_unit
         return torch.from_numpy(sun_unit).to(self.device)
 
     def _args(self, cam: vcam.Camera):
@@ -482,7 +511,8 @@ class Renderer:
         return dict(soup=soup, soup_bins=self._get_soup_bins(cam, soup),
                     hf_mips=hf_mips, hf_offsets=hf_offsets,
                     terrain_rgb=terrain_rgb, hf_edit_bounds=self._hf_bounds(),
-                    hf_sky_env=env)
+                    hf_sky_env=env,
+                    sun_maps=self._get_sun_maps(self._sun_unit))
 
     def _dist(self):
         """The sample-sharded step over the mesh, built on first use after

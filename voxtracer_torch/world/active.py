@@ -34,6 +34,7 @@ import math
 import numpy as np
 import torch
 
+from voxtracer_torch.core.vecmath import sqrt
 from voxtracer_torch.world import occlusion as occ
 
 
@@ -53,7 +54,7 @@ def _cull(box_lo, box_size, box_attr, cam_pos, basis, fx: float, fy: float,
     lo_f = box_lo.to(torch.float32)
     half_f = box_size.to(torch.float32) * 0.5
     c = lo_f + half_f  # centre
-    r = torch.sqrt(half_f[:, 0] ** 2 + half_f[:, 1] ** 2 + half_f[:, 2] ** 2)
+    r = sqrt(half_f[:, 0] ** 2 + half_f[:, 1] ** 2 + half_f[:, 2] ** 2)
     cam = np.asarray(cam_pos, np.float32)
     b = np.asarray(basis, np.float32)
     rel = [c[:, i] - float(cam[i]) for i in range(3)]
@@ -68,7 +69,7 @@ def _cull(box_lo, box_size, box_attr, cam_pos, basis, fx: float, fy: float,
     in_frustum = ((vz * fx + sx >= vx) & (vz * fx + sx >= -vx)
                   & (vz * fy + sy >= vy) & (vz * fy + sy >= -vy)
                   & (vz + slack >= 0.0))
-    near = torch.sqrt(rel[0] ** 2 + rel[1] ** 2 + rel[2] ** 2) <= keep_r + r
+    near = sqrt(rel[0] ** 2 + rel[1] ** 2 + rel[2] ** 2) <= keep_r + r
     keep = in_frustum | near
     if occl is not None:
         hidden = occ.hidden_mask(occl, c, half_f, cam, occl_slack, nd, pool)

@@ -52,7 +52,7 @@ import math
 import numpy as np
 import torch
 
-from voxtracer_torch.core.vecmath import div
+from voxtracer_torch.core.vecmath import div, sqrt
 
 POOL = 32  # default heightmap min-pool factor and radial step (voxels)
 NTH = 4096  # angular bins
@@ -158,8 +158,8 @@ def hidden_mask(tables, box_c, box_half, cam_pos, slack, nd: int,
     slack = float(slack)
     dx = box_c[:, 0] - float(cam[0])
     dz = box_c[:, 2] - float(cam[2])
-    rxz = torch.sqrt(dx * dx + dz * dz)
-    half_diag = torch.sqrt(box_half[:, 0] ** 2 + box_half[:, 2] ** 2)
+    rxz = sqrt(dx * dx + dz * dz)
+    half_diag = sqrt(box_half[:, 0] ** 2 + box_half[:, 2] ** 2)
     r0 = rxz - half_diag  # nearest horizontal distance
     r_far = rxz + half_diag
     top = box_c[:, 1] + box_half[:, 1]
