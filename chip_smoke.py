@@ -9,7 +9,8 @@ Phases, each printing its lines; any failure exits non-zero:
    and power limit.
 2. build: compiles kernels K1 (fog march), K2 (SVO cast), K3 (resolve
    fold), K4 (heightfield walk), K5 (the horizon envelope's per-ray
-   t_min), K6 (beam walk), K7 (beam resolve) and K8 (bit-grid DDA) from
+   t_min), K6 (beam walk), K7 (beam resolve), K8 (bit-grid DDA) and K9
+   (the bounce loop, with its burn pass) from
    voxtracer_torch/kernels/csrc with
    nvcc, one process per source, loads them, and prints ptxas's
    registers, stack frame and spills for each; compiles the native world
@@ -51,9 +52,10 @@ Phases, each printing its lines; any failure exits non-zero:
    frame.
 6. paths at 1024^3: Renderer at 853x480 (the default: rasterized
    primaries, bounce and shadow casts on the heightfield) and
-   headless_run for 2 frames x 16 samples in batches of 8: K1, K3 and K4
-   must have launched, and no sample may be retried. Then the SVO engine
-   (use_soup=False, use_hf=False, 1 frame x 8 samples: K1 and K2), and
+   headless_run for 2 frames x 16 samples in batches of 8: K9 and K3
+   must have launched and K1 not (the masked loop is off the path), and
+   no sample may be retried. Then the SVO engine (use_soup=False,
+   use_hf=False, 1 frame x 8 samples: K9 alone), and
    ms/sample at batch 1 and 8 with rasterized and SVO primaries, from the
    same process. Then the two engines in turns (heightfield, SVO, SVO,
    heightfield; same seeds): the radiance equal up to the graze budget,
@@ -75,8 +77,8 @@ Phases, each printing its lines; any failure exits non-zero:
    envelope through K5), headless_run for 2
    frames x 16 samples at 853x480, 24 bounces, 64 fog steps, batches of 8,
    EXR writes and a checkpoint at the end of each frame, the last one
-   read back (the resumed accumulator equal bit for bit). K1 and K4 must
-   have launched. K4 on that world at the main path's shapes (camera
+   read back (the resumed accumulator equal bit for bit). K9, K4 and K5
+   must have launched, K1 not. K4 on that world at the main path's shapes (camera
    rays, a bounce-1 indirect cast, the NEE cast, batch-8 width with 1%,
    10% and 50% active) against its plain version and K2, each with its
    bound and walk shape. K5 on each envelope tier's table at 409,440
@@ -116,8 +118,8 @@ Phases, each printing its lines; any failure exits non-zero:
 12. multi-device rendering (voxtracer_torch/dist; before 7, on the
    unedited world, and in 8 at 8192^3) on the mesh [cuda:0] * 4: at 1024^3 the sample-sharded step
    with the default Renderer's soup and heightfield pack equal by bits
-   to the mesh-order sum of four render_sample calls (K1, K3, K4
-   launched), the tile-sharded step (K3 on the bands' tile runs) equal
+   to the mesh-order sum of four render_sample calls (K9 and K3
+   launched, K1 not), the tile-sharded step (K3 on the bands' tile runs) equal
    by bits to the full frame, Renderer(devices=[cuda:0] * 4).sample()
    against four single samples (the first step by bits, the second
    within rtol 1e-5 / atol 1e-4), a two-process job (torch.multiprocessing,
@@ -127,7 +129,7 @@ Phases, each printing its lines; any failure exits non-zero:
    NCCL group's all_reduce (equal by bits); at 8192^3 the hf-only steps
    with the envelope as call args equal those without, the serial sum
    and the full frame by bits, and 7 bands (483 rows cropped to 480);
-   K1, K4 and K5 launched. ms per step against the serial calls (in
+   K9, K4 and K5 launched, K1 not. ms per step against the serial calls (in
    turns), ms of the sum and of the all_reduce, and a world replica's
    bytes, each with the card's name and power limit.
 
@@ -153,6 +155,21 @@ Phases, each printing its lines; any failure exits non-zero:
    beam engine on the 8192^3 octree (K6 and K7 on the first round, the
    frame against K2).
 
+14. K9 (phase_path_kernel) at four configurations, each on the inputs
+   of one batch-8 sample_batch call (853x480, 3,275,520 paths, 24
+   bounces, 64 fog steps): the 1024^3 default Renderer and SVO engine
+   (after 6), the 1024^3 edit session once bounds-tracked edits put it
+   on the edited heightfield (in 7), and the 8192^3 main path (in 8).
+   At each, K9 against trace_paths_plain (the masked loop on K1, K2 and
+   K4): the returned state by bits in every lane, the radiance by bits
+   (lanes that differ, up to GRAZE_SHARE, printed with their values);
+   ms of the trace_paths call and of the whole batch-8 call, K9 and the
+   masked loop in turns; a profile of the call with each (wall, device
+   busy ms and share, device events, K9's own ms); K9's bound from its
+   own count of walk steps, fog segments and bounces. After 8, ptxas's
+   registers and spills for each of K9's entries and a line per
+   configuration.
+
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -160,6 +177,7 @@ The line before the last is the per-kernel JSON record; the last line is
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -192,6 +210,16 @@ K1_SETUP_OPS, K1_STEP_OPS, K2_STEP_OPS, K3_PAIR_OPS = 30, 30, 30, 27
 K4_SETUP_OPS, K4_STEP_OPS = 60, 40
 # K5 per ray (azimuth bin, slope, t_min) and per step of its row search
 K5_RAY_OPS, K5_STEP_OPS = 50, 2
+# K9 per bounce of a path besides its walk steps and fog segments (counted
+# in path_trace.cu): 11 random3 draws ~345 integer operations, two
+# hemisphere samples ~110, the sun sample ~50, two march setups 60, two
+# walk setups 120, the planet normal, NEE, emissive, bounce and roulette
+# terms ~75
+K9_BOUNCE_OPS = 760
+# the cone prefix (plain PyTorch, kernels/conemarch.py) per bundle a march
+# step: the cell and its exits ~20, the fit and level tests ~15, the
+# gather's index ~8, the clearance and selects ~10
+CONE_STEP_OPS = 50
 # lanes in which the heightfield walk may differ from the SVO cast: rays
 # through a voxel edge or corner, where the two walks break the tie on
 # the last ulp apart. The JAX package's engine-parity tests allow 2 lanes
@@ -1233,8 +1261,6 @@ def _headless(renderer, cam, frames, frame_samples, batch, name,
     for bit. Returns the counts."""
     import torch
 
-    from voxtracer_torch.kernels import (fog, heightfield, resolve, skyline,
-                                         traverse)
     from voxtracer_torch.render import checkpoint, film
     from voxtracer_torch.render.driver import headless_run
 
@@ -1243,8 +1269,7 @@ def _headless(renderer, cam, frames, frame_samples, batch, name,
         ckpt = Path(tmp) / "render_state.npz"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fog.launches = traverse.launches = resolve.launches = 0
-        heightfield.launches = skyline.launches = 0
+        _zero_launches()
         saves = []  # seconds of each checkpoint the run writes
         save = checkpoint.save_render_state
 
@@ -1264,10 +1289,8 @@ def _headless(renderer, cam, frames, frame_samples, batch, name,
             checkpoint.save_render_state = save
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        counts = dict(fog_march=fog.launches, svo_cast=traverse.launches,
-                      resolve_fold=resolve.launches,
-                      hf_cast=heightfield.launches,
-                      sky_tmin=skyline.launches)
+        counts = {k: v for k, v in _launches().items()
+                  if k not in ("beam_walk", "beam_resolve", "bit_dda")}
         peak = torch.cuda.max_memory_allocated()
         exrs = sorted(Path(tmp).glob("*.exr"))
         imgs = [film.load_exr(p)[..., :3] for p in exrs]
@@ -1327,6 +1350,190 @@ def _expect_launches(name, counts, on, off=()):
                                  f"{name}")
 
 
+def _ptxas_k9():
+    """ptxas's report for K9's entries (path_trace.cu): (entry, registers,
+    stack frame and spills) each."""
+    from voxtracer_torch.kernels import build
+
+    rows, src, entry, props = [], None, None, None
+    for line in build.ptxas_report().splitlines():
+        if line.startswith("== "):
+            src = line[3:]
+        elif src != "path_trace.cu":
+            continue
+        elif "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            m = re.search(r"path_trace_kernelILi(\d)ELi(\d)E", entry)
+            if m:  # <engine, tile log>: 0 heightfield, 1 SVO, 2 edited
+                entry = f"path_trace_kernel<{m[1]}, {m[2]}>"
+            elif "path_burn_kernel" in entry:
+                entry = "path_burn_kernel"
+        elif "bytes stack frame" in line:
+            props = line.strip()
+        elif "Used" in line and "registers" in line:
+            rows.append((entry, line.split("Used")[1].split(",")[0].strip(),
+                         props))
+    return rows
+
+
+def _capture_call(renderer, cam, sun):
+    """The trace_paths call of one batch-8 sample_batch: its (args,
+    kwargs), the inputs the Renderer gives K9."""
+    from voxtracer_torch.kernels import integrator
+
+    seen = []
+    real = integrator.trace_paths
+
+    def spy(*a, **k):
+        seen.append((a, k))
+        return real(*a, **k)
+
+    integrator.trace_paths = spy
+    try:
+        renderer.sample_batch(cam, sun, 8)
+    finally:
+        integrator.trace_paths = real
+    if len(seen) != 1:
+        raise AssertionError(f"sample_batch made {len(seen)} trace_paths calls")
+    return seen[0]
+
+
+def _k9_bound(args, kw, work):
+    """K9's least time for one call: the bytes of its per-path inputs and
+    outputs and of the pack or node table once, and the operations of this
+    run's walk steps, fog segments and bounces (K9's own count)."""
+    B = args[5].numel() // 3
+    per_path = 12 * 3 + 4 + 12 + 12 + 12 + 4  # in: pos, dir, light,
+    # density, state; out: color, state, last bounce
+    if kw.get("primary") is not None:
+        per_path += 1 + 4 + 12 + 12
+    nbytes = B * per_path
+    if kw.get("hf_mips") is not None:
+        nbytes += kw["hf_mips"].numel() * 4
+    if kw.get("hf_mips") is None or kw.get("hf_edit_bounds") is not None:
+        nbytes += args[0].numel() * 4
+    hf_steps, svo_steps, segs, bounces = (int(x) for x in work.tolist())
+    ops = (hf_steps * K4_STEP_OPS + svo_steps * K2_STEP_OPS
+           + segs * K1_STEP_OPS + bounces * K9_BOUNCE_OPS)
+    return _bound(nbytes, ops) + (dict(hf_steps=hf_steps, svo_steps=svo_steps,
+                                       fog_segments=segs, bounces=bounces),)
+
+
+def _k9_profile(fn):
+    """profile_call of ``fn``: wall, device busy ms and share, device
+    events, and K9's own device ms (the kernel and its burn pass)."""
+    from voxtracer_torch.tools.kernel_ab import profile_call
+
+    prof = profile_call(fn)
+    k = prof["kernels"]
+    return dict(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"],
+                busy_share=prof["busy_share"], events=prof["device_events"],
+                k9_ms=k["path_trace_kernel"]["ms"] + k["path_burn_kernel"]["ms"],
+                k9_launches=k["path_trace_kernel"]["launches"])
+
+
+def phase_path_kernel(name, renderer, cam):
+    """K9 at one configuration, on the inputs of one batch-8 sample_batch
+    call: against the masked loop (trace_paths_plain on K1/K2/K4) with
+    the returned state by bits in every lane and the radiance by bits (up
+    to GRAZE_SHARE of the lanes, each counted); ms of the trace_paths call
+    and of the whole sample_batch call with K9 and with the masked loop,
+    in turns; a profile of each call; K9's bound from its own work count.
+    Returns the configuration's record."""
+    import torch
+
+    from voxtracer_torch.kernels import integrator
+
+    sun = np.asarray([0.8, 10.2743, 3.7])
+    args, kw = _capture_call(renderer, cam, sun)
+    B = args[5].numel() // 3
+    before = integrator.launches
+    st_k, col_k = integrator.trace_paths(*args, **kw)
+    work = integrator.last_work.clone()
+    st_p, col_p = integrator.trace_paths_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if integrator.launches != before + 1:
+        raise AssertionError(f"{name}: trace_paths did not launch K9")
+    state_diff = int((st_k != st_p).any(-1).sum())
+    lanes = (col_k.view(torch.int32) != col_p.view(torch.int32)).any(-1)
+    rad_diff = int(lanes.sum())
+    err = float((col_k - col_p).abs().max())
+    budget = int(np.ceil(B * GRAZE_SHARE))
+    ok = state_diff == 0 and rad_diff <= budget \
+        and bool(torch.isfinite(col_k).all()) and float(col_k.sum()) > 0
+    print(f"K9 {name}: {B} paths against the masked loop: state differs in "
+          f"{state_diff} lanes (budget 0), radiance in {rad_diff} (budget "
+          f"{budget}: GRAZE_SHARE), max abs difference {err:.3e}")
+    if rad_diff:
+        idx = torch.nonzero(lanes.reshape(-1)).flatten()[:4].tolist()
+        print(f"  differing lanes {idx}: K9 "
+              f"{col_k.reshape(-1, 3)[idx].tolist()} masked loop "
+              f"{col_p.reshape(-1, 3)[idx].tolist()}")
+    if not ok:
+        raise AssertionError(f"K9 differs from the masked loop ({name})")
+    del st_k, col_k, st_p, col_p
+
+    def k9():
+        return integrator.trace_paths(*args, **kw)
+
+    def masked():
+        return integrator.trace_paths_plain(*args, **kw)
+
+    ms = {"K9": [], "masked loop": []}
+    for who in ("masked loop", "K9", "K9", "masked loop"):
+        ms[who].append(_wall_ms_sync(k9 if who == "K9" else masked)[0])
+    k9_ms = _ms(k9, 3)
+    plain_ms = _ms(masked, 2)
+    call = {"K9": [], "masked loop": []}
+    prof = {}
+    real = integrator.trace_paths
+    for who in ("masked loop", "K9", "K9", "masked loop"):
+        if who != "K9":
+            integrator.trace_paths = integrator.trace_paths_plain
+        try:
+            call[who].append(_wall_ms_sync(
+                lambda: renderer.sample_batch(cam, sun, 8))[0])
+            if who not in prof:
+                prof[who] = _k9_profile(
+                    lambda: renderer.sample_batch(cam, sun, 8))
+        finally:
+            integrator.trace_paths = real
+    bound_ms, bound_by, counts = _k9_bound(args, kw, work)
+    r = lambda xs: [round(x, 2) for x in xs]  # noqa: E731
+    print(f"  trace_paths call ms in turns: K9 {r(ms['K9'])}, masked loop "
+          f"{r(ms['masked loop'])} (host clock, synchronized); CUDA events "
+          f"K9 {k9_ms:.2f}, masked loop {plain_ms:.2f}; K9's bound "
+          f"{bound_ms:.3f} ms ({bound_by}; work {counts}) = "
+          f"{100 * bound_ms / k9_ms:.2f}% of its time ({CARD})")
+    print(f"  batch-8 sample_batch call ms in turns: with K9 "
+          f"{r(call['K9'])}, with the masked loop {r(call['masked loop'])}")
+    for who, p in prof.items():
+        print(f"  profile, batch-8 sample_batch call with "
+              f"{'K9' if who == 'K9' else 'the masked loop'}: wall "
+              f"{p['wall_ms']:.1f} ms, device busy {p['busy_ms']:.1f} ms "
+              f"({100 * p['busy_share']:.1f}%), {p['events']} device events, "
+              f"K9 {p['k9_ms']:.2f} ms / {p['k9_launches']} launches")
+    if prof["K9"]["k9_launches"] != 1 or prof["masked loop"]["k9_launches"]:
+        raise AssertionError(f"{name}: the profiles saw K9 launch "
+                             f"{prof['K9']['k9_launches']} and "
+                             f"{prof['masked loop']['k9_launches']} times")
+    return dict(name=name, paths=B, record=dict(
+        max_abs_err=err, ms=k9_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None))
+
+
+def _path_summary(recs):
+    """K9's ptxas registers and spills, and a line per configuration."""
+    for entry, regs, props in _ptxas_k9():
+        print(f"ptxas K9 {entry}: {regs}; {props}")
+    for rec in recs:
+        x = rec["record"]
+        print(f"K9 summary, {rec['name']}: {x['ms']:.2f} ms a batch-8 call "
+              f"({rec['paths']} paths), masked loop {x['plain_ms']:.2f} ms, "
+              f"bound {x['bound_ms']:.3f} ms ({x['bound_by']}), max abs "
+              f"difference {x['max_abs_err']:.3e}")
+
+
 def phase_main(space, dev):
     """The headless day-cycle at 1024^3, 853x480 with the default Renderer
     (rasterized primaries, heightfield bounce and shadow casts); returns
@@ -1341,14 +1548,18 @@ def phase_main(space, dev):
         raise AssertionError("the terrain world did not take the soup and "
                              "heightfield engines")
     counts = _headless(renderer, cam, 2, 16, 8, "1024^3 path")
-    _expect_launches("1024^3 path", counts,
-                     ("fog_march", "resolve_fold", "hf_cast"), ("sky_tmin",))
+    _expect_launches("1024^3 path", counts, ("path_trace", "resolve_fold"),
+                     ("sky_tmin", "fog_march", "svo_cast"))
+    path_recs = [phase_path_kernel("1024^3, default Renderer", renderer,
+                                   cam)]
     svo = Renderer(space.serialize(), WIDTH, HEIGHT, seed=0, device=dev,
                    use_soup=False, use_hf=False)
     svo_counts = _headless(svo, cam, 1, 8, 8, "SVO-engine path")
-    _expect_launches("SVO-engine path", svo_counts, ("fog_march", "svo_cast"),
-                     ("resolve_fold", "hf_cast", "sky_tmin"))
-    return counts, svo_counts, renderer, svo
+    _expect_launches("SVO-engine path", svo_counts, ("path_trace",),
+                     ("resolve_fold", "hf_cast", "sky_tmin", "fog_march",
+                      "svo_cast"))
+    path_recs.append(phase_path_kernel("1024^3, SVO engine", svo, cam))
+    return counts, svo_counts, renderer, svo, path_recs
 
 
 def phase_primaries(soup_r, svo_r):
@@ -1475,9 +1686,9 @@ def phase_engines(space, dev):
           f"{[round(m, 2) for m in ms['heightfield']]}, SVO "
           f"{[round(m, 2) for m in ms['SVO']]}")
     _profile("1024^3, heightfield engine", rs["heightfield"], cam,
-             ("fog_march", "resolve_fold", "hf_cast"))
+             ("path_trace", "resolve_fold"))
     _profile("1024^3, SVO engine", rs["SVO"], cam,
-             ("fog_march", "resolve_fold", "svo_cast"))
+             ("path_trace", "resolve_fold"))
 
 
 def _sky_bound(d, E, bin_w):
@@ -1911,6 +2122,8 @@ def phase_edits(space, dev):
         raise AssertionError("bounds-tracked edits dropped the hybrid")
     _against_fresh("bounds-tracked", r, space, cam, sun,
                    int(np.ceil(RAYS * 8 * GRAZE_SHARE)), dev)
+    path_rec = phase_path_kernel("1024^3 edit session (edited heightfield)",
+                                 r, cam)
     parts = np.array(lat) * 1e3
     tot = parts[:, :3].sum(axis=1)
     q = lambda a: f"p50 {np.percentile(a, 50):.2f} / p90 " \
@@ -1920,7 +2133,7 @@ def phase_edits(space, dev):
           f"apply_edits {q(parts[:, 1])} (of it the soup patch "
           f"{q(parts[:, 3])}, the heightfield patch {q(parts[:, 4])}); "
           f"preview_frame {q(parts[:, 2])}")
-    return lat
+    return lat, path_rec
 
 
 
@@ -2342,21 +2555,25 @@ def phase_dense(dev):
 
 def _zero_launches():
     from voxtracer_torch.kernels import (beam, bitdda, fog, heightfield,
-                                         resolve, skyline, traverse)
+                                         integrator, resolve, skyline,
+                                         traverse)
 
     fog.launches = traverse.launches = resolve.launches = 0
     heightfield.launches = skyline.launches = bitdda.launches = 0
     beam.walk_launches = beam.resolve_launches = 0
+    integrator.launches = 0
 
 
 def _launches():
     from voxtracer_torch.kernels import (beam, bitdda, fog, heightfield,
-                                         resolve, skyline, traverse)
+                                         integrator, resolve, skyline,
+                                         traverse)
 
     return dict(fog_march=fog.launches, svo_cast=traverse.launches,
                 resolve_fold=resolve.launches, hf_cast=heightfield.launches,
                 sky_tmin=skyline.launches, beam_walk=beam.walk_launches,
-                beam_resolve=beam.resolve_launches, bit_dda=bitdda.launches)
+                beam_resolve=beam.resolve_launches, bit_dda=bitdda.launches,
+                path_trace=integrator.launches)
 
 
 def _nbytes(*xs) -> int:
@@ -2532,7 +2749,7 @@ def phase_dist(space, dev):
     torch.cuda.synchronize()
     counts["sample"] = _launches()
     _expect_launches("sample-sharded step", counts["sample"],
-                     ("fog_march", "resolve_fold", "hf_cast"), ("svo_cast",))
+                     ("path_trace", "resolve_fold"), ("svo_cast", "fog_march"))
     out, ref = _in_turns("sample-sharded step, 4 shards", lambda: step(
         seeds, pos, basis, sun, soup_bins=bins), serial, 4)
     print(f"  mesh-order sum of 4 frames: "
@@ -2555,7 +2772,7 @@ def phase_dist(space, dev):
     torch.cuda.synchronize()
     counts["tile"] = _launches()
     _expect_launches("tile-sharded step (band tile lists)", counts["tile"],
-                     ("fog_march", "resolve_fold", "hf_cast"), ("svo_cast",))
+                     ("path_trace", "resolve_fold"), ("svo_cast", "fog_march"))
     tout, full = _in_turns(
         "tile-sharded step, 4 bands of 120 rows",
         lambda: tstep(seed, pos, basis, sun, soup_bins=bins),
@@ -2721,8 +2938,8 @@ def phase_dist_full(renderer, cam, dev):
           f"({step7.out_rows} cropped to {HEIGHT}) == full frame: {ok_t}")
     for name in ("sample", "tile"):
         _expect_launches(f"8192^3 {name}-sharded step", counts[name],
-                         ("fog_march", "hf_cast", "sky_tmin"),
-                         ("svo_cast", "resolve_fold"))
+                         ("path_trace", "hf_cast", "sky_tmin"),
+                         ("svo_cast", "resolve_fold", "fog_march"))
     if not ok_s or not ok_t or not torch.isfinite(out5).all():
         raise AssertionError("the 8192^3 sharded steps differ")
     return counts
@@ -2770,12 +2987,13 @@ def phase_full(dev):
     sky_rec = phase_envelope(renderer, cam, dev)
     counts = _headless(renderer, cam, 2, 16, 8, "main path",
                        log2_size=FULL_LOG2_SIZE, checkpoint_every=16)
-    _expect_launches("main path", counts, ("fog_march", "hf_cast",
+    _expect_launches("main path", counts, ("path_trace", "hf_cast",
                                            "sky_tmin"),
-                     ("svo_cast", "resolve_fold"))
+                     ("svo_cast", "resolve_fold", "fog_march"))
+    path_rec = phase_path_kernel(f"{n}^3 main path (hf-only)", renderer, cam)
     phase_envelope_path(renderer, cam)
     phase_dist_full(renderer, cam, dev)
-    _profile(f"{n}^3 main path", renderer, cam, ("fog_march", "hf_cast",
+    _profile(f"{n}^3 main path", renderer, cam, ("path_trace", "hf_cast",
                                                  "sky_tmin"))
     sun = np.asarray([0.8, 10.2743, 3.7])
     ms = _ms(lambda: renderer.preview_frame(cam, sun), 5)
@@ -2788,7 +3006,7 @@ def phase_full(dev):
     phase_sunmaps(renderer, cam, dev)
     phase_prefix(renderer, cam, dev)
     phase_beam_full(renderer, cam, dev)
-    return counts, sky_rec
+    return counts, sky_rec, path_rec
 
 
 # ---- the JAX package's selectable engines: sun maps, the beam engine
@@ -3306,14 +3524,24 @@ def phase_prefix(renderer, cam, dev):
                                               device=dev)
     cone_ms = _ms(lambda: conemarch.cone_prefix(cone[0], cone[1], cone[2],
                                                 H_, op, dc, sig), 3)
+    walk = {}
+    conemarch.cone_prefix(cone[0], cone[1], cone[2], H_, op, dc, sig,
+                          walk=walk)
+    # the bundles in and S out once, 4 B of the pyramid a bundle-step but
+    # at most the whole pyramid
+    nb = dc.shape[0]
+    cone_bound = _bound(nb * (12 + 12 + 4) + min(
+        4 * walk["bundle_steps"], cone[0].numel() * 4),
+        walk["bundle_steps"] * CONE_STEP_OPS)
     sky_ms, _ = _wall_ms_sync(lambda: skyline.tile_sky(
         sky, np.asarray(basis, np.float32), WIDTH, HEIGHT))
     mask = skyline.tile_sky(sky, np.asarray(basis, np.float32), WIDTH, HEIGHT)
     print(f"prefixes {1 << H_}^3 {WIDTH}x{HEIGHT}: every frame equal by bits "
           f"to the unprefixed cast; ms a frame {', '.join(lines)} (CUDA "
-          f"events); cone_prefix alone {cone_ms:.3f} ms; tile_sky {sky_ms:.2f}"
-          f" ms host, {int(mask.sum())} of {mask.size} tiles certified; "
-          f"{CARD}")
+          f"events); cone_prefix alone {cone_ms:.3f} ms ({nb} bundles, "
+          f"{walk['bundle_steps']} bundle-steps; bound {cone_bound[0]:.4f} ms, "
+          f"{cone_bound[1]}); tile_sky {sky_ms:.2f} ms host, "
+          f"{int(mask.sum())} of {mask.size} tiles certified; {CARD}")
 
 
 def phase_terrain_card(dev):
@@ -3369,7 +3597,7 @@ def main() -> int:
     res_rec = phase_resolve(rng, soup_t, dev)
     phase_golden(dev)
     phase_shaded(soup_t, world, pack, dev)
-    counts, svo_counts, soup_r, svo_r = phase_main(space, dev)
+    counts, svo_counts, soup_r, svo_r, path_recs = phase_main(space, dev)
     phase_primaries(soup_r, svo_r)
     del soup_r, svo_r
     phase_engines(space, dev)
@@ -3378,14 +3606,16 @@ def main() -> int:
     phase_dist(space, dev)
     beam_rec, beam_counts = phase_beam(space, dev)
     bit_rec, bit_counts = phase_bitdda(space, dev)
-    phase_edits(space, dev)
+    path_recs.append(phase_edits(space, dev)[1])
     del space, dev_svo, world, soup, soup_t, pack
     torch.cuda.empty_cache()
     phase_interact(dev)
     phase_dense(dev)
     phase_terrain_card(dev)
     torch.cuda.empty_cache()
-    full, sky_rec = phase_full(dev)
+    full, sky_rec, main_path = phase_full(dev)
+    path_recs.insert(0, main_path)
+    _path_summary(path_recs)
 
     kernels = [
         dict(name="fog_march", route="cuda",
@@ -3420,6 +3650,10 @@ def main() -> int:
              source="voxtracer_torch/kernels/csrc/bit_dda.cu",
              replaces="voxtracer/kernels/bitdda.py:44",
              launches=bit_counts["bit_dda"], **bit_rec),
+        dict(name="path_trace", route="cuda",
+             source="voxtracer_torch/kernels/csrc/path_trace.cu",
+             replaces="voxtracer/kernels/integrator.py:212",
+             launches=full["path_trace"], **main_path["record"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """CUDA kernels K1 (fog march), K2 (SVO cast), K3 (resolve fold), K4
 (heightfield walk), K5 (envelope lookup), K6 (beam walk), K7 (beam
-resolve) and K8 (bit-grid DDA) against their plain PyTorch versions, and
+resolve), K8 (bit-grid DDA) and K9 (the bounce loop) against their plain
+PyTorch versions, and
 the terrain built on the card against the CPU's, on the card. Every test
 skips when
 torch sees no CUDA device (decided inside the fixture, not at import).
@@ -643,3 +644,55 @@ def test_heightmap_on_the_card_equals_cpu(cuda, log2):
     a = worldgen.heightmap(log2, device=cuda)
     b = worldgen.heightmap(log2, device="cpu")
     assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("engine,primary,fuse", [
+    ("hf", False, False), ("hf", True, False), ("hf", False, True),
+    ("svo", False, False), ("edited", False, False)])
+def test_path_trace_matches_plain_bit_for_bit(cuda, terrain, engine, primary,
+                                              fuse):
+    """K9 against the masked loop on the card: radiance and the returned
+    state equal by bits in every lane, on each engine, with bounce 0's
+    primary hits given, and fused (the state 3 draws ahead)."""
+    from voxtracer_torch.core.spectra import build_wl_to_rgb_lut
+    from voxtracer_torch.kernels import integrator
+
+    w, heights = terrain
+    n = 1 << w.height
+    tiles, offs, _ = heightfield.build_height_mips(heights, device=cuda)
+    kw = {} if engine == "svo" else dict(hf_mips=tiles, hf_offsets=offs,
+                                         terrain_rgb=(0.5, 0.5, 0.5))
+    if engine == "edited":
+        kw["hf_edit_bounds"] = torch.tensor(
+            [[[40, 0, 40], [60, 90, 60]], [[5, 10, 70], [9, 30, 75]]],
+            dtype=torch.float32, device=cuda)
+    rng = np.random.default_rng(29)
+    B = 20000
+    start = rng.uniform(2, n - 2, (B, 3)).astype(np.float32)
+    start[:, 1] = rng.uniform(heights.max() * 0.5, n - 2, B)
+    d = rng.normal(size=(B, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    sun = np.float32([0.5, 0.8, 0.33])
+    sun /= np.linalg.norm(sun)
+    args = (w.table, w.root, w.height,
+            torch.as_tensor(build_wl_to_rgb_lut(256), device=cuda),
+            torch.as_tensor(start, device=cuda), torch.as_tensor(d, device=cuda),
+            torch.as_tensor(rng.random(B, np.float32), device=cuda),
+            torch.as_tensor(sun, device=cuda),
+            torch.as_tensor(rng.integers(0, 2**32, (B, 3)), device=cuda))
+    prim = None
+    if primary:
+        pr = heightfield.hf_raycast(tiles, offs, w.height, args[4], args[5])
+        prim = dict(hit=pr["hit"], t=pr["t"], normal=pr["normal"],
+                    rgb=torch.full((B, 3), 0.5, device=cuda))
+    before = integrator.launches
+    st_k, col_k = integrator.trace_paths(*args, 8, 32, primary=prim,
+                                         fuse_nee=fuse, **kw)
+    assert integrator.launches == before + 1
+    st_p, col_p = integrator.trace_paths_plain(*args, 8, 32, primary=prim,
+                                               fuse_nee=fuse, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(st_k, st_p)
+    assert np.array_equal(col_k.cpu().numpy().view(np.int32),
+                          col_p.cpu().numpy().view(np.int32))
+    assert float(col_k.sum()) > 0

@@ -424,3 +424,89 @@ def test_render_samples_env_resumed_primaries(scene):
         terrain_rgb=jnp.asarray([0.5, 0.5, 0.5], jnp.float32),
         hf_sky_env=(jenv["E"], jenv["d0"], jenv["g"])))
     _close(got.numpy() / 2, jgot / 2)
+
+
+@pytest.fixture(scope="module")
+def fused_world():
+    """tests/test_integrator.py's fused-NEE world: 64^3 terrain and its
+    pack, built by the JAX package and carried across."""
+    from voxtracer.kernels import heightfield as jhf
+
+    space = jgen.generate(log2_size=6, verbose=False, backend="python")
+    dev = space.serialize()
+    flat, joffs, h = jhf.build_height_mips(space.heights)
+    w = tsvo.upload(dev.table, dev.root, dev.height, "cpu")
+    tiles, toffs, _ = thf.build_height_mips(np.asarray(space.heights),
+                                            device="cpu")
+    return dev, w, (flat, joffs, h), (tiles, toffs)
+
+
+def _fused_paths(B, n=64):
+    """The JAX oracle's paths (tests/test_integrator.py:342-349)."""
+    rng = np.random.default_rng(17 + B)
+    start = rng.uniform(4, n - 4, (B, 3)).astype(np.float32)
+    start[:, 1] = rng.uniform(2, n - 2, B)
+    d = rng.normal(size=(B, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    wl = rng.random(B).astype(np.float32)
+    state = rng.integers(0, 2**32, (B, 3), dtype=np.uint32)
+    return start, d, wl, state
+
+
+FUSED_KW = dict(max_bounces=6, fog_steps=8)
+GREY = (0.5, 0.5, 0.5)
+
+
+def _port_fused(fused_world, B, fuse, hf=True):
+    _, w, _, (tiles, toffs) = fused_world
+    pack = dict(hf_mips=tiles, hf_offsets=toffs, terrain_rgb=GREY) if hf \
+        else {}
+    start, d, wl, state = _fused_paths(B)
+    sun = np.float32([0.8, 10.2743, 3.7])
+    sun /= np.linalg.norm(sun)
+    lut = build_wl_to_rgb_lut(256)
+    return tint.trace_paths(
+        w.table, w.root, w.height, torch.from_numpy(lut),
+        torch.from_numpy(start), torch.from_numpy(d), torch.from_numpy(wl),
+        torch.from_numpy(sun), trng.to_state(state), fuse_nee=fuse, **pack,
+        **FUSED_KW)
+
+
+@pytest.mark.parametrize("B", [768, 9216])
+def test_fused_nee_matches_jax(fused_world, B):
+    """``trace_paths(fuse_nee=True)`` against the JAX package's fused loop
+    (tests/test_integrator.py:328-370's sizes): the state by bits in every
+    lane, the radiance within the module's budget."""
+    dev, _, (flat, joffs, h), _ = fused_world
+    start, d, wl, state = _fused_paths(B)
+    sun = np.float32([0.8, 10.2743, 3.7])
+    sun /= np.linalg.norm(sun)
+    st_j, rad_j = jint.trace_paths(
+        jnp.asarray(dev.table.view(np.int32)), np.int32(dev.root), h,
+        jnp.asarray(build_wl_to_rgb_lut(256)), jnp.asarray(start),
+        jnp.asarray(d), jnp.asarray(wl), jnp.asarray(sun), jnp.asarray(state),
+        hf_mips=flat, hf_offsets=joffs,
+        terrain_rgb=jnp.asarray(GREY, jnp.float32), fuse_nee=True,
+        **FUSED_KW)
+    st, rad = _port_fused(fused_world, B, True)
+    assert np.array_equal(np.asarray(st_j).astype(np.int64), st.numpy())
+    _close(rad.numpy(), np.asarray(rad_j))
+
+
+@pytest.mark.parametrize("B", [768, 9216])
+def test_fused_nee_equals_unfused(fused_world, B):
+    """Within the port the fused radiance is the unfused one by bits and
+    every lane's state leads by one planet cast's 3 pcg3d steps; with the
+    conditions unmet (no pack) fusing changes nothing."""
+    st_a, rad_a = _port_fused(fused_world, B, False)
+    st_b, rad_b = _port_fused(fused_world, B, True)
+    assert torch.equal(rad_a, rad_b) and float(rad_a.sum()) > 0
+    lead = st_a
+    for _ in range(3):
+        lead = trng.pcg3d(lead)
+    assert torch.equal(lead, st_b)
+    assert not torch.equal(st_a, st_b)
+    if B == 768:
+        st_c, rad_c = _port_fused(fused_world, B, False, hf=False)
+        st_d, rad_d = _port_fused(fused_world, B, True, hf=False)
+        assert torch.equal(st_c, st_d) and torch.equal(rad_c, rad_d)

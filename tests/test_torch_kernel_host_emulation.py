@@ -1,7 +1,8 @@
 """The CUDA sources of K2 (csrc/svo_cast.cu), K4 (csrc/hf_cast.cu), K1
-(csrc/fog_march.cu), lane fetch (csrc/lanes.cuh) included, K3
-(csrc/resolve_fold.cu), K5 (csrc/sky_tmin.cu), K6 (csrc/beam_walk.cu),
-K7 (csrc/beam_resolve.cu) and K8 (csrc/bit_dda.cu), compiled for the host
+(csrc/fog_march.cu), lane fetch (csrc/lanes.cuh) and the walk headers
+included, K3 (csrc/resolve_fold.cu), K5 (csrc/sky_tmin.cu), K6
+(csrc/beam_walk.cu), K7 (csrc/beam_resolve.cu), K8 (csrc/bit_dda.cu) and
+K9 (csrc/path_trace.cu), compiled for the host
 and run under a small emulation of the CUDA features they use: every
 thread of a block is a std::thread (grids of up to three axes), the 32
 threads of a warp meet at a barrier for each warp collective
@@ -38,6 +39,15 @@ candidates and its resumed state over several rounds (with pauses), the
 resolve's five outputs with a shared origin and with one origin a ray,
 and the bit-grid DDA's four outputs with caps and masks.
 
+K9 runs every bounce of a path on one thread with K1's, K2's and K4's
+walks inside. On each of its engines, its returned RNG state must equal
+the masked loop's (trace_paths_plain) by bits in every lane, dead or
+alive, which holds its burn pass; its radiance is held to the golden
+contract (0.5% of values beyond 1e-3, means within 1e-3), since the
+host's expf, logf, sinf and cosf are not torch's; its walk-step counts
+to the plain walks' within 2%; and K9 to itself by bits under every
+lane-fetch setting.
+
 Needs g++ with C++20 (<barrier>); skips without it.
 """
 
@@ -53,7 +63,7 @@ import torch
 from voxtracer_torch.core import camera as vcam
 from voxtracer_torch.core.spectra import fog_density
 from voxtracer_torch.kernels import (beam, bitdda, build, fog, heightfield,
-                                     resolve, traverse)
+                                     integrator, resolve, traverse)
 from voxtracer_torch.world import svo, worldgen
 
 torch.set_num_threads(2)
@@ -123,6 +133,10 @@ template <class T> T __shfl_xor_sync(unsigned, T v, int mask) {
   const T r = (T)t_warp->vals[(threadIdx.x & 31) ^ mask];
   t_warp->bar.arrive_and_wait();
   return r;
+}
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
 }
 inline int atomicMax(int* p, int v) {
   std::atomic_ref<int> a(*p);
@@ -283,13 +297,15 @@ def host_kernels(tmp_path_factory):
         pytest.skip("needs g++ to build the kernels for the host")
     out = tmp_path_factory.mktemp("host_kernels")
     (out / "cuda_runtime.h").write_text(SHIM)
-    (out / "lanes.cuh").write_text((build.CSRC / "lanes.cuh").read_text())
+    for header in build.CSRC.glob("*.cuh"):
+        (out / header.name).write_text(header.read_text())
     libs = {}
     procs = []
     fold_src = (build.CSRC / "resolve_fold.cu").read_text()
     sources = {name: (build.CSRC / f"{name}.cu").read_text()
                for name in ("svo_cast", "fog_march", "hf_cast", "sky_tmin",
-                            "beam_walk", "beam_resolve", "bit_dda")}
+                            "beam_walk", "beam_resolve", "bit_dda",
+                            "path_trace")}
     sources["resolve_fold"] = fold_src
     sources["sky_bsearch"] = BSEARCH_SKY_TMIN
     for name, (old, new) in FOLD_MUTANTS.items():
@@ -312,7 +328,8 @@ def host_kernels(tmp_path_factory):
         lib = ctypes.CDLL(str(so))
         entries = [f"voxt_{name}"] \
             if name in ("svo_cast", "fog_march", "hf_cast", "sky_tmin",
-                        "beam_walk", "beam_resolve", "bit_dda") \
+                        "beam_walk", "beam_resolve", "bit_dda",
+                        "path_trace") \
             else ["voxt_sky_tmin"] if name == "sky_bsearch" \
             else ["voxt_resolve_fold", "voxt_resolve_fold_seg"]
         fns = []
@@ -1076,3 +1093,160 @@ def test_bit_dda_source_equals_plain(host_kernels, B, frac, skip_t0):
                               want[key].numpy().view(np.uint8)), key
     if B > 1:
         assert want["hit"].any()
+
+
+# ---- K9 (csrc/path_trace.cu): the bounce loop, one thread a path ----
+
+
+@pytest.fixture(scope="module")
+def k9_worlds():
+    """A 32^3 terrain world for each of K9's engines: its node table, its
+    pack, and for the edited engine the table after a dig and a white
+    slab, with the box that covers them."""
+    from voxtracer_torch.core.spectra import build_wl_to_rgb_lut
+
+    space = worldgen.generate(log2_size=5, verbose=False, device="cpu")
+    h0 = np.asarray(space.heights).copy()
+    dev = space.serialize()
+    plain_w = svo.upload(dev.table, dev.root, dev.height, "cpu")
+    pack = heightfield.build_height_mips(h0, device="cpu")
+    cx, cz = np.unravel_index(np.argmax(h0[6:26, 6:26]), (20, 20))
+    cx, cz = int(cx) + 6, int(cz) + 6
+    top = int(h0[cx, cz])
+    space.set((cx, top - 1, cz), None)
+    for dx in range(3):
+        for dz in range(3):
+            space.set((cx + dx, top + 1, cz + dz), (1.0, 1.0, 1.0))
+    ed = space.serialize()
+    edited_w = svo.upload(ed.table, ed.root, ed.height, "cpu")
+    bounds = torch.tensor([[cx - 1, top - 2, cz - 1], [cx + 4, top + 3, cz + 4]],
+                          dtype=torch.float32)
+    lut = torch.from_numpy(build_wl_to_rgb_lut(256))
+    return dict(svo=(plain_w, {}), hf=(plain_w, dict(
+        hf_mips=pack[0], hf_offsets=pack[1], terrain_rgb=space.terrain_rgb)),
+        edited=(edited_w, dict(hf_mips=pack[0], hf_offsets=pack[1],
+                               terrain_rgb=space.terrain_rgb,
+                               hf_edit_bounds=bounds)),
+        lut=lut, heights=h0, site=(cx, top, cz))
+
+
+K9_BOUNCES, K9_FOG = 6, 8
+
+
+def _k9_paths(k9_worlds, engine, B=512, primary=False, seed=9):
+    """Paths from above and beside the terrain and the edit site: some
+    aimed at the sky (they miss at bounce 0), the rest anywhere."""
+    rng = np.random.default_rng(seed)
+    w, kw = k9_worlds[engine]
+    cx, top, cz = k9_worlds["site"]
+    start = rng.uniform(2, 30, (B, 3)).astype(np.float32)
+    start[:, 1] = rng.uniform(top + 2, 31, B)
+    start[: B // 4] = np.float32([cx + 1.5, top + 5.5, cz + 1.5])
+    d = rng.normal(size=(B, 3)).astype(np.float32)
+    d[B // 4: B // 2, 1] = -np.abs(d[B // 4: B // 2, 1]) - 1.0
+    d[-B // 8:, 1] = np.abs(d[-B // 8:, 1]) + 2.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    wl = rng.random(B).astype(np.float32)
+    state = rng.integers(0, 2**32, (B, 3), dtype=np.uint32)
+    sun = np.float32([0.5, 0.8, 0.33])
+    sun /= np.linalg.norm(sun)
+    args = (w.table, w.root, w.height, k9_worlds["lut"],
+            torch.from_numpy(start), torch.from_numpy(d), torch.from_numpy(wl),
+            torch.from_numpy(sun), torch.from_numpy(state.astype(np.int64)),
+            K9_BOUNCES, K9_FOG)
+    prim = None
+    if primary:
+        pr = heightfield.hf_raycast(kw["hf_mips"], kw["hf_offsets"], w.height,
+                                    args[4], args[5])
+        prim = dict(hit=pr["hit"], t=pr["t"], normal=pr["normal"],
+                    rgb=torch.as_tensor(kw["terrain_rgb"], dtype=torch.float32)
+                    .expand(B, 3))
+    return args, kw, prim
+
+
+def _k9_host(fn, args, kw, prim, extra=0, fetch=None):
+    """K9 and its burn pass through the host build: (state, radiance,
+    each path's last bounce, the kernel's work count)."""
+    k9_kw = dict(primary=prim, hf_mips=kw.get("hf_mips"),
+                 hf_offsets=kw.get("hf_offsets"),
+                 terrain_rgb=kw.get("terrain_rgb"),
+                 hf_edit_bounds=kw.get("hf_edit_bounds"), extra_draws=extra)
+    if fetch is not None:
+        k9_kw["fetch"] = fetch
+    c_args, outs = integrator.k9_args(*args, **k9_kw)
+    assert fn(*c_args, None) == 0
+    state, color = integrator.k9_result(outs)
+    return state, color, outs[3][11], outs[3][-1]
+
+
+def _golden(img, want):
+    img, want = img.numpy(), want.numpy()
+    assert np.isfinite(img).all()
+    assert (np.abs(img - want) > 1e-3).mean() <= 5e-3
+    assert abs(img.mean() / want.mean() - 1.0) <= 1e-3
+
+
+@pytest.mark.parametrize("engine,primary", [("hf", False), ("hf", True),
+                                            ("svo", False), ("edited", False)])
+def test_path_trace_source_matches_plain(host_kernels, k9_worlds, engine,
+                                         primary, monkeypatch):
+    """K9 on each engine against the masked loop: the returned state by
+    bits in every lane (the burn pass gives every path the draws of the
+    loop's bounces), the radiance under the golden contract (the host's
+    expf, logf, sinf and cosf are not torch's). Some paths miss at bounce
+    0, some die under roulette, some live through every bounce: roulette
+    changes no path's geometry or draws, so the paths that end sooner
+    than with roulette off are the ones it killed."""
+    args, kw, prim = _k9_paths(k9_worlds, engine, primary=primary)
+    steps = (heightfield.plain_lane_steps, traverse.plain_lane_steps)
+    st, col, last, work = _k9_host(host_kernels["path_trace"], args, kw,
+                                   prim)
+    st_p, col_p = integrator.trace_paths_plain(*args, primary=prim, **kw)
+    # the kernel's count of its walk steps: the masked loop's walks take
+    # the same steps (up to the paths the host's libm sends elsewhere)
+    plain = (heightfield.plain_lane_steps - steps[0],
+             traverse.plain_lane_steps - steps[1])
+    for got, want in zip(work[:2].tolist(), plain):
+        assert abs(got - want) <= 0.02 * want
+    assert int(work[3]) == int(last.sum()) + len(last)
+    assert torch.equal(st, st_p)
+    _golden(col, col_p)
+    consts = integrator._K9_CONSTS.copy()
+    consts[9] = 0.0  # RR_THRESHOLD: no light is below it
+    monkeypatch.setattr(integrator, "_K9_CONSTS", consts)
+    last_off = _k9_host(host_kernels["path_trace"], args, kw, prim)[2]
+    assert ((last == 0) & (last_off == 0)).any()  # missed at bounce 0
+    assert (last < last_off).any()  # killed by roulette
+    assert (last == K9_BOUNCES - 1).any()
+    assert (col.sum(-1) == 0).any() and (col.sum(-1) > 0).any()
+
+
+@pytest.mark.parametrize("engine", ["hf", "svo", "edited"])
+def test_path_trace_source_is_fetch_invariant(host_kernels, k9_worlds,
+                                              engine):
+    """Which thread runs which path, and when, changes no bit of K9's
+    outputs, under every lane-fetch setting."""
+    args, kw, prim = _k9_paths(k9_worlds, engine, B=300, seed=5)
+    fn = host_kernels["path_trace"]
+    want = _k9_host(fn, args, kw, prim)
+    for fetch in FETCHES:
+        got = _k9_host(fn, args, kw, prim, fetch=fetch)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy().view(np.uint8),
+                                  w.numpy().view(np.uint8)), fetch
+
+
+def test_path_trace_source_fused_state(host_kernels, k9_worlds):
+    """The fused bounce/NEE's 3 more draws in the burn pass: the radiance
+    of the unfused call by bits, every lane's state 3 pcg3d steps ahead,
+    as the plain version's fused state."""
+    from voxtracer_torch.core import rng as trng
+
+    args, kw, prim = _k9_paths(k9_worlds, "hf", B=300, seed=6)
+    fn = host_kernels["path_trace"]
+    st, col, _, _ = _k9_host(fn, args, kw, prim)
+    st_f, col_f, _, _ = _k9_host(fn, args, kw, prim, extra=3)
+    assert torch.equal(col, col_f)
+    assert torch.equal(trng.pcg3d(trng.pcg3d(trng.pcg3d(st))), st_f)
+    st_p, _ = integrator.trace_paths_plain(*args, fuse_nee=True, **kw)
+    assert torch.equal(st_f, st_p)

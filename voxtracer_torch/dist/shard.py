@@ -23,9 +23,10 @@ pose's jittered raster bins (``soup_bins=``). A call arg given as a
 ``Replicated`` is used as it is; a tensor is copied to each distinct
 device on every call, so the Renderer replicates them once per pose.
 
-Each distinct device's shards run from a host thread of their own:
-``trace_paths`` reads the host once a bounce, so one thread launching
-the cards' shards in turn would run the cards in turn. The results are
+Each distinct device's shards run from a host thread of their own: a
+sample reads the host (the rasterized primaries; the masked bounce loop
+of the opt-in engines once a bounce), so one thread launching the cards'
+shards in turn would run the cards in turn. The results are
 combined only after every thread has joined, in mesh order, so the sum
 does not depend on which thread finishes first. On one device the
 shards run in turn in the caller's thread. (The kernels' launch counters

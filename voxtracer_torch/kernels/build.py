@@ -30,7 +30,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("fog_march.cu", "svo_cast.cu", "resolve_fold.cu", "hf_cast.cu",
-           "sky_tmin.cu", "beam_walk.cu", "beam_resolve.cu", "bit_dda.cu")
+           "sky_tmin.cu", "beam_walk.cu", "beam_resolve.cu", "bit_dda.cu",
+           "path_trace.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
@@ -83,6 +84,14 @@ SIGNATURES = {
     # skip_t0, hit, t, normal, voxel, n, stream
     "voxt_bit_dda": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                      _I, _P),
+    # consts (host floats), n_consts, engine, tiles, tile_log, levels,
+    # row_starts, hmax_w, table, root, height, boxes, n_boxes, trgb, sun,
+    # pos, dir, light, density, state_in, p_hit, p_t, p_normal, p_rgb,
+    # color, state_out, last, max_last, work, n, max_bounces, fog_steps,
+    # extra_draws, counter, static_pct, chunk, refill, stream
+    "voxt_path_trace": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _I,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P),
 }
 
 # the persistent kernels index lanes (and 3 floats a lane) in int32

@@ -120,14 +120,16 @@ def build_cone_mips(heights, min_level: int = 3, device="cuda"):
 
 
 def cone_prefix(cone_flat, cone_offsets: tuple, min_level: int, height: int,
-                origin, dc, sig, max_iters: int = 192):
+                origin, dc, sig, max_iters: int = 192, walk=None):
     """Per-bundle certified-air prefix S in the unnormalized-direction
     parameter (``conemarch.py:120``). origin (3,); dc/sig (B, 3) bundle
     central directions and component half-spreads on the device. Returns
     (B,) float32 S >= 0, SLACK already shaved: every bundle ray (direction
     within dc +- sig) is strictly in air on [0, S]. Each bundle steps
     until it stops or ``max_iters`` steps pass; the loop reads the host
-    every ``CHECK_EVERY`` steps to end early when no bundle walks."""
+    every ``CHECK_EVERY`` steps to end early when no bundle walks.
+    ``walk``: a dict to receive ``bundle_steps``, the march steps taken
+    summed over the bundles (one host read at the end)."""
     f32 = torch.float32
     dev = cone_flat.device
     ox, oy, oz = (float(v) for v in np.asarray(
@@ -154,9 +156,12 @@ def cone_prefix(cone_flat, cone_offsets: tuple, min_level: int, height: int,
     s = torch.zeros((B,), dtype=f32, device=dev)
     L = torch.full((B,), top - 1, dtype=torch.int64, device=dev)
     alive = torch.ones((B,), dtype=torch.bool, device=dev)
+    steps = torch.zeros((), dtype=torch.int64, device=dev)
     for it in range(max_iters):
         if it % CHECK_EVERY == 0 and not bool(alive.any()):
             break
+        if walk is not None:
+            steps += alive.sum()
         cell = torch.exp2(L.to(f32))
         px = ox + s * dc[:, 0]
         pz = oz + s * dc[:, 2]
@@ -189,6 +194,8 @@ def cone_prefix(cone_flat, cone_offsets: tuple, min_level: int, height: int,
         s = torch.where(alive, s_n, s)
         L = torch.where(alive, L_n, L)
         alive = alive & ~done
+    if walk is not None:
+        walk["bundle_steps"] = int(steps)
     return torch.clamp_min(s - SLACK, 0.0)
 
 

@@ -20,10 +20,10 @@
 // warp take very different step counts. The table is small against the
 // 50 MB L2 (187,832 rows = 6 MB at 1024^3).
 //
-// Design: one thread per ray at a time, on a persistent grid
-// (lanes.cuh): warps scan the lanes, write the outputs of inactive lanes
-// themselves, and hand only active rays to threads, refilling threads
-// whose rays are done; a thread takes up to kSteps steps between two
+// Design: one thread per ray at a time (the walker in svo_walk.cuh, which
+// K9 shares), on a persistent grid (lanes.cuh): warps scan the lanes,
+// write the outputs of inactive lanes themselves, and hand only active
+// rays to threads, refilling threads whose rays are done; a thread takes up to kSteps steps between two
 // looks at its warp. Per-level geometry is recomputed from the three
 // bit-words (~20 flops) instead of being stacked, so the only per-level
 // state is the node stack, which lives in shared memory laid out
@@ -36,180 +36,75 @@
 #include <stdint.h>
 
 #include "lanes.cuh"
+#include "svo_walk.cuh"
 
 namespace {
 
-constexpr float kEps = 1.0e-6f;  // raytrace.wgsl:53
 constexpr int kThreads = 128;
 constexpr int kSteps = 8;  // steps between two looks at the warp's idle threads
 
-struct SvoRay {
-  // launch-wide
-  const int* __restrict__ table;
-  const float* __restrict__ origin;
-  const float* __restrict__ dir;
-  const float* __restrict__ distance;
+// the walk's inputs of lane i from device memory, its outputs written back
+struct SvoIo {
+  const float* __restrict__ origin_in;
+  const float* __restrict__ dir_in;
+  const float* __restrict__ distance_in;
   bool* __restrict__ hit_out;
   float* __restrict__ t_out;
   int* __restrict__ node_out;
   float* __restrict__ normal_out;
   int* __restrict__ voxel_out;
-  int* stk;  // this thread's node stack: level l at stk[l * stride]
-  int stride, root, H, skip_t0;
-  // the ray in flight
-  int i, h, axis, mirror, pos;
-  int words[3];
-  float s0[3], inv[3];
-  float dist, t;
+  int i;
+
+  __device__ __forceinline__ float origin(int a) const {
+    return __ldg(origin_in + 3 * i + a);
+  }
+  __device__ __forceinline__ float dir(int a) const {
+    return __ldg(dir_in + 3 * i + a);
+  }
+  __device__ __forceinline__ float distance() const {
+    return __ldg(distance_in + i);
+  }
+  __device__ __forceinline__ void finish(bool hit, float t, int node,
+                                         const float* normal,
+                                         const int* vox) {
+    hit_out[i] = hit;
+    t_out[i] = t;
+    node_out[i] = node;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      normal_out[3 * i + a] = normal[a];
+      voxel_out[3 * i + a] = vox[a];
+    }
+  }
+};
+
+// the lane-fetch face of the walk (lanes.cuh)
+struct SvoRay {
+  voxt::SvoWalk<SvoIo> w;
 
   __device__ __forceinline__ void skip(int base, unsigned lanes) {
     const int lane = threadIdx.x & 31;
     if ((lanes >> lane) & 1u) {
-      hit_out[base + lane] = false;
-      t_out[base + lane] = 0.0f;
-      node_out[base + lane] = -1;
+      w.io.hit_out[base + lane] = false;
+      w.io.t_out[base + lane] = 0.0f;
+      w.io.node_out[base + lane] = -1;
     }
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
       const int e = lane + 32 * r;  // element of the 32 lanes' (32, 3) rows
       if ((lanes >> (e / 3)) & 1u) {
-        normal_out[3 * base + e] = 0.0f;
-        voxel_out[3 * base + e] = 0;
+        w.io.normal_out[3 * base + e] = 0.0f;
+        w.io.voxel_out[3 * base + e] = 0;
       }
-    }
-  }
-
-  __device__ __forceinline__ void finish(bool hit, float hit_t, int hit_node,
-                                         int hit_axis, const int* vox) {
-    hit_out[i] = hit;
-    t_out[i] = hit_t;
-    node_out[i] = hit_node;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float sgn = ((pos >> a) & 1) ? 1.0f
-                                         : (((mirror >> a) & 1) ? -1.0f : 0.0f);
-      normal_out[3 * i + a] = (hit_axis == a ? -sgn : 0.0f) * (hit ? 1.0f : 0.0f);
-      voxel_out[3 * i + a] = vox[a];
     }
   }
 
   __device__ __forceinline__ bool start(int lane_index) {
-    i = lane_index;
-    const float bound = (float)(1 << H);
-    mirror = 0;
-    pos = 0;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float d = __ldg(dir + 3 * i + a);
-      const float s = __ldg(origin + 3 * i + a);
-      const bool flip = d < 0.0f;
-      pos |= (int)(d > 0.0f) << a;
-      mirror |= (int)flip << a;
-      inv[a] = 1.0f / fmaxf(fabsf(d), kEps);
-      s0[a] = flip ? bound - s : s;
-    }
-    dist = __ldg(distance + i);
-
-    float enter[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) enter[a] = -s0[a] * inv[a];
-    t = fmaxf(fmaxf(fmaxf(enter[0], enter[1]), enter[2]), 0.0f);
-    axis = enter[0] == t ? 0 : (enter[1] == t ? 1 : (enter[2] == t ? 2 : 3));
-
-    float tend_root = fminf(fminf((bound - s0[0]) * inv[0],
-                                  (bound - s0[1]) * inv[1]),
-                            (bound - s0[2]) * inv[2]);
-    tend_root = fminf(tend_root, dist);
-    const float half_root = (float)(1 << (H - 1));
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-      words[a] = (int)(((half_root - s0[a]) * inv[a]) < t) << (H - 1);
-
-    if (!(root >= 0 && tend_root >= t)) {
-      const int vox[3] = {0, 0, 0};
-      finish(false, 0.0f, -1, 3, vox);
-      return false;
-    }
-    for (int l = 0; l < H; ++l) stk[l * stride] = -1;
-    stk[H * stride] = root;
-    h = H - 1;
-    return true;
+    w.io.i = lane_index;
+    return w.begin();
   }
 
-  __device__ __forceinline__ bool step() {
-    const bool descend = stk[h * stride] == -1;
-    const int low_mask = (1 << h) - 1;
-    int off_i[3];
-    float tmid[3], tend_ax[3];
-    const float cell = ldexpf(1.0f, h);  // 2^h exactly
-    const float mid = cell * 0.5f;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      off_i[a] = words[a] & ~low_mask;
-      const float offset = (float)off_i[a];
-      tmid[a] = (offset + mid - s0[a]) * inv[a];
-      tend_ax[a] = (offset + cell - s0[a]) * inv[a];
-    }
-    const float tend =
-        fminf(fminf(fminf(tend_ax[0], tend_ax[1]), tend_ax[2]), dist);
-
-    if (descend) {
-      // the child octant of the parent cell (one node-row read)
-      const int parent = stk[(h + 1 <= H ? h + 1 : H) * stride];
-      int child_idx = 0;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) child_idx |= ((words[a] >> h) & 1) << a;
-      child_idx ^= mirror;
-      const int child = parent >= 0 ? __ldg(table + parent * 8 + child_idx) : -1;
-      if (child == -1) {
-        h += 1;  // pop
-      } else if (h == 0) {
-        if (skip_t0 && t == 0.0f) {
-          h += 1;  // camera inside a solid: skip the hit at t == 0
-        } else {
-          int vox[3];
-#pragma unroll
-          for (int a = 0; a < 3; ++a)
-            vox[a] = ((mirror >> a) & 1) ? (1 << H) - off_i[a] - 1 : off_i[a];
-          finish(true, t, child, axis, vox);
-          return false;
-        }
-      } else {
-        // push: the child's subvoxel bits (tmid < t) go to word bit h-1
-        const int bit = 1 << (h - 1);
-#pragma unroll
-        for (int a = 0; a < 3; ++a)
-          words[a] = (words[a] & ~bit) | (tmid[a] < t ? bit : 0);
-        stk[h * stride] = child;
-        stk[(h - 1) * stride] = -1;
-        h -= 1;
-      }
-    } else {
-      // advance: the next midplane crossing, or leave the cell
-      const int hm1 = h - 1 > 0 ? h - 1 : 0;
-      float t_next[3];
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-        t_next[a] = ((words[a] >> hm1) & 1) ? tend : tmid[a];
-      const float m = fminf(fminf(t_next[0], t_next[1]), t_next[2]);
-      if (m == tend) {
-        h += 1;  // pop
-      } else {
-        const int ax = t_next[0] == m ? 0 : (t_next[1] == m ? 1 : 2);
-#pragma unroll
-        for (int a = 0; a < 3; ++a)
-          if (a == ax) words[a] |= 1 << hm1;
-        t = m;
-        axis = ax;
-        stk[hm1 * stride] = -1;
-        h -= 1;
-      }
-    }
-    if (h <= H) return true;
-    const int vox[3] = {0, 0, 0};
-    finish(false, 0.0f, -1, 3, vox);
-    return false;
-  }
+  __device__ __forceinline__ bool step() { return w.step(); }
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -224,20 +119,20 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ int smem[];
   const int warps = blockDim.x >> 5;
   SvoRay ray;
-  ray.table = table;
-  ray.origin = start;
-  ray.dir = dir;
-  ray.distance = distance;
-  ray.hit_out = hit_out;
-  ray.t_out = t_out;
-  ray.node_out = node_out;
-  ray.normal_out = normal_out;
-  ray.voxel_out = voxel_out;
-  ray.stk = smem + warps * voxt::kQueue + threadIdx.x;
-  ray.stride = blockDim.x;
-  ray.root = root;
-  ray.H = H;
-  ray.skip_t0 = skip_t0;
+  ray.w.table = table;
+  ray.w.stk = smem + warps * voxt::kQueue + threadIdx.x;
+  ray.w.stride = blockDim.x;
+  ray.w.root = root;
+  ray.w.H = H;
+  ray.w.skip_t0 = skip_t0;
+  ray.w.io.origin_in = start;
+  ray.w.io.dir_in = dir;
+  ray.w.io.distance_in = distance;
+  ray.w.io.hit_out = hit_out;
+  ray.w.io.t_out = t_out;
+  ray.w.io.node_out = node_out;
+  ray.w.io.normal_out = normal_out;
+  ray.w.io.voxel_out = voxel_out;
   voxt::run_lanes<kSteps>(
       lanes, smem + (threadIdx.x >> 5) * voxt::kQueue, ray);
 }

@@ -22,7 +22,15 @@ Every bounce draws 11 random3 values per lane, masks or not:
 raycast_planet 3 + sample_sun 2 + raycast_planet 3 + cos_hemisphere 2 +
 roulette 1 (integrator.py:548-553 of the JAX package).
 
-The bounce loop is masked, as the JAX package's uncompacted loop: every
+On the card ``trace_paths`` is kernel K9 (csrc/path_trace.cu): one
+thread a path runs its bounces with the walks of K1, K2 and K4 as device
+functions, and a second pass burns the draws of the bounces each path
+skipped, so radiance and RNG state are the masked loop's bit for bit.
+The masked loop, ``trace_paths_plain``, is K9's plain version: the CPU
+runs it, and so does the card for the two opt-in engines (sun maps on
+the unedited heightfield, the bit grid).
+
+The masked loop is the JAX package's uncompacted loop: every
 lane runs every bounce, the ``alive`` mask gates what a finished path
 may change, and the loop ends early once no lane is alive. The casts
 skip the lanes whose results no live path reads: the SVO casts take
@@ -49,6 +57,10 @@ ray's walk in certified air (K5 then K4): again the same first hit.
 
 from __future__ import annotations
 
+import ctypes
+import os
+
+import numpy as np
 import torch
 
 from voxtracer_torch.core import camera as vcam
@@ -58,15 +70,61 @@ from voxtracer_torch.core.sampling import (COS_SUN_RADIUS, PI, SUN_COLOR,
                                            SUN_WEIGHT)
 from voxtracer_torch.core.spectra import fog_density, spectral_throughput
 from voxtracer_torch.core.vecmath import dot
-from voxtracer_torch.kernels import (atmosphere, beam, bitdda,
+from voxtracer_torch.kernels import (atmosphere, beam, bitdda, build, fog,
                                      heightfield, raster, sunshadow)
-from voxtracer_torch.kernels.traverse import FAR, leaf_rgb, svo_raycast
+from voxtracer_torch.kernels.traverse import (EPS, FAR, MAX_HEIGHT, leaf_rgb,
+                                              svo_raycast)
 
 # most blocked shadow rays block within a few voxels (terrain self-shadow;
 # voxtracer/kernels/integrator.py:176-181), so a cast capped here settles
 # them cheaply and only the open lanes take the full cast
 NEE_NEAR = 8.0
 RR_THRESHOLD = 0.5
+EMISSIVE_GAIN = 10.0
+# VOXT_PT_FUSE=1 turns the fused bounce/NEE on by default (trace_paths
+# fuse_nee=None), as in the JAX package (voxtracer/kernels/integrator.py:
+# 60-67), read once at import. There the fused loop pools each bounce's
+# shadow rays with the next bounce's rays in one walk; its radiance is the
+# unfused loop's bit for bit and its returned state leads by one planet
+# cast's 3 draws (the next bounce's fog event, drawn at the tail of the
+# last iteration). K9 walks each path on one thread, so there are no two
+# populations to pool: here fusing only advances the returned state by
+# those 3 draws, which keeps chained states equal to the JAX package's.
+_FUSE = os.environ.get("VOXT_PT_FUSE", "0") == "1"
+PLANET_DRAWS = 3  # random3 draws of one atmosphere.raycast_planet
+
+launches = 0  # K9 launches since the last reset (chip_smoke reads it)
+# the work of K9's last launch, counted by the kernel on the card (an int64
+# tensor there, read by chip_smoke for the kernel's bound)
+K9_WORK = ("hf_steps", "svo_steps", "fog_segments", "bounces")
+last_work = None
+# K9's lane fetch (csrc/lanes.cuh): a thread claims a new path as soon as
+# its own ends (refill 1: a step is a whole bounce)
+STATIC_PCT, CHUNK, REFILL = 75, 32, 1
+ENGINES = {"hf": 0, "svo": 1, "edited": 2}  # K9's engine codes
+
+
+# K9's float32 constants, in csrc/path_trace.cu's PathConsts order: each
+# is the float the plain version rounds its Python expression to (a
+# constant expression folded in double, then rounded once)
+_K9_CONSTS = np.array([
+    FAR, NEE_NEAR, COS_SUN_RADIUS, 1.0 - COS_SUN_RADIUS, PI, SUN_WEIGHT,
+    SUN_COLOR, sampling.brdf(None, None, None),
+    sampling.brdf(None, None, None) * PI, RR_THRESHOLD, 1.0 / RR_THRESHOLD,
+    EMISSIVE_GAIN, EPS, fog.PLANET_R_F, fog.PLANET_R2_F, fog.FOG_R2_F,
+    fog.FOG_FACTOR_F, *atmosphere.GROUND_RGBA, *atmosphere.FOG_RGBA,
+], dtype=np.float32)
+
+
+def _fuses(fuse_nee, hf_mips, hf_edit_bounds, sun_maps, bitworld,
+           wavelength) -> bool:
+    """JAX's condition for the fused bounce/NEE: asked for (or
+    VOXT_PT_FUSE), on the unedited heightfield, without sun maps or the
+    bit grid."""
+    return bool((_FUSE if fuse_nee is None else fuse_nee)
+                and hf_mips is not None and hf_edit_bounds is None
+                and sun_maps is None and bitworld is None
+                and wavelength.dim() >= 1)
 
 
 def trace_paths(table, root: int, height: int, lut, start, direction,
@@ -74,8 +132,186 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
                 fog_steps: int = 64, primary=None, hf_mips=None,
                 hf_offsets: tuple | None = None, terrain_rgb=None,
                 hf_edit_bounds=None, sun_maps=None, bitworld=None,
-                bit_size: int = 0):
+                bit_size: int = 0, fuse_nee: bool | None = None):
     """Trace one spectral path per ray; returns (state, radiance (..., 3)).
+
+    Routes by the arguments: on CUDA tensors K9 (csrc/path_trace.cu)
+    traces the SVO, heightfield and edited-heightfield engines, one thread
+    a path; with sun maps on the unedited heightfield, or with the bit
+    grid, the masked loop ``trace_paths_plain`` runs around K4 or K8; on
+    CPU tensors the masked loop always. Any other device raises. Both
+    give the same radiance and state bit for bit. ``fuse_nee``: the fused
+    bounce/NEE (``_FUSE``, JAX's conditions in ``_fuses``): the same
+    radiance, the returned state 3 draws ahead. Arguments as
+    ``trace_paths_plain``.
+    """
+    dev = direction.device
+    if dev.type == "cuda" and (hf_edit_bounds is not None or hf_mips is None):
+        sun_maps = None  # the maps prove pre-edit walks only
+    if dev.type == "cpu" or (dev.type == "cuda" and (
+            bitworld is not None or sun_maps is not None)):
+        return trace_paths_plain(
+            table, root, height, lut, start, direction, wavelength, sun,
+            state, max_bounces, fog_steps, primary, hf_mips, hf_offsets,
+            terrain_rgb, hf_edit_bounds, sun_maps, bitworld, bit_size,
+            fuse_nee)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_paths: unsupported device {dev}")
+    fuse = _fuses(fuse_nee, hf_mips, hf_edit_bounds, sun_maps, bitworld,
+                  wavelength)
+    return _trace_paths_k9(table, root, height, lut, start, direction,
+                           wavelength, sun, state, max_bounces, fog_steps,
+                           primary, hf_mips, hf_offsets, terrain_rgb,
+                           hf_edit_bounds, PLANET_DRAWS if fuse else 0)
+
+
+def _k9_input(name, x, shape, dtype, dev, move=False):
+    """``x`` as a contiguous ``dtype`` tensor of ``shape`` on ``dev``; a
+    per-path input must already lie there, a small one (``move``) is
+    copied there."""
+    if isinstance(x, torch.Tensor) and x.device != dev and not move:
+        raise ValueError(f"trace_paths: {name} lies on {x.device}, not {dev}")
+    x = torch.as_tensor(x, device=dev)
+    return x.to(dtype).expand(shape).contiguous()
+
+
+def _trace_paths_k9(table, root, height, lut, start, direction, wavelength,
+                    sun, state, max_bounces, fog_steps, primary, hf_mips,
+                    hf_offsets, terrain_rgb, hf_edit_bounds, extra_draws):
+    """K9 and its burn pass on the card, with ``extra_draws`` more draws
+    on every path's state."""
+    global launches, last_work
+    dev = direction.device
+    if max_bounces < 1 or direction.numel() == 0:  # the draws only
+        for _ in range(extra_draws):
+            state = vrng.pcg3d(state)
+        return state, torch.zeros(direction.shape, dtype=torch.float32,
+                                  device=dev)
+    args, outs = k9_args(table, root, height, lut, start, direction,
+                         wavelength, sun, state, max_bounces, fog_steps,
+                         primary, hf_mips, hf_offsets, terrain_rgb,
+                         hf_edit_bounds, extra_draws)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        err = lib.voxt_path_trace(*args,
+                                  torch.cuda.current_stream().cuda_stream)
+    build.check(err, "trace_paths")
+    launches += 1
+    last_work = outs[3][-1]
+    return k9_result(outs)
+
+
+def k9_args(table, root, height, lut, start, direction, wavelength, sun,
+            state, max_bounces, fog_steps, primary, hf_mips, hf_offsets,
+            terrain_rgb, hf_edit_bounds, extra_draws,
+            fetch=(STATIC_PCT, CHUNK, REFILL)):
+    """The inputs of K9's C entry ``voxt_path_trace`` but its stream, on
+    ``direction``'s device, and its outputs (color, state, batch shape)
+    for ``k9_result``. Checks what the kernel does not take."""
+    dev = direction.device
+    batch = direction.shape[:-1]
+    B = direction.numel() // 3
+    if B > build.MAX_LANES:
+        raise ValueError(f"trace_paths: {B} paths > {build.MAX_LANES}")
+    if not 0 <= fog_steps <= fog.MAX_STEPS:
+        raise ValueError(f"trace_paths: fog_steps {fog_steps} outside "
+                         f"0..{fog.MAX_STEPS}")
+    f32 = torch.float32
+    if hf_mips is None:
+        engine = "svo"
+    elif hf_edit_bounds is None:
+        engine = "hf"
+    else:
+        engine = "edited"
+    if engine != "hf" and height > MAX_HEIGHT:
+        raise ValueError(f"trace_paths: height {height} > {MAX_HEIGHT}, the "
+                         "SVO walk's node stack limit")
+    if table.device != dev or table.dtype != torch.int32 \
+            or table.dim() != 2 or table.shape[1] != 8 \
+            or not table.is_contiguous():
+        raise ValueError("trace_paths: table must be a contiguous int32 "
+                         f"(N, 8) tensor on {dev}")
+    pos = _k9_input("start", start, direction.shape, f32, dev).reshape(B, 3)
+    d = _k9_input("direction", direction, direction.shape, f32,
+                  dev).reshape(B, 3)
+    density = fog_density(wavelength).reshape(B).contiguous()
+    light = spectral_throughput(lut, wavelength).reshape(B, 3).contiguous()
+    # the uint32 bits as int32: values from 2^31 up less 2^32
+    st = _k9_input("state", state, batch + (3,), torch.int64, dev)
+    state_in = torch.where(st >= 1 << 31, st - (1 << 32), st) \
+        .to(torch.int32).reshape(B, 3)
+    sun_t = _k9_input("sun", sun, (3,), f32, dev, move=True)
+    tiles = rows = hmax_w = trgb = boxes = None
+    tile_log = levels = n_boxes = 0
+    if engine != "svo":
+        if hf_mips.device != dev or hf_mips.dtype != f32 \
+                or not hf_mips.is_contiguous() or hf_mips.dim() != 2 \
+                or hf_mips.shape[1] != (1 << hf_offsets[0]) ** 2:
+            raise ValueError("trace_paths: hf_mips must be a contiguous "
+                             f"float32 (R, TS*TS) tensor on {dev}")
+        if hf_offsets[0] not in heightfield.TILE_LOGS \
+                or len(hf_offsets) - 1 > heightfield.MAX_LEVELS \
+                or height > 30 or hf_mips.numel() >= 1 << 31:
+            raise ValueError("trace_paths: the heightfield pack does not "
+                             "fit the kernel")
+        tiles, tile_log, levels = hf_mips, hf_offsets[0], len(hf_offsets) - 1
+        rows = heightfield.row_starts(hf_offsets, dev)
+        hmax_w = heightfield.terrain_max(hf_mips, hf_offsets)
+        trgb = _k9_input("terrain_rgb", terrain_rgb, (3,), f32, dev,
+                         move=True)
+    if engine == "edited":
+        boxes = torch.as_tensor(hf_edit_bounds, dtype=f32, device=dev)
+        boxes = boxes.reshape(-1, 2, 3).contiguous()
+        n_boxes = boxes.shape[0]
+    prim = (None,) * 4
+    if primary is not None:
+        prim = (_k9_input("primary hit", primary["hit"], batch, torch.bool,
+                          dev),
+                _k9_input("primary t", primary["t"], batch, f32, dev),
+                _k9_input("primary normal", primary["normal"], batch + (3,),
+                          f32, dev),
+                _k9_input("primary rgb", primary["rgb"], batch + (3,), f32,
+                          dev))
+    color = torch.empty((B, 3), dtype=f32, device=dev)
+    state_out = torch.empty((B, 3), dtype=torch.int32, device=dev)
+    last = torch.empty((B,), dtype=torch.int32, device=dev)
+    # the batch's last bounce (0 at launch) and the lane-fetch counter
+    scratch = torch.zeros((2,), dtype=torch.int32, device=dev)
+    work = torch.zeros((len(K9_WORK),), dtype=torch.int64, device=dev)
+    keep = (pos, d, density, light, state_in, sun_t, rows, hmax_w, trgb,
+            boxes, prim, last, scratch, work)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    args = (_K9_CONSTS.ctypes.data_as(ctypes.c_void_p), _K9_CONSTS.size,
+            ENGINES[engine], ptr(tiles), tile_log, levels, ptr(rows),
+            ptr(hmax_w), table.data_ptr(), int(root), int(height),
+            ptr(boxes), n_boxes, ptr(trgb), sun_t.data_ptr(), pos.data_ptr(),
+            d.data_ptr(), light.data_ptr(), density.data_ptr(),
+            state_in.data_ptr(), *(ptr(x) for x in prim), color.data_ptr(),
+            state_out.data_ptr(), last.data_ptr(), scratch[0:1].data_ptr(),
+            work.data_ptr(), B, int(max_bounces), int(fog_steps),
+            int(extra_draws),
+            scratch[1:2].data_ptr(), *fetch)
+    return args, (color, state_out, batch, keep)
+
+
+def k9_result(outs):
+    """(state (..., 3) int64, radiance (..., 3)) from K9's outputs."""
+    color, state_out, batch, _ = outs
+    state = state_out.to(torch.int64) & vrng.MASK
+    return state.reshape(batch + (3,)), color.reshape(batch + (3,))
+
+
+def trace_paths_plain(table, root: int, height: int, lut, start, direction,
+                      wavelength, sun, state, max_bounces: int = 24,
+                      fog_steps: int = 64, primary=None, hf_mips=None,
+                      hf_offsets: tuple | None = None, terrain_rgb=None,
+                      hf_edit_bounds=None, sun_maps=None, bitworld=None,
+                      bit_size: int = 0, fuse_nee: bool | None = None):
+    """K9's plain version, the masked bounce loop on any device: trace one
+    spectral path per ray; returns (state, radiance (..., 3)).
 
     table/root/height: the node table (kernels.traverse conventions);
     lut: (L, 3) wavelength -> linear RGB; start: (..., 3) ray origins
@@ -97,8 +333,12 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
     world's packed occupancy pyramid (``BitGrid.to_device``) and edge:
     bounce and shadow casts then take the bit-grid DDA (K8), hits coloured
     from the node table (``bitdda.svo_color_at``); as in the JAX package it
-    comes before the heightfield for those casts.
+    comes before the heightfield for those casts. ``fuse_nee``: as
+    ``trace_paths``; the loop below is the unfused one, and the fused
+    state is its state advanced by one more planet cast's draws.
     """
+    fuse = _fuses(fuse_nee, hf_mips, hf_edit_bounds, sun_maps, bitworld,
+                  wavelength)
     use_hf = hf_mips is not None
     if hf_edit_bounds is not None:
         sun_maps = None
@@ -226,6 +466,9 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
         alive = live_hit & (~rr_active | survive)
         if not bool(alive.any()):
             break
+    if fuse:  # the fused loop's one more fog event, drawn at its tail
+        for _ in range(PLANET_DRAWS):
+            state = vrng.pcg3d(state)
     return state, color
 
 

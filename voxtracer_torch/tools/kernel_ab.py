@@ -77,7 +77,8 @@ OLD_RESOLVE_FOLD = (_P, _P, _P, _P, _P, _L, _P, _F, _F, _F, _F, _F,
 # far, t_min, stream
 OLD_SKY_TMIN = (_P, _I, _I, _P, _I, _F, _F, _F, _F, _P, _P)
 KERNEL_NAMES = ("svo_cast_kernel", "fog_march_kernel", "resolve_fold_kernel",
-                "hf_cast_kernel", "sky_tmin_kernel")
+                "hf_cast_kernel", "sky_tmin_kernel", "path_trace_kernel",
+                "path_burn_kernel")
 # (ray tile, spans) of the resolve fold; 0 is the launcher's own choice
 FOLD_SWEEP = [(0, 0)] + [(rt, sp) for rt in (2, 4) for sp in (1, 2, 4, 8, 16)]
 
