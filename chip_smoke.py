@@ -10,7 +10,7 @@ Phases, each printing its lines; any failure exits non-zero:
 2. build: compiles kernels K1 (fog march), K2 (SVO cast), K3 (resolve
    fold), K4 (heightfield walk), K5 (the horizon envelope's per-ray
    t_min), K6 (beam walk), K7 (beam resolve), K8 (bit-grid DDA) and K9
-   (the bounce loop, with its burn pass) from
+   (the bounce loop: its stage kernels and burn pass) from
    voxtracer_torch/kernels/csrc with
    nvcc, one process per source, loads them, and prints ptxas's
    registers, stack frame and spills for each; compiles the native world
@@ -162,13 +162,21 @@ Phases, each printing its lines; any failure exits non-zero:
    on the edited heightfield (in 7), and the 8192^3 main path (in 8).
    At each, K9 against trace_paths_plain (the masked loop on K1, K2 and
    K4): the returned state by bits in every lane, the radiance by bits
-   (lanes that differ, up to GRAZE_SHARE, printed with their values);
-   ms of the trace_paths call and of the whole batch-8 call, K9 and the
-   masked loop in turns; a profile of the call with each (wall, device
-   busy ms and share, device events, K9's own ms); K9's bound from its
-   own count of walk steps, fog segments and bounces. After 8, ptxas's
-   registers and spills for each of K9's entries and a line per
-   configuration.
+   (lanes that differ, up to GRAZE_SHARE, printed with their values),
+   the K9 call made under torch.cuda.set_sync_debug_mode("error") so
+   that a host read inside it fails the run; ms of the trace_paths call
+   and of the whole batch-8 call, K9 and the masked loop in turns, and
+   the host time K9 takes to enqueue its launches; a profile of the call
+   with each (wall, device busy ms and share, device events, K9's own ms
+   and each of its stage kernels' ms and launches, 6 x bounces + 2
+   launches, 8 x bounces + 2 on the edited engine); K9's own counts read
+   after the timed window: queue lengths by bounce, the share of bounce
+   and sun marches the scatter-free test settled, segments marched
+   against those the marches define, and from one more call with stats
+   on each lane-fetch stage's SIMT efficiency; K9's bound from its counts of
+   walk steps, segments, tests, bounces and state bytes, and PR 12's
+   definition of it. After 8, ptxas's registers and spills for each of
+   K9's stage kernels and a line per configuration.
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -216,6 +224,27 @@ K5_RAY_OPS, K5_STEP_OPS = 50, 2
 # walk setups 120, the planet normal, NEE, emissive, bounce and roulette
 # terms ~75
 K9_BOUNCE_OPS = 760
+# the scatter-free test of one march (fog_walk.cuh, scatter_bound), in
+# float64: 3 square roots, 3 exponentials, 2 expm1 and 3 divisions (~20-25
+# operations each) and ~40 products, sums and comparisons
+K9_CERT_OPS = 300
+# the card's float64 rate outside the tensor cores (H100 SXM data sheet)
+FP64_OPS_PER_S = 34e12
+# bytes of path state K9's stages move for one path (counted in
+# path_trace.cu: each field read or written once, a queue entry 4 B): the
+# bounce kernel ends a bounce and starts the next (reads flags, light,
+# colour, normal, sun direction, direction, state, rgba; writes light,
+# colour, direction, state; reads state, position, direction, density,
+# writes state and (code, t) or y0; a queue entry in, one or two out);
+# the cast (its entry, position, direction, (code, t) in; the world hit,
+# t, normal and albedo out) and, for the same entries, the shade kernel
+# (the world hit, position, direction, state, (code, t), density in;
+# position, normal, sun direction, state, rgba, flags and y0 out, two
+# appends); a march (its entry, position, direction, density, y0 in,
+# (code, t) or a flag out); the shadow cast (its entry, position, sun
+# direction, a flag read and written); the edited engine's re-casts as
+# the cast and the shadow cast
+K9_STATE_BYTES = dict(bounce=212, cast=68, shade=168, march=44, shadow=36)
 # the cone prefix (plain PyTorch, kernels/conemarch.py) per bundle a march
 # step: the cell and its exits ~20, the fit and level tests ~15, the
 # gather's index ~8, the clearance and selects ~10
@@ -341,15 +370,62 @@ def _fog_segments(start, d, density, y0, n_steps, active=None):
     return total
 
 
+def _fog_settled(start, d, density, y0, n_steps):
+    """The lanes whose march fog_walk.cuh's scatter-free test settles: its
+    bound D (scatter_bound) in float64 from the march's own float32 span,
+    against y0 (1 - 2^-15). For counting work only (torch's float64
+    libm and the card's may part on a lane at the margin)."""
+    import torch
+
+    from voxtracer_torch.core.vecmath import div
+    from voxtracer_torch.kernels import fog
+
+    t0, t1, valid, _, (px, pyr, pz) = fog._sphere_span(start, d)
+    ds = (div(t1 - t0, float(n_steps)) * density).double()
+    f64 = lambda x: x.double()  # noqa: E731
+    P = torch.stack([f64(px), f64(pyr), f64(pz)], -1)
+    D = f64(d)
+    T0, T1 = f64(t0), f64(t1)
+    R, ff, n = fog.PLANET_R_F, fog.FOG_FACTOR_F, float(n_steps)
+    pn = P.norm(dim=-1)
+    dd = (D * D).sum(-1)
+    M = 2.0 ** -19 * (pn + T1 * dd.sqrt() + R)
+    pd = (P * D).sum(-1)
+    tc = torch.minimum(torch.maximum(torch.where(dd > 0, -pd / dd, 0.0), T0),
+                       T1)
+    a_min = (P + D * tc[..., None]).norm(dim=-1) - R - M
+    a_max = pn + T1 * dd.sqrt() - R + M
+    arg_max = ff * torch.maximum(a_min.abs(), a_max.abs())
+    G = n * torch.exp(-ff * a_min)
+    mu = pd / pn
+    x = ff * mu * ((T1 - T0) / n)
+    lead = -ff * (pn - R - M + mu * T1)
+    geo = torch.where(x == 0, n * torch.exp(lead),
+                      torch.exp(lead + x) * (torch.expm1(n * x)
+                                             / torch.expm1(x)))
+    G = torch.where((pn > 0) & (geo < G), geo, G)
+    bound = ds * G * (1.0 + 2.0 ** -20) * torch.exp(2.0 ** -23 * arg_max)
+    return valid & (n_steps > 0) & (ds >= 0) & (-ff * a_min <= 64.0) \
+        & (f64(y0) * (1.0 - 2.0 ** -15) > bound)
+
+
 def _fog_bound(args, n_steps, active):
-    """K1's bound for these rays: (ms, by, segments). Every lane's outputs
-    (8 B) and mask byte; the inputs (40 B) and the march of active lanes."""
+    """K1's bound for these rays: (ms, by, segments, settled lanes). Every
+    lane's outputs (8 B) and mask byte; the inputs (40 B) and, of the
+    active lanes, the scatter-free test (float64) and the march of those
+    it does not settle."""
     B = args[0].shape[0]
     n_act = B if active is None else int(active.sum())
-    segs = _fog_segments(*args, n_steps=n_steps, active=active)
+    settled = _fog_settled(*args, n_steps)
+    if active is not None:
+        settled = settled & active
+    marched = ~settled if active is None else active & ~settled
+    segs = _fog_segments(*args, n_steps=n_steps, active=marched)
+    n_set = int(settled.sum())
     ms, by = _bound(B * (8 + (0 if active is None else 1)) + n_act * 40,
-                    n_act * K1_SETUP_OPS + segs * K1_STEP_OPS)
-    return ms, by, segs
+                    n_act * K1_SETUP_OPS + segs * K1_STEP_OPS
+                    + n_act * K9_CERT_OPS * FP32_OPS_PER_S / FP64_OPS_PER_S)
+    return ms, by, segs, n_set
 
 
 def _masks(rng, B, dev):
@@ -401,9 +477,11 @@ def phase_fog(rng, dev):
                                                active=active), 20)
                 line += f", kernel {ms:.4f} ms"
                 if steps == 64:  # the production march
-                    bound_ms, bound_by, segs = _fog_bound(args, steps, active)
-                    line += (f", {segs} segments marched, bound "
-                             f"{bound_ms:.4f} ms ({bound_by})")
+                    bound_ms, bound_by, segs, n_set = _fog_bound(
+                        args, steps, active)
+                    line += (f", {n_set} marches settled by the "
+                             f"scatter-free test, {segs} segments marched, "
+                             f"bound {bound_ms:.4f} ms ({bound_by})")
                     if active is None:
                         plain_ms = _ms(lambda: fog.fog_march_plain(
                             *args, n_steps=steps), 3)
@@ -416,10 +494,10 @@ def phase_fog(rng, dev):
     for share, active in _masks(rng, WIDE, dev):
         _check_fog(f"B={WIDE} {share}", args, 64, active, rec)
         ms = _ms(lambda: fog.fog_march(*args, n_steps=64, active=active), 10)
-        bound_ms, bound_by, segs = _fog_bound(args, 64, active)
+        bound_ms, bound_by, segs, n_set = _fog_bound(args, 64, active)
         print(f"fog_march B={WIDE} masked {share} n_steps=64: codes and t "
-              f"equal, kernel {ms:.4f} ms, {segs} segments marched, bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
+              f"equal, kernel {ms:.4f} ms, {n_set} marches settled, {segs} "
+              f"segments marched, bound {bound_ms:.4f} ms ({bound_by})")
     return rec
 
 
@@ -1351,8 +1429,8 @@ def _expect_launches(name, counts, on, off=()):
 
 
 def _ptxas_k9():
-    """ptxas's report for K9's entries (path_trace.cu): (entry, registers,
-    stack frame and spills) each."""
+    """ptxas's report for K9's stage kernels and burn pass (path_trace.cu):
+    (entry, registers, stack frame and spills) each."""
     from voxtracer_torch.kernels import build
 
     rows, src, entry, props = [], None, None, None
@@ -1363,11 +1441,12 @@ def _ptxas_k9():
             continue
         elif "Compiling entry function" in line:
             entry = line.split("'")[1]
-            m = re.search(r"path_trace_kernelILi(\d)ELi(\d)E", entry)
-            if m:  # <engine, tile log>: 0 heightfield, 1 SVO, 2 edited
-                entry = f"path_trace_kernel<{m[1]}, {m[2]}>"
-            elif "path_burn_kernel" in entry:
-                entry = "path_burn_kernel"
+            m = re.search(r"(path_[a-z]+_kernel)(I(?:L[ib]\d+E)+E)?", entry)
+            if m:  # template arguments: the engine (0 heightfield, 1 SVO,
+                # 2 edited) and tile log of the walks, the march's sun, the
+                # re-cast's shadow, and the stats build
+                targs = re.findall(r"L[ib](\d+)E", m[2] or "")
+                entry = m[1] + (f"<{', '.join(targs)}>" if targs else "")
         elif "bytes stack frame" in line:
             props = line.strip()
         elif "Used" in line and "registers" in line:
@@ -1398,11 +1477,18 @@ def _capture_call(renderer, cam, sun):
     return seen[0]
 
 
-def _k9_bound(args, kw, work):
+def _k9_bound(args, kw, work, queues):
     """K9's least time for one call: the bytes of its per-path inputs and
-    outputs and of the pack or node table once, and the operations of this
-    run's walk steps, fog segments and bounces (K9's own count)."""
+    outputs, of the pack or node table once, and of the path state its
+    stages move (K9_STATE_BYTES by this run's queue lengths); the
+    float32 operations of this run's walk steps, marched fog segments and
+    bounces, and the float64 ones of its scatter-free tests (K9's own
+    counts). Also PR 12's definition at the same inputs (no state bytes,
+    no tests, every segment the march defines: those marched plus
+    fog_steps for each march the test settled). Returns (ms, bound_by,
+    PR 12's ms, the counts)."""
     B = args[5].numel() // 3
+    fog_steps = int(args[10])
     per_path = 12 * 3 + 4 + 12 + 12 + 12 + 4  # in: pos, dir, light,
     # density, state; out: color, state, last bounce
     if kw.get("primary") is not None:
@@ -1412,34 +1498,107 @@ def _k9_bound(args, kw, work):
         nbytes += kw["hf_mips"].numel() * 4
     if kw.get("hf_mips") is None or kw.get("hf_edit_bounds") is not None:
         nbytes += args[0].numel() * 4
-    hf_steps, svo_steps, segs, bounces = (int(x) for x in work.tolist())
-    ops = (hf_steps * K4_STEP_OPS + svo_steps * K2_STEP_OPS
-           + segs * K1_STEP_OPS + bounces * K9_BOUNCE_OPS)
-    return _bound(nbytes, ops) + (dict(hf_steps=hf_steps, svo_steps=svo_steps,
-                                       fog_segments=segs, bounces=bounces),)
+    from voxtracer_torch.kernels import integrator
+
+    w = dict(zip(integrator.K9_WORK, (int(x) for x in work.tolist())))
+    q = queues.sum(0).tolist()  # live, march, sun-march, shadow and the
+    # two re-cast queues' entries
+    walk_ops = (w["hf_steps"] * K4_STEP_OPS + w["svo_steps"] * K2_STEP_OPS
+                + w["bounces"] * K9_BOUNCE_OPS)
+    tests = w["marches"] + w["sun_marches"]
+    ops = (walk_ops + w["fog_segments"] * K1_STEP_OPS
+           + tests * K9_CERT_OPS * FP32_OPS_PER_S / FP64_OPS_PER_S)
+    state = (w["bounces"] * K9_STATE_BYTES["bounce"]
+             + q[0] * (K9_STATE_BYTES["cast"] + K9_STATE_BYTES["shade"])
+             + (q[1] + q[2]) * K9_STATE_BYTES["march"]
+             + (q[3] + q[5]) * K9_STATE_BYTES["shadow"]
+             + q[4] * K9_STATE_BYTES["cast"])
+    defined = w["fog_segments"] + fog_steps * (w["marches_free"]
+                                               + w["sun_marches_free"])
+    old_ms = _bound(nbytes, walk_ops + defined * K1_STEP_OPS)[0]
+    counts = dict(w, state_bytes=state, pr12_segments=defined)
+    return _bound(nbytes + state, ops) + (old_ms, counts)
 
 
 def _k9_profile(fn):
     """profile_call of ``fn``: wall, device busy ms and share, device
-    events, and K9's own device ms (the kernel and its burn pass)."""
-    from voxtracer_torch.tools.kernel_ab import profile_call
+    events, and K9's own device ms and launches (its stage kernels and
+    burn pass) with each kernel's."""
+    from voxtracer_torch.tools.kernel_ab import K9_KERNELS, profile_call
 
     prof = profile_call(fn)
     k = prof["kernels"]
     return dict(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"],
                 busy_share=prof["busy_share"], events=prof["device_events"],
-                k9_ms=k["path_trace_kernel"]["ms"] + k["path_burn_kernel"]["ms"],
-                k9_launches=k["path_trace_kernel"]["launches"])
+                k9_ms=k["path_trace"]["ms"],
+                k9_launches=k["path_trace"]["launches"],
+                stages={name: k[name] for name in K9_KERNELS})
+
+
+def _k9_stats(work, queues, fog_steps):
+    """K9's own counts of one call, as lines: the queue lengths by bounce,
+    the share of the bounce and sun marches the scatter-free test
+    settled, segments marched against those the marches define, and, for
+    a call with stats on, each lane-fetch stage's SIMT efficiency (lane
+    steps over 32 warp steps)."""
+    from voxtracer_torch.kernels import integrator
+
+    w = dict(zip(integrator.K9_WORK, (int(x) for x in work.tolist())))
+    q = queues.tolist()
+    live = [b for b, row in enumerate(q) if row[0] > 0]
+    lines = [f"queue lengths by bounce 0..{live[-1] if live else 0}: "
+             + "; ".join(f"{name} {[row[k] for row in q[:len(live)]]}"
+                         for k, name in enumerate(integrator.K9_QUEUES)
+                         if any(row[k] for row in q))]
+    share = lambda a, b: a / b if b else 0.0  # noqa: E731
+    lines.append(
+        f"scatter-free test settled {w['marches_free']} of {w['marches']} "
+        f"bounce marches ({100 * share(w['marches_free'], w['marches']):.1f}"
+        f"%) and {w['sun_marches_free']} of {w['sun_marches']} sun marches "
+        f"({100 * share(w['sun_marches_free'], w['sun_marches']):.1f}%); "
+        f"fog segments marched {w['fog_segments']} of the "
+        f"{fog_steps * (w['marches'] + w['sun_marches'])} the marches "
+        f"define ({w['fog_segments'] + fog_steps * (w['marches_free'] + w['sun_marches_free'])} "
+        "without the test)")
+    eff = {s: share(w[f"{s}_lane_steps"], 32 * w[f"{s}_warp_steps"])
+           for s in integrator.K9_STAGES if w[f"{s}_warp_steps"]}
+    if eff:
+        lines.append("SIMT efficiency (lane steps / 32 warp steps; stats "
+                     "build): " + ", ".join(
+                         f"{s} {100 * e:.1f}% ({w[f'{s}_lane_steps']} / "
+                         f"{w[f'{s}_warp_steps']})" for s, e in eff.items()))
+    return lines, w, eff
+
+
+def _k9_stats_run(args, kw):
+    """One K9 call with stats on (the stages' lane and warp steps; a
+    slower build, so after the timed window): its work and queues."""
+    import torch
+
+    from voxtracer_torch.kernels import build, integrator
+
+    c_args, outs = integrator.k9_args(*integrator.k9_inputs(args, kw),
+                                      stats=True)
+    err = build.library().voxt_path_trace(
+        *c_args, torch.cuda.current_stream().cuda_stream)
+    build.check(err, "K9 with stats")
+    torch.cuda.synchronize()
+    return outs[3]["work"], outs[3]["counters"]
 
 
 def phase_path_kernel(name, renderer, cam):
     """K9 at one configuration, on the inputs of one batch-8 sample_batch
     call: against the masked loop (trace_paths_plain on K1/K2/K4) with
     the returned state by bits in every lane and the radiance by bits (up
-    to GRAZE_SHARE of the lanes, each counted); ms of the trace_paths call
-    and of the whole sample_batch call with K9 and with the masked loop,
-    in turns; a profile of each call; K9's bound from its own work count.
-    Returns the configuration's record."""
+    to GRAZE_SHARE of the lanes, each counted), the K9 call made with
+    torch's sync debug mode on "error" (a host read inside it raises);
+    ms of the trace_paths call and of the whole sample_batch call with K9
+    and with the masked loop, in turns; a profile of each call with K9's
+    stage kernels' ms and launches; K9's own counts (queue lengths by
+    bounce, the scatter-free test's share, segments, SIMT efficiency of
+    each lane-fetch stage) read after the timed window; K9's bound from
+    them, and PR 12's definition of it. Returns the configuration's
+    record."""
     import torch
 
     from voxtracer_torch.kernels import integrator
@@ -1448,8 +1607,14 @@ def phase_path_kernel(name, renderer, cam):
     args, kw = _capture_call(renderer, cam, sun)
     B = args[5].numel() // 3
     before = integrator.launches
-    st_k, col_k = integrator.trace_paths(*args, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st_k, col_k = integrator.trace_paths(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     work = integrator.last_work.clone()
+    queues = integrator.last_queues.clone()
     st_p, col_p = integrator.trace_paths_plain(*args, **kw)
     torch.cuda.synchronize()
     if integrator.launches != before + 1:
@@ -1463,7 +1628,8 @@ def phase_path_kernel(name, renderer, cam):
         and bool(torch.isfinite(col_k).all()) and float(col_k.sum()) > 0
     print(f"K9 {name}: {B} paths against the masked loop: state differs in "
           f"{state_diff} lanes (budget 0), radiance in {rad_diff} (budget "
-          f"{budget}: GRAZE_SHARE), max abs difference {err:.3e}")
+          f"{budget}: GRAZE_SHARE), max abs difference {err:.3e}; no host "
+          "read (sync debug mode \"error\")")
     if rad_diff:
         idx = torch.nonzero(lanes.reshape(-1)).flatten()[:4].tolist()
         print(f"  differing lanes {idx}: K9 "
@@ -1484,6 +1650,11 @@ def phase_path_kernel(name, renderer, cam):
         ms[who].append(_wall_ms_sync(k9 if who == "K9" else masked)[0])
     k9_ms = _ms(k9, 3)
     plain_ms = _ms(masked, 2)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    k9()
+    host_ms = 1e3 * (time.monotonic() - t0)  # enqueue only: no sync inside
+    torch.cuda.synchronize()
     call = {"K9": [], "masked loop": []}
     prof = {}
     real = integrator.trace_paths
@@ -1498,13 +1669,24 @@ def phase_path_kernel(name, renderer, cam):
                     lambda: renderer.sample_batch(cam, sun, 8))
         finally:
             integrator.trace_paths = real
-    bound_ms, bound_by, counts = _k9_bound(args, kw, work)
+    bound_ms, bound_by, old_bound_ms, counts = _k9_bound(args, kw, work,
+                                                         queues)
+    work_s, queues_s = _k9_stats_run(args, kw)
+    if not (torch.equal(work_s[:8], work[:8])
+            and torch.equal(queues_s[:, :6], queues[:, :6])):
+        raise AssertionError(f"{name}: K9 with stats counted other work")
+    stats, _, eff = _k9_stats(work_s, queues_s, int(args[10]))
     r = lambda xs: [round(x, 2) for x in xs]  # noqa: E731
     print(f"  trace_paths call ms in turns: K9 {r(ms['K9'])}, masked loop "
           f"{r(ms['masked loop'])} (host clock, synchronized); CUDA events "
-          f"K9 {k9_ms:.2f}, masked loop {plain_ms:.2f}; K9's bound "
+          f"K9 {k9_ms:.2f}, masked loop {plain_ms:.2f}; K9's host time to "
+          f"enqueue its launches {host_ms:.2f} ms; K9's bound "
           f"{bound_ms:.3f} ms ({bound_by}; work {counts}) = "
-          f"{100 * bound_ms / k9_ms:.2f}% of its time ({CARD})")
+          f"{100 * bound_ms / k9_ms:.2f}% of its time; PR 12's bound "
+          f"definition {old_bound_ms:.3f} ms = "
+          f"{100 * old_bound_ms / k9_ms:.2f}% ({CARD})")
+    for line in stats:
+        print(f"  {line}")
     print(f"  batch-8 sample_batch call ms in turns: with K9 "
           f"{r(call['K9'])}, with the masked loop {r(call['masked loop'])}")
     for who, p in prof.items():
@@ -1513,25 +1695,35 @@ def phase_path_kernel(name, renderer, cam):
               f"{p['wall_ms']:.1f} ms, device busy {p['busy_ms']:.1f} ms "
               f"({100 * p['busy_share']:.1f}%), {p['events']} device events, "
               f"K9 {p['k9_ms']:.2f} ms / {p['k9_launches']} launches")
-    if prof["K9"]["k9_launches"] != 1 or prof["masked loop"]["k9_launches"]:
-        raise AssertionError(f"{name}: the profiles saw K9 launch "
-                             f"{prof['K9']['k9_launches']} and "
-                             f"{prof['masked loop']['k9_launches']} times")
+    stages = prof["K9"]["stages"]
+    print("  K9's kernels in the profile: " + ", ".join(
+        f"{k} {v['ms']:.3f} ms / {v['launches']}" for k, v in stages.items()))
+    want = integrator.k9_launches(
+        int(args[9]), edited=kw.get("hf_mips") is not None
+        and kw.get("hf_edit_bounds") is not None)
+    if prof["K9"]["k9_launches"] != want or prof["masked loop"]["k9_launches"]:
+        raise AssertionError(f"{name}: the profiles saw K9's kernels launch "
+                             f"{prof['K9']['k9_launches']} (expected {want}) "
+                             f"and {prof['masked loop']['k9_launches']} times")
     return dict(name=name, paths=B, record=dict(
         max_abs_err=err, ms=k9_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None))
+        bound_by=bound_by, library_ms=None), pr12_bound_ms=old_bound_ms,
+        stages=stages, simt=eff, counts=counts)
 
 
 def _path_summary(recs):
-    """K9's ptxas registers and spills, and a line per configuration."""
+    """K9's ptxas registers and spills by stage, and a line per
+    configuration."""
     for entry, regs, props in _ptxas_k9():
         print(f"ptxas K9 {entry}: {regs}; {props}")
     for rec in recs:
         x = rec["record"]
         print(f"K9 summary, {rec['name']}: {x['ms']:.2f} ms a batch-8 call "
               f"({rec['paths']} paths), masked loop {x['plain_ms']:.2f} ms, "
-              f"bound {x['bound_ms']:.3f} ms ({x['bound_by']}), max abs "
-              f"difference {x['max_abs_err']:.3e}")
+              f"bound {x['bound_ms']:.3f} ms ({x['bound_by']}; PR 12's "
+              f"definition {rec['pr12_bound_ms']:.3f}), max abs difference "
+              f"{x['max_abs_err']:.3e}; SIMT efficiency "
+              + ", ".join(f"{k} {100 * v:.1f}%" for k, v in rec["simt"].items()))
 
 
 def phase_main(space, dev):
@@ -1641,7 +1833,8 @@ def _profile(name, renderer, cam, expect):
           f"({100 * prof['busy_share']:.1f}%), {prof['device_events']} "
           f"device events; {per}")
     for k in expect:
-        if prof["kernels"][f"{k}_kernel"]["launches"] <= 0:
+        if prof["kernels"].get(k, prof["kernels"].get(f"{k}_kernel"))[
+                "launches"] <= 0:
             raise AssertionError(f"the profile of the {name} saw no {k} "
                                  "launch")
     return prof
@@ -2055,6 +2248,29 @@ def _against_fresh(name, r, space, cam, sun, budget, dev):
                              "from a fresh one")
 
 
+def _exact_edits(space, cam):
+    """The edit session's heightfield-exact batches, each one edit as a
+    user makes them: top voxels deleted and placed back in terrain
+    colour, column by column (made as the space changes)."""
+    trgb = space.terrain_rgb
+    for k in range(6):
+        cx, cz = _edit_site(space, cam, dx=8 * k)
+        top = int(space.heights[cx, cz])
+        yield [((cx, top - 1, cz), None)]
+        yield [((cx, top - 1, cz), trgb), ((cx, top, cz), trgb)]
+
+
+def _bounds_edits(space, cam):
+    """Then the batches that need bounds boxes (the hybrid cast): a
+    floating white block, a hole under the top, two coloured blocks."""
+    cx, cz = _edit_site(space, cam)
+    top = int(space.heights[cx, cz])
+    yield [((cx, top + 3, cz), (1.0, 1.0, 1.0))]
+    yield [((cx + 1, top - 3, cz), None)]
+    yield [((cx - 1, top + 1, cz), (0.9, 0.2, 0.1)),
+           ((cx - 1, top + 2, cz), (0.9, 0.2, 0.1))]
+
+
 def phase_edits(space, dev):
     """Edits at 1024^3 through Renderer.apply_edits with the soup on
     (module doc, 7); returns the edit-to-preview latencies."""
@@ -2067,7 +2283,6 @@ def phase_edits(space, dev):
     r = Renderer(space.serialize(), WIDTH, HEIGHT, seed=0, device=dev)
     r.preview_frame(cam, sun)  # the soup and pose bins exist: edits patch
     r.sample_batch(cam, sun, 8)
-    trgb = space.terrain_rgb
     lat = []
     part = {}
 
@@ -2101,23 +2316,14 @@ def phase_edits(space, dev):
                     part.get("heightfield", 0.0)))
         return img
 
-    # heightfield-exact: top voxels deleted and placed back, column by
-    # column, each batch one edit as a user makes them
-    for k in range(6):
-        cx, cz = _edit_site(space, cam, dx=8 * k)
-        top = int(space.heights[cx, cz])
-        edit([((cx, top - 1, cz), None)])
-        edit([((cx, top - 1, cz), trgb), ((cx, top, cz), trgb)])
+    for batch in _exact_edits(space, cam):
+        edit(batch)
     if r._hf_bounds() is not None or not space.heights_exact \
             or r._soup is None:
         raise AssertionError("heightfield-exact edits left the pure walk")
     _against_fresh("heightfield-exact", r, space, cam, sun, 0, dev)
-    cx, cz = _edit_site(space, cam)
-    top = int(space.heights[cx, cz])
-    edit([((cx, top + 3, cz), (1.0, 1.0, 1.0))])  # a floating block
-    edit([((cx + 1, top - 3, cz), None)])  # a hole under the top
-    edit([((cx - 1, top + 1, cz), (0.9, 0.2, 0.1)),
-          ((cx - 1, top + 2, cz), (0.9, 0.2, 0.1))])
+    for batch in _bounds_edits(space, cam):
+        edit(batch)
     if r._hf_bounds() is None or r._get_hf()[0] is None:
         raise AssertionError("bounds-tracked edits dropped the hybrid")
     _against_fresh("bounds-tracked", r, space, cam, sun,
@@ -3653,7 +3859,9 @@ def main() -> int:
         dict(name="path_trace", route="cuda",
              source="voxtracer_torch/kernels/csrc/path_trace.cu",
              replaces="voxtracer/kernels/integrator.py:212",
-             launches=full["path_trace"], **main_path["record"]),
+             launches=full["path_trace"], **main_path["record"],
+             stages=[dict(name=k, ms=v["ms"], launches=v["launches"])
+                     for k, v in main_path["stages"].items()]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -39,14 +39,22 @@ candidates and its resumed state over several rounds (with pauses), the
 resolve's five outputs with a shared origin and with one origin a ray,
 and the bit-grid DDA's four outputs with caps and masks.
 
-K9 runs every bounce of a path on one thread with K1's, K2's and K4's
-walks inside. On each of its engines, its returned RNG state must equal
-the masked loop's (trace_paths_plain) by bits in every lane, dead or
-alive, which holds its burn pass; its radiance is held to the golden
-contract (0.5% of values beyond 1e-3, means within 1e-3), since the
-host's expf, logf, sinf and cosf are not torch's; its walk-step counts
-to the plain walks' within 2%; and K9 to itself by bits under every
-lane-fetch setting.
+K9 runs a bounce of every live path as stage kernels over queues of
+paths (the planet draw and the scatter-free test, K1's march, the world
+cast with K2's or K4's walk, the sun march, the shadow cast, the end of
+the bounce), one launch each. On each of its engines, its returned RNG
+state must equal the masked loop's (trace_paths_plain) by bits in every
+lane, dead or alive, which holds its burn pass; its radiance is held to
+the golden contract (0.5% of values beyond 1e-3, means within 1e-3),
+since the host's expf, logf, sinf and cosf are not torch's; its
+walk-step counts to the plain walks' within 2%; its queue lengths to the
+paths' last bounces and its march counts; and K9 to itself by bits
+under every lane-fetch setting.
+
+The scatter-free test of the march (fog_walk.cuh, in K1's begin() and
+K9's stages) is fuzzed against the full march of the same source: every
+lane's (code, t) by bits, its bound above the sum of the segment
+densities, at 1, 64 and 256 segments.
 
 Needs g++ with C++20 (<barrier>); skips without it.
 """
@@ -80,6 +88,7 @@ SHIM = r"""
 #include <vector>
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(...)
@@ -131,6 +140,22 @@ template <class T> T __shfl_xor_sync(unsigned, T v, int mask) {
   t_warp->vals[threadIdx.x & 31] = (unsigned)v;
   t_warp->bar.arrive_and_wait();
   const T r = (T)t_warp->vals[(threadIdx.x & 31) ^ mask];
+  t_warp->bar.arrive_and_wait();
+  return r;
+}
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  t_warp->vals[threadIdx.x & 31] = v;
+  t_warp->bar.arrive_and_wait();
+  unsigned r = 0;
+  for (int j = 0; j < 32; ++j) r += t_warp->vals[j];
+  t_warp->bar.arrive_and_wait();
+  return r;
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  t_warp->vals[threadIdx.x & 31] = v;
+  t_warp->bar.arrive_and_wait();
+  unsigned r = 0;
+  for (int j = 0; j < 32; ++j) r = std::max(r, t_warp->vals[j]);
   t_warp->bar.arrive_and_wait();
   return r;
 }
@@ -277,6 +302,72 @@ BSEARCH_SIGNATURE = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                      ctypes.c_float, ctypes.c_float, ctypes.c_float,
                      ctypes.c_void_p, ctypes.c_void_p)
 
+# The march of fog_walk.cuh three ways, lane by lane: the full march with
+# no scatter-free test, K1's begin() (the test, then the march if it does
+# not settle), and the test's bound D against the sum of the segment
+# densities the march computes (step()'s float expressions, summed in
+# double with y0 infinite). C entry: start, dir, density, y0, n, n_steps,
+# planet_r, planet_r2, fog_r2, fog_factor, code_full, t_full, code_k1,
+# t_k1, settled (1, 0, or -1 where setup() settled the lane), bound, sum
+FOG_CERTIFY = r"""
+#include <cuda_runtime.h>
+#include <math.h>
+#include "fog_walk.cuh"
+extern "C" int voxt_fog_certify(
+    const float* start, const float* dir, const float* density,
+    const float* y0, int n, int n_steps, float planet_r, float planet_r2,
+    float fog_r2, float fog_factor, int* code_full, float* t_full,
+    int* code_k1, float* t_k1, int* settled, double* bound, double* sum) {
+  static float fa[voxt::kFogMaxSteps + 1], fb[voxt::kFogMaxSteps + 1];
+  blockDim.x = 1;
+  threadIdx.x = 0;
+  voxt::fog_fractions(fa, fb, n_steps);
+  voxt::FogWalk base;
+  base.frac_a = fa;
+  base.frac_b = fb;
+  base.n_steps = n_steps;
+  base.planet_r = planet_r;
+  base.planet_r2 = planet_r2;
+  base.fog_r2 = fog_r2;
+  base.fog_factor = fog_factor;
+  for (int i = 0; i < n; ++i) {
+    const float* o = start + 3 * i;
+    const float* d = dir + 3 * i;
+    voxt::FogWalk w = base;
+    settled[i] = -1;
+    bound[i] = NAN;
+    sum[i] = 0.0;
+    if (w.setup(o[0], o[1], o[2], d[0], d[1], d[2], density[i], y0[i])) {
+      settled[i] = w.scatter_free();
+      bound[i] = w.scatter_bound();
+      double acc = 0.0;
+      for (int s = 0; s < n_steps; ++s) {
+        const float t_s1 = fa[s + 1] * w.t0 + fb[s + 1] * w.t1;
+        const float sx = w.px + w.dx * t_s1;
+        const float sy = w.pyr + w.dy * t_s1;
+        const float sz = w.pz + w.dz * t_s1;
+        const float alt = sqrtf(sx * sx + sy * sy + sz * sz) - w.planet_r;
+        acc += (double)(w.density_scaled * expf(-alt * w.fog_factor));
+      }
+      sum[i] = acc;
+      while (w.step()) {
+      }
+    }
+    code_full[i] = w.code;
+    t_full[i] = w.t;
+    voxt::FogWalk k = base;
+    if (k.begin(o[0], o[1], o[2], d[0], d[1], d[2], density[i], y0[i]))
+      while (k.step()) {
+      }
+    code_k1[i] = k.code;
+    t_k1[i] = k.t;
+  }
+  return 0;
+}
+"""
+FOG_CERTIFY_SIGNATURE = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 2 + (
+    ctypes.c_float,) * 4 + (ctypes.c_void_p,) * 7
+
 # lane-fetch settings (static percent, chunk, refill): the wrappers' and
 # the corners
 FETCHES = [(traverse.STATIC_PCT, traverse.CHUNK, traverse.REFILL),
@@ -308,6 +399,7 @@ def host_kernels(tmp_path_factory):
                             "path_trace")}
     sources["resolve_fold"] = fold_src
     sources["sky_bsearch"] = BSEARCH_SKY_TMIN
+    sources["fog_certify"] = FOG_CERTIFY
     for name, (old, new) in FOLD_MUTANTS.items():
         assert fold_src.count(old) == 1, name
         sources[name] = fold_src.replace(old, new)
@@ -331,11 +423,14 @@ def host_kernels(tmp_path_factory):
                         "beam_walk", "beam_resolve", "bit_dda",
                         "path_trace") \
             else ["voxt_sky_tmin"] if name == "sky_bsearch" \
+            else ["voxt_fog_certify"] if name == "fog_certify" \
             else ["voxt_resolve_fold", "voxt_resolve_fold_seg"]
         fns = []
         for entry in entries:
             fn = getattr(lib, entry)
             fn.argtypes = list(BSEARCH_SIGNATURE if name == "sky_bsearch"
+                               else FOG_CERTIFY_SIGNATURE
+                               if name == "fog_certify"
                                else build.SIGNATURES[entry])
             fn.restype = ctypes.c_int
             fns.append(fn)
@@ -756,6 +851,87 @@ def test_fog_march_source_masks_and_schedules_exactly(host_kernels, B,
         assert set(code.tolist()) == {0, 1, 2}
 
 
+def _certify_rays(rng, B):
+    """Fog-march rays of four kinds, a quarter each: starts 0-3000 m up
+    and any direction; near the horizon (vertical component within 1e-2,
+    down to 1e-6); downward; and starts at the fog shell's edge (within
+    1 km inside and out, and on it). Returns (start, dir) float32."""
+    q = B // 4
+    start = np.zeros((B, 3), np.float32)
+    start[:, [0, 2]] = rng.uniform(-5000, 5000, (B, 2))
+    start[:, 1] = rng.uniform(0, 3000, B)
+    d = rng.normal(size=(B, 3))
+    elev = rng.choice([-1, 1], q) * 10.0 ** rng.uniform(-6, -2, q)
+    d[q:2 * q, 1] = elev * np.hypot(d[q:2 * q, 0], d[q:2 * q, 2])
+    d[2 * q:3 * q, 1] = -np.abs(d[2 * q:3 * q, 1]) - 0.01
+    edge = fog.FOG_RADIUS - fog.PLANET_RADIUS
+    start[3 * q:, 1] = edge + rng.choice([-1000.0, -50.0, -1.0, 0.0, 1.0,
+                                          50.0, 1000.0], B - 3 * q)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return start, d.astype(np.float32)
+
+
+def _certify_host(fn, start, d, density, y0, n_steps):
+    B = start.shape[0]
+    outs = [np.zeros(B, np.int32), np.zeros(B, np.float32),
+            np.zeros(B, np.int32), np.zeros(B, np.float32),
+            np.zeros(B, np.int32), np.zeros(B, np.float64),
+            np.zeros(B, np.float64)]
+    ins = [np.ascontiguousarray(x) for x in (start, d, density, y0)]
+    err = fn(*(x.ctypes.data for x in ins), B, n_steps, fog.PLANET_R_F,
+             fog.PLANET_R2_F, fog.FOG_R2_F, fog.FOG_FACTOR_F,
+             *(x.ctypes.data for x in outs))
+    assert err == 0
+    return outs
+
+
+@pytest.mark.parametrize("n_steps", [1, 64, 256])
+def test_fog_scatter_free_test_matches_the_full_march(host_kernels, n_steps):
+    """The scatter-free test of fog_walk.cuh (K1's begin() and K9's
+    stages) against the full march of the same source: every lane's
+    (code, t) by bits, a settled march never scatters, and the bound D
+    covers the sum of the segment densities wherever it is finite. Rays
+    from the ground, near the horizon, downward and at the shell's edge;
+    400 nm, 800 nm and density 0; free paths drawn as the integrator
+    draws them, a quarter just above D and a few far above."""
+    fn = host_kernels["fog_certify"]
+    rng = np.random.default_rng(11 + n_steps)
+    B = 4096
+    start, d = _certify_rays(rng, B)
+    wl = rng.choice(np.float32([0.0, 1.0]), B)
+    density = fog_density(torch.from_numpy(wl)).numpy()
+    density[rng.random(B) < 0.1] = 0.0
+    y0 = (-np.log(np.float32(1) - rng.random(B, np.float32))).astype(
+        np.float32)
+    y0[rng.random(B) < 0.02] = np.float32(1e3)
+    # a quarter of the lanes just above the bound: the least float y0
+    # with y0 (1 - 2^-15) > D
+    bound = _certify_host(fn, start, d, density, y0, n_steps)[5]
+    edge = (rng.random(B) < 0.25) & (bound < 1e38)
+    y_edge = (bound / (1.0 - 2.0 ** -15)).astype(np.float32)
+    low = y_edge.astype(np.float64) * (1.0 - 2.0 ** -15) <= bound
+    y_edge[low] = np.nextafter(y_edge[low], np.float32(np.inf))
+    y0 = np.where(edge, y_edge, y0).astype(np.float32)
+    code_f, t_f, code_k, t_k, settled, bound, total = _certify_host(
+        fn, start, d, density, y0, n_steps)
+    assert np.array_equal(code_k, code_f)
+    assert np.array_equal(t_k.view(np.int32), t_f.view(np.int32))
+    ok = settled == 1
+    assert (code_f[ok] != 2).all()
+    finite = np.isfinite(bound)
+    assert (total[finite] <= bound[finite]).all()
+    # the march's every kind: settled, marched to a scatter, marched
+    # through (with one segment the bound is all but exact, so a march
+    # that does not scatter is settled); settled at both wavelengths, at
+    # density 0 and at the edge
+    assert (code_f == 2).any()
+    if n_steps > 1:
+        assert ((settled == 0) & (code_f != 2)).any()
+    for lanes in (wl == 0, wl == 1, density == 0, edge):
+        assert ok[lanes & (settled >= 0)].any()
+    assert ok[edge].all()
+
+
 def _records(rng, shape, span=56, big=8):
     """Random pair records (..., 8) of boxes in a 64^3 world."""
     lo = rng.integers(0, span, shape + (3,))
@@ -1164,19 +1340,23 @@ def _k9_paths(k9_worlds, engine, B=512, primary=False, seed=9):
     return args, kw, prim
 
 
-def _k9_host(fn, args, kw, prim, extra=0, fetch=None):
-    """K9 and its burn pass through the host build: (state, radiance,
-    each path's last bounce, the kernel's work count)."""
+def _k9_host(fn, args, kw, prim, extra=0, fetch=None, stats=False):
+    """K9's stages and its burn pass through the host build: (state,
+    radiance, each path's last bounce, the work count, and each bounce's
+    queue lengths: live, march, sun-march, shadow, the edited engine's
+    two re-casts). ``stats``: the build that counts SIMT steps."""
     k9_kw = dict(primary=prim, hf_mips=kw.get("hf_mips"),
                  hf_offsets=kw.get("hf_offsets"),
                  terrain_rgb=kw.get("terrain_rgb"),
-                 hf_edit_bounds=kw.get("hf_edit_bounds"), extra_draws=extra)
+                 hf_edit_bounds=kw.get("hf_edit_bounds"), extra_draws=extra,
+                 stats=stats)
     if fetch is not None:
         k9_kw["fetch"] = fetch
     c_args, outs = integrator.k9_args(*args, **k9_kw)
     assert fn(*c_args, None) == 0
     state, color = integrator.k9_result(outs)
-    return state, color, outs[3][11], outs[3][-1]
+    return (state, color, outs[3]["last"], outs[3]["work"],
+            outs[3]["counters"][:, :len(integrator.K9_QUEUES)])
 
 
 def _golden(img, want):
@@ -1190,17 +1370,20 @@ def _golden(img, want):
                                             ("svo", False), ("edited", False)])
 def test_path_trace_source_matches_plain(host_kernels, k9_worlds, engine,
                                          primary, monkeypatch):
-    """K9 on each engine against the masked loop: the returned state by
-    bits in every lane (the burn pass gives every path the draws of the
-    loop's bounces), the radiance under the golden contract (the host's
-    expf, logf, sinf and cosf are not torch's). Some paths miss at bounce
-    0, some die under roulette, some live through every bounce: roulette
-    changes no path's geometry or draws, so the paths that end sooner
-    than with roulette off are the ones it killed."""
+    """K9's stages on each engine against the masked loop: the returned
+    state by bits in every lane (the burn pass gives every path the draws
+    of the loop's bounces), the radiance under the golden contract (the
+    host's expf, logf, sinf and cosf are not torch's). Some paths miss at
+    bounce 0, some die under roulette, some live through every bounce:
+    roulette changes no path's geometry or draws, so the paths that end
+    sooner than with roulette off are the ones it killed. The queues: a
+    bounce's live queue holds the paths that reach it, the march queues
+    the marches the scatter-free test left, the shadow queue live lanes
+    only; every lane-fetch step is a fog segment or a walk step."""
     args, kw, prim = _k9_paths(k9_worlds, engine, primary=primary)
     steps = (heightfield.plain_lane_steps, traverse.plain_lane_steps)
-    st, col, last, work = _k9_host(host_kernels["path_trace"], args, kw,
-                                   prim)
+    st, col, last, work, queues = _k9_host(host_kernels["path_trace"], args,
+                                           kw, prim)
     st_p, col_p = integrator.trace_paths_plain(*args, primary=prim, **kw)
     # the kernel's count of its walk steps: the masked loop's walks take
     # the same steps (up to the paths the host's libm sends elsewhere)
@@ -1211,6 +1394,30 @@ def test_path_trace_source_matches_plain(host_kernels, k9_worlds, engine,
     assert int(work[3]) == int(last.sum()) + len(last)
     assert torch.equal(st, st_p)
     _golden(col, col_p)
+    w = dict(zip(integrator.K9_WORK, work.tolist()))
+    assert queues[:, 0].tolist() == [int((last >= b).sum())
+                                     for b in range(K9_BOUNCES)]
+    assert int(queues[:, 1].sum()) == w["marches"] - w["marches_free"]
+    assert int(queues[:, 2].sum()) == w["sun_marches"] - w["sun_marches_free"]
+    assert (queues[:, 3] <= queues[:, 0]).all() and queues[:, 3].sum() > 0
+    assert (queues[:, 4:].sum() > 0) == (engine == "edited")
+    assert w["marches_free"] > 0 and w["sun_marches_free"] > 0
+    # the stats build: the same outputs and counts, and its SIMT steps
+    # (each a fog segment or a walk step)
+    got = _k9_host(host_kernels["path_trace"], args, kw, prim, stats=True)
+    for g, want in zip(got[:3] + (got[3][:8], got[4]),
+                       (st, col, last, work[:8], queues)):
+        assert np.array_equal(g.numpy().view(np.uint8),
+                              want.numpy().view(np.uint8))
+    assert not work[8:].any()
+    w = dict(zip(integrator.K9_WORK, got[3].tolist()))
+    assert w["march_lane_steps"] + w["sun_march_lane_steps"] \
+        == w["fog_segments"]
+    assert sum(w[f"{s}_lane_steps"] for s in ("cast", "shadow", "recast",
+                                               "shadow_recast")) \
+        == w["hf_steps"] + w["svo_steps"]
+    for stage in integrator.K9_STAGES:
+        assert w[f"{stage}_lane_steps"] <= 32 * w[f"{stage}_warp_steps"]
     consts = integrator._K9_CONSTS.copy()
     consts[9] = 0.0  # RR_THRESHOLD: no light is below it
     monkeypatch.setattr(integrator, "_K9_CONSTS", consts)
@@ -1221,17 +1428,24 @@ def test_path_trace_source_matches_plain(host_kernels, k9_worlds, engine,
     assert (col.sum(-1) == 0).any() and (col.sum(-1) > 0).any()
 
 
-@pytest.mark.parametrize("engine", ["hf", "svo", "edited"])
+@pytest.mark.parametrize("engine,primary", [("hf", False), ("hf", True),
+                                            ("svo", False), ("edited", False)])
 def test_path_trace_source_is_fetch_invariant(host_kernels, k9_worlds,
-                                              engine):
+                                              engine, primary):
     """Which thread runs which path, and when, changes no bit of K9's
-    outputs, under every lane-fetch setting."""
-    args, kw, prim = _k9_paths(k9_worlds, engine, B=300, seed=5)
+    outputs, under every lane-fetch setting: state, radiance, last
+    bounces, queue lengths, and every work count but the warp steps (a
+    warp's steps are its longest thread's, which the schedule decides)."""
+    args, kw, prim = _k9_paths(k9_worlds, engine, B=300, primary=primary,
+                               seed=5)
     fn = host_kernels["path_trace"]
+    per_path = [k for k, name in enumerate(integrator.K9_WORK)
+                if "_warp_" not in name]
     want = _k9_host(fn, args, kw, prim)
     for fetch in FETCHES:
         got = _k9_host(fn, args, kw, prim, fetch=fetch)
-        for g, w in zip(got, want):
+        for g, w in zip(got[:3] + (got[3][per_path], got[4]),
+                        want[:3] + (want[3][per_path], want[4])):
             assert np.array_equal(g.numpy().view(np.uint8),
                                   w.numpy().view(np.uint8)), fetch
 
@@ -1244,8 +1458,8 @@ def test_path_trace_source_fused_state(host_kernels, k9_worlds):
 
     args, kw, prim = _k9_paths(k9_worlds, "hf", B=300, seed=6)
     fn = host_kernels["path_trace"]
-    st, col, _, _ = _k9_host(fn, args, kw, prim)
-    st_f, col_f, _, _ = _k9_host(fn, args, kw, prim, extra=3)
+    st, col = _k9_host(fn, args, kw, prim)[:2]
+    st_f, col_f = _k9_host(fn, args, kw, prim, extra=3)[:2]
     assert torch.equal(col, col_f)
     assert torch.equal(trng.pcg3d(trng.pcg3d(trng.pcg3d(st))), st_f)
     st_p, _ = integrator.trace_paths_plain(*args, fuse_nee=True, **kw)

@@ -70,8 +70,9 @@ def spectral_throughput(lut, wavelength):
     wp1 = wavelength + 1.0
     wlp1_cubed = wp1 * wp1 * wp1
     planck = rdiv(1.0, wlp1_cubed * (torch.exp(rdiv(0.1, wp1)) - 1.0))
-    tint = torch.tensor([1.0, 0.8, 1.0], dtype=torch.float32,
-                        device=wavelength.device)
+    # made where it is used (no copy from the host, so no sync on a card)
+    tint = torch.where(torch.arange(3, device=wavelength.device) == 1,
+                       0.8, 1.0).to(torch.float32)
     return sample_lut(lut, wavelength) * planck[..., None] * tint
 
 

@@ -23,12 +23,12 @@ EPS = 1.0e-6  # direction clamp epsilon (reference: raytrace.wgsl:53)
 
 def div(x: torch.Tensor, c: float) -> torch.Tensor:
     """x / c as one correctly rounded division on every device."""
-    return torch.div(x, torch.tensor(c, dtype=x.dtype, device=x.device))
+    return torch.div(x, torch.full((), c, dtype=x.dtype, device=x.device))
 
 
 def rdiv(c: float, x: torch.Tensor) -> torch.Tensor:
     """c / x as one correctly rounded division on every device."""
-    return torch.div(torch.tensor(c, dtype=x.dtype, device=x.device), x)
+    return torch.div(torch.full((), c, dtype=x.dtype, device=x.device), x)
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:

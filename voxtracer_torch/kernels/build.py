@@ -87,11 +87,13 @@ SIGNATURES = {
     # consts (host floats), n_consts, engine, tiles, tile_log, levels,
     # row_starts, hmax_w, table, root, height, boxes, n_boxes, trgb, sun,
     # pos, dir, light, density, state_in, p_hit, p_t, p_normal, p_rgb,
-    # color, state_out, last, max_last, work, n, max_bounces, fog_steps,
-    # extra_draws, counter, static_pct, chunk, refill, stream
+    # color, state_out, last, max_last, work, n_work, ws, ws_words,
+    # counters, n_counters, n, max_bounces, fog_steps, extra_draws, stats,
+    # static_pct, chunk, refill, stream
     "voxt_path_trace": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P),
+                        _P, _P, _P, _I, _P, _L, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _P),
 }
 
 # the persistent kernels index lanes (and 3 floats a lane) in int32

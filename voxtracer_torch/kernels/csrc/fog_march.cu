@@ -25,7 +25,11 @@
 // a = s / n and 1 - a are the same for every ray: each block computes them
 // once into shared memory for s = 0..n_steps (the same float expressions,
 // so the same bits), and a segment's near end is carried over as the next
-// segment's far end, so no segment divides.
+// segment's far end, so no segment divides. Before it marches, a ray
+// takes fog_walk.cuh's scatter-free test (a bound on the sum of its
+// segment densities, in double, against its free path): a march the test
+// proves never scatters returns the march's own result at once, so no
+// output bit changes.
 
 #include <cuda_runtime.h>
 

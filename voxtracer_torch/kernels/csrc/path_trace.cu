@@ -1,4 +1,5 @@
-// K9: the path integrator's bounce loop, one thread a path.
+// K9: the path integrator's bounce loop, as stage kernels over compacted
+// path queues on the card (a wavefront).
 //
 // Replaces: voxtracer/kernels/integrator.py, trace_paths (the jnp bounce
 // loop at :212-560 with its compaction unwind; on the TPU a wavefront of
@@ -28,29 +29,69 @@
 // sun 2, planet 3, hemisphere 2, roulette 1). The masked loop runs N
 // bounces, N the last bounce any path lives through, plus one; a path
 // that ends after bounce j here has drawn 11 (j + 1) times. So each path
-// records j, the kernel takes the batch's largest j (one atomic a warp),
-// and a second, small pass (path_burn_kernel) advances each path's state
-// by the 11 (N - j - 1) draws it skipped, and by `extra_draws` more (3
-// with the fused bounce/NEE, whose returned state carries one more planet
-// draw).
+// records j, the batch's largest j is kept with one atomic a warp, and a
+// last, small pass (path_burn_kernel) advances each path's state by the
+// 11 (N - j - 1) draws it skipped, and by `extra_draws` more (3 with the
+// fused bounce/NEE, whose returned state carries one more planet draw).
 //
 // What bounds it on the card: the walks' dependent loads and their
-// divergence, as for K1, K2 and K4 alone: a path is 2 fog marches (up to
-// fog_steps segments, an IEEE sqrt and exp each) and 1-3 walks (tens to
-// hundreds of steps) a bounce, and the paths of a warp live 1 to 24
-// bounces. The bytes are few (a path reads 52 bytes and writes 28, the
-// pack or the node table stays in L2).
+// divergence. A path is 2 fog marches (up to fog_steps segments, an IEEE
+// sqrt and exp each) and 1-3 walks (tens to hundreds of steps) a bounce,
+// and the paths of a warp live 1 to 24 bounces. Run in one thread a path
+// (this kernel's first form), a warp waits on its longest lane in each of
+// the four loops of a bounce: counted on the card, its world and shadow
+// casts ran at 10-31% SIMT efficiency and took three quarters of its
+// cycles, and most fog segments it marched belonged to marches that never
+// scatter.
 //
-// Design: one thread a path, the path's state (position, direction,
-// throughput, radiance, RNG state: 16 words) in registers across its
-// bounces; each walk runs to its end inside the bounce, so only one
-// walker's state is live at a time. Threads claim paths through the
-// persistent lane fetch of lanes.cuh, one bounce a step: a thread whose
-// path ends takes the next one at the next look at its warp, so a warp
-// does not wait on its longest path. The SVO walks keep their node stack
-// in shared memory laid out [level][thread] as K2 does; the heightfield's
-// row starts and the fog march's segment fractions are per block in
-// shared memory. No host read: the burn pass reads N on the card.
+// Design (Laine, Karras and Aila, "Megakernels Considered Harmful", HPG
+// 2013): the path state lives in device memory, one array a component
+// (structure of arrays, indexed by path), and each loop of a bounce is its
+// own persistent kernel over a queue of the paths that need it, so its
+// lanes are packed into full warps and refilled every few steps (the lane
+// fetch of lanes.cuh, as K1, K2 and K4 standalone); the fixed logic
+// between the loops runs in kernels whose warps take 32 queue entries at
+// a time. Per bounce b:
+//   path_bounce_kernel(b): ends bounce b-1 of the live paths (the NEE
+//       term, the emissive rule, the hemisphere bounce, roulette; a path
+//       that ends writes its colour, state and last bounce) and begins
+//       bounce b of the survivors (the planet draw, the march set up, and
+//       the scatter-free test of fog_walk.cuh): every survivor goes to
+//       the live queue, and a march the test does not settle to the march
+//       queue;
+//   path_march_kernel<false>: K1's march over the march queue;
+//   path_cast_kernel: the world cast over the live queue (none for
+//       bounce 0's lanes with a primary hit), its result to the state; on
+//       the edited engine a ray that reaches an edit box goes to the
+//       re-cast queue, and path_recast_kernel<false> casts those on the
+//       SVO;
+//   path_shade_kernel: the fixed logic up to the sun march: the two
+//       scatter-direction draws, the planet normal, the nearer event, the
+//       sun disk, the move to the hit, sample_sun, the facing test, the
+//       sun march's draw set up and tested, and the 2 unused draws; a sun
+//       march the test does not settle goes to the sun-march queue, a
+//       live, facing lane the test leaves open to the shadow queue;
+//   path_march_kernel<true>: the sun march over its queue; the lanes it
+//       leaves open go to the shadow queue;
+//   path_shadow_kernel: the shadow cast over the shadow queue (the SVO
+//       engine's two stages; on the edited engine the slab test, and
+//       path_recast_kernel<true> re-casts the rays that reach a box).
+// One last path_bounce_kernel ends the last bounce. Which thread runs a
+// path changes, and when; the arithmetic of a path does not. Queue
+// lengths and the lane-fetch claim counters stay on the card (a zeroed
+// block of int32, kCounters a bounce); every stage is launched for every
+// bounce and one whose queue is empty returns at once, so there is no
+// host read. Appends go a warp at a time (a ballot, one atomicAdd), so
+// neighbouring paths stay neighbours; a walk stage appends at the lane
+// fetch's flush points, where its warp meets. The SVO walks keep their
+// node stack in shared memory laid out [level][thread] as K2 does; the
+// heightfield's row starts and the fog march's segment fractions are per
+// block in shared memory. Two things the first timed runs taught (PERF.md
+// section 6): the fixed logic after a walk, run by each lane as its walk
+// ended, ran at a few lanes a warp and took most of the cast's time, so
+// it is a kernel of its own; and counting SIMT steps in the walk stages
+// (kStats) made the heightfield walks several times slower, so that count
+// is a second build of the stages, launched for measurement only.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,8 +106,45 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kBounceDraws = 11;
 constexpr int kBurnThreads = 256;
-enum Engine { kHf = 0, kSvo = 1, kEdited = 2 };
+constexpr int kMarchSteps = 16;  // segments between two looks (K1's)
+constexpr int kWalkSteps = 8;    // walk steps between two looks (K2's, K4's)
+constexpr int kHf = 0, kSvo = 1, kEdited = 2;  // engines
 constexpr int kSvoMaxHeight = 15;  // traverse.MAX_HEIGHT
+
+// A bounce's counters: the lengths of its six queues and the claim
+// counters of its six lane-fetch stages
+constexpr int kLive = 0, kMarch = 1, kSunMarch = 2, kShadow = 3, kRecast = 4,
+              kShadowRecast = 5, kClaims = 6, kCounters = 12;
+// The lane-fetch stages: the march, the world cast, the sun march, the
+// shadow cast, and the edited engine's SVO re-casts of each cast
+constexpr int kStageMarch = 0, kStageCast = 1, kStageSunMarch = 2,
+              kStageShadow = 3, kStageRecast = 4, kStageShadowRecast = 5,
+              kStages = 6;
+// The work counted (uint64, integrator.K9_WORK's order): walk steps, fog
+// segments marched, bounces; marches set up and settled by the
+// scatter-free test, of the bounce and of the sun; with stats on, each
+// lane-fetch stage's lane steps and warp steps
+constexpr int kHfSteps = 0, kSvoSteps = 1, kSegments = 2, kBounces = 3,
+              kMarches = 4, kMarchesFree = 5, kSunMarches = 6,
+              kSunMarchesFree = 7, kLaneSteps = 8,
+              kWarpSteps = kLaneSteps + kStages,
+              kWork = kWarpSteps + kStages;
+// The path state: float arrays, int arrays and queues of n entries each
+// (structure of arrays: a queue keeps its paths in about their order, so
+// a warp's loads of one field fall on few lines; a 128-byte record a
+// path made the walk stages faster and the bounce and shade kernels,
+// which read and write most fields, slower: PERF.md section 6)
+constexpr int fPos = 0, fDir = 3, fLight = 6, fColor = 9, fNormal = 12,
+              fRgba = 15, fSdir = 19, fPt = 22, fY0 = 23, fWt = 24,
+              kFloatFields = 25;
+constexpr int iSt = 0, iCode = 3, iFlags = 4, kIntFields = 5;
+constexpr int qLive = 0, qMarch = 2, qSunMarch = 3, qShadow = 4,
+              qRecast = 5, qShadowRecast = 6, kQueueFields = 7;
+constexpr int kWordsPerPath = kFloatFields + kIntFields + kQueueFields;
+// a path's bounce flags: hit, facing the sun, the sun march hit,
+// occluded; the world cast's hit (for path_shade_kernel)
+constexpr unsigned kHit = 1, kFacing = 2, kSunHit = 4, kOccluded = 8,
+                   kWorldHit = 16;
 
 // float32 constants in the order of integrator.py's _K9_CONSTS, each the
 // float the plain version rounds its Python expression to
@@ -99,10 +177,35 @@ struct PathArgs {
   unsigned* state_out;
   int* last;      // each path's last bounce
   int* max_last;  // the batch's largest, 0 at launch
-  // the run's work, 0 at launch: heightfield walk steps, SVO walk steps,
-  // fog segments, bounces
-  unsigned long long* work;
-  int max_bounces, fog_steps;
+  unsigned long long* work;  // kWork counts, 0 at launch
+  // the path state (kWordsPerPath words a path) and the counters
+  float* f;
+  unsigned* u;
+  int* q;
+  int* counters;
+  int n, max_bounces, fog_steps, static_pct, chunk, refill;
+
+  __device__ __forceinline__ float& F(int field, int i) const {
+    return f[(size_t)field * n + i];
+  }
+  __device__ __forceinline__ unsigned& U(int field, int i) const {
+    return u[(size_t)field * n + i];
+  }
+  __device__ __forceinline__ int* queue(int field) const {
+    return q + (size_t)field * n;
+  }
+  // bounce b's live queue (two buffers in turn)
+  __device__ __forceinline__ int* live(int b) const {
+    return queue(qLive + (b & 1));
+  }
+  __device__ __forceinline__ int* counter(int b, int k) const {
+    return counters + b * kCounters + k;
+  }
+  // the lane fetch of a stage over bounce b's queue `k`
+  __device__ __forceinline__ voxt::LaneArgs lanes(int b, int k) const {
+    return voxt::LaneArgs{counter(b, kClaims + k), nullptr, 0, 0, chunk,
+                          refill, counter(b, k), static_pct};
+  }
 };
 
 __device__ __forceinline__ void pcg3d(unsigned* s) {
@@ -152,6 +255,316 @@ __device__ __forceinline__ void normalize3(float* a) {
   for (int k = 0; k < 3; ++k) a[k] = a[k] / len;
 }
 
+// sampling.cos_hemisphere around n from its two draws r1, r2
+__device__ __forceinline__ void hemisphere(const PathConsts& c,
+                                           const float* r1, const float* r2,
+                                           const float* n, float* out) {
+  const float r = sqrtf(r1[0]);
+  const float angle = r1[1] * 2.0f * c.pi;
+  const float px = r * cosf(angle);
+  const float py = r * sinf(angle);
+  float b[3], t[3], disk[3];
+  cross3(r2, n, b);
+  normalize3(b);
+  cross3(b, n, t);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) disk[k] = t[k] * px + b[k] * py;
+  const float d2 = dot3(disk, disk);
+  const float up = sqrtf(clamp_min(1.0f - d2, 0.0f));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) out[k] = disk[k] + n[k] * up;
+}
+
+// sampling.sample_sun: a direction in the sun cone (2 draws)
+__device__ __forceinline__ void sample_sun(const PathConsts& c, unsigned* st,
+                                           const float* sun, float* out) {
+  float r[3], r2[3];
+  random3(st, r);
+  const float z = r[0] * c.sun_span + c.cos_sun;
+  const float angle = r[1] * 2.0f * c.pi;
+  const float s = sqrtf(clamp_min(1.0f - z * z, 0.0f));
+  const float px = cosf(angle) * s;
+  const float py = sinf(angle) * s;
+  random3(st, r2);
+  float b[3], t[3];
+  cross3(r2, sun, b);
+  normalize3(b);
+  cross3(b, sun, t);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) out[k] = t[k] * px + b[k] * py + sun[k] * z;
+}
+
+// Appends i to queue q (its length at *len) in the threads where `put`;
+// all 32 threads of the warp call it, and its lanes land side by side.
+__device__ __forceinline__ void append(int* q, int* len, bool put, int i) {
+  const unsigned m = __ballot_sync(voxt::kFullMask, put);
+  if (m == 0u) return;
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  if (lane == 0) base = atomicAdd(len, __popc(m));
+  base = __shfl_sync(voxt::kFullMask, base, 0);
+  if (put) q[base + __popc(m & ((1u << lane) - 1u))] = i;
+}
+
+// Adds the K counts v (one a thread) to work[slot[k]]: one atomic each a
+// warp; all 32 threads call it.
+template <int K>
+__device__ __forceinline__ void add_work(const PathArgs& a, const int* slot,
+                                         unsigned* v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      v[k] += __shfl_xor_sync(voxt::kFullMask, v[k], o);
+  if ((threadIdx.x & 31) == 0)
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (v[k] != 0u) atomicAdd(a.work + slot[k], (unsigned long long)v[k]);
+}
+
+// The march's launch-wide part, its segment fractions in shared memory
+__device__ __forceinline__ voxt::FogWalk fog_walker(const PathArgs& a,
+                                                    const float* frac_a,
+                                                    const float* frac_b) {
+  voxt::FogWalk w;
+  w.frac_a = frac_a;
+  w.frac_b = frac_b;
+  w.n_steps = a.fog_steps;
+  w.planet_r = a.c.planet_r;
+  w.planet_r2 = a.c.planet_r2;
+  w.fog_r2 = a.c.fog_r2;
+  w.fog_factor = a.c.fog_factor;
+  return w;
+}
+
+// Ends bounce b - 1 of path i (the NEE term, the emissive rule, the
+// hemisphere bounce, roulette); returns whether the path lives on into
+// bounce b, else writes its colour, state and last bounce.
+__device__ __forceinline__ bool end_bounce(const PathArgs& a, int b, int i,
+                                           int* max_last) {
+  const PathConsts& c = a.c;
+  const unsigned flags = a.U(iFlags, i);
+  const bool hit_any = flags & kHit, facing = flags & kFacing;
+  const bool sun_visible = !(flags & kSunHit) && !(flags & kOccluded);
+  float light[3], color[3], rgba[4], normal[3], sdir[3], d[3];
+  unsigned st[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    light[k] = a.F(fLight + k, i);
+    color[k] = a.F(fColor + k, i);
+    normal[k] = a.F(fNormal + k, i);
+    sdir[k] = a.F(fSdir + k, i);
+    d[k] = a.F(fDir + k, i);
+    st[k] = a.U(iSt + k, i);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) rgba[k] = a.F(fRgba + k, i);
+  if (hit_any && facing && sun_visible) {
+    const float wgt = dot3(normal, sdir) * 2.0f * c.pi * c.sun_weight;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float nee = c.sun_color * rgba[k] * c.brdf * wgt;
+      color[k] = color[k] + light[k] * nee;
+    }
+  }
+
+  // emissive (pure-white placed blocks)
+  const bool emissive =
+      rgba[0] == 1.0f && rgba[1] == 1.0f && rgba[2] == 1.0f && rgba[3] == 1.0f;
+  if (hit_any && emissive) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      color[k] = color[k] + light[k] * c.emissive * rgba[k] * rgba[3];
+  }
+
+  // the indirect bounce
+  float r[3], r1[3], r2[3];
+  random3(st, r1);
+  random3(st, r2);
+  if (hit_any) {
+    float ind[3];
+    hemisphere(c, r1, r2, normal, ind);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      light[k] = light[k] * rgba[k] * c.brdf_pi;
+      d[k] = ind[k];
+    }
+  }
+
+  // Russian roulette
+  random3(st, r);
+  const bool rr_active =
+      hit_any && light[0] < c.rr && light[1] < c.rr && light[2] < c.rr;
+  const bool survive = r[0] < c.rr;
+  if (rr_active && survive) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) light[k] = light[k] * c.rr_scale;
+  }
+  const bool alive = hit_any && (!rr_active || survive);
+  if (alive && b < a.max_bounces) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      a.F(fLight + k, i) = light[k];
+      a.F(fColor + k, i) = color[k];
+      a.F(fDir + k, i) = d[k];
+      a.U(iSt + k, i) = st[k];
+    }
+    return true;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    a.color_out[3 * i + k] = color[k];
+    a.state_out[3 * i + k] = st[k];
+  }
+  a.last[i] = b - 1;
+  *max_last = max(*max_last, b - 1);
+  return false;
+}
+
+// Ends bounce b - 1 of the live paths (b > 0) and begins bounce b of the
+// survivors (b < max_bounces): the planet cast's free-path draw and its
+// march set up; a march the scatter-free test settles writes (code, t)
+// here, the others go to the march queue. Bounce 0 loads the paths.
+__global__ void __launch_bounds__(kThreads)
+    path_bounce_kernel(__grid_constant__ const PathArgs a, int b) {
+  __shared__ float frac_a[voxt::kFogMaxSteps + 1];
+  __shared__ float frac_b[voxt::kFogMaxSteps + 1];
+  voxt::fog_fractions(frac_a, frac_b, a.fog_steps);
+  __syncthreads();
+  voxt::FogWalk fog = fog_walker(a, frac_a, frac_b);
+  const int lane = threadIdx.x & 31;
+  const int count = b == 0 ? a.n : *a.counter(b - 1, kLive);
+  const int* in = b == 0 ? nullptr : a.live(b - 1);
+  int max_last = 0;
+  unsigned work[3] = {0u, 0u, 0u};  // bounces, marches, settled marches
+  for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < count;
+       base += gridDim.x * blockDim.x) {
+    const int j = base + lane;
+    int i = 0;
+    bool go = false, march = false;
+    if (j < count) {
+      i = in == nullptr ? j : in[j];
+      if (b == 0) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          a.F(fPos + k, i) = __ldg(a.pos + 3 * i + k);
+          a.F(fDir + k, i) = __ldg(a.dir + 3 * i + k);
+          a.F(fLight + k, i) = __ldg(a.light + 3 * i + k);
+          a.F(fColor + k, i) = 0.0f;
+          a.U(iSt + k, i) = __ldg(a.state_in + 3 * i + k);
+        }
+        go = true;
+      } else {
+        ++work[0];
+        go = end_bounce(a, b, i, &max_last);
+      }
+    }
+    if (go) {
+      // the planet cast along d (atmosphere.raycast_planet): its first draw
+      unsigned st[3];
+      float r[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) st[k] = a.U(iSt + k, i);
+      random3(st, r);
+      const float y0 = -logf(1.0f - r[0]);
+      voxt::FogWalk w = fog;
+      if (w.setup(a.F(fPos, i), a.F(fPos + 1, i), a.F(fPos + 2, i),
+                  a.F(fDir, i), a.F(fDir + 1, i), a.F(fDir + 2, i),
+                  __ldg(a.density + i), y0)) {
+        ++work[1];
+        if (w.scatter_free()) {
+          ++work[2];
+          w.done(w.surf ? 1 : 0, w.surf ? w.t1 : 0.0f);
+        } else {
+          march = true;
+          a.F(fY0, i) = y0;
+        }
+      }
+      if (!march) {
+        a.U(iCode, i) = (unsigned)w.code;
+        a.F(fPt, i) = w.t;
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) a.U(iSt + k, i) = st[k];
+    }
+    append(a.live(b), a.counter(b, kLive), go, i);
+    append(a.queue(qMarch), a.counter(b, kMarch), march, i);
+  }
+  // the batch's last bounce and the work: one atomic each a warp
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    max_last = max(max_last, __shfl_xor_sync(voxt::kFullMask, max_last, o));
+  if (lane == 0 && max_last > 0) atomicMax(a.max_last, max_last);
+  const int slot[3] = {kBounces, kMarches, kMarchesFree};
+  add_work<3>(a, slot, work);
+}
+
+// K1's march over bounce b's march queue (kSun false: the planet cast
+// along d, writing (code, t)) or its sun-march queue (kSun true: a hit
+// sets kSunHit, a lane left open goes to the shadow queue).
+template <bool kSun>
+struct MarchRay {
+  const PathArgs& a;
+  int b;
+  voxt::FogWalk w;
+  int i, open;
+  unsigned segs, lane_steps, warp_steps;
+
+  __device__ __forceinline__ void skip(int, unsigned) {}  // no masked lanes
+
+  __device__ __forceinline__ bool finish() {
+    if (!kSun) {
+      a.U(iCode, i) = (unsigned)w.code;
+      a.F(fPt, i) = w.t;
+    } else if (w.code > 0) {
+      a.U(iFlags, i) |= kSunHit;
+    } else {
+      open = i;
+    }
+    return false;
+  }
+
+  __device__ __forceinline__ bool start(int j) {
+    i = (kSun ? a.queue(qSunMarch) : a.queue(qMarch))[j];
+    const int dir = kSun ? fSdir : fDir;
+    if (w.setup(a.F(fPos, i), a.F(fPos + 1, i), a.F(fPos + 2, i),
+                a.F(dir, i), a.F(dir + 1, i), a.F(dir + 2, i),
+                __ldg(a.density + i), a.F(fY0, i)))
+      return true;
+    return finish();
+  }
+
+  __device__ __forceinline__ bool step() {
+    ++segs;
+    return w.step() || finish();
+  }
+
+  __device__ __forceinline__ void flush() {
+    if (kSun) {
+      append(a.queue(qShadow), a.counter(b, kShadow), open >= 0, open);
+      open = -1;
+    }
+  }
+};
+
+template <bool kSun, bool kStats>
+__global__ void __launch_bounds__(kThreads)
+    path_march_kernel(__grid_constant__ const PathArgs a, int b) {
+  __shared__ float frac_a[voxt::kFogMaxSteps + 1];
+  __shared__ float frac_b[voxt::kFogMaxSteps + 1];
+  __shared__ int ring[kThreads / 32 * voxt::kQueue];
+  voxt::fog_fractions(frac_a, frac_b, a.fog_steps);
+  __syncthreads();
+  MarchRay<kSun> ray{a, b, fog_walker(a, frac_a, frac_b), 0, -1, 0u, 0u, 0u};
+  const voxt::LaneArgs lanes = a.lanes(b, kSun ? kSunMarch : kMarch);
+  voxt::run_lanes<kMarchSteps, kStats>(
+      lanes, ring + (threadIdx.x >> 5) * voxt::kQueue, ray);
+  const int stage = kSun ? kStageSunMarch : kStageMarch;
+  const int slot[3] = {kSegments, kLaneSteps + stage, kWarpSteps + stage};
+  unsigned work[3] = {ray.segs, ray.lane_steps, ray.warp_steps};
+  add_work<3>(a, slot, work);
+}
+
 // A walk's ray and result, in registers (the Io of svo_walk.cuh and
 // hf_walk.cuh)
 struct RayIo {
@@ -179,51 +592,52 @@ struct RayIo {
   }
 };
 
-__device__ __forceinline__ RayIo ray_io(const float* p, const float* d,
-                                        float dist) {
-  RayIo io;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    io.o[k] = p[k];
-    io.dv[k] = d[k];
-  }
-  io.dist = dist;
-  return io;
-}
-
-// The world casts of engine E (tile log TL for the heightfield engines)
+// The world walk of engine E for one ray at a time, stepped from a
+// lane-fetch stage: the heightfield walk (tile log TL) on the heightfield
+// engines, the SVO walk (its node stack in shared memory) on the SVO
+// engine and in the edited engine's re-casts.
 template <int E, int TL>
-struct World {
+struct Walker {
+  static constexpr bool kSvoWalk = E == kSvo;
   const PathArgs& a;
-  const int* rows;  // the pack's row starts, in shared memory
-  int* stk;         // this thread's SVO node stack, level l at l * blockDim.x
-  unsigned hf_steps, svo_steps;  // this thread's walk steps
+  voxt::HfWalk<TL, RayIo> hw;
+  voxt::SvoWalk<RayIo> sw;
+  unsigned steps;
+  // the edited engine's slab test of the ray, taken as the walk begins:
+  // whether it reaches an edit box, and the least such entry max(t_en, 0)
+  bool box_any;
+  float box_t;
 
-  __device__ __forceinline__ RayIo svo(const float* p, const float* d,
-                                       float dist) {
-    voxt::SvoWalk<RayIo> w;
-    w.table = a.table;
-    w.stk = stk;
-    w.stride = blockDim.x;
-    w.root = a.root;
-    w.H = a.height;
-    w.skip_t0 = 1;
-    w.io = ray_io(p, d, dist);
-    if (w.begin())
-      do {
-        ++svo_steps;
-      } while (w.step());
-    return w.io;
+  __device__ __forceinline__ Walker(const PathArgs& args, const int* rows,
+                                    int* stk)
+      : a(args), hw{args.hf, rows, RayIo{}}, steps(0u) {
+    sw.table = args.table;
+    sw.stk = stk;
+    sw.stride = blockDim.x;
+    sw.root = args.root;
+    sw.H = args.height;
+    sw.skip_t0 = 1;
   }
 
-  __device__ __forceinline__ RayIo hf(const float* p, const float* d,
-                                      float dist) {
-    voxt::HfWalk<TL, RayIo> w{a.hf, rows, ray_io(p, d, dist)};
-    if (w.begin())
-      do {
-        ++hf_steps;
-      } while (w.step());
-    return w.io;
+  __device__ __forceinline__ RayIo& io() { return kSvoWalk ? sw.io : hw.io; }
+
+  // starts a walk of (p, d) capped at dist; false once it has ended
+  __device__ __forceinline__ bool begin(const float* p, const float* d,
+                                        float dist) {
+    RayIo& r = io();
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      r.o[k] = p[k];
+      r.dv[k] = d[k];
+    }
+    r.dist = dist;
+    if (E == kEdited) slab(p, d);
+    return kSvoWalk ? sw.begin() : hw.begin();
+  }
+
+  __device__ __forceinline__ bool step() {
+    ++steps;
+    return kSvoWalk ? sw.step() : hw.step();
   }
 
   // the leaf's albedo (traverse.leaf_rgb): float bits in columns 0..2
@@ -231,12 +645,12 @@ struct World {
     return node >= 0 ? __int_as_float(__ldg(a.table + node * 8 + k)) : 0.0f;
   }
 
-  // hf_raycast_edited: whether the ray reaches some edit box no later
-  // than the pre-edit walk's result (hit1, t1)
-  __device__ __forceinline__ bool affected(const float* p, const float* d,
-                                           bool hit1, float t1) const {
+  // hf_raycast_edited's slab test against the edit boxes, for the ray
+  // (p, d) before its walk
+  __device__ __forceinline__ void slab(const float* p, const float* d) {
     const float inf = __int_as_float(0x7f800000);
-    bool any = false;
+    box_any = false;
+    box_t = inf;
     for (int b = 0; b < a.n_boxes; ++b) {
       const float* lo = a.boxes + 6 * b;
       const float* hi = lo + 3;
@@ -255,310 +669,399 @@ struct World {
         t_ex = fminf(t_ex, mx);
         par_ok = par_ok && (!par || (p[k] >= l && p[k] <= h));
       }
-      const bool reaches = t_en <= t_ex && t_ex >= 0.0f && par_ok;
-      any = any || (reaches && (!hit1 || fmaxf(t_en, 0.0f) <= t1 + 2.0f));
-    }
-    return any;
-  }
-
-  // the bounce cast capped at `cap`: hit, t, normal and albedo
-  __device__ __forceinline__ RayIo cast(const float* p, const float* d,
-                                        float cap, float* rgb) {
-    RayIo r;
-    if (E == kSvo) {
-      r = svo(p, d, cap);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) rgb[k] = leaf(r.node, k);
-      return r;
-    }
-    r = hf(p, d, cap);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) rgb[k] = __ldg(a.trgb + k);
-    if (E == kEdited && affected(p, d, r.hit, r.t)) {
-      // re-cast lanes shade by their own leaf
-      r = svo(p, d, cap);
-      if (r.hit) {
-#pragma unroll
-        for (int k = 0; k < 3; ++k) rgb[k] = leaf(r.node, k);
+      if (t_en <= t_ex && t_ex >= 0.0f && par_ok) {
+        box_any = true;
+        box_t = fminf(box_t, fmaxf(t_en, 0.0f));
       }
     }
-    return r;
   }
 
-  // the NEE shadow cast toward the sun: whether the world blocks it
-  __device__ __forceinline__ bool occluded(const float* p, const float* d) {
-    if (E == kSvo) {
-      // two stages as the plain version: capped at NEE_NEAR, then the
-      // full cast for the lanes it left open
-      if (svo(p, d, a.c.nee_near).hit) return true;
-      return svo(p, d, a.c.far).hit;
-    }
-    const RayIo r = hf(p, d, a.c.far);
-    if (E == kEdited && affected(p, d, r.hit, r.t)) return svo(p, d, a.c.far).hit;
-    return r.hit;
+  // After the heightfield walk: whether its ray reaches some edit box no
+  // later than its result (hit, t), as hf_raycast_edited's any over the
+  // boxes of (reaches && (!hit || max(t_en, 0) <= t + 2)); the least
+  // entry decides it
+  __device__ __forceinline__ bool affected() {
+    const RayIo& r = io();
+    return box_any && (!r.hit || box_t <= r.t + 2.0f);
   }
 };
 
-// One path a thread (the lane-fetch face, lanes.cuh): start loads a path,
-// step runs one bounce.
+// Writes path i's world hit for path_shade_kernel: kWorldHit, t, normal,
+// albedo.
+__device__ __forceinline__ void put_world(const PathArgs& a, int i,
+                                          const RayIo& r, const float* rgb) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    a.F(fRgba + k, i) = rgb[k];
+    a.F(fNormal + k, i) = r.normal[k];
+  }
+  a.F(fWt, i) = r.t;
+  a.U(iFlags, i) = r.hit ? kWorldHit : 0u;
+}
+
+// The world cast of bounce b over its live queue (the lane-fetch face,
+// lanes.cuh): the walk's result goes to the path's state for
+// path_shade_kernel. Bounce 0's lanes with a primary hit walk nothing. On
+// the edited engine a ray that reaches an edit box goes to the re-cast
+// queue instead.
 template <int E, int TL>
-struct PathRay {
+struct CastRay {
   const PathArgs& a;
-  World<E, TL> world;
-  voxt::FogWalk fog;  // the march's launch-wide part
-  int max_last;       // the largest last bounce of this thread's paths
-  unsigned fog_segs, bounces;  // this thread's march segments and bounces
-  // the path in flight
-  int i, bounce;
-  float pos[3], d[3], light[3], color[3], density;
-  unsigned st[3];
+  int b;
+  Walker<E, TL> walk;
+  int i, recast;
+  unsigned lane_steps, warp_steps;
 
   __device__ __forceinline__ void skip(int, unsigned) {}  // no masked lanes
 
-  __device__ __forceinline__ bool start(int lane_index) {
-    i = lane_index;
-    bounce = 0;
+  __device__ __forceinline__ bool start(int j) {
+    i = a.live(b)[j];
+    if (b == 0 && a.p_hit != nullptr) return false;
+    float p[3], d[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      pos[k] = __ldg(a.pos + 3 * i + k);
-      d[k] = __ldg(a.dir + 3 * i + k);
-      light[k] = __ldg(a.light + 3 * i + k);
-      color[k] = 0.0f;
-      st[k] = __ldg(a.state_in + 3 * i + k);
+      p[k] = a.F(fPos + k, i);
+      d[k] = a.F(fDir + k, i);
     }
-    density = __ldg(a.density + i);
-    return true;
-  }
-
-  __device__ __forceinline__ bool finish() {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      a.color_out[3 * i + k] = color[k];
-      a.state_out[3 * i + k] = st[k];
-    }
-    a.last[i] = bounce - 1;
-    max_last = max(max_last, bounce - 1);
-    return false;
-  }
-
-  // K1's march of (p, dv) with free path y0: code 0 miss / 1 planet /
-  // 2 fog, and t
-  __device__ __forceinline__ int march(const float* p, const float* dv,
-                                       float y0, float* t) {
-    voxt::FogWalk w = fog;
-    if (w.begin(p[0], p[1], p[2], dv[0], dv[1], dv[2], density, y0))
-      do {
-        ++fog_segs;
-      } while (w.step());
-    *t = w.t;
-    return w.code;
-  }
-
-  // sampling.cos_hemisphere around n from its two draws r1, r2
-  __device__ __forceinline__ void hemisphere(const float* r1, const float* r2,
-                                             const float* n,
-                                             float* out) const {
-    const float r = sqrtf(r1[0]);
-    const float angle = r1[1] * 2.0f * a.c.pi;
-    const float px = r * cosf(angle);
-    const float py = r * sinf(angle);
-    float b[3], t[3], disk[3];
-    cross3(r2, n, b);
-    normalize3(b);
-    cross3(b, n, t);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) disk[k] = t[k] * px + b[k] * py;
-    const float d2 = dot3(disk, disk);
-    const float up = sqrtf(clamp_min(1.0f - d2, 0.0f));
-#pragma unroll
-    for (int k = 0; k < 3; ++k) out[k] = disk[k] + n[k] * up;
-  }
-
-  // sampling.sample_sun: a direction in the sun cone (2 draws)
-  __device__ __forceinline__ void sample_sun(const float* sun, float* out) {
-    float r[3], r2[3];
-    random3(st, r);
-    const float z = r[0] * a.c.sun_span + a.c.cos_sun;
-    const float angle = r[1] * 2.0f * a.c.pi;
-    const float s = sqrtf(clamp_min(1.0f - z * z, 0.0f));
-    const float px = cosf(angle) * s;
-    const float py = sinf(angle) * s;
-    random3(st, r2);
-    float b[3], t[3];
-    cross3(r2, sun, b);
-    normalize3(b);
-    cross3(b, sun, t);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) out[k] = t[k] * px + b[k] * py + sun[k] * z;
+    const float cap = a.U(iCode, i) > 0u ? a.F(fPt, i) : a.c.far;
+    return walk.begin(p, d, cap) || walked();
   }
 
   __device__ __forceinline__ bool step() {
-    const PathConsts& c = a.c;
-    float sun[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) sun[k] = __ldg(a.sun + k);
+    return walk.step() || walked();
+  }
 
-    // the planet cast along d (atmosphere.raycast_planet: 3 draws)
-    float r[3], r1[3], r2[3];
-    random3(st, r);
-    float pt;
-    const int code = march(pos, d, -logf(1.0f - r[0]), &pt);
-    random3(st, r1);
-    random3(st, r2);
-    float p_normal[3] = {0.0f, 0.0f, 0.0f};
-    if (code == 1) {
-      const float po[3] = {pos[0] + 0.0f, pos[1] + c.planet_r, pos[2] + 0.0f};
-#pragma unroll
-      for (int k = 0; k < 3; ++k) p_normal[k] = po[k] + d[k] * pt;
-      normalize3(p_normal);
-    } else if (code == 2) {
-      hemisphere(r1, r2, d, p_normal);
+  __device__ __forceinline__ bool walked() {
+    if (E == kEdited && walk.affected()) {
+      recast = i;
+      return false;
     }
-    const bool p_hit = code > 0;
-    const float cap = p_hit ? pt : c.far;
+    const RayIo& r = walk.io();
+    float rgb[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      rgb[k] = E == kSvo ? walk.leaf(r.node, k) : __ldg(a.trgb + k);
+    put_world(a, i, r, rgb);
+    return false;
+  }
 
-    // the world, capped at the fog event; bounce 0 may take the primary
-    RayIo w;
-    float w_rgb[3];
-    if (bounce == 0 && a.p_hit != nullptr) {
-      w.hit = a.p_hit[i];
-      w.t = __ldg(a.p_t + i);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        w.normal[k] = __ldg(a.p_normal + 3 * i + k);
-        w_rgb[k] = __ldg(a.p_rgb + 3 * i + k);
-      }
-    } else {
-      w = world.cast(pos, d, cap, w_rgb);
+  __device__ __forceinline__ void flush() {
+    if (E == kEdited) {
+      append(a.queue(qRecast), a.counter(b, kRecast), recast >= 0, recast);
+      recast = -1;
     }
-    const bool use_svo = w.hit && w.t <= cap;
-    const bool hit_any = p_hit || use_svo;
-    float rgba[4], normal[3];
-    const float* p_rgba = code == 1 ? c.ground : c.fog;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      rgba[k] = use_svo ? w_rgb[k] : (p_hit ? p_rgba[k] : 0.0f);
-      normal[k] = use_svo ? w.normal[k] : p_normal[k];
-    }
-    rgba[3] = use_svo ? 1.0f : (p_hit ? p_rgba[3] : 0.0f);
-    const float t_hit = use_svo ? w.t : pt;
-
-    // a primary ray that misses sees the sun disk
-    if (bounce == 0) {
-      const bool sun_disk = dot3(d, sun) > c.cos_sun;
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        color[k] = color[k] + (!hit_any && sun_disk ? light[k] * c.sun_color
-                                                    : 0.0f);
-    }
-    if (hit_any) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) pos[k] = pos[k] + d[k] * t_hit;
-    }
-
-    // next-event estimation toward the sun
-    float sdir[3];
-    sample_sun(sun, sdir);
-    const bool facing = dot3(sdir, normal) > 0.0f;
-    random3(st, r);
-    bool sp_hit = false;
-    if (hit_any && facing) {
-      float t_unused;
-      sp_hit = march(pos, sdir, -logf(1.0f - r[0]), &t_unused) > 0;
-    }
-    pcg3d(st);  // the sun planet cast's scatter direction (unused)
-    pcg3d(st);
-    const bool nee_act = hit_any && facing && !sp_hit;
-    const bool sun_visible = !sp_hit && !(nee_act && world.occluded(pos, sdir));
-    if (hit_any && facing && sun_visible) {
-      const float wgt = dot3(normal, sdir) * 2.0f * c.pi * c.sun_weight;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float nee = c.sun_color * rgba[k] * c.brdf * wgt;
-        color[k] = color[k] + light[k] * nee;
-      }
-    }
-
-    // emissive (pure-white placed blocks)
-    const bool emissive =
-        rgba[0] == 1.0f && rgba[1] == 1.0f && rgba[2] == 1.0f && rgba[3] == 1.0f;
-    if (hit_any && emissive) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        color[k] = color[k] + light[k] * c.emissive * rgba[k] * rgba[3];
-    }
-
-    // the indirect bounce
-    random3(st, r1);
-    random3(st, r2);
-    if (hit_any) {
-      float ind[3];
-      hemisphere(r1, r2, normal, ind);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        light[k] = light[k] * rgba[k] * c.brdf_pi;
-        d[k] = ind[k];
-      }
-    }
-
-    // Russian roulette
-    random3(st, r);
-    const bool rr_active =
-        hit_any && light[0] < c.rr && light[1] < c.rr && light[2] < c.rr;
-    const bool survive = r[0] < c.rr;
-    if (rr_active && survive) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) light[k] = light[k] * c.rr_scale;
-    }
-    const bool alive = hit_any && (!rr_active || survive);
-    ++bounce;
-    ++bounces;
-    if (alive && bounce < a.max_bounces) return true;
-    return finish();
   }
 };
 
+// The shadow cast toward the sun over bounce b's shadow queue: sets
+// kOccluded where the world blocks it. The SVO engine's two stages as the
+// plain version (capped at NEE_NEAR, then the full cast for the lanes it
+// left open); on the edited engine a ray that reaches an edit box goes to
+// the shadow re-cast queue.
 template <int E, int TL>
+struct ShadowRay {
+  const PathArgs& a;
+  int b;
+  Walker<E, TL> walk;
+  int i, recast;
+  bool near;  // the SVO engine's first stage
+  unsigned lane_steps, warp_steps;
+
+  __device__ __forceinline__ void skip(int, unsigned) {}  // no masked lanes
+
+  __device__ __forceinline__ bool start(int j) {
+    i = a.queue(qShadow)[j];
+    float p[3], d[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      p[k] = a.F(fPos + k, i);
+      d[k] = a.F(fSdir + k, i);
+    }
+    near = E == kSvo;
+    return walk.begin(p, d, near ? a.c.nee_near : a.c.far) || walked();
+  }
+
+  __device__ __forceinline__ bool step() {
+    return walk.step() || walked();
+  }
+
+  __device__ __forceinline__ bool walked() {
+    RayIo& r = walk.io();
+    if (E == kSvo && near && !r.hit) {
+      near = false;
+      if (walk.begin(r.o, r.dv, a.c.far)) return true;
+    }
+    if (E == kEdited && walk.affected()) {
+      recast = i;
+      return false;
+    }
+    if (r.hit) a.U(iFlags, i) |= kOccluded;
+    return false;
+  }
+
+  __device__ __forceinline__ void flush() {
+    if (E == kEdited) {
+      append(a.queue(qShadowRecast), a.counter(b, kShadowRecast),
+             recast >= 0, recast);
+      recast = -1;
+    }
+  }
+};
+
+// The edited engine's SVO re-casts over bounce b's re-cast queue (kShadow
+// false: the world cast capped at the fog event, shading by the leaf it
+// hits) or its shadow re-cast queue (kShadow true: kOccluded on a hit).
+template <bool kShadow>
+struct RecastRay {
+  const PathArgs& a;
+  int b;
+  Walker<kSvo, 3> walk;
+  int i;
+  unsigned lane_steps, warp_steps;
+
+  __device__ __forceinline__ void skip(int, unsigned) {}  // no masked lanes
+
+  __device__ __forceinline__ bool start(int j) {
+    i = a.queue(kShadow ? qShadowRecast : qRecast)[j];
+    float p[3], d[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      p[k] = a.F(fPos + k, i);
+      d[k] = a.F((kShadow ? fSdir : fDir) + k, i);
+    }
+    const float cap = kShadow || a.U(iCode, i) == 0u ? a.c.far : a.F(fPt, i);
+    return walk.begin(p, d, cap) || walked();
+  }
+
+  __device__ __forceinline__ bool step() {
+    return walk.step() || walked();
+  }
+
+  __device__ __forceinline__ bool walked() {
+    const RayIo& r = walk.io();
+    if (kShadow) {
+      if (r.hit) a.U(iFlags, i) |= kOccluded;
+      return false;
+    }
+    float rgb[3];  // a re-cast lane shades by the leaf it hits
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      rgb[k] = r.hit ? walk.leaf(r.node, k) : __ldg(a.trgb + k);
+    put_world(a, i, r, rgb);
+    return false;
+  }
+};
+
+// The fixed logic of bounce b from the world hit to the sun march, over
+// its live queue, the whole warp together: the planet cast's two
+// scatter-direction draws and normal, the nearer event, the sun disk on
+// bounce 0, the move to the hit, sample_sun, the facing test, the sun
+// march's draw set up and tested, and the 2 unused draws. A sun march the
+// test does not settle goes to the sun-march queue, a live, facing lane
+// it leaves open to the shadow queue.
 __global__ void __launch_bounds__(kThreads)
-    path_trace_kernel(voxt::LaneArgs lanes, __grid_constant__ const PathArgs a) {
-  extern __shared__ int smem[];
+    path_shade_kernel(__grid_constant__ const PathArgs a, int b) {
   __shared__ float frac_a[voxt::kFogMaxSteps + 1];
   __shared__ float frac_b[voxt::kFogMaxSteps + 1];
-  __shared__ int s_rows[voxt::kHfMaxLevels];
   voxt::fog_fractions(frac_a, frac_b, a.fog_steps);
+  __syncthreads();
+  const PathConsts& c = a.c;
+  const int lane = threadIdx.x & 31;
+  const int count = *a.counter(b, kLive);
+  const int* in = a.live(b);
+  unsigned work[2] = {0u, 0u};  // sun marches set up, settled
+  for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < count;
+       base += gridDim.x * blockDim.x) {
+    const int j = base + lane;
+    int i = 0;
+    bool march = false, shadow = false;
+    if (j < count) {
+      i = in[j];
+      // the world hit: bounce 0's primary, or the cast's
+      bool w_hit;
+      float w_t, w_normal[3], w_rgb[3];
+      if (b == 0 && a.p_hit != nullptr) {
+        w_hit = a.p_hit[i];
+        w_t = __ldg(a.p_t + i);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          w_normal[k] = __ldg(a.p_normal + 3 * i + k);
+          w_rgb[k] = __ldg(a.p_rgb + 3 * i + k);
+        }
+      } else {
+        w_hit = a.U(iFlags, i) & kWorldHit;
+        w_t = a.F(fWt, i);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          w_normal[k] = a.F(fNormal + k, i);
+          w_rgb[k] = a.F(fRgba + k, i);
+        }
+      }
+      float pos[3], d[3], sun[3];
+      unsigned st[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        pos[k] = a.F(fPos + k, i);
+        d[k] = a.F(fDir + k, i);
+        st[k] = a.U(iSt + k, i);
+        sun[k] = __ldg(a.sun + k);
+      }
+      const int code = (int)a.U(iCode, i);
+      const float pt = a.F(fPt, i);
+      // the planet cast's scatter direction (its 2 last draws)
+      float r[3], r1[3], r2[3];
+      random3(st, r1);
+      random3(st, r2);
+      float p_normal[3] = {0.0f, 0.0f, 0.0f};
+      if (code == 1) {
+        const float po[3] = {pos[0] + 0.0f, pos[1] + c.planet_r,
+                             pos[2] + 0.0f};
+#pragma unroll
+        for (int k = 0; k < 3; ++k) p_normal[k] = po[k] + d[k] * pt;
+        normalize3(p_normal);
+      } else if (code == 2) {
+        hemisphere(c, r1, r2, d, p_normal);
+      }
+      const bool p_hit = code > 0;
+      const float cap = p_hit ? pt : c.far;
+
+      const bool use_svo = w_hit && w_t <= cap;
+      const bool hit_any = p_hit || use_svo;
+      float rgba[4], normal[3];
+      const float* p_rgba = code == 1 ? c.ground : c.fog;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        rgba[k] = use_svo ? w_rgb[k] : (p_hit ? p_rgba[k] : 0.0f);
+        normal[k] = use_svo ? w_normal[k] : p_normal[k];
+      }
+      rgba[3] = use_svo ? 1.0f : (p_hit ? p_rgba[3] : 0.0f);
+      const float t_hit = use_svo ? w_t : pt;
+
+      // a primary ray that misses sees the sun disk
+      if (b == 0) {
+        const bool sun_disk = dot3(d, sun) > c.cos_sun;
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          a.F(fColor + k, i) =
+              a.F(fColor + k, i) +
+              (!hit_any && sun_disk ? a.F(fLight + k, i) * c.sun_color
+                                    : 0.0f);
+      }
+      if (hit_any) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) pos[k] = pos[k] + d[k] * t_hit;
+      }
+
+      // next-event estimation toward the sun: its direction, and its
+      // planet cast set up and tested
+      float sdir[3];
+      sample_sun(c, st, sun, sdir);
+      const bool facing = dot3(sdir, normal) > 0.0f;
+      random3(st, r);
+      bool sp_hit = false;
+      if (hit_any && facing) {
+        voxt::FogWalk w = fog_walker(a, frac_a, frac_b);
+        const float y0 = -logf(1.0f - r[0]);
+        if (w.setup(pos[0], pos[1], pos[2], sdir[0], sdir[1], sdir[2],
+                    __ldg(a.density + i), y0)) {
+          ++work[0];
+          if (w.scatter_free()) {
+            ++work[1];
+            sp_hit = w.surf;
+          } else {
+            march = true;
+            a.F(fY0, i) = y0;
+          }
+        } else {
+          sp_hit = w.code > 0;
+        }
+      }
+      pcg3d(st);  // the sun planet cast's scatter direction (unused)
+      pcg3d(st);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        a.F(fPos + k, i) = pos[k];
+        a.F(fNormal + k, i) = normal[k];
+        a.F(fSdir + k, i) = sdir[k];
+        a.U(iSt + k, i) = st[k];
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) a.F(fRgba + k, i) = rgba[k];
+      a.U(iFlags, i) = (hit_any ? kHit : 0u) | (facing ? kFacing : 0u) |
+                       (sp_hit ? kSunHit : 0u);
+      shadow = !march && hit_any && facing && !sp_hit;
+    }
+    append(a.queue(qSunMarch), a.counter(b, kSunMarch), march, i);
+    append(a.queue(qShadow), a.counter(b, kShadow), shadow, i);
+  }
+  const int slot[2] = {kSunMarches, kSunMarchesFree};
+  add_work<2>(a, slot, work);
+}
+
+// This thread's SVO node stack, after the warps' lane rings (the SVO
+// walks only: the SVO engine's stages and the re-casts)
+template <int E>
+__device__ __forceinline__ int* svo_stack(int* smem) {
+  return E != kSvo ? nullptr
+                   : smem + kThreads / 32 * voxt::kQueue + threadIdx.x;
+}
+
+// The pack's row starts into shared memory (heightfield engines)
+template <int E>
+__device__ __forceinline__ void load_rows(const PathArgs& a, int* s_rows) {
   if (E != kSvo && (int)threadIdx.x < a.hf.levels)
     s_rows[threadIdx.x] = __ldg(a.hf.row_start + threadIdx.x);
   __syncthreads();
-  const int warps = blockDim.x >> 5;
-  PathRay<E, TL> path{a, World<E, TL>{a, s_rows,
-                                      smem + warps * voxt::kQueue +
-                                          threadIdx.x}};
-  path.fog.frac_a = frac_a;
-  path.fog.frac_b = frac_b;
-  path.fog.n_steps = a.fog_steps;
-  path.fog.planet_r = a.c.planet_r;
-  path.fog.planet_r2 = a.c.planet_r2;
-  path.fog.fog_r2 = a.c.fog_r2;
-  path.fog.fog_factor = a.c.fog_factor;
-  path.max_last = 0;
-  voxt::run_lanes<1>(lanes, smem + (threadIdx.x >> 5) * voxt::kQueue, path);
-  // the batch's last bounce and the run's work: one atomic each a warp
-  int m = path.max_last;
-  unsigned work[4] = {path.world.hf_steps, path.world.svo_steps,
-                      path.fog_segs, path.bounces};
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    m = max(m, __shfl_xor_sync(voxt::kFullMask, m, o));
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      work[k] += __shfl_xor_sync(voxt::kFullMask, work[k], o);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    atomicMax(a.max_last, m);
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      atomicAdd(a.work + k, (unsigned long long)work[k]);
-  }
+}
+
+// A walk stage's work: its walk steps (heightfield or SVO) and, with
+// stats, its lane and warp steps
+template <class Ray>
+__device__ __forceinline__ void walk_work(const PathArgs& a, Ray& ray,
+                                          bool svo, int stage) {
+  const int slot[3] = {svo ? kSvoSteps : kHfSteps, kLaneSteps + stage,
+                       kWarpSteps + stage};
+  unsigned work[3] = {ray.walk.steps, ray.lane_steps, ray.warp_steps};
+  add_work<3>(a, slot, work);
+}
+
+template <int E, int TL, bool kStats>
+__global__ void __launch_bounds__(kThreads)
+    path_cast_kernel(__grid_constant__ const PathArgs a, int b) {
+  extern __shared__ int smem[];
+  __shared__ int s_rows[voxt::kHfMaxLevels];
+  load_rows<E>(a, s_rows);
+  CastRay<E, TL> ray{a, b, Walker<E, TL>(a, s_rows, svo_stack<E>(smem)), 0,
+                     -1, 0u, 0u};
+  voxt::run_lanes<kWalkSteps, kStats>(
+      a.lanes(b, kLive), smem + (threadIdx.x >> 5) * voxt::kQueue, ray);
+  walk_work(a, ray, E == kSvo, kStageCast);
+}
+
+template <int E, int TL, bool kStats>
+__global__ void __launch_bounds__(kThreads)
+    path_shadow_kernel(__grid_constant__ const PathArgs a, int b) {
+  extern __shared__ int smem[];
+  __shared__ int s_rows[voxt::kHfMaxLevels];
+  load_rows<E>(a, s_rows);
+  ShadowRay<E, TL> ray{a, b, Walker<E, TL>(a, s_rows, svo_stack<E>(smem)),
+                       0, -1, false, 0u, 0u};
+  voxt::run_lanes<kWalkSteps, kStats>(
+      a.lanes(b, kShadow), smem + (threadIdx.x >> 5) * voxt::kQueue, ray);
+  walk_work(a, ray, E == kSvo, kStageShadow);
+}
+
+template <bool kShadow, bool kStats>
+__global__ void __launch_bounds__(kThreads)
+    path_recast_kernel(__grid_constant__ const PathArgs a, int b) {
+  extern __shared__ int smem[];
+  RecastRay<kShadow> ray{a, b, Walker<kSvo, 3>(a, nullptr,
+                                               svo_stack<kSvo>(smem)),
+                         0, 0u, 0u};
+  voxt::run_lanes<kWalkSteps, kStats>(
+      a.lanes(b, kShadow ? kShadowRecast : kRecast),
+      smem + (threadIdx.x >> 5) * voxt::kQueue, ray);
+  walk_work(a, ray, true, kShadow ? kStageShadowRecast : kStageRecast);
 }
 
 // The draws the masked loop makes after a path has ended: 11 a bounce up
@@ -577,21 +1080,46 @@ __global__ void __launch_bounds__(kBurnThreads)
   state[3 * i + 2] = s[2];
 }
 
-template <int E, int TL>
-int launch(const PathArgs& a, int n, void* counter, int static_pct,
-           int chunk, int refill, int extra, cudaStream_t stream) {
-  auto kernel = path_trace_kernel<E, TL>;
-  const size_t smem =
-      (size_t)(kThreads / 32 * voxt::kQueue +
-               (E == kHf ? 0 : (a.height + 1) * kThreads)) *
-      sizeof(int);
-  int blocks = 0;
-  cudaError_t err = voxt::persistent_blocks(kernel, kThreads, smem, n, &blocks);
+// Every stage of every bounce, then the burn pass, on one stream.
+template <int E, int TL, bool kStats>
+int launch(const PathArgs& a, int extra, cudaStream_t stream) {
+  const int n = a.n;
+  auto bounce = path_bounce_kernel;
+  auto march = path_march_kernel<false, kStats>;
+  auto sun_march = path_march_kernel<true, kStats>;
+  auto cast = path_cast_kernel<E, TL, kStats>;
+  auto shade = path_shade_kernel;
+  auto shadow = path_shadow_kernel<E, TL, kStats>;
+  auto recast = path_recast_kernel<false, kStats>;
+  auto shadow_recast = path_recast_kernel<true, kStats>;
+  const size_t queues = (size_t)(kThreads / 32 * voxt::kQueue) * sizeof(int);
+  const size_t stack = (size_t)(a.height + 1) * kThreads * sizeof(int);
+  const size_t smem = queues + (E == kSvo ? stack : 0);
+  int nb = 0, nm = 0, nc = 0, ns = 0, nh = 0, nr = 0;
+  cudaError_t err = voxt::persistent_blocks(bounce, kThreads, 0, n, &nb);
+  if (err == cudaSuccess)
+    err = voxt::persistent_blocks(march, kThreads, 0, n, &nm);
+  if (err == cudaSuccess)
+    err = voxt::persistent_blocks(shade, kThreads, 0, n, &nh);
+  if (err == cudaSuccess)
+    err = voxt::persistent_blocks(cast, kThreads, smem, n, &nc);
+  if (err == cudaSuccess)
+    err = voxt::persistent_blocks(shadow, kThreads, smem, n, &ns);
+  if (err == cudaSuccess && E == kEdited)
+    err = voxt::persistent_blocks(recast, kThreads, queues + stack, n, &nr);
   if (err != cudaSuccess) return (int)err;
-  const voxt::LaneArgs lanes{
-      (int*)counter, nullptr, n,
-      voxt::lanes_per_warp(n, blocks, kThreads, static_pct), chunk, refill};
-  kernel<<<blocks, kThreads, smem, stream>>>(lanes, a);
+  bounce<<<nb, kThreads, 0, stream>>>(a, 0);
+  for (int b = 0; b < a.max_bounces; ++b) {
+    march<<<nm, kThreads, 0, stream>>>(a, b);
+    cast<<<nc, kThreads, smem, stream>>>(a, b);
+    if (E == kEdited) recast<<<nr, kThreads, queues + stack, stream>>>(a, b);
+    shade<<<nh, kThreads, 0, stream>>>(a, b);
+    sun_march<<<nm, kThreads, 0, stream>>>(a, b);
+    shadow<<<ns, kThreads, smem, stream>>>(a, b);
+    if (E == kEdited)
+      shadow_recast<<<nr, kThreads, queues + stack, stream>>>(a, b);
+    bounce<<<nb, kThreads, 0, stream>>>(a, b + 1);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   auto burn = path_burn_kernel;
@@ -600,22 +1128,37 @@ int launch(const PathArgs& a, int n, void* counter, int static_pct,
   return (int)cudaGetLastError();
 }
 
-template <int E>
-int launch_tl(const PathArgs& a, int tile_log, int n, void* counter,
-              int static_pct, int chunk, int refill, int extra,
-              cudaStream_t s) {
+template <int E, bool kStats>
+int launch_tl(const PathArgs& a, int tile_log, int extra, cudaStream_t s) {
   switch (tile_log) {
     case 1:
-      return launch<E, 1>(a, n, counter, static_pct, chunk, refill, extra, s);
+      return launch<E, 1, kStats>(a, extra, s);
     case 2:
-      return launch<E, 2>(a, n, counter, static_pct, chunk, refill, extra, s);
+      return launch<E, 2, kStats>(a, extra, s);
     default:
-      return launch<E, 3>(a, n, counter, static_pct, chunk, refill, extra, s);
+      return launch<E, 3, kStats>(a, extra, s);
+  }
+}
+
+template <bool kStats>
+int launch_engine(const PathArgs& a, int engine, int tile_log, int extra,
+                  cudaStream_t s) {
+  switch (engine) {
+    case kHf:
+      return launch_tl<kHf, kStats>(a, tile_log, extra, s);
+    case kSvo:
+      return launch<kSvo, 3, kStats>(a, extra, s);
+    default:
+      return launch_tl<kEdited, kStats>(a, tile_log, extra, s);
   }
 }
 
 }  // namespace
 
+// ws: kWordsPerPath * n words of path state (uninitialized); counters:
+// kCounters * (max_bounces + 1) int32, zeroed; work: kWork uint64, zeroed;
+// stats: count each lane-fetch stage's lane and warp steps (slower: only
+// for measurement).
 extern "C" int voxt_path_trace(
     const void* consts, int n_consts, int engine, const void* tiles,
     int tile_log, int levels, const void* row_starts, const void* hmax_w,
@@ -624,8 +1167,9 @@ extern "C" int voxt_path_trace(
     const void* light, const void* density, const void* state_in,
     const void* p_hit, const void* p_t, const void* p_normal,
     const void* p_rgb, void* color, void* state_out, void* last,
-    void* max_last, void* work, int n, int max_bounces, int fog_steps,
-    int extra_draws, void* counter, int static_pct, int chunk, int refill,
+    void* max_last, void* work, int n_work, void* ws, long long ws_words,
+    void* counters, int n_counters, int n, int max_bounces, int fog_steps,
+    int extra_draws, int stats, int static_pct, int chunk, int refill,
     void* stream) {
   if (n <= 0) return 0;
   const bool hf = engine == kHf || engine == kEdited;
@@ -633,6 +1177,8 @@ extern "C" int voxt_path_trace(
       engine > kEdited || !voxt::valid_fetch(static_pct, chunk, refill) ||
       height < 1 || max_bounces < 1 || fog_steps < 0 ||
       fog_steps > voxt::kFogMaxSteps || extra_draws < 0 ||
+      n_work != kWork || ws_words < (long long)kWordsPerPath * n ||
+      n_counters < kCounters * (max_bounces + 1) ||
       (engine != kHf && height > kSvoMaxHeight) ||
       (hf && (levels < 1 || levels > voxt::kHfMaxLevels || tile_log < 1 ||
               tile_log > 3 || height > 30)) ||
@@ -670,18 +1216,17 @@ extern "C" int voxt_path_trace(
   a.last = (int*)last;
   a.max_last = (int*)max_last;
   a.work = (unsigned long long*)work;
+  a.f = (float*)ws;
+  a.u = (unsigned*)(a.f + (size_t)kFloatFields * n);
+  a.q = (int*)(a.u + (size_t)kIntFields * n);
+  a.counters = (int*)counters;
+  a.n = n;
   a.max_bounces = max_bounces;
   a.fog_steps = fog_steps;
+  a.static_pct = static_pct;
+  a.chunk = chunk;
+  a.refill = refill;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (engine) {
-    case kHf:
-      return launch_tl<kHf>(a, tile_log, n, counter, static_pct, chunk,
-                            refill, extra_draws, s);
-    case kSvo:
-      return launch<kSvo, 3>(a, n, counter, static_pct, chunk, refill,
-                             extra_draws, s);
-    default:
-      return launch_tl<kEdited>(a, tile_log, n, counter, static_pct, chunk,
-                                refill, extra_draws, s);
-  }
+  return stats ? launch_engine<true>(a, engine, tile_log, extra_draws, s)
+               : launch_engine<false>(a, engine, tile_log, extra_draws, s);
 }

@@ -22,9 +22,11 @@ Every bounce draws 11 random3 values per lane, masks or not:
 raycast_planet 3 + sample_sun 2 + raycast_planet 3 + cos_hemisphere 2 +
 roulette 1 (integrator.py:548-553 of the JAX package).
 
-On the card ``trace_paths`` is kernel K9 (csrc/path_trace.cu): one
-thread a path runs its bounces with the walks of K1, K2 and K4 as device
-functions, and a second pass burns the draws of the bounces each path
+On the card ``trace_paths`` is kernel K9 (csrc/path_trace.cu): stage
+kernels over queues of paths on the card, a bounce at a time (the planet
+draw and the scatter-free test of the march, K1's march, the world cast
+with K2's or K4's walk, the fixed logic up to the sun march, the sun
+march, the shadow cast, the end of the bounce), and a last pass burns the draws of the bounces each path
 skipped, so radiance and RNG state are the masked loop's bit for bit.
 The masked loop, ``trace_paths_plain``, is K9's plain version: the CPU
 runs it, and so does the card for the two opt-in engines (sun maps on
@@ -87,20 +89,37 @@ EMISSIVE_GAIN = 10.0
 # shadow rays with the next bounce's rays in one walk; its radiance is the
 # unfused loop's bit for bit and its returned state leads by one planet
 # cast's 3 draws (the next bounce's fog event, drawn at the tail of the
-# last iteration). K9 walks each path on one thread, so there are no two
-# populations to pool: here fusing only advances the returned state by
-# those 3 draws, which keeps chained states equal to the JAX package's.
+# last iteration). K9 already packs each walk into its own stage, so
+# pooling buys it nothing: here fusing only advances the returned state
+# by those 3 draws, which keeps chained states equal to the JAX
+# package's.
 _FUSE = os.environ.get("VOXT_PT_FUSE", "0") == "1"
 PLANET_DRAWS = 3  # random3 draws of one atmosphere.raycast_planet
 
-launches = 0  # K9 launches since the last reset (chip_smoke reads it)
-# the work of K9's last launch, counted by the kernel on the card (an int64
-# tensor there, read by chip_smoke for the kernel's bound)
-K9_WORK = ("hf_steps", "svo_steps", "fog_segments", "bounces")
+launches = 0  # K9 calls since the last reset (chip_smoke reads it)
+# the work of K9's last call, counted by its stages on the card (an int64
+# tensor there, read by chip_smoke for the kernel's bound): walk steps,
+# fog segments marched, bounces; the marches set up and those the
+# scatter-free test settled (csrc/fog_walk.cuh), along d and toward the
+# sun; with stats on (k9_args(stats=True), a slower build of the stages
+# kept for measurement), the lane steps and the warp steps of each
+# lane-fetch stage
+K9_STAGES = ("march", "cast", "sun_march", "shadow", "recast",
+             "shadow_recast")
+K9_WORK = ("hf_steps", "svo_steps", "fog_segments", "bounces", "marches",
+           "marches_free", "sun_marches", "sun_marches_free") + tuple(
+    f"{s}_{k}_steps" for k in ("lane", "warp") for s in K9_STAGES)
 last_work = None
-# K9's lane fetch (csrc/lanes.cuh): a thread claims a new path as soon as
-# its own ends (refill 1: a step is a whole bounce)
-STATIC_PCT, CHUNK, REFILL = 75, 32, 1
+# the per-bounce counters of K9's last call (int32 on the card): the
+# lengths of the live, march, sun-march, shadow and the edited engine's
+# two re-cast queues, then the stages' lane-fetch claims
+K9_QUEUES = ("live", "march", "sun_march", "shadow", "recast",
+             "shadow_recast")
+K9_COUNTERS = 12
+last_queues = None
+K9_WORDS_PER_PATH = 37  # the path state's words a path (path_trace.cu)
+# K9's lane fetch in each stage (csrc/lanes.cuh): K4's settings
+STATIC_PCT, CHUNK, REFILL = 75, 32, 4
 ENGINES = {"hf": 0, "svo": 1, "edited": 2}  # K9's engine codes
 
 
@@ -136,8 +155,8 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
     """Trace one spectral path per ray; returns (state, radiance (..., 3)).
 
     Routes by the arguments: on CUDA tensors K9 (csrc/path_trace.cu)
-    traces the SVO, heightfield and edited-heightfield engines, one thread
-    a path; with sun maps on the unedited heightfield, or with the bit
+    traces the SVO, heightfield and edited-heightfield engines; with sun
+    maps on the unedited heightfield, or with the bit
     grid, the masked loop ``trace_paths_plain`` runs around K4 or K8; on
     CPU tensors the masked loop always. Any other device raises. Both
     give the same radiance and state bit for bit. ``fuse_nee``: the fused
@@ -165,6 +184,27 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
                            hf_edit_bounds, PLANET_DRAWS if fuse else 0)
 
 
+def k9_launches(max_bounces: int, edited: bool = False) -> int:
+    """Kernel launches of one K9 call: a bounce kernel per bounce and one
+    more, the two marches, the cast, the shade and the shadow stage per
+    bounce (and the two re-casts on the edited engine), and the burn
+    pass."""
+    return (8 if edited else 6) * max_bounces + 2
+
+
+def k9_inputs(args, kw) -> tuple:
+    """``k9_args``' positional inputs for the CUDA tensors of a
+    ``trace_paths(*args, **kw)`` call that takes K9 (the fused draws
+    included)."""
+    fuse = _fuses(kw.get("fuse_nee"), kw.get("hf_mips"),
+                  kw.get("hf_edit_bounds"), kw.get("sun_maps"),
+                  kw.get("bitworld"), args[6])
+    return tuple(args[:11]) + (
+        kw.get("primary"), kw.get("hf_mips"), kw.get("hf_offsets"),
+        kw.get("terrain_rgb"), kw.get("hf_edit_bounds"),
+        PLANET_DRAWS if fuse else 0)
+
+
 def _k9_input(name, x, shape, dtype, dev, move=False):
     """``x`` as a contiguous ``dtype`` tensor of ``shape`` on ``dev``; a
     per-path input must already lie there, a small one (``move``) is
@@ -178,9 +218,9 @@ def _k9_input(name, x, shape, dtype, dev, move=False):
 def _trace_paths_k9(table, root, height, lut, start, direction, wavelength,
                     sun, state, max_bounces, fog_steps, primary, hf_mips,
                     hf_offsets, terrain_rgb, hf_edit_bounds, extra_draws):
-    """K9 and its burn pass on the card, with ``extra_draws`` more draws
-    on every path's state."""
-    global launches, last_work
+    """K9's stages and its burn pass on the card, with ``extra_draws``
+    more draws on every path's state."""
+    global launches, last_work, last_queues
     dev = direction.device
     if max_bounces < 1 or direction.numel() == 0:  # the draws only
         for _ in range(extra_draws):
@@ -197,17 +237,21 @@ def _trace_paths_k9(table, root, height, lut, start, direction, wavelength,
                                   torch.cuda.current_stream().cuda_stream)
     build.check(err, "trace_paths")
     launches += 1
-    last_work = outs[3][-1]
+    last_work, last_queues = outs[3]["work"], outs[3]["counters"]
     return k9_result(outs)
 
 
 def k9_args(table, root, height, lut, start, direction, wavelength, sun,
             state, max_bounces, fog_steps, primary, hf_mips, hf_offsets,
             terrain_rgb, hf_edit_bounds, extra_draws,
-            fetch=(STATIC_PCT, CHUNK, REFILL)):
+            fetch=(STATIC_PCT, CHUNK, REFILL), stats: bool = False):
     """The inputs of K9's C entry ``voxt_path_trace`` but its stream, on
-    ``direction``'s device, and its outputs (color, state, batch shape)
-    for ``k9_result``. Checks what the kernel does not take."""
+    ``direction``'s device, and its outputs (color, state, batch shape,
+    and a dict of what the call must keep alive: each path's last bounce
+    ``last``, the ``work`` count, the per-bounce ``counters``, the
+    tensors that must be ``zeroed`` at launch) for ``k9_result``.
+    ``stats``: the stages count their lane and warp steps (a slower
+    build, for measurement). Checks what the kernel does not take."""
     dev = direction.device
     batch = direction.shape[:-1]
     B = direction.numel() // 3
@@ -275,11 +319,16 @@ def k9_args(table, root, height, lut, start, direction, wavelength, sun,
     color = torch.empty((B, 3), dtype=f32, device=dev)
     state_out = torch.empty((B, 3), dtype=torch.int32, device=dev)
     last = torch.empty((B,), dtype=torch.int32, device=dev)
-    # the batch's last bounce (0 at launch) and the lane-fetch counter
-    scratch = torch.zeros((2,), dtype=torch.int32, device=dev)
+    max_last = torch.zeros((1,), dtype=torch.int32, device=dev)
     work = torch.zeros((len(K9_WORK),), dtype=torch.int64, device=dev)
-    keep = (pos, d, density, light, state_in, sun_t, rows, hmax_w, trgb,
-            boxes, prim, last, scratch, work)
+    # the path state, and each bounce's queue lengths and claims (zeroed)
+    ws = torch.empty((K9_WORDS_PER_PATH * B,), dtype=torch.int32, device=dev)
+    counters = torch.zeros((K9_COUNTERS * (int(max_bounces) + 1),),
+                           dtype=torch.int32, device=dev)
+    keep = dict(inputs=(pos, d, density, light, state_in, sun_t, rows, hmax_w,
+                        trgb, boxes, prim, ws),
+                last=last, work=work, zeroed=(max_last, work, counters),
+                counters=counters.view(-1, K9_COUNTERS)[:int(max_bounces)])
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -290,10 +339,10 @@ def k9_args(table, root, height, lut, start, direction, wavelength, sun,
             ptr(boxes), n_boxes, ptr(trgb), sun_t.data_ptr(), pos.data_ptr(),
             d.data_ptr(), light.data_ptr(), density.data_ptr(),
             state_in.data_ptr(), *(ptr(x) for x in prim), color.data_ptr(),
-            state_out.data_ptr(), last.data_ptr(), scratch[0:1].data_ptr(),
-            work.data_ptr(), B, int(max_bounces), int(fog_steps),
-            int(extra_draws),
-            scratch[1:2].data_ptr(), *fetch)
+            state_out.data_ptr(), last.data_ptr(), max_last.data_ptr(),
+            work.data_ptr(), len(K9_WORK), ws.data_ptr(), ws.numel(),
+            counters.data_ptr(), counters.numel(), B, int(max_bounces),
+            int(fog_steps), int(extra_draws), int(stats), *fetch)
     return args, (color, state_out, batch, keep)
 
 
