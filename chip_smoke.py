@@ -166,7 +166,8 @@ Phases, each printing its lines; any failure exits non-zero:
    the K9 call made under torch.cuda.set_sync_debug_mode("error") so
    that a host read inside it fails the run; ms of the trace_paths call
    and of the whole batch-8 call, K9 and the masked loop in turns, and
-   the host time K9 takes to enqueue its launches; a profile of the call
+   the host time to enqueue the trace_paths call and its C call alone; a
+   profile of the call
    with each (wall, device busy ms and share, device events, K9's own ms
    and each of its stage kernels' ms and launches, 6 x bounces + 2
    launches, 8 x bounces + 2 on the edited engine); K9's own counts read
@@ -174,8 +175,9 @@ Phases, each printing its lines; any failure exits non-zero:
    and sun marches the scatter-free test settled, segments marched
    against those the marches define, and from one more call with stats
    on each lane-fetch stage's SIMT efficiency; K9's bound from its counts of
-   walk steps, segments, tests, bounces and state bytes, and PR 12's
-   definition of it. After 8, ptxas's registers and spills for each of
+   walk steps, segments, tests and bounces, beside it the path state
+   its stages move and the full-march bound (every segment the marches
+   define, no tests). After 8, ptxas's registers and spills for each of
    K9's stage kernels and a line per configuration.
 
 The line before the last is the per-kernel JSON record; the last line is
@@ -346,82 +348,18 @@ def _fog_inputs(rng, B, dev):
     return t(start), t(d), fog_density(wl).contiguous(), t(y0)
 
 
-def _fog_segments(start, d, density, y0, n_steps, active=None):
-    """Segments K1 marches for these rays: none for an inactive ray or one
-    that misses the shell, else up to and including its scatter event."""
-    import torch
-
-    from voxtracer_torch.core.vecmath import div
-    from voxtracer_torch.kernels import fog
-
-    t0, t1, valid, _, p = fog._sphere_span(start, d)
-    density_scaled = div(t1 - t0, float(n_steps)) * density
-    y = y0
-    live = valid.clone() if active is None else valid & active
-    total = 0
-    for i in range(n_steps):
-        total += int(live.sum())
-        _, t_s1 = fog._segment(i, n_steps, t0, t1)
-        d_seg = density_scaled * torch.exp(-fog._altitude(p, d, t_s1)
-                                           * fog.FOG_FACTOR)
-        scatter = live & (y < d_seg)
-        y = torch.where(live & ~scatter, y - d_seg, y)
-        live = live & ~scatter
-    return total
-
-
-def _fog_settled(start, d, density, y0, n_steps):
-    """The lanes whose march fog_walk.cuh's scatter-free test settles: its
-    bound D (scatter_bound) in float64 from the march's own float32 span,
-    against y0 (1 - 2^-15). For counting work only (torch's float64
-    libm and the card's may part on a lane at the margin)."""
-    import torch
-
-    from voxtracer_torch.core.vecmath import div
-    from voxtracer_torch.kernels import fog
-
-    t0, t1, valid, _, (px, pyr, pz) = fog._sphere_span(start, d)
-    ds = (div(t1 - t0, float(n_steps)) * density).double()
-    f64 = lambda x: x.double()  # noqa: E731
-    P = torch.stack([f64(px), f64(pyr), f64(pz)], -1)
-    D = f64(d)
-    T0, T1 = f64(t0), f64(t1)
-    R, ff, n = fog.PLANET_R_F, fog.FOG_FACTOR_F, float(n_steps)
-    pn = P.norm(dim=-1)
-    dd = (D * D).sum(-1)
-    M = 2.0 ** -19 * (pn + T1 * dd.sqrt() + R)
-    pd = (P * D).sum(-1)
-    tc = torch.minimum(torch.maximum(torch.where(dd > 0, -pd / dd, 0.0), T0),
-                       T1)
-    a_min = (P + D * tc[..., None]).norm(dim=-1) - R - M
-    a_max = pn + T1 * dd.sqrt() - R + M
-    arg_max = ff * torch.maximum(a_min.abs(), a_max.abs())
-    G = n * torch.exp(-ff * a_min)
-    mu = pd / pn
-    x = ff * mu * ((T1 - T0) / n)
-    lead = -ff * (pn - R - M + mu * T1)
-    geo = torch.where(x == 0, n * torch.exp(lead),
-                      torch.exp(lead + x) * (torch.expm1(n * x)
-                                             / torch.expm1(x)))
-    G = torch.where((pn > 0) & (geo < G), geo, G)
-    bound = ds * G * (1.0 + 2.0 ** -20) * torch.exp(2.0 ** -23 * arg_max)
-    return valid & (n_steps > 0) & (ds >= 0) & (-ff * a_min <= 64.0) \
-        & (f64(y0) * (1.0 - 2.0 ** -15) > bound)
-
-
 def _fog_bound(args, n_steps, active):
-    """K1's bound for these rays: (ms, by, segments, settled lanes). Every
-    lane's outputs (8 B) and mask byte; the inputs (40 B) and, of the
-    active lanes, the scatter-free test (float64) and the march of those
-    it does not settle."""
+    """K1's bound for these rays: (ms, by, segments, settled lanes), from
+    one launch's own counts (fog.last_work: the marches the scatter-free
+    test settled, the segments marched). Every lane's outputs (8 B) and
+    mask byte; the inputs (40 B) and, of the active lanes, the
+    scatter-free test (float64) and the segments marched."""
+    from voxtracer_torch.kernels import fog
+
     B = args[0].shape[0]
     n_act = B if active is None else int(active.sum())
-    settled = _fog_settled(*args, n_steps)
-    if active is not None:
-        settled = settled & active
-    marched = ~settled if active is None else active & ~settled
-    segs = _fog_segments(*args, n_steps=n_steps, active=marched)
-    n_set = int(settled.sum())
+    fog.fog_march(*args, n_steps=n_steps, active=active)
+    n_set, segs = (int(x) for x in fog.last_work.tolist())
     ms, by = _bound(B * (8 + (0 if active is None else 1)) + n_act * 40,
                     n_act * K1_SETUP_OPS + segs * K1_STEP_OPS
                     + n_act * K9_CERT_OPS * FP32_OPS_PER_S / FP64_OPS_PER_S)
@@ -1478,15 +1416,17 @@ def _capture_call(renderer, cam, sun):
 
 
 def _k9_bound(args, kw, work, queues):
-    """K9's least time for one call: the bytes of its per-path inputs and
-    outputs, of the pack or node table once, and of the path state its
-    stages move (K9_STATE_BYTES by this run's queue lengths); the
-    float32 operations of this run's walk steps, marched fog segments and
-    bounces, and the float64 ones of its scatter-free tests (K9's own
-    counts). Also PR 12's definition at the same inputs (no state bytes,
-    no tests, every segment the march defines: those marched plus
+    """K9's least time for one call, from what the function needs: the
+    bytes of its per-path inputs and outputs and of the pack or node
+    table once; the float32 operations of this run's walk steps, marched
+    fog segments and bounces, and the float64 ones of its scatter-free
+    tests (K9's own counts). Beside it, not in it: the path state the
+    stage design moves between its kernels (K9_STATE_BYTES by this run's
+    queue lengths), which a design that keeps the state in registers does
+    not move, and the bound with those bytes; and the full-march bound
+    (no tests, every segment the marches define: those marched plus
     fog_steps for each march the test settled). Returns (ms, bound_by,
-    PR 12's ms, the counts)."""
+    full-march ms, state bytes, ms with them, the counts)."""
     B = args[5].numel() // 3
     fog_steps = int(args[10])
     per_path = 12 * 3 + 4 + 12 + 12 + 12 + 4  # in: pos, dir, light,
@@ -1515,9 +1455,10 @@ def _k9_bound(args, kw, work, queues):
              + q[4] * K9_STATE_BYTES["cast"])
     defined = w["fog_segments"] + fog_steps * (w["marches_free"]
                                                + w["sun_marches_free"])
-    old_ms = _bound(nbytes, walk_ops + defined * K1_STEP_OPS)[0]
-    counts = dict(w, state_bytes=state, pr12_segments=defined)
-    return _bound(nbytes + state, ops) + (old_ms, counts)
+    full_ms = _bound(nbytes, walk_ops + defined * K1_STEP_OPS)[0]
+    counts = dict(w, full_march_segments=defined)
+    return _bound(nbytes, ops) + (full_ms, state,
+                                  _bound(nbytes + state, ops)[0], counts)
 
 
 def _k9_profile(fn):
@@ -1586,6 +1527,25 @@ def _k9_stats_run(args, kw):
     return outs[3]["work"], outs[3]["counters"]
 
 
+def _k9_c_host_ms(args, kw):
+    """Host ms to enqueue K9's C call alone (its stage launches and burn
+    pass), its arguments made beforehand."""
+    import torch
+
+    from voxtracer_torch.kernels import build, integrator
+
+    c_args, _ = integrator.k9_args(*integrator.k9_inputs(args, kw))
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    err = lib.voxt_path_trace(*c_args, stream)
+    ms = 1e3 * (time.monotonic() - t0)
+    build.check(err, "K9's C call")
+    torch.cuda.synchronize()
+    return ms
+
+
 def phase_path_kernel(name, renderer, cam):
     """K9 at one configuration, on the inputs of one batch-8 sample_batch
     call: against the masked loop (trace_paths_plain on K1/K2/K4) with
@@ -1597,7 +1557,9 @@ def phase_path_kernel(name, renderer, cam):
     stage kernels' ms and launches; K9's own counts (queue lengths by
     bounce, the scatter-free test's share, segments, SIMT efficiency of
     each lane-fetch stage) read after the timed window; K9's bound from
-    them, and PR 12's definition of it. Returns the configuration's
+    them, the path state the stages move and the full-march bound beside
+    it; the host time to enqueue the call and its C call. Returns the
+    configuration's
     record."""
     import torch
 
@@ -1655,6 +1617,7 @@ def phase_path_kernel(name, renderer, cam):
     k9()
     host_ms = 1e3 * (time.monotonic() - t0)  # enqueue only: no sync inside
     torch.cuda.synchronize()
+    c_host_ms = _k9_c_host_ms(args, kw)
     call = {"K9": [], "masked loop": []}
     prof = {}
     real = integrator.trace_paths
@@ -1669,8 +1632,8 @@ def phase_path_kernel(name, renderer, cam):
                     lambda: renderer.sample_batch(cam, sun, 8))
         finally:
             integrator.trace_paths = real
-    bound_ms, bound_by, old_bound_ms, counts = _k9_bound(args, kw, work,
-                                                         queues)
+    bound_ms, bound_by, full_ms, state, state_ms, counts = _k9_bound(
+        args, kw, work, queues)
     work_s, queues_s = _k9_stats_run(args, kw)
     if not (torch.equal(work_s[:8], work[:8])
             and torch.equal(queues_s[:, :6], queues[:, :6])):
@@ -1679,12 +1642,15 @@ def phase_path_kernel(name, renderer, cam):
     r = lambda xs: [round(x, 2) for x in xs]  # noqa: E731
     print(f"  trace_paths call ms in turns: K9 {r(ms['K9'])}, masked loop "
           f"{r(ms['masked loop'])} (host clock, synchronized); CUDA events "
-          f"K9 {k9_ms:.2f}, masked loop {plain_ms:.2f}; K9's host time to "
-          f"enqueue its launches {host_ms:.2f} ms; K9's bound "
-          f"{bound_ms:.3f} ms ({bound_by}; work {counts}) = "
-          f"{100 * bound_ms / k9_ms:.2f}% of its time; PR 12's bound "
-          f"definition {old_bound_ms:.3f} ms = "
-          f"{100 * old_bound_ms / k9_ms:.2f}% ({CARD})")
+          f"K9 {k9_ms:.2f}, masked loop {plain_ms:.2f}; host time to "
+          f"enqueue: the trace_paths call {host_ms:.2f} ms, its C call "
+          f"{c_host_ms:.2f} ms; K9's bound {bound_ms:.3f} ms ({bound_by}; "
+          f"work {counts}) = {100 * bound_ms / k9_ms:.2f}% of its time; "
+          f"the full-march bound {full_ms:.3f} ms = "
+          f"{100 * full_ms / k9_ms:.2f}% ({CARD})")
+    print(f"  path state the stages move between their kernels, not in the "
+          f"bound: {state / 1e9:.3f} GB; the bound with it {state_ms:.3f} ms "
+          f"= {100 * state_ms / k9_ms:.2f}%")
     for line in stats:
         print(f"  {line}")
     print(f"  batch-8 sample_batch call ms in turns: with K9 "
@@ -1707,8 +1673,8 @@ def phase_path_kernel(name, renderer, cam):
                              f"and {prof['masked loop']['k9_launches']} times")
     return dict(name=name, paths=B, record=dict(
         max_abs_err=err, ms=k9_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None), pr12_bound_ms=old_bound_ms,
-        stages=stages, simt=eff, counts=counts)
+        bound_by=bound_by, library_ms=None), full_march_ms=full_ms,
+        state_ms=state_ms, stages=stages, simt=eff, counts=counts)
 
 
 def _path_summary(recs):
@@ -1720,8 +1686,9 @@ def _path_summary(recs):
         x = rec["record"]
         print(f"K9 summary, {rec['name']}: {x['ms']:.2f} ms a batch-8 call "
               f"({rec['paths']} paths), masked loop {x['plain_ms']:.2f} ms, "
-              f"bound {x['bound_ms']:.3f} ms ({x['bound_by']}; PR 12's "
-              f"definition {rec['pr12_bound_ms']:.3f}), max abs difference "
+              f"bound {x['bound_ms']:.3f} ms ({x['bound_by']}; full-march "
+              f"{rec['full_march_ms']:.3f}, with the stages' state "
+              f"{rec['state_ms']:.3f}), max abs difference "
               f"{x['max_abs_err']:.3e}; SIMT efficiency "
               + ", ".join(f"{k} {100 * v:.1f}%" for k, v in rec["simt"].items()))
 

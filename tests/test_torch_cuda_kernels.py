@@ -72,6 +72,12 @@ def test_fog_march_masked_matches_plain(cuda, B, steps, frac):
     assert torch.equal(code_k, code_p)
     assert torch.equal(t_k, t_p)
     assert (code_k[~active] == 0).all() and (t_k[~active] == 0).all()
+    # the kernel's own counts: a march the scatter-free test settled does
+    # not scatter and marches no segment
+    n_set, segs = fog.last_work.tolist()
+    n_act = int(active.sum())
+    assert n_set + int((code_k == 2).sum()) <= n_act
+    assert segs <= steps * (n_act - n_set)
 
 
 def test_fog_march_rejects_bad_input(cuda):

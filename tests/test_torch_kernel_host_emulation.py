@@ -51,10 +51,12 @@ walk-step counts to the plain walks' within 2%; its queue lengths to the
 paths' last bounces and its march counts; and K9 to itself by bits
 under every lane-fetch setting.
 
-The scatter-free test of the march (fog_walk.cuh, in K1's begin() and
-K9's stages) is fuzzed against the full march of the same source: every
+The scatter-free test of the march (fog_walk.cuh, in K1 and K9's
+stages) is fuzzed against the full march of the same source: every
 lane's (code, t) by bits, its bound above the sum of the segment
-densities, at 1, 64 and 256 segments.
+densities, at 1, 64 and 256 segments. K1's work counts (the marches the
+test settled, the segments marched) must equal that lane-by-lane
+model's.
 
 Needs g++ with C++20 (<barrier>); skips without it.
 """
@@ -303,12 +305,13 @@ BSEARCH_SIGNATURE = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                      ctypes.c_void_p, ctypes.c_void_p)
 
 # The march of fog_walk.cuh three ways, lane by lane: the full march with
-# no scatter-free test, K1's begin() (the test, then the march if it does
-# not settle), and the test's bound D against the sum of the segment
+# no scatter-free test, K1's (the test, then the march if it does not
+# settle), and the test's bound D against the sum of the segment
 # densities the march computes (step()'s float expressions, summed in
 # double with y0 infinite). C entry: start, dir, density, y0, n, n_steps,
 # planet_r, planet_r2, fog_r2, fog_factor, code_full, t_full, code_k1,
-# t_k1, settled (1, 0, or -1 where setup() settled the lane), bound, sum
+# t_k1, settled (1, 0, or -1 where setup() settled the lane), bound, sum,
+# segments K1 marches
 FOG_CERTIFY = r"""
 #include <cuda_runtime.h>
 #include <math.h>
@@ -317,7 +320,8 @@ extern "C" int voxt_fog_certify(
     const float* start, const float* dir, const float* density,
     const float* y0, int n, int n_steps, float planet_r, float planet_r2,
     float fog_r2, float fog_factor, int* code_full, float* t_full,
-    int* code_k1, float* t_k1, int* settled, double* bound, double* sum) {
+    int* code_k1, float* t_k1, int* settled, double* bound, double* sum,
+    int* segs) {
   static float fa[voxt::kFogMaxSteps + 1], fb[voxt::kFogMaxSteps + 1];
   blockDim.x = 1;
   threadIdx.x = 0;
@@ -356,9 +360,14 @@ extern "C" int voxt_fog_certify(
     code_full[i] = w.code;
     t_full[i] = w.t;
     voxt::FogWalk k = base;
-    if (k.begin(o[0], o[1], o[2], d[0], d[1], d[2], density[i], y0[i]))
-      while (k.step()) {
-      }
+    segs[i] = 0;
+    if (k.setup(o[0], o[1], o[2], d[0], d[1], d[2], density[i], y0[i])) {
+      if (k.scatter_free())
+        k.settle();
+      else
+        while (++segs[i], k.step()) {
+        }
+    }
     code_k1[i] = k.code;
     t_k1[i] = k.t;
   }
@@ -366,7 +375,7 @@ extern "C" int voxt_fog_certify(
 }
 """
 FOG_CERTIFY_SIGNATURE = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 2 + (
-    ctypes.c_float,) * 4 + (ctypes.c_void_p,) * 7
+    ctypes.c_float,) * 4 + (ctypes.c_void_p,) * 8
 
 # lane-fetch settings (static percent, chunk, refill): the wrappers' and
 # the corners
@@ -794,7 +803,7 @@ def test_sky_tmin_source_orders_and_searches(host_kernels, shape, K):
     assert ((want > 0) & (want < 1e37)).float().mean() > 0.2
 
 
-def _fog_host(fn, args, active, n_steps, fetch):
+def _fog_host(fn, args, active, n_steps, fetch, work=None):
     B = args[0].shape[0]
     code = torch.full((B,), 7, dtype=torch.int32)
     t = torch.full((B,), 7.0)
@@ -802,7 +811,8 @@ def _fog_host(fn, args, active, n_steps, fetch):
     err = fn(*(a.data_ptr() for a in args),
              None if active is None else active.data_ptr(), code.data_ptr(),
              t.data_ptr(), B, n_steps, fog.PLANET_R_F, fog.PLANET_R2_F,
-             fog.FOG_R2_F, fog.FOG_FACTOR_F, counter.data_ptr(), *fetch, None)
+             fog.FOG_R2_F, fog.FOG_FACTOR_F, counter.data_ptr(), *fetch,
+             None if work is None else work.data_ptr(), None)
     assert err == 0
     return code, t
 
@@ -822,10 +832,23 @@ def test_fog_march_source_masks_and_schedules_exactly(host_kernels, B,
     fn = host_kernels["fog_march"]
     code, t = _fog_host(fn, args, None, n_steps, FETCHES[0])
     active = torch.from_numpy(rng.random(B) < 0.3)
+    # the work counts: the lane-by-lane model's settled marches and
+    # segments, over the lanes each launch marches
+    model = _certify_host(host_kernels["fog_certify"],
+                          *(a.numpy() for a in args), n_steps)
+    settled, segs = model[4] == 1, model[7].astype(np.int64)
+    assert np.array_equal(model[2], code.numpy())
+    if B > 100 and n_steps:
+        assert settled.any() and segs.any()
     for fetch in FETCHES:
-        c_all, t_all = _fog_host(fn, args, None, n_steps, fetch)
+        work = torch.zeros(2, dtype=torch.int64)
+        c_all, t_all = _fog_host(fn, args, None, n_steps, fetch, work)
         assert torch.equal(c_all, code) and torch.equal(t_all, t)
-        c_m, t_m = _fog_host(fn, args, active, n_steps, fetch)
+        assert work.tolist() == [int(settled.sum()), int(segs.sum())]
+        work.zero_()
+        c_m, t_m = _fog_host(fn, args, active, n_steps, fetch, work)
+        on = active.numpy()
+        assert work.tolist() == [int(settled[on].sum()), int(segs[on].sum())]
         assert torch.equal(c_m, torch.where(active, code, 0))
         assert np.array_equal(t_m.numpy().view(np.int32),
                               torch.where(active, t, 0.0).numpy()
@@ -876,7 +899,7 @@ def _certify_host(fn, start, d, density, y0, n_steps):
     outs = [np.zeros(B, np.int32), np.zeros(B, np.float32),
             np.zeros(B, np.int32), np.zeros(B, np.float32),
             np.zeros(B, np.int32), np.zeros(B, np.float64),
-            np.zeros(B, np.float64)]
+            np.zeros(B, np.float64), np.zeros(B, np.int32)]
     ins = [np.ascontiguousarray(x) for x in (start, d, density, y0)]
     err = fn(*(x.ctypes.data for x in ins), B, n_steps, fog.PLANET_R_F,
              fog.PLANET_R2_F, fog.FOG_R2_F, fog.FOG_FACTOR_F,
@@ -912,7 +935,7 @@ def test_fog_scatter_free_test_matches_the_full_march(host_kernels, n_steps):
     low = y_edge.astype(np.float64) * (1.0 - 2.0 ** -15) <= bound
     y_edge[low] = np.nextafter(y_edge[low], np.float32(np.inf))
     y0 = np.where(edge, y_edge, y0).astype(np.float32)
-    code_f, t_f, code_k, t_k, settled, bound, total = _certify_host(
+    code_f, t_f, code_k, t_k, settled, bound, total, _ = _certify_host(
         fn, start, d, density, y0, n_steps)
     assert np.array_equal(code_k, code_f)
     assert np.array_equal(t_k.view(np.int32), t_f.view(np.int32))

@@ -43,9 +43,9 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     # start, dir, density, y0, active, code, t, n, n_steps, planet_r,
     # planet_r2, fog_r2, fog_factor, counter, static_pct, chunk, refill,
-    # stream
+    # work (or null), stream
     "voxt_fog_march": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
-                       _P, _I, _I, _I, _P),
+                       _P, _I, _I, _I, _P, _P),
     # table, root, height, start, dir, distance, active, skip_t0,
     # hit, t, node, normal, voxel, n, counter, static_pct, chunk, refill,
     # stream

@@ -30,6 +30,9 @@
 // segment densities, in double, against its free path): a march the test
 // proves never scatters returns the march's own result at once, so no
 // output bit changes.
+// With a `work` pointer, the kernel counts the marches the test settled
+// and the segments marched (a warp's sums, one atomic each), for the
+// bound of the launch's own work.
 
 #include <cuda_runtime.h>
 
@@ -52,6 +55,7 @@ struct FogRay {
   float* __restrict__ t_out;
   voxt::FogWalk w;
   int i;
+  unsigned settled, segs;  // this thread's counts
 
   __device__ __forceinline__ void skip(int base, unsigned lanes) {
     const int lane = threadIdx.x & 31;
@@ -69,15 +73,21 @@ struct FogRay {
 
   __device__ __forceinline__ bool start(int lane_index) {
     i = lane_index;
-    if (w.begin(__ldg(origin + 3 * i), __ldg(origin + 3 * i + 1),
-                __ldg(origin + 3 * i + 2), __ldg(dir + 3 * i),
-                __ldg(dir + 3 * i + 1), __ldg(dir + 3 * i + 2),
-                __ldg(density + i), __ldg(y0 + i)))
-      return true;
+    if (!w.setup(__ldg(origin + 3 * i), __ldg(origin + 3 * i + 1),
+                 __ldg(origin + 3 * i + 2), __ldg(dir + 3 * i),
+                 __ldg(dir + 3 * i + 1), __ldg(dir + 3 * i + 2),
+                 __ldg(density + i), __ldg(y0 + i)))
+      return finish();
+    if (!w.scatter_free()) return true;
+    ++settled;
+    w.settle();
     return finish();
   }
 
-  __device__ __forceinline__ bool step() { return w.step() || finish(); }
+  __device__ __forceinline__ bool step() {
+    ++segs;
+    return w.step() || finish();
+  }
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -86,7 +96,8 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ density,
                      const float* __restrict__ y0, int* __restrict__ code_out,
                      float* __restrict__ t_out, int n_steps, float planet_r,
-                     float planet_r2, float fog_r2, float fog_factor) {
+                     float planet_r2, float fog_r2, float fog_factor,
+                     unsigned long long* __restrict__ work) {
   __shared__ float frac_a[voxt::kFogMaxSteps + 1];
   __shared__ float frac_b[voxt::kFogMaxSteps + 1];
   __shared__ int queue[kThreads / 32 * voxt::kQueue];
@@ -107,8 +118,20 @@ __global__ void __launch_bounds__(kThreads)
   ray.w.planet_r2 = planet_r2;
   ray.w.fog_r2 = fog_r2;
   ray.w.fog_factor = fog_factor;
+  ray.settled = ray.segs = 0u;
   voxt::run_lanes<kSteps>(
       lanes, queue + (threadIdx.x >> 5) * voxt::kQueue, ray);
+  if (work == nullptr) return;
+  unsigned v[2] = {ray.settled, ray.segs};
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      v[k] += __shfl_xor_sync(voxt::kFullMask, v[k], o);
+  if ((threadIdx.x & 31) == 0)
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (v[k] != 0u) atomicAdd(work + k, (unsigned long long)v[k]);
 }
 
 }  // namespace
@@ -119,7 +142,7 @@ extern "C" int voxt_fog_march(const void* start, const void* dir,
                               int n_steps, float planet_r, float planet_r2,
                               float fog_r2, float fog_factor, void* counter,
                               int static_pct, int chunk, int refill,
-                              void* stream) {
+                              void* work, void* stream) {
   if (n <= 0) return 0;
   if (!voxt::valid_fetch(static_pct, chunk, refill))
     return (int)cudaErrorInvalidValue;
@@ -134,6 +157,6 @@ extern "C" int voxt_fog_march(const void* start, const void* dir,
   fog_march_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       lanes, (const float*)start, (const float*)dir, (const float*)density,
       (const float*)y0, (int*)code, (float*)t, n_steps, planet_r, planet_r2,
-      fog_r2, fog_factor);
+      fog_r2, fog_factor, (unsigned long long*)work);
   return (int)cudaGetLastError();
 }

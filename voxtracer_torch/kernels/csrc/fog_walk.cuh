@@ -26,12 +26,13 @@ __device__ __forceinline__ void fog_fractions(float* frac_a, float* frac_b,
   }
 }
 
-// One ray's march. begin() intersects the shell and the planet and returns
-// false once the result is known, by the shell alone or by the
-// scatter-free test; step() marches one segment, far to near, and returns
-// false once it is. The result is (code, t): code 0 miss / 1 planet /
-// 2 scatter. A segment's near end is carried over as the next segment's
-// far end, so no segment divides. setup() is begin() without the test.
+// One ray's march. setup() intersects the shell and the planet and returns
+// false once the result is known by the shell alone; scatter_free() is the
+// test below, and settle() then gives the result without a march; step()
+// marches one segment, far to near, and returns false once the result is
+// known. The result is (code, t): code 0 miss / 1 planet / 2 scatter. A
+// segment's near end is carried over as the next segment's far end, so
+// no segment divides.
 //
 // The scatter-free test (scatter_free()). The march scatters at segment s
 // iff y_s < d_s, where y_0 = y0, y_{s+1} = fl(y_s - d_s) and d_s =
@@ -110,7 +111,7 @@ struct FogWalk {
     surf = valid && (det_pl >= 0.0f) && (t0_pl > 0.0f);
     if (surf) t1 = t0_pl;
 
-    if (!valid || n_steps == 0) return done(surf ? 1 : 0, surf ? t1 : 0.0f);
+    if (!valid || n_steps == 0) return settle();
     const float nf = (float)n_steps;
     density_scaled = (t1 - t0) / nf * density;
     y = y0;
@@ -160,12 +161,9 @@ struct FogWalk {
     return (double)y * (1.0 - 0x1p-15) > scatter_bound();
   }
 
-  __device__ __forceinline__ bool begin(float ox, float oy, float oz,
-                                        float dir_x, float dir_y, float dir_z,
-                                        float density, float y0) {
-    if (!setup(ox, oy, oz, dir_x, dir_y, dir_z, density, y0)) return false;
-    if (scatter_free()) return done(surf ? 1 : 0, surf ? t1 : 0.0f);
-    return true;
+  // The result of a march that scatters at no segment: false.
+  __device__ __forceinline__ bool settle() {
+    return done(surf ? 1 : 0, surf ? t1 : 0.0f);
   }
 
   __device__ __forceinline__ bool step() {
@@ -182,7 +180,7 @@ struct FogWalk {
     y = y - d_seg;
     t_s0 = t_s1;
     if (++s < n_steps) return true;
-    return done(surf ? 1 : 0, surf ? t1 : 0.0f);
+    return settle();
   }
 };
 

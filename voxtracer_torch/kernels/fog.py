@@ -36,6 +36,10 @@ MAX_STEPS = 256  # the kernel's shared table of segment fractions
 STATIC_PCT, CHUNK, REFILL = 90, 32, 8
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+# the work of K1's last launch, counted on the card (an int64 tensor
+# there, read by chip_smoke for the kernel's bound): the marches the
+# scatter-free test (csrc/fog_walk.cuh) settled, and the segments marched
+last_work = None
 
 
 def fog_march(start, direction, density, y0, n_steps: int = 64,
@@ -47,7 +51,7 @@ def fog_march(start, direction, density, y0, n_steps: int = 64,
     Returns (code (B,) int32 [0 miss / 1 planet / 2 fog], t (B,) float32);
     an inactive lane gets code 0 and t 0.
     """
-    global launches
+    global launches, last_work
     if start.device.type == "cpu":
         return fog_march_plain(start, direction, density, y0, n_steps, active)
     if start.device.type != "cuda":
@@ -74,17 +78,20 @@ def fog_march(start, direction, density, y0, n_steps: int = 64,
     if B == 0:
         return code, t
     lib = build.library()
-    counter = torch.zeros((1,), dtype=torch.int32, device=start.device)
+    # one zeroed buffer: the lane fetch's int32 counter in its first word,
+    # then the work counts
+    zeroed = torch.zeros((3,), dtype=torch.int64, device=start.device)
     with torch.cuda.device(start.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.voxt_fog_march(
             start.data_ptr(), direction.data_ptr(), density.data_ptr(),
             y0.data_ptr(), None if active is None else active.data_ptr(),
             code.data_ptr(), t.data_ptr(), B, int(n_steps), PLANET_R_F,
-            PLANET_R2_F, FOG_R2_F, FOG_FACTOR_F, counter.data_ptr(), STATIC_PCT,
-            CHUNK, REFILL, stream)
+            PLANET_R2_F, FOG_R2_F, FOG_FACTOR_F, zeroed.data_ptr(), STATIC_PCT,
+            CHUNK, REFILL, zeroed[1:].data_ptr(), stream)
     build.check(err, "fog_march")
     launches += 1
+    last_work = zeroed[1:]
     return code, t
 
 

@@ -34,27 +34,23 @@ a batch-8 main-path call.
         [--variant DIR ...] [--edits] [--reps N]
 
     # the bounce loop (K9) of this tree against that of another tree's
-    # csrc/ (PR 12's one kernel a path, or the stage kernels) and against
-    # variant trees (copies of a csrc/ with path_trace.cu edited; K9
-    # alone is built from each), on the captured trace_paths call of one
-    # batch-8 sample_batch at each of chip_smoke.phase_path_kernel's four
+    # csrc/ with the same C entry (the stage kernels) and against variant
+    # trees (copies of a csrc/ with path_trace.cu edited; K9 alone is
+    # built from each), on the captured trace_paths call of one batch-8
+    # sample_batch at each of chip_smoke.phase_path_kernel's four
     # configurations (1024^3 default Renderer, SVO engine, edit session;
     # 8192^3 main path); in turns (old, new, each variant, then the
-    # reverse), radiance, state and last bounces equal by bits, the walk
-    # steps and bounces equal, and the fog segments of a one-kernel tree
-    # equal to the new one's marched segments plus fog_steps for each
-    # march the scatter-free test settled (PR 12) or to the marched ones
-    # (a tree with the test); --fetch P,C,R adds this tree's K9 under
-    # other lane-fetch settings; ptxas reports of each; each side's kernels'
-    # device ms and launches (one profiled run); the new K9's queue
-    # lengths, settled shares and SIMT efficiency by stage. With
-    # --probe, a variant made here from the old tree (PATH_PROBE_EDITS:
-    # PR 12's K9 with warp-step counters and clock64 on its four loops)
-    # runs too, and its counters are printed: each loop's iterations a
-    # warp runs against its lanes' steps, and its share of the cycles;
-    # --reps 0 times nothing
+    # reverse), radiance, state and last bounces equal by bits and the
+    # work counts equal; --fetch P,C,R adds this tree's K9 under other
+    # lane-fetch settings; ptxas reports of each; each side's host time
+    # to enqueue its launches, its kernels' device ms and launches and
+    # each bounce's device ms (one profiled run); the new K9's queue
+    # lengths, settled shares and SIMT efficiency by stage; and the new
+    # K9's launches as one CUDA graph (captured once, replayed: outputs
+    # equal by bits, the replay's host time and device ms); --reps 0
+    # times nothing
     python -m voxtracer_torch.tools.kernel_ab path_trace --old-csrc DIR \
-        [--variant DIR ...] [--probe] [--fetch P,C,R ...] [--reps N] \
+        [--variant DIR ...] [--fetch P,C,R ...] [--reps N] \
         [--configs NAME ...]
 
     # ms per batch-8 sample_batch call and per Renderer.preview_frame
@@ -100,13 +96,6 @@ OLD_RESOLVE_FOLD = (_P, _P, _P, _P, _P, _L, _P, _F, _F, _F, _F, _F,
 # the old tree's K5 entry: E, bins, K, dir, n, bin_w, log2_d0, log2_g,
 # far, t_min, stream
 OLD_SKY_TMIN = (_P, _I, _I, _P, _I, _F, _F, _F, _F, _P, _P)
-# PR 12's K9 entry (one kernel a path): this tree's arguments up to and
-# with work, then n, max_bounces, fog_steps, extra_draws, counter,
-# static_pct, chunk, refill, stream
-OLD_PATH_TRACE = (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _I,
-                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                  _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P)
-OLD_PATH_FETCH = (75, 32, 1)  # PR 12's lane fetch: a bounce a step
 # K9's stage kernels and its burn pass (csrc/path_trace.cu)
 K9_KERNELS = ("path_bounce_kernel", "path_march_kernel", "path_cast_kernel",
               "path_recast_kernel", "path_shade_kernel", "path_shadow_kernel",
@@ -731,165 +720,37 @@ def run_kernels(old_csrc: Path, sweep: bool, reps: int):
     _fold_ab(old, new, smi, sweep, reps)
 
 
-# PR 12's K9 (one thread a path, a bounce a step) with counters on its
-# four loops, made from the old tree's path_trace.cu: (old text, new
-# text). Around each loop of step() (the planet march, the world cast,
-# the sun march, the shadow cast) and the whole bounce, the warp's
-# converged lanes add, once a warp, the loop's iterations the warp ran
-# (its longest lane's), its lanes' steps, and the warp's clock64 cycles
-# in it, into block counters in shared memory; the kernel adds them to
-# g_probe, and with each warp's cycles in run_lanes as the whole;
-# voxt_path_trace_probe(out) copies the 6 x 3 counts out and zeroes them.
-PATH_PROBE_EDITS = [
-    ("namespace {\n\nconstexpr int kThreads = 128;",
-     """namespace {
-
-// loops 0 planet march, 1 world cast, 2 sun march, 3 shadow cast, 4 the
-// bounce, 5 run_lanes: warp iterations, lane steps, warp cycles
-__shared__ unsigned long long s_probe[6][3];
-__device__ unsigned long long g_probe[6][3];
-
-__device__ __forceinline__ void probe(int k, unsigned steps,
-                                      long long cycles) {
-  const unsigned m = __activemask();
-  const unsigned mx = __reduce_max_sync(m, steps);
-  const unsigned sm = __reduce_add_sync(m, steps);
-  if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {
-    atomicAdd(&s_probe[k][0], (unsigned long long)mx);
-    atomicAdd(&s_probe[k][1], (unsigned long long)sm);
-    atomicAdd(&s_probe[k][2], (unsigned long long)cycles);
-  }
-}
-
-constexpr int kThreads = 128;"""),
-    ("    const PathConsts& c = a.c;\n    float sun[3];",
-     "    const long long c_step = clock64();\n"
-     "    const PathConsts& c = a.c;\n    float sun[3];"),
-    ("    const int code = march(pos, d, -logf(1.0f - r[0]), &pt);",
-     """    unsigned n0 = fog_segs;
-    long long c0 = clock64();
-    const int code = march(pos, d, -logf(1.0f - r[0]), &pt);
-    probe(0, fog_segs - n0, clock64() - c0);"""),
-    ("      w = world.cast(pos, d, cap, w_rgb);",
-     """      n0 = world.hf_steps + world.svo_steps;
-      c0 = clock64();
-      w = world.cast(pos, d, cap, w_rgb);
-      probe(1, world.hf_steps + world.svo_steps - n0, clock64() - c0);"""),
-    ("      sp_hit = march(pos, sdir, -logf(1.0f - r[0]), &t_unused) > 0;",
-     """      n0 = fog_segs;
-      c0 = clock64();
-      sp_hit = march(pos, sdir, -logf(1.0f - r[0]), &t_unused) > 0;
-      probe(2, fog_segs - n0, clock64() - c0);"""),
-    ("    const bool sun_visible = !sp_hit && !(nee_act && "
-     "world.occluded(pos, sdir));",
-     """    bool occluded = false;
-    if (nee_act) {
-      n0 = world.hf_steps + world.svo_steps;
-      c0 = clock64();
-      occluded = world.occluded(pos, sdir);
-      probe(3, world.hf_steps + world.svo_steps - n0, clock64() - c0);
-    }
-    const bool sun_visible = !sp_hit && !(nee_act && occluded);"""),
-    ("    ++bounces;\n    if (alive && bounce < a.max_bounces) return true;",
-     """    ++bounces;
-    probe(4, 1, clock64() - c_step);
-    if (alive && bounce < a.max_bounces) return true;"""),
-    ("  voxt::fog_fractions(frac_a, frac_b, a.fog_steps);",
-     """  if (threadIdx.x < 18) (&s_probe[0][0])[threadIdx.x] = 0ull;
-  voxt::fog_fractions(frac_a, frac_b, a.fog_steps);"""),
-    ("  voxt::run_lanes<1>(lanes, smem + (threadIdx.x >> 5) * voxt::kQueue, "
-     "path);",
-     """  const long long k0 = clock64();
-  voxt::run_lanes<1>(lanes, smem + (threadIdx.x >> 5) * voxt::kQueue, path);
-  if ((threadIdx.x & 31) == 0) {
-    atomicAdd(&s_probe[5][0], 1ull);
-    atomicAdd(&s_probe[5][2], (unsigned long long)(clock64() - k0));
-  }
-  __syncthreads();
-  if (threadIdx.x < 18)
-    atomicAdd(&g_probe[0][0] + threadIdx.x, (&s_probe[0][0])[threadIdx.x]);"""),
-    ("}  // namespace\n",
-     """}  // namespace
-
-extern "C" int voxt_path_trace_probe(void* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));
-  if (err != cudaSuccess) return (int)err;
-  static const unsigned long long zero[6][3] = {};
-  return (int)cudaMemcpyToSymbol(g_probe, zero, sizeof(g_probe));
-}
-"""),
-]
-PROBE_LOOPS = ("planet march", "world cast", "sun march", "shadow cast",
-               "bounce", "run_lanes")
-
-
-def _probe_tree(old_csrc: Path) -> Path:
-    """A copy of ``old_csrc`` with PATH_PROBE_EDITS made to its
-    path_trace.cu, in the build directory; fails if an edit's old text is
-    not there exactly once."""
-    import shutil
-
-    from voxtracer_torch.kernels import build
-
-    src = (old_csrc / "path_trace.cu").read_text()
-    for old, new in PATH_PROBE_EDITS:
-        if src.count(old) != 1:
-            raise ValueError(f"probe edit not found once: {old[:60]!r}")
-        src = src.replace(old, new)
-    tree = build.BUILD_DIR / f"ab_k9_probe_{build._source_hash(old_csrc)}"
-    shutil.rmtree(tree, ignore_errors=True)
-    shutil.copytree(old_csrc, tree)
-    (tree / "path_trace.cu").write_text(src)
-    return tree
-
-
 def _k9_library(csrc: Path):
-    """K9 alone, built from ``csrc`` into its own library; returns it,
-    whether it is of the stage design (this tree's C entry) or PR 12's,
-    and ptxas's report."""
+    """K9 alone, built from ``csrc`` into its own library; returns it and
+    ptxas's report. The tree must have this tree's C entry."""
     from voxtracer_torch.kernels import build
 
+    if "path_bounce_kernel" not in (csrc / "path_trace.cu").read_text():
+        raise ValueError(f"{csrc}: not K9's stage design (another C entry)")
     out = build.BUILD_DIR / f"ab_k9_{build._source_hash(csrc)}.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     report = build.compile_library(csrc, out, sources=("path_trace.cu",))
     lib = ctypes.CDLL(str(out))
-    staged = "path_bounce_kernel" in (csrc / "path_trace.cu").read_text()
-    lib.voxt_path_trace.argtypes = list(
-        build.SIGNATURES["voxt_path_trace"] if staged else OLD_PATH_TRACE)
+    lib.voxt_path_trace.argtypes = list(build.SIGNATURES["voxt_path_trace"])
     lib.voxt_path_trace.restype = ctypes.c_int
-    if hasattr(lib, "voxt_path_trace_probe"):
-        lib.voxt_path_trace_probe.argtypes = [ctypes.c_void_p]
-        lib.voxt_path_trace_probe.restype = ctypes.c_int
-    return lib, staged, report
+    return lib, report
 
 
 class _K9:
-    """One captured trace_paths call run through K9 libraries of either
-    design: each side (lib, stage design?, lane fetch or None for the
-    default) its own outputs and zeroed counters."""
+    """One captured trace_paths call run through K9 libraries: each side
+    (lib, lane fetch or None for the default) its own outputs and zeroed
+    counters."""
 
     def __init__(self, libs, args, kw):
-        import torch
-
         from voxtracer_torch.kernels import integrator
 
         self.inputs = integrator.k9_inputs(args, kw)
         self.libs = libs
         self.sides = []
-        for lib, staged, fetch in libs:
+        for _, fetch in libs:
             c_args, outs = integrator.k9_args(
                 *self.inputs, **({} if fetch is None else dict(fetch=fetch)))
-            zero = list(outs[3]["zeroed"])
-            if not staged:  # PR 12's arguments: n and the rest, its lane
-                # counter
-                counter = torch.zeros((1,), dtype=torch.int32,
-                                      device=args[5].device)
-                zero.append(counter)
-                c_args = c_args[:29] + (c_args[34], c_args[35], c_args[36],
-                                        c_args[37], counter.data_ptr(),
-                                        *OLD_PATH_FETCH)
-                outs[3]["old_counter"] = counter
-            self.sides.append((c_args, outs, zero))
+            self.sides.append((c_args, outs, outs[3]["zeroed"]))
 
     def restore(self, k):
         """Zero what side k's kernel must find zeroed."""
@@ -899,10 +760,8 @@ class _K9:
     def run(self, k):
         import torch
 
-        lib = self.libs[k][0]
-        c_args = self.sides[k][0]
-        err = lib.voxt_path_trace(*c_args,
-                                  torch.cuda.current_stream().cuda_stream)
+        err = self.libs[k][0].voxt_path_trace(
+            *self.sides[k][0], torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"K9 side {k}: CUDA error {err}")
 
@@ -920,8 +779,8 @@ class _K9:
         return self.sides[k][1][3]["work"]
 
     def stats_run(self, k):
-        """Side k (of the stage design) once more with its stats build:
-        (work with SIMT steps, queue lengths)."""
+        """Side k once more with its stats build: (work with SIMT steps,
+        queue lengths)."""
         import torch
 
         from voxtracer_torch.kernels import integrator
@@ -933,6 +792,37 @@ class _K9:
             raise RuntimeError(f"K9 side {k} with stats: CUDA error {err}")
         torch.cuda.synchronize()
         return outs[3]["work"], outs[3]["counters"]
+
+    def graph(self, k, reps):
+        """Side k's zeroing and launches captured once as a CUDA graph and
+        replayed: (outputs equal by bits to an eager run's, host ms of one
+        replay, device ms a replay, device ms an eager run in the same
+        way)."""
+        import torch
+
+        import chip_smoke as cs
+
+        self.restore(k)
+        self.run(k)
+        torch.cuda.synchronize()
+        want = [x.clone() for x in self.outputs(k)]
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            self.restore(k)
+            self.run(k)
+        for x in self.outputs(k):
+            x.fill_(7)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        g.replay()
+        host_ms = 1e3 * (time.monotonic() - t0)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(self.outputs(k), want))
+        graph_ms = cs._ms(g.replay, reps)
+        eager_ms = cs._ms(lambda: (self.restore(k), self.run(k)), reps)
+        del g
+        return same, host_ms, graph_ms, eager_ms
 
 
 def _launch_split(fn):
@@ -1012,8 +902,20 @@ def _path_configs(dev, names):
         yield ("8192^3 main path", *cs._capture_call(r, cam, sun))
 
 
-def run_path_trace(old_csrc: Path, variants, probe: bool, reps: int,
-                   names, fetches=()):
+def _bounce_ms(seq):
+    """Device ms of each bounce from a run's launches in order (a bounce
+    kernel ends one bounce and begins the next: launches up to and with
+    it count to the bounce it ends), the burn pass last."""
+    out, cur = [], 0.0
+    for name, ms in seq:
+        cur += ms
+        if name.startswith(("bounce_kernel", "burn_kernel")):
+            out.append(round(cur, 4))
+            cur = 0.0
+    return out
+
+
+def run_path_trace(old_csrc: Path, variants, reps: int, names, fetches=()):
     """K9 of this tree against another tree's and variant trees, on the
     captured calls of ``names`` (module doc). Timed in turns, every
     output held equal to the new kernel's."""
@@ -1027,20 +929,17 @@ def run_path_trace(old_csrc: Path, variants, probe: bool, reps: int,
     print(smi)
     build.library()
     trees = [old_csrc, Path(build.CSRC), *variants]
-    if probe:
-        trees.append(_probe_tree(old_csrc))
     with ThreadPoolExecutor(len(trees)) as pool:
         built = list(pool.map(_k9_library, trees))
-    tags = ["old", "new", *(v.name for v in variants)] + (
-        ["probe"] if probe else [])
-    for tag, (_, _, report) in zip(tags, built):
+    tags = ["old", "new", *(v.name for v in variants)]
+    for tag, (_, report) in zip(tags, built):
         for src, regs, props in _ptxas_lines(report):
             if src == "path_trace.cu":
                 print(f"ptxas {tag} {src}: {regs}; {props}")
-    libs = [(lib, staged, None) for lib, staged, _ in built]
+    libs = [(lib, None) for lib, _ in built]
     # this tree's K9 again under other lane-fetch settings
     for fetch in fetches:
-        libs.append((built[1][0], True, fetch))
+        libs.append((built[1][0], fetch))
         tags.append("new@" + "/".join(map(str, fetch)))
     turns = list(range(len(libs)))
     turns += turns[::-1]
@@ -1051,27 +950,18 @@ def run_path_trace(old_csrc: Path, variants, probe: bool, reps: int,
             case.restore(k)
             case.run(k)
         torch.cuda.synchronize()
+        w = dict(zip(integrator.K9_WORK, case.work(1).tolist()))
         for k in range(len(libs)):
             if not case.equal(k, 1):
                 raise AssertionError(f"path_trace {name}: {tags[k]} differs "
                                      "from new")
-        w = dict(zip(integrator.K9_WORK, case.work(1).tolist()))
-        fog_steps = int(args[10])
-        for k, (_, staged, _) in enumerate(libs):
-            if staged:
-                continue
-            # a one-kernel tree marches every segment (PR 12) or, with
-            # this tree's fog_walk.cuh, those the test leaves
-            old = case.work(k).tolist()[:4]
-            pr12 = w["fog_segments"] + fog_steps * (w["marches_free"]
-                                                    + w["sun_marches_free"])
-            if old[:2] + old[3:] != [w["hf_steps"], w["svo_steps"],
-                                     w["bounces"]] \
-                    or old[2] not in (pr12, w["fog_segments"]):
+            # a variant may count more (stats): the first 8 are the work
+            if case.work(k).tolist()[:8] != case.work(1).tolist()[:8]:
                 raise AssertionError(f"path_trace {name}: {tags[k]}'s work "
-                                     f"{old} against the new one's {w}")
+                                     f"{case.work(k).tolist()} against the "
+                                     f"new one's {w}")
         work_s, queues = case.stats_run(1)
-        stats, _, eff = cs._k9_stats(work_s, queues, fog_steps)
+        stats, _, eff = cs._k9_stats(work_s, queues, int(args[10]))
         ms = {t: [] for t in tags}
         for k in turns if reps > 0 else ():  # --reps 0: bits and counts
             ms[tags[k]].append(cs._ms_fresh(lambda k=k: case.restore(k),
@@ -1094,24 +984,19 @@ def run_path_trace(old_csrc: Path, variants, probe: bool, reps: int,
                    paths=int(args[5].numel() // 3), ms=ms, host_ms=host_ms,
                    equal=True, work=w, simt=eff, stats=stats,
                    kernels={t: v[0] for t, v in split.items()},
+                   bounce_ms={t: _bounce_ms(v[1]) for t, v in split.items()},
                    launches={t: v[1] for t, v in split.items()})
-        if probe:
-            k = tags.index("probe")
-            lib = libs[k][0]
-            counts = np.zeros((6, 3), np.uint64)
-            assert lib.voxt_path_trace_probe(counts.ctypes.data) == 0
-            case.restore(k)
-            case.run(k)
-            torch.cuda.synchronize()
-            assert lib.voxt_path_trace_probe(counts.ctypes.data) == 0
-            total = float(counts[5, 2])
-            row["probe"] = {
-                loop: dict(warp_iterations=int(c[0]), lane_steps=int(c[1]),
-                           simt=float(c[1]) / (32 * float(c[0]))
-                           if c[0] else 0.0,
-                           cycle_share=float(c[2]) / total if total else 0.0)
-                for loop, c in zip(PROBE_LOOPS, counts)}
+        if reps > 0:
+            try:
+                same, g_host, g_ms, e_ms = case.graph(1, reps)
+                row["graph"] = dict(equal=same, replay_host_ms=g_host,
+                                    replay_ms=g_ms, eager_ms=e_ms)
+            except RuntimeError as e:  # a capture the driver refuses
+                same, row["graph"] = True, dict(error=str(e)[:400])
         print(json.dumps(row))
+        if reps > 0 and not same:
+            raise AssertionError(f"path_trace {name}: the graph's outputs "
+                                 "differ from an eager run's")
         sys.stdout.flush()
         del case
 
@@ -1239,7 +1124,6 @@ def main(argv=None) -> int:
     pt = sub.add_parser("path_trace")
     pt.add_argument("--old-csrc", type=Path, required=True)
     pt.add_argument("--variant", type=Path, action="append", default=[])
-    pt.add_argument("--probe", action="store_true")
     pt.add_argument("--fetch", action="append", default=[],
                     type=lambda x: tuple(int(v) for v in x.split(",")),
                     help="static percent,chunk,refill of another side")
@@ -1262,8 +1146,7 @@ def main(argv=None) -> int:
     elif a.mode == "sky_tmin":
         run_sky(a.old_csrc, a.variant, a.edits, a.reps)
     elif a.mode == "path_trace":
-        run_path_trace(a.old_csrc, a.variant, a.probe, a.reps, a.configs,
-                       a.fetch)
+        run_path_trace(a.old_csrc, a.variant, a.reps, a.configs, a.fetch)
     elif a.mode == "fetch":
         run_fetch(a.reps)
     else:
