@@ -142,27 +142,32 @@ Phases, each printing its lines; any failure exits non-zero:
    tiles, the shadow frame against the per-ray one (SHADOW_SHARE), the
    CLI's render --engine beam once, and beam_primary_frame with K6's and
    K7's counts read around it; the bit-grid DDA on the pyramid built from
-   the heightmap: K8 equal by bits to its plain version and against K2
-   (hit, t at rtol 1e-5 / atol 2e-4, voxel, normal: GRAZE_SHARE) on
-   camera, random and batch-8 NEE sets, and one batch-8
-   render_samples(bitworld=) call (K8 counted) against the SVO engine's
-   radiance under the golden contract. After 11: the card's heightmap
-   against the CPU's at 2^10 and 2^13, by bits. In 8, at 8192^3: sun maps
-   (batch-8 radiance and trace_paths' state equal by bits with and
-   without, the share of NEE lanes proved lit, K4's NEE launch with and
-   without), hf_frame_cast with cone=, sky=, sky_env= and their
+   the heightmap: K8 (bit_walk.cuh's walker on the lane fetch) equal by
+   bits to its plain version and against K2 (hit, t at rtol 1e-5 / atol
+   2e-4, voxel, normal: GRAZE_SHARE) on camera, random, masked (10%
+   active) and batch-8 NEE sets, each timed with K2 and its bound, with
+   ptxas's registers; one batch-8 render_samples(bitworld=) call (K9
+   launched, K1 and K8 not) against the SVO engine's radiance under the
+   golden contract, and K9 on the bit grid (14). After 11: the card's
+   heightmap against the CPU's at 2^10 and 2^13, by bits. In 8, at
+   8192^3: sun maps through the Renderer's VOXT_SUNMAPS=1 (K9 with the
+   maps, 14; batch-8 radiance and trace_paths' state equal by bits with
+   and without, the share of NEE lanes proved lit, K4's NEE launch with
+   and without), hf_frame_cast with cone=, sky=, sky_env= and their
    compositions equal by bits to the unprefixed frame (ms each), and the
    beam engine on the 8192^3 octree (K6 and K7 on the first round, the
    frame against K2).
 
-14. K9 (phase_path_kernel) at four configurations, each on the inputs
-   of one batch-8 sample_batch call (853x480, 3,275,520 paths, 24
-   bounces, 64 fog steps): the 1024^3 default Renderer and SVO engine
-   (after 6), the 1024^3 edit session once bounds-tracked edits put it
-   on the edited heightfield (in 7), and the 8192^3 main path (in 8).
-   At each, K9 against trace_paths_plain (the masked loop on K1, K2 and
-   K4): the returned state by bits in every lane, the radiance by bits
-   (lanes that differ, up to GRAZE_SHARE, printed with their values),
+14. K9 (phase_path_kernel) at six configurations, each on the inputs
+   of one batch-8 call (853x480, 3,275,520 paths, 24 bounces, 64 fog
+   steps): the 1024^3 default Renderer and SVO engine (after 6), the
+   1024^3 bit grid (render_samples(bitworld=), in 13), the 1024^3 edit
+   session once bounds-tracked edits put it on the edited heightfield
+   (in 7), and the 8192^3 main path without and with the sun maps (in
+   8). At each, K9 against trace_paths_plain (the masked loop on K1, K2,
+   K4 and K8): the returned state by bits in every lane, the radiance by
+   bits (lanes that differ, up to GRAZE_SHARE, printed with their values;
+   none at all on the bit grid and with the sun maps),
    the K9 call made under torch.cuda.set_sync_debug_mode("error") so
    that a host read inside it fails the run; ms of the trace_paths call
    and of the whole batch-8 call, K9 and the masked loop in turns, and
@@ -187,6 +192,7 @@ The line before the last is the per-kernel JSON record; the last line is
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1366,25 +1372,19 @@ def _expect_launches(name, counts, on, off=()):
                                  f"{name}")
 
 
-def _ptxas_k9():
-    """ptxas's report for K9's stage kernels and burn pass (path_trace.cu):
-    (entry, registers, stack frame and spills) each."""
+def _ptxas_regs(source):
+    """ptxas's lines for one source of the library: (entry, registers,
+    stack frame and spills) each."""
     from voxtracer_torch.kernels import build
 
     rows, src, entry, props = [], None, None, None
     for line in build.ptxas_report().splitlines():
         if line.startswith("== "):
             src = line[3:]
-        elif src != "path_trace.cu":
+        elif src != source:
             continue
         elif "Compiling entry function" in line:
             entry = line.split("'")[1]
-            m = re.search(r"(path_[a-z]+_kernel)(I(?:L[ib]\d+E)+E)?", entry)
-            if m:  # template arguments: the engine (0 heightfield, 1 SVO,
-                # 2 edited) and tile log of the walks, the march's sun, the
-                # re-cast's shadow, and the stats build
-                targs = re.findall(r"L[ib](\d+)E", m[2] or "")
-                entry = m[1] + (f"<{', '.join(targs)}>" if targs else "")
         elif "bytes stack frame" in line:
             props = line.strip()
         elif "Used" in line and "registers" in line:
@@ -1393,9 +1393,26 @@ def _ptxas_k9():
     return rows
 
 
-def _capture_call(renderer, cam, sun):
-    """The trace_paths call of one batch-8 sample_batch: its (args,
-    kwargs), the inputs the Renderer gives K9."""
+def _ptxas_k9():
+    """ptxas's report for K9's stage kernels and burn pass (path_trace.cu):
+    (entry, registers, stack frame and spills) each, the entry with its
+    template arguments: the engine (0 heightfield, 1 SVO, 2 edited, 3 bit
+    grid) and tile log of the walks, the march's sun, the re-cast's
+    shadow, and the stats build."""
+    rows = []
+    for entry, regs, props in _ptxas_regs("path_trace.cu"):
+        m = re.search(r"(path_[a-z]+_kernel)(I(?:L[ib]\d+E)+E)?", entry)
+        if m:
+            targs = re.findall(r"L[ib](\d+)E", m[2] or "")
+            entry = m[1] + (f"<{', '.join(targs)}>" if targs else "")
+        rows.append((entry, regs, props))
+    return rows
+
+
+def _capture_call(batch):
+    """The trace_paths call of one batch-8 call ``batch()`` (a Renderer's
+    sample_batch, or render_samples): its (args, kwargs), the inputs K9
+    is given."""
     from voxtracer_torch.kernels import integrator
 
     seen = []
@@ -1407,23 +1424,27 @@ def _capture_call(renderer, cam, sun):
 
     integrator.trace_paths = spy
     try:
-        renderer.sample_batch(cam, sun, 8)
+        batch()
     finally:
         integrator.trace_paths = real
     if len(seen) != 1:
-        raise AssertionError(f"sample_batch made {len(seen)} trace_paths calls")
+        raise AssertionError(f"the batch-8 call made {len(seen)} trace_paths "
+                             "calls")
     return seen[0]
 
 
 def _k9_bound(args, kw, work, queues):
     """K9's least time for one call, from what the function needs: the
     bytes of its per-path inputs and outputs and of the pack or node
-    table once; the float32 operations of this run's walk steps, marched
-    fog segments and bounces, and the float64 ones of its scatter-free
-    tests (K9's own counts). Beside it, not in it: the path state the
-    stage design moves between its kernels (K9_STATE_BYTES by this run's
-    queue lengths), which a design that keeps the state in registers does
-    not move, and the bound with those bytes; and the full-march bound
+    table once (the bit grid's pyramid and the sun maps not counted: what
+    a walk or a lane reads of them depends on the data, so leaving them
+    out keeps this a lower bound); the float32 operations of this run's
+    walk steps, marched fog segments and bounces, and the float64 ones of
+    its scatter-free tests (K9's own counts). Beside it, not in it: the
+    path state the stage design moves between its kernels
+    (K9_STATE_BYTES by this run's queue lengths), which a design that
+    keeps the state in registers does not move, and the bound with those
+    bytes; and the full-march bound
     (no tests, every segment the marches define: those marched plus
     fog_steps for each march the test settled). Returns (ms, bound_by,
     full-march ms, state bytes, ms with them, the counts)."""
@@ -1434,17 +1455,19 @@ def _k9_bound(args, kw, work, queues):
     if kw.get("primary") is not None:
         per_path += 1 + 4 + 12 + 12
     nbytes = B * per_path
-    if kw.get("hf_mips") is not None:
-        nbytes += kw["hf_mips"].numel() * 4
-    if kw.get("hf_mips") is None or kw.get("hf_edit_bounds") is not None:
-        nbytes += args[0].numel() * 4
     from voxtracer_torch.kernels import integrator
 
+    engine = integrator.k9_engine(kw.get("hf_mips"), kw.get("hf_edit_bounds"),
+                                  kw.get("bitworld"))
+    if engine in ("hf", "edited"):
+        nbytes += kw["hf_mips"].numel() * 4
+    if engine != "hf":  # the SVO walks, the leaves, the bit grid's colours
+        nbytes += args[0].numel() * 4
     w = dict(zip(integrator.K9_WORK, (int(x) for x in work.tolist())))
     q = queues.sum(0).tolist()  # live, march, sun-march, shadow and the
     # two re-cast queues' entries
     walk_ops = (w["hf_steps"] * K4_STEP_OPS + w["svo_steps"] * K2_STEP_OPS
-                + w["bounces"] * K9_BOUNCE_OPS)
+                + w["bit_steps"] * K8_STEP_OPS + w["bounces"] * K9_BOUNCE_OPS)
     tests = w["marches"] + w["sun_marches"]
     ops = (walk_ops + w["fog_segments"] * K1_STEP_OPS
            + tests * K9_CERT_OPS * FP32_OPS_PER_S / FP64_OPS_PER_S)
@@ -1501,6 +1524,14 @@ def _k9_stats(work, queues, fog_steps):
         f"{fog_steps * (w['marches'] + w['sun_marches'])} the marches "
         f"define ({w['fog_segments'] + fog_steps * (w['marches_free'] + w['sun_marches_free'])} "
         "without the test)")
+    if w["sun_lit"]:
+        nee = w["sun_lit"] + sum(row[3] for row in q)
+        lines.append(f"sun maps settled {w['sun_lit']} of the {nee} NEE "
+                     f"lanes the sun planet cast left open "
+                     f"({100 * share(w['sun_lit'], nee):.3f}%), which took no "
+                     "shadow walk")
+    steps = {k: w[k] for k in ("hf_steps", "svo_steps", "bit_steps") if w[k]}
+    lines.append(f"walk steps {steps}")
     eff = {s: share(w[f"{s}_lane_steps"], 32 * w[f"{s}_warp_steps"])
            for s in integrator.K9_STAGES if w[f"{s}_warp_steps"]}
     if eff:
@@ -1546,11 +1577,13 @@ def _k9_c_host_ms(args, kw):
     return ms
 
 
-def phase_path_kernel(name, renderer, cam):
-    """K9 at one configuration, on the inputs of one batch-8 sample_batch
-    call: against the masked loop (trace_paths_plain on K1/K2/K4) with
-    the returned state by bits in every lane and the radiance by bits (up
-    to GRAZE_SHARE of the lanes, each counted), the K9 call made with
+def phase_path_kernel(name, renderer, cam, budget=None, batch=None):
+    """K9 at one configuration, on the inputs of one batch-8 call
+    (``batch()``; by default the Renderer's sample_batch): against the
+    masked loop (trace_paths_plain on K1/K2/K4/K8) with the returned state
+    by bits in every lane and the radiance by bits (up to ``budget``
+    lanes, GRAZE_SHARE of them by default, each counted), the K9 call made
+    with
     torch's sync debug mode on "error" (a host read inside it raises);
     ms of the trace_paths call and of the whole sample_batch call with K9
     and with the masked loop, in turns; a profile of each call with K9's
@@ -1566,7 +1599,10 @@ def phase_path_kernel(name, renderer, cam):
     from voxtracer_torch.kernels import integrator
 
     sun = np.asarray([0.8, 10.2743, 3.7])
-    args, kw = _capture_call(renderer, cam, sun)
+    if batch is None:
+        def batch():
+            renderer.sample_batch(cam, sun, 8)
+    args, kw = _capture_call(batch)
     B = args[5].numel() // 3
     before = integrator.launches
     torch.cuda.synchronize()
@@ -1585,12 +1621,14 @@ def phase_path_kernel(name, renderer, cam):
     lanes = (col_k.view(torch.int32) != col_p.view(torch.int32)).any(-1)
     rad_diff = int(lanes.sum())
     err = float((col_k - col_p).abs().max())
-    budget = int(np.ceil(B * GRAZE_SHARE))
+    label = "GRAZE_SHARE" if budget is None else "every lane by bits"
+    if budget is None:
+        budget = int(np.ceil(B * GRAZE_SHARE))
     ok = state_diff == 0 and rad_diff <= budget \
         and bool(torch.isfinite(col_k).all()) and float(col_k.sum()) > 0
     print(f"K9 {name}: {B} paths against the masked loop: state differs in "
           f"{state_diff} lanes (budget 0), radiance in {rad_diff} (budget "
-          f"{budget}: GRAZE_SHARE), max abs difference {err:.3e}; no host "
+          f"{budget}: {label}), max abs difference {err:.3e}; no host "
           "read (sync debug mode \"error\")")
     if rad_diff:
         idx = torch.nonzero(lanes.reshape(-1)).flatten()[:4].tolist()
@@ -1625,17 +1663,16 @@ def phase_path_kernel(name, renderer, cam):
         if who != "K9":
             integrator.trace_paths = integrator.trace_paths_plain
         try:
-            call[who].append(_wall_ms_sync(
-                lambda: renderer.sample_batch(cam, sun, 8))[0])
+            call[who].append(_wall_ms_sync(batch)[0])
             if who not in prof:
-                prof[who] = _k9_profile(
-                    lambda: renderer.sample_batch(cam, sun, 8))
+                prof[who] = _k9_profile(batch)
         finally:
             integrator.trace_paths = real
     bound_ms, bound_by, full_ms, state, state_ms, counts = _k9_bound(
         args, kw, work, queues)
     work_s, queues_s = _k9_stats_run(args, kw)
-    if not (torch.equal(work_s[:8], work[:8])
+    n = len(integrator.K9_COUNTS)
+    if not (torch.equal(work_s[:n], work[:n])
             and torch.equal(queues_s[:, :6], queues[:, :6])):
         raise AssertionError(f"{name}: K9 with stats counted other work")
     stats, _, eff = _k9_stats(work_s, queues_s, int(args[10]))
@@ -1653,10 +1690,10 @@ def phase_path_kernel(name, renderer, cam):
           f"= {100 * state_ms / k9_ms:.2f}%")
     for line in stats:
         print(f"  {line}")
-    print(f"  batch-8 sample_batch call ms in turns: with K9 "
+    print(f"  batch-8 call ms in turns: with K9 "
           f"{r(call['K9'])}, with the masked loop {r(call['masked loop'])}")
     for who, p in prof.items():
-        print(f"  profile, batch-8 sample_batch call with "
+        print(f"  profile, batch-8 call with "
               f"{'K9' if who == 'K9' else 'the masked loop'}: wall "
               f"{p['wall_ms']:.1f} ms, device busy {p['busy_ms']:.1f} ms "
               f"({100 * p['busy_share']:.1f}%), {p['events']} device events, "
@@ -1664,9 +1701,9 @@ def phase_path_kernel(name, renderer, cam):
     stages = prof["K9"]["stages"]
     print("  K9's kernels in the profile: " + ", ".join(
         f"{k} {v['ms']:.3f} ms / {v['launches']}" for k, v in stages.items()))
-    want = integrator.k9_launches(
-        int(args[9]), edited=kw.get("hf_mips") is not None
-        and kw.get("hf_edit_bounds") is not None)
+    want = integrator.k9_launches(int(args[9]), edited=integrator.k9_engine(
+        kw.get("hf_mips"), kw.get("hf_edit_bounds"),
+        kw.get("bitworld")) == "edited")
     if prof["K9"]["k9_launches"] != want or prof["masked loop"]["k9_launches"]:
         raise AssertionError(f"{name}: the profiles saw K9's kernels launch "
                              f"{prof['K9']['k9_launches']} (expected {want}) "
@@ -1674,7 +1711,8 @@ def phase_path_kernel(name, renderer, cam):
     return dict(name=name, paths=B, record=dict(
         max_abs_err=err, ms=k9_ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None), full_march_ms=full_ms,
-        state_ms=state_ms, stages=stages, simt=eff, counts=counts)
+        state_ms=state_ms, stages=stages, simt=eff, counts=counts,
+        launches=prof["K9"]["k9_launches"], call_ms=call)
 
 
 def _path_summary(recs):
@@ -3176,10 +3214,10 @@ def phase_full(dev):
     print(f"preview frame {n}^3 {WIDTH}x{HEIGHT} (hf_frame_cast, exact, "
           f"resumed by the envelope): {ms:.3f} ms, mean "
           f"{float(img.mean()):.6f}")
-    phase_sunmaps(renderer, cam, dev)
+    maps_rec = phase_sunmaps(renderer, cam, dev)
     phase_prefix(renderer, cam, dev)
     phase_beam_full(renderer, cam, dev)
-    return counts, sky_rec, path_rec
+    return counts, sky_rec, path_rec, maps_rec
 
 
 # ---- the JAX package's selectable engines: sun maps, the beam engine
@@ -3442,17 +3480,51 @@ def _bit_bound(B, n_act, steps, sectors):
     return _bound(B * 29 + n_act * 28 + sectors * 32, steps * K8_STEP_OPS)
 
 
-def phase_bitdda(space, dev):
-    """The bit-grid DDA at 1024^3 from the heightmap: K8 against its plain
-    version and against K2 on camera, random and batch-8 NEE sets; one
-    batch-8 render_samples(bitworld=) call with K8's count read around it,
-    against the SVO engine's radiance. Returns the record and the
-    counts."""
+def _bit_sets(world, dev):
+    """K8's ray sets at 1024^3: camera rays, random rays, the random rays
+    with 10% active, and the batch-8 NEE set from the SVO cast's camera
+    hits (sun-cone directions, the hit and facing lanes active): (name,
+    start, dir, active) each."""
     import torch
 
     from voxtracer_torch.core import sampling
-    from voxtracer_torch.core.spectra import build_wl_to_rgb_lut
     from voxtracer_torch.core.vecmath import dot
+    from voxtracer_torch.kernels import traverse
+
+    cam = _smoke_camera(LOG2_SIZE)
+    o, d = _camera_rays(cam, dev)
+    rng = np.random.default_rng(20261018)
+    n = float(1 << world.height)
+    t = lambda a: torch.as_tensor(a, device=dev).contiguous()  # noqa: E731
+    start = t((rng.random((RAYS, 3), np.float32) * np.float32(n)))
+    rd = rng.normal(size=(RAYS, 3)).astype(np.float32)
+    rd = t(rd / np.linalg.norm(rd, axis=-1, keepdims=True))
+    tenth = t(rng.random(RAYS) < 0.1)
+    prim = traverse.svo_raycast(world.table, world.root, world.height, o, d)
+    hit = prim["hit"]
+    pos = torch.where(hit[:, None], o + d * prim["t"][:, None], o)
+    state = t(rng.integers(0, 2**32, (WIDE, 3), dtype=np.uint32)
+              .astype(np.int64))
+    _, sun_dir = sampling.sample_sun(state, _sun(dev))
+    nee = hit.repeat(8) & (dot(sun_dir, prim["normal"].repeat(8, 1)) > 0.0)
+    return [("camera", o, d, None), ("random", start, rd, None),
+            ("random, 10% active", start, rd, tenth),
+            ("batch-8 NEE", pos.repeat(8, 1), sun_dir.contiguous(), nee)]
+
+
+def phase_bitdda(space, dev):
+    """The bit-grid engine at 1024^3 from the heightmap: K8 (the walker of
+    bit_walk.cuh on the lane fetch) against its plain version by bits and
+    against K2 on camera, random, masked (10% active) and batch-8 NEE
+    sets, each timed with K2 and with its bound, ptxas's registers; K9 on
+    the bit grid against the masked loop (phase_path_kernel, every lane by
+    bits) on the inputs of one batch-8 render_samples(bitworld=) call;
+    that call's launches (K9, not K1 or K8) and its radiance against the
+    SVO engine's under the golden contract. Returns K8's record, the
+    call's counts and K9's record."""
+    import torch
+
+    from voxtracer_torch.core.spectra import build_wl_to_rgb_lut
     from voxtracer_torch.kernels import bitdda, integrator, traverse
     from voxtracer_torch.world import bitgrid, svo
 
@@ -3465,36 +3537,30 @@ def phase_bitdda(space, dev):
     print(f"bit grid {grid.size}^3 from the heightmap: {time.monotonic() - t0:.1f}"
           f" s; top {grid.top.nbytes} B, regions {grid.regions.nbytes / 2**20:.2f}"
           f" MiB, bricks {grid.bricks.nbytes / 2**20:.1f} MiB")
+    regs = _ptxas_regs("bit_dda.cu")
+    for entry, n_regs, props in regs:
+        print(f"ptxas K8 {entry}: {n_regs}; {props}")
     cam = _smoke_camera(LOG2_SIZE)
-    o, d = _camera_rays(cam, dev)
-    rng = np.random.default_rng(20261018)
-    n = float(grid.size)
-    t = lambda a: torch.as_tensor(a, device=dev).contiguous()  # noqa: E731
-    start = t((rng.random((RAYS, 3), np.float32) * np.float32(n)))
-    rd = rng.normal(size=(RAYS, 3)).astype(np.float32)
-    rd = t(rd / np.linalg.norm(rd, axis=-1, keepdims=True))
-    prim = traverse.svo_raycast(world.table, world.root, world.height, o, d)
-    hit = prim["hit"]
-    pos = torch.where(hit[:, None], o + d * prim["t"][:, None], o)
-    pos8 = pos.repeat(8, 1)
-    state = t(rng.integers(0, 2**32, (WIDE, 3), dtype=np.uint32)
-              .astype(np.int64))
-    _, sun_dir = sampling.sample_sun(state, _sun(dev))
-    nee = hit.repeat(8) & (dot(sun_dir, prim["normal"].repeat(8, 1)) > 0.0)
-    sets = [("camera", o, d, None), ("random", start, rd, None),
-            ("batch-8 NEE", pos8, sun_dir.contiguous(), nee)]
-    rec = dict(max_abs_err=0.0)
-    for name, s0, dd, act in sets:
+    rec = dict(max_abs_err=0.0, registers=regs[0][1] if regs else None)
+    for name, s0, dd, act in _bit_sets(world, dev):
+        far = torch.full_like(dd[:, 0], traverse.FAR)
+
+        # the sets' flat inputs straight to the launchers: the public
+        # wrappers' reshapes and fills are not the kernels' time
         def kernel():
-            return bitdda.bitgrid_raycast(*bw, grid.size, s0, dd, active=act)
+            return bitdda._bitgrid_raycast_cuda(*bw, grid.size, s0, dd, far,
+                                                True, act)
+
+        def k2():
+            return traverse._svo_raycast_cuda(world.table, world.root,
+                                              world.height, s0, dd, far, True,
+                                              act)
 
         k = kernel()
         before = bitdda.plain_lane_steps
         bitdda.plain_sectors = words = []
-        p = bitdda.bitgrid_raycast_plain(*bw, grid.size, s0, dd,
-                                         torch.full_like(dd[:, 0],
-                                                         traverse.FAR),
-                                         True, act)
+        p = bitdda.bitgrid_raycast_plain(*bw, grid.size, s0, dd, far, True,
+                                         act)
         bitdda.plain_sectors = None
         steps = bitdda.plain_lane_steps - before
         sectors = int(torch.unique(torch.cat(words)).numel()) if words else 0
@@ -3504,8 +3570,7 @@ def phase_bitdda(space, dev):
                 bad = (k[key] != p[key]).reshape(dd.shape[0], -1).any(1).sum()
                 raise AssertionError(f"bit_dda {name}: {key} differs in "
                                      f"{int(bad)} lanes")
-        ref = traverse.svo_raycast(world.table, world.root, world.height, s0,
-                                   dd, active=act)
+        ref = k2()
         both = k["hit"] & ref["hit"]
         hit_off = int((k["hit"] != ref["hit"]).sum())
         t_off = int((both & ~torch.isclose(k["t"], ref["t"], rtol=1e-5,
@@ -3515,9 +3580,8 @@ def phase_bitdda(space, dev):
         B = dd.shape[0]
         n_act = B if act is None else int(act.sum())
         off = hit_off + t_off + nv_off
-        ms = _ms(kernel, 5)
-        k2_ms = _ms(lambda: traverse.svo_raycast(
-            world.table, world.root, world.height, s0, dd, active=act), 5)
+        ms = _ms_fresh(lambda: None, kernel, 10)  # an event pair a call
+        k2_ms = _ms_fresh(lambda: None, k2, 10)
         bound_ms, bound_by = _bit_bound(B, n_act, steps, sectors)
         line = (f"bit_dda {name} ({B} lanes, {n_act} active): all four "
                 f"outputs equal to the plain version; against K2: hit "
@@ -3526,18 +3590,19 @@ def phase_bitdda(space, dev):
                 f"active); K8 {ms:.4f} ms, K2 {k2_ms:.4f} ms, {steps} "
                 f"lane-steps, {sectors} distinct 32 B sectors read "
                 f"({sectors * 32 / 2**20:.2f} of {gbytes / 2**20:.1f} MiB), "
-                f"bound {bound_ms:.4f} ms ({bound_by})")
+                f"bound {bound_ms:.4f} ms ({bound_by}) = "
+                f"{100 * bound_ms / ms:.1f}% of K8's time")
         if name == "camera":
             plain_ms = _ms(lambda: bitdda.bitgrid_raycast_plain(
-                *bw, grid.size, s0, dd, torch.full_like(dd[:, 0],
-                                                        traverse.FAR)), 1)
+                *bw, grid.size, s0, dd, far), 1)
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, library_ms=None)
             line += f", plain {plain_ms:.1f} ms"
-        print(line)
+        print(line + f" ({CARD})")
         if off > GRAZE_SHARE * max(n_act, 1):
             raise AssertionError(f"bit_dda {name} disagrees with K2")
-    # one batch-8 call of the path tracer on the bit grid
+    # the path tracer on the bit grid: one batch-8 call, its K9 against
+    # the masked loop, and its radiance against the SVO engine's
     lut = torch.from_numpy(build_wl_to_rgb_lut()).to(dev)
     seeds = np.arange(24, dtype=np.uint32).reshape(8, 3) + 7
     args = (world.table, world.root, world.height, lut,
@@ -3555,21 +3620,30 @@ def phase_bitdda(space, dev):
     frac = float((np.abs(a - b) > 1e-3).mean())
     mrel = float(abs(a.mean() / b.mean() - 1.0))
     print(f"bit-grid path (render_samples(bitworld=), batch 8, 1024^3 "
-          f"{WIDTH}x{HEIGHT}): {wall:.1f} ms (host clock, synchronized), "
-          f"launches {counts}; against the SVO engine: {frac:.2e} of values "
-          f"beyond 1e-3, means {mrel:.2e} apart (budget {GOLDEN_FRAC}, "
-          f"{GOLDEN_MEAN_REL}); {CARD}")
-    _expect_launches("bit-grid path", counts, ("fog_march", "bit_dda"))
+          f"{WIDTH}x{HEIGHT}): {wall:.1f} ms (host clock, synchronized, "
+          f"first call), launches {counts}; against the SVO engine: "
+          f"{frac:.2e} of values beyond 1e-3, means {mrel:.2e} apart (budget "
+          f"{GOLDEN_FRAC}, {GOLDEN_MEAN_REL}); {CARD}")
+    _expect_launches("bit-grid path", counts, ("path_trace",),
+                     ("fog_march", "bit_dda", "svo_cast", "hf_cast"))
     if frac > GOLDEN_FRAC or mrel > GOLDEN_MEAN_REL or not np.isfinite(a).all():
         raise AssertionError("the bit-grid path disagrees with the SVO engine")
-    return rec, counts
+    path_rec = phase_path_kernel(
+        "1024^3 bit grid", None, cam, budget=0,
+        batch=lambda: integrator.render_samples(*args, bitworld=bw,
+                                                bit_size=grid.size))
+    return rec, counts, path_rec
 
 
 def phase_sunmaps(renderer, cam, dev):
-    """Sun maps at 8192^3 (hf-only, the main path's pose and sun):
-    batch-8 calls with and without the maps equal by bits (radiance, and
-    trace_paths' radiance and RNG state); the share of NEE lanes the maps
-    prove lit; K4's NEE launch with and without the maps; ms a call."""
+    """Sun maps at 8192^3 (hf-only, the main path's pose and sun), the
+    Renderer's ``VOXT_SUNMAPS=1``: K9 with the maps against the masked
+    loop with them (phase_path_kernel, every lane by bits; the maps'
+    settled share among its counts); batch-8 calls with and without the
+    maps equal by bits (radiance, and trace_paths' radiance and RNG
+    state); the share of NEE lanes the maps prove lit from the camera
+    hits; K4's NEE launch with and without the maps; ms a call. Returns
+    K9's record."""
     import torch
 
     from voxtracer_torch.core import sampling
@@ -3578,15 +3652,25 @@ def phase_sunmaps(renderer, cam, dev):
     from voxtracer_torch.kernels import (atmosphere, heightfield, integrator,
                                          sunshadow)
 
-    from voxtracer_torch.render.driver import _heights
-
     sun = _sun(dev)
-    t0 = time.monotonic()
-    maps = sunshadow.upload(sunshadow.build(_heights(renderer._dev),
-                                            sun.cpu().numpy()), dev)
-    build_s = time.monotonic() - t0
-    if maps is None:
-        raise AssertionError("the main path's sun is gated")
+    prev = os.environ.get("VOXT_SUNMAPS")
+    os.environ["VOXT_SUNMAPS"] = "1"
+    try:
+        t0 = time.monotonic()
+        maps = renderer._get_sun_maps(sun.cpu().numpy())
+        build_s = time.monotonic() - t0
+        if maps is None:
+            raise AssertionError("the main path's sun is gated")
+        path_rec = phase_path_kernel(
+            f"{1 << FULL_LOG2_SIZE}^3 main path with sun maps "
+            "(VOXT_SUNMAPS=1)", renderer, cam, budget=0)
+    finally:
+        if prev is None:
+            del os.environ["VOXT_SUNMAPS"]
+        else:
+            os.environ["VOXT_SUNMAPS"] = prev
+    if path_rec["counts"]["sun_lit"] <= 0:
+        raise AssertionError("K9 settled no NEE lane by the sun maps")
     seeds = np.arange(24, dtype=np.uint32).reshape(8, 3) + 101
     kw = renderer._engine_kw(cam)
     kw.pop("sun_maps", None)
@@ -3645,7 +3729,8 @@ def phase_sunmaps(renderer, cam, dev):
           f"{share:.4f} of {int(act.sum())} NEE lanes proved lit; K4's NEE "
           f"launch without/with/with/without {[round(x, 4) for x in nee_ms]}"
           f" ms (CUDA events); ms a batch-8 call without {ms[True]}, with "
-          f"{ms[False]} (host clock, in turns); {CARD}")
+          f"{ms[False]} (host clock, in turns; K9 both); {CARD}")
+    return path_rec
 
 
 def phase_prefix(renderer, cam, dev):
@@ -3778,7 +3863,8 @@ def main() -> int:
     phase_primary_engines(space, dev)
     phase_dist(space, dev)
     beam_rec, beam_counts = phase_beam(space, dev)
-    bit_rec, bit_counts = phase_bitdda(space, dev)
+    bit_rec, bit_counts, bit_path = phase_bitdda(space, dev)
+    path_recs.append(bit_path)
     path_recs.append(phase_edits(space, dev)[1])
     del space, dev_svo, world, soup, soup_t, pack
     torch.cuda.empty_cache()
@@ -3786,8 +3872,8 @@ def main() -> int:
     phase_dense(dev)
     phase_terrain_card(dev)
     torch.cuda.empty_cache()
-    full, sky_rec, main_path = phase_full(dev)
-    path_recs.insert(0, main_path)
+    full, sky_rec, main_path, maps_path = phase_full(dev)
+    path_recs[:0] = [main_path, maps_path]
     _path_summary(path_recs)
 
     kernels = [
@@ -3828,7 +3914,9 @@ def main() -> int:
              replaces="voxtracer/kernels/integrator.py:212",
              launches=full["path_trace"], **main_path["record"],
              stages=[dict(name=k, ms=v["ms"], launches=v["launches"])
-                     for k, v in main_path["stages"].items()]),
+                     for k, v in main_path["stages"].items()],
+             engines=[dict(name=rec["name"], launches=rec["launches"],
+                           **rec["record"]) for rec in path_recs[1:]]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

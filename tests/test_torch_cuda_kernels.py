@@ -614,8 +614,12 @@ def test_beam_frame_matches_svo_cast(cuda, beam_world):
     assert torch.equal(r["voxel"][hit], ref["voxel"][hit])
 
 
+@pytest.mark.parametrize("fetch", [None, (0, 32, 32), (100, 64, 1)])
 @pytest.mark.parametrize("B,frac", [(1, None), (1000, 0.5), (65536, None)])
-def test_bit_dda_matches_plain(cuda, B, frac):
+def test_bit_dda_matches_plain(cuda, B, frac, fetch):
+    """K8 (the walker of bit_walk.cuh on the lane fetch) by bits against
+    its plain version, under the wrapper's lane-fetch settings and two
+    corners."""
     from voxtracer_torch.kernels import bitdda
     from voxtracer_torch.world import bitgrid
 
@@ -633,8 +637,12 @@ def test_bit_dda_matches_plain(cuda, B, frac):
     active = None if frac is None else torch.as_tensor(rng.random(B) < frac,
                                                        device=cuda)
     before = bitdda.launches
-    got = bitdda.bitgrid_raycast(*bw, grid.size, start, d, distance=dist,
-                                 active=active)
+    if fetch is None:
+        got = bitdda.bitgrid_raycast(*bw, grid.size, start, d, distance=dist,
+                                     active=active)
+    else:
+        got = bitdda._bitgrid_raycast_cuda(*bw, grid.size, start, d, dist,
+                                           True, active, fetch)
     assert bitdda.launches == before + 1
     want = bitdda.bitgrid_raycast_plain(*bw, grid.size, start, d, dist, True,
                                         active)
@@ -654,14 +662,20 @@ def test_heightmap_on_the_card_equals_cpu(cuda, log2):
 
 @pytest.mark.parametrize("engine,primary,fuse", [
     ("hf", False, False), ("hf", True, False), ("hf", False, True),
-    ("svo", False, False), ("edited", False, False)])
+    ("svo", False, False), ("edited", False, False), ("maps", False, False),
+    ("maps", True, True), ("bit", False, False), ("bit", True, True)])
 def test_path_trace_matches_plain_bit_for_bit(cuda, terrain, engine, primary,
                                               fuse):
     """K9 against the masked loop on the card: radiance and the returned
     state equal by bits in every lane, on each engine, with bounce 0's
-    primary hits given, and fused (the state 3 draws ahead)."""
+    primary hits given, and fused (the state 3 draws ahead; no fused draws
+    with the sun maps or the bit grid, as in the JAX package). "maps": the
+    heightfield with the sun maps, which settle some NEE lanes and move no
+    bit of K9's own output without them; "bit": the bit grid, given with
+    the pack and the maps that it wins over."""
     from voxtracer_torch.core.spectra import build_wl_to_rgb_lut
-    from voxtracer_torch.kernels import integrator
+    from voxtracer_torch.kernels import integrator, sunshadow
+    from voxtracer_torch.world import bitgrid
 
     w, heights = terrain
     n = 1 << w.height
@@ -672,14 +686,19 @@ def test_path_trace_matches_plain_bit_for_bit(cuda, terrain, engine, primary,
         kw["hf_edit_bounds"] = torch.tensor(
             [[[40, 0, 40], [60, 90, 60]], [[5, 10, 70], [9, 30, 75]]],
             dtype=torch.float32, device=cuda)
+    sun = np.float32([0.5, 0.8, 0.33])
+    sun /= np.linalg.norm(sun)
+    if engine in ("maps", "bit"):
+        kw["sun_maps"] = sunshadow.upload(sunshadow.build(heights, sun), cuda)
+    if engine == "bit":
+        grid = bitgrid.from_heightmap(heights)
+        kw.update(bitworld=grid.to_device(cuda), bit_size=grid.size)
     rng = np.random.default_rng(29)
     B = 20000
     start = rng.uniform(2, n - 2, (B, 3)).astype(np.float32)
     start[:, 1] = rng.uniform(heights.max() * 0.5, n - 2, B)
     d = rng.normal(size=(B, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    sun = np.float32([0.5, 0.8, 0.33])
-    sun /= np.linalg.norm(sun)
     args = (w.table, w.root, w.height,
             torch.as_tensor(build_wl_to_rgb_lut(256), device=cuda),
             torch.as_tensor(start, device=cuda), torch.as_tensor(d, device=cuda),
@@ -695,6 +714,7 @@ def test_path_trace_matches_plain_bit_for_bit(cuda, terrain, engine, primary,
     st_k, col_k = integrator.trace_paths(*args, 8, 32, primary=prim,
                                          fuse_nee=fuse, **kw)
     assert integrator.launches == before + 1
+    work = dict(zip(integrator.K9_WORK, integrator.last_work.tolist()))
     st_p, col_p = integrator.trace_paths_plain(*args, 8, 32, primary=prim,
                                                fuse_nee=fuse, **kw)
     torch.cuda.synchronize()
@@ -702,3 +722,11 @@ def test_path_trace_matches_plain_bit_for_bit(cuda, terrain, engine, primary,
     assert np.array_equal(col_k.cpu().numpy().view(np.int32),
                           col_p.cpu().numpy().view(np.int32))
     assert float(col_k.sum()) > 0
+    assert (work["bit_steps"] > 0) == (engine == "bit")
+    assert (work["sun_lit"] > 0) == (engine == "maps")
+    if engine == "maps":
+        # (no fused draws with the maps, so none without them here)
+        st_n, col_n = integrator.trace_paths(
+            *args, 8, 32, primary=prim, fuse_nee=False,
+            **dict(kw, sun_maps=None))
+        assert torch.equal(st_k, st_n) and torch.equal(col_k, col_n)

@@ -37,19 +37,23 @@ equal by bits in every lane: the same rung everywhere.
 K6, K7 and K8 must equal their plain versions bit for bit: the walk's
 candidates and its resumed state over several rounds (with pauses), the
 resolve's five outputs with a shared origin and with one origin a ray,
-and the bit-grid DDA's four outputs with caps and masks.
+and the bit-grid DDA's four outputs (its walker, bit_walk.cuh, on the
+lane fetch) with caps and masks, under every lane-fetch setting.
 
 K9 runs a bounce of every live path as stage kernels over queues of
 paths (the planet draw and the scatter-free test, K1's march, the world
-cast with K2's or K4's walk, the sun march, the shadow cast, the end of
-the bounce), one launch each. On each of its engines, its returned RNG
-state must equal the masked loop's (trace_paths_plain) by bits in every
-lane, dead or alive, which holds its burn pass; its radiance is held to
-the golden contract (0.5% of values beyond 1e-3, means within 1e-3),
-since the host's expf, logf, sinf and cosf are not torch's; its
-walk-step counts to the plain walks' within 2%; its queue lengths to the
-paths' last bounces and its march counts; and K9 to itself by bits
-under every lane-fetch setting.
+cast with K2's, K4's or K8's walk, the sun march, the shadow cast, the
+end of the bounce), one launch each. On each of its engines (the
+heightfield with and without the sun maps, the edited heightfield, the
+SVO, the bit grid), its returned RNG state must equal the masked loop's
+(trace_paths_plain) by bits in every lane, dead or alive, which holds
+its burn pass; its radiance is held to the golden contract (0.5% of
+values beyond 1e-3, means within 1e-3), since the host's expf, logf,
+sinf and cosf are not torch's; its walk-step counts to the plain walks'
+within 2%; its count of the NEE lanes the sun maps settled to the masked
+loop's; with the maps, its radiance and state to its own without them
+by bits; its queue lengths to the paths' last bounces and its march
+counts; and K9 to itself by bits under every lane-fetch setting.
 
 The scatter-free test of the march (fog_walk.cuh, in K1 and K9's
 stages) is fuzzed against the full march of the same source: every
@@ -1258,9 +1262,31 @@ def test_beam_walk_and_resolve_source_equal_plain(host_kernels, clutter,
                               ref[key].numpy().view(np.uint8)), key
 
 
+def _bit_host(fn, bw, size, start, d, dist, active, skip_t0, fetch):
+    """K8 (the walker of bit_walk.cuh on the lane fetch) through the host
+    build; every output starts as garbage."""
+    B = d.shape[0]
+    got = dict(hit=torch.full((B,), True), t=torch.full((B,), 7.0),
+               normal=torch.full((B, 3), 7.0),
+               voxel=torch.full((B, 3), 7, dtype=torch.int32))
+    counter = torch.zeros((1,), dtype=torch.int32)
+    err = fn(bw[0].data_ptr(), bw[0].shape[0], bw[1].data_ptr(),
+             bw[2].data_ptr(), size, start.data_ptr(), d.data_ptr(),
+             dist.data_ptr(), None if active is None else active.data_ptr(),
+             skip_t0, got["hit"].data_ptr(), got["t"].data_ptr(),
+             got["normal"].data_ptr(), got["voxel"].data_ptr(), B,
+             counter.data_ptr(), *fetch, None)
+    assert err == 0
+    return got
+
+
+@pytest.mark.parametrize("fetch", FETCHES)
 @pytest.mark.parametrize("B,frac,skip_t0", [(1, 1.0, 1), (777, 0.5, 1),
                                             (4099, None, 0)])
-def test_bit_dda_source_equals_plain(host_kernels, B, frac, skip_t0):
+def test_bit_dda_source_equals_plain(host_kernels, B, frac, skip_t0, fetch):
+    """K8's walker on the lane fetch against the plain version, by bits,
+    under every lane-fetch setting: random starts inside and outside the
+    grid (an eighth on integer points), random caps and masks."""
     from voxtracer_torch.world import bitgrid
 
     rng = np.random.default_rng(B)
@@ -1275,16 +1301,8 @@ def test_bit_dda_source_equals_plain(host_kernels, B, frac, skip_t0):
                     1e12).astype(np.float32)
     start, d, dist = (torch.from_numpy(a) for a in (start, d, dist))
     active = None if frac is None else torch.from_numpy(rng.random(B) < frac)
-    got = dict(hit=torch.full((B,), True), t=torch.full((B,), 7.0),
-               normal=torch.full((B, 3), 7.0),
-               voxel=torch.full((B, 3), 7, dtype=torch.int32))
-    err = host_kernels["bit_dda"](
-        bw[0].data_ptr(), bw[0].shape[0], bw[1].data_ptr(), bw[2].data_ptr(),
-        grid.size, start.data_ptr(), d.data_ptr(), dist.data_ptr(),
-        None if active is None else active.data_ptr(), skip_t0,
-        got["hit"].data_ptr(), got["t"].data_ptr(), got["normal"].data_ptr(),
-        got["voxel"].data_ptr(), B, None)
-    assert err == 0
+    got = _bit_host(host_kernels["bit_dda"], bw, grid.size, start, d, dist,
+                    active, skip_t0, fetch)
     want = bitdda.bitgrid_raycast_plain(*bw, grid.size, start, d, dist,
                                         bool(skip_t0), active)
     for key in want:
@@ -1297,12 +1315,21 @@ def test_bit_dda_source_equals_plain(host_kernels, B, frac, skip_t0):
 # ---- K9 (csrc/path_trace.cu): the bounce loop, one thread a path ----
 
 
+K9_SUN = np.float32([0.5, 0.8, 0.33]) / np.float32(
+    np.linalg.norm([0.5, 0.8, 0.33]))
+
+
 @pytest.fixture(scope="module")
 def k9_worlds():
     """A 32^3 terrain world for each of K9's engines: its node table, its
     pack, and for the edited engine the table after a dig and a white
-    slab, with the box that covers them."""
+    slab, with the box that covers them; the sun maps of the unedited
+    terrain (the heightfield engine's option, "maps"); the bit grid of the
+    unedited terrain, given with the pack and the maps that it wins over
+    ("bit")."""
     from voxtracer_torch.core.spectra import build_wl_to_rgb_lut
+    from voxtracer_torch.kernels import sunshadow
+    from voxtracer_torch.world import bitgrid
 
     space = worldgen.generate(log2_size=5, verbose=False, device="cpu")
     h0 = np.asarray(space.heights).copy()
@@ -1321,12 +1348,17 @@ def k9_worlds():
     bounds = torch.tensor([[cx - 1, top - 2, cz - 1], [cx + 4, top + 3, cz + 4]],
                           dtype=torch.float32)
     lut = torch.from_numpy(build_wl_to_rgb_lut(256))
-    return dict(svo=(plain_w, {}), hf=(plain_w, dict(
-        hf_mips=pack[0], hf_offsets=pack[1], terrain_rgb=space.terrain_rgb)),
-        edited=(edited_w, dict(hf_mips=pack[0], hf_offsets=pack[1],
-                               terrain_rgb=space.terrain_rgb,
-                               hf_edit_bounds=bounds)),
-        lut=lut, heights=h0, site=(cx, top, cz))
+    hf_kw = dict(hf_mips=pack[0], hf_offsets=pack[1],
+                 terrain_rgb=space.terrain_rgb)
+    maps = sunshadow.upload(sunshadow.build(h0, K9_SUN), "cpu")
+    grid = bitgrid.from_heightmap(h0)
+    return dict(svo=(plain_w, {}), hf=(plain_w, hf_kw),
+                edited=(edited_w, dict(hf_kw, hf_edit_bounds=bounds)),
+                maps=(plain_w, dict(hf_kw, sun_maps=maps)),
+                bit=(plain_w, dict(hf_kw, sun_maps=maps,
+                                   bitworld=grid.to_device("cpu"),
+                                   bit_size=grid.size)),
+                lut=lut, heights=h0, site=(cx, top, cz))
 
 
 K9_BOUNCES, K9_FOG = 6, 8
@@ -1347,11 +1379,9 @@ def _k9_paths(k9_worlds, engine, B=512, primary=False, seed=9):
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     wl = rng.random(B).astype(np.float32)
     state = rng.integers(0, 2**32, (B, 3), dtype=np.uint32)
-    sun = np.float32([0.5, 0.8, 0.33])
-    sun /= np.linalg.norm(sun)
     args = (w.table, w.root, w.height, k9_worlds["lut"],
             torch.from_numpy(start), torch.from_numpy(d), torch.from_numpy(wl),
-            torch.from_numpy(sun), torch.from_numpy(state.astype(np.int64)),
+            torch.from_numpy(K9_SUN), torch.from_numpy(state.astype(np.int64)),
             K9_BOUNCES, K9_FOG)
     prim = None
     if primary:
@@ -1371,7 +1401,9 @@ def _k9_host(fn, args, kw, prim, extra=0, fetch=None, stats=False):
     k9_kw = dict(primary=prim, hf_mips=kw.get("hf_mips"),
                  hf_offsets=kw.get("hf_offsets"),
                  terrain_rgb=kw.get("terrain_rgb"),
-                 hf_edit_bounds=kw.get("hf_edit_bounds"), extra_draws=extra,
+                 hf_edit_bounds=kw.get("hf_edit_bounds"),
+                 sun_maps=kw.get("sun_maps"), bitworld=kw.get("bitworld"),
+                 bit_size=kw.get("bit_size", 0), extra_draws=extra,
                  stats=stats)
     if fetch is not None:
         k9_kw["fetch"] = fetch
@@ -1389,8 +1421,11 @@ def _golden(img, want):
     assert abs(img.mean() / want.mean() - 1.0) <= 1e-3
 
 
-@pytest.mark.parametrize("engine,primary", [("hf", False), ("hf", True),
-                                            ("svo", False), ("edited", False)])
+K9_CASES = [("hf", False), ("hf", True), ("svo", False), ("edited", False),
+            ("maps", False), ("bit", False), ("bit", True)]
+
+
+@pytest.mark.parametrize("engine,primary", K9_CASES)
 def test_path_trace_source_matches_plain(host_kernels, k9_worlds, engine,
                                          primary, monkeypatch):
     """K9's stages on each engine against the masked loop: the returned
@@ -1402,22 +1437,38 @@ def test_path_trace_source_matches_plain(host_kernels, k9_worlds, engine,
     sooner than with roulette off are the ones it killed. The queues: a
     bounce's live queue holds the paths that reach it, the march queues
     the marches the scatter-free test left, the shadow queue live lanes
-    only; every lane-fetch step is a fog segment or a walk step."""
+    only; every lane-fetch step is a fog segment or a walk step. With
+    the sun maps, K9's state and radiance equal its own without them by
+    bits, and the lanes it counts as settled by the maps are the ones
+    that leave its shadow queue and the masked loop's count of the
+    lanes sun_clear proves lit."""
     args, kw, prim = _k9_paths(k9_worlds, engine, primary=primary)
-    steps = (heightfield.plain_lane_steps, traverse.plain_lane_steps)
+    steps = (heightfield.plain_lane_steps, traverse.plain_lane_steps,
+             bitdda.plain_lane_steps, integrator.plain_sun_lit)
     st, col, last, work, queues = _k9_host(host_kernels["path_trace"], args,
                                            kw, prim)
     st_p, col_p = integrator.trace_paths_plain(*args, primary=prim, **kw)
+    w = dict(zip(integrator.K9_WORK, work.tolist()))
     # the kernel's count of its walk steps: the masked loop's walks take
     # the same steps (up to the paths the host's libm sends elsewhere)
     plain = (heightfield.plain_lane_steps - steps[0],
-             traverse.plain_lane_steps - steps[1])
-    for got, want in zip(work[:2].tolist(), plain):
-        assert abs(got - want) <= 0.02 * want
-    assert int(work[3]) == int(last.sum()) + len(last)
+             traverse.plain_lane_steps - steps[1],
+             bitdda.plain_lane_steps - steps[2])
+    for name, want in zip(("hf_steps", "svo_steps", "bit_steps"), plain):
+        assert abs(w[name] - want) <= 0.02 * want, name
+    assert (w["bit_steps"] > 0) == (engine == "bit")
+    assert w["bounces"] == int(last.sum()) + len(last)
     assert torch.equal(st, st_p)
     _golden(col, col_p)
-    w = dict(zip(integrator.K9_WORK, work.tolist()))
+    assert w["sun_lit"] == integrator.plain_sun_lit - steps[3]
+    assert (w["sun_lit"] > 0) == (engine == "maps")
+    if engine == "maps":
+        no_maps = dict(kw, sun_maps=None)
+        st_n, col_n, last_n, work_n, queues_n = _k9_host(
+            host_kernels["path_trace"], args, no_maps, prim)
+        for g, want in ((st, st_n), (col, col_n), (last, last_n)):
+            assert torch.equal(g, want)
+        assert int(queues_n[:, 3].sum() - queues[:, 3].sum()) == w["sun_lit"]
     assert queues[:, 0].tolist() == [int((last >= b).sum())
                                      for b in range(K9_BOUNCES)]
     assert int(queues[:, 1].sum()) == w["marches"] - w["marches_free"]
@@ -1427,18 +1478,19 @@ def test_path_trace_source_matches_plain(host_kernels, k9_worlds, engine,
     assert w["marches_free"] > 0 and w["sun_marches_free"] > 0
     # the stats build: the same outputs and counts, and its SIMT steps
     # (each a fog segment or a walk step)
+    n = len(integrator.K9_COUNTS)
     got = _k9_host(host_kernels["path_trace"], args, kw, prim, stats=True)
-    for g, want in zip(got[:3] + (got[3][:8], got[4]),
-                       (st, col, last, work[:8], queues)):
+    for g, want in zip(got[:3] + (got[3][:n], got[4]),
+                       (st, col, last, work[:n], queues)):
         assert np.array_equal(g.numpy().view(np.uint8),
                               want.numpy().view(np.uint8))
-    assert not work[8:].any()
+    assert not work[n:].any()
     w = dict(zip(integrator.K9_WORK, got[3].tolist()))
     assert w["march_lane_steps"] + w["sun_march_lane_steps"] \
         == w["fog_segments"]
     assert sum(w[f"{s}_lane_steps"] for s in ("cast", "shadow", "recast",
                                                "shadow_recast")) \
-        == w["hf_steps"] + w["svo_steps"]
+        == w["hf_steps"] + w["svo_steps"] + w["bit_steps"]
     for stage in integrator.K9_STAGES:
         assert w[f"{stage}_lane_steps"] <= 32 * w[f"{stage}_warp_steps"]
     consts = integrator._K9_CONSTS.copy()
@@ -1451,8 +1503,7 @@ def test_path_trace_source_matches_plain(host_kernels, k9_worlds, engine,
     assert (col.sum(-1) == 0).any() and (col.sum(-1) > 0).any()
 
 
-@pytest.mark.parametrize("engine,primary", [("hf", False), ("hf", True),
-                                            ("svo", False), ("edited", False)])
+@pytest.mark.parametrize("engine,primary", K9_CASES)
 def test_path_trace_source_is_fetch_invariant(host_kernels, k9_worlds,
                                               engine, primary):
     """Which thread runs which path, and when, changes no bit of K9's

@@ -1,5 +1,7 @@
 """Hierarchical bit-grid DDA: the port of ``voxtracer/kernels/bitdda.py``,
-with CUDA kernel K8 (``csrc/bit_dda.cu``) and its plain PyTorch version.
+with CUDA kernel K8 (``csrc/bit_dda.cu``: the walker of
+``csrc/bit_walk.cuh`` on the persistent lane fetch of ``csrc/lanes.cuh``;
+K9's bit-grid engine runs the same walker) and its plain PyTorch version.
 
 The walk steps through the packed occupancy pyramid of
 ``world/bitgrid.py`` (regions of 128^3 voxels, bricks of 8^3, voxels): at
@@ -38,6 +40,8 @@ from voxtracer_torch.kernels.traverse import EPS, FAR, _lanes
 from voxtracer_torch.world.bitgrid import BRICK_VOX, CELLS, REGION_VOX
 
 launches = 0  # K8 launches since the last reset (chip_smoke reads it)
+# K8's lane fetch (csrc/lanes.cuh): K2's settings
+STATIC_PCT, CHUNK, REFILL = 75, 32, 4
 # loop steps summed over lanes by the plain version since the last reset
 plain_lane_steps = 0
 # a list, or None: the plain version appends each step's word reads as
@@ -69,18 +73,28 @@ def bitgrid_raycast(top, regions, bricks, size: int, start, d, distance=FAR,
     return {k: v.reshape(batch_shape + v.shape[1:]) for k, v in out.items()}
 
 
-def _bitgrid_raycast_cuda(top, regions, bricks, size, start, d, distance,
-                          skip_t0, active):
-    global launches
-    dev = d.device
+def check_grid(top, regions, bricks, size: int, dev, what: str):
+    """Raise unless the pyramid is what K8's walker takes: a power-of-two
+    edge of at least one region, and three contiguous int32 tensors of
+    its shapes on ``dev``."""
+    if size < REGION_VOX or size & (size - 1):
+        raise ValueError(f"{what}: bit grid edge {size} is not a power of "
+                         f"two >= {REGION_VOX}")
     nr, nb = size // REGION_VOX, size // BRICK_VOX
     for name, a, shape in (("top", top, (top.shape[0],)),
                            ("regions", regions, (nr ** 3, 128)),
                            ("bricks", bricks, (nb ** 3, 16))):
         if a.device != dev or a.dtype != torch.int32 \
                 or tuple(a.shape) != shape or not a.is_contiguous():
-            raise ValueError(f"bitgrid_raycast: {name} must be a contiguous "
-                             f"int32 {shape} tensor on {dev}")
+            raise ValueError(f"{what}: {name} must be a contiguous int32 "
+                             f"{shape} tensor on {dev}")
+
+
+def _bitgrid_raycast_cuda(top, regions, bricks, size, start, d, distance,
+                          skip_t0, active, fetch=(STATIC_PCT, CHUNK, REFILL)):
+    global launches
+    dev = d.device
+    check_grid(top, regions, bricks, size, dev, "bitgrid_raycast")
     B = d.shape[0]
     if B > build.MAX_LANES:
         raise ValueError(f"bitgrid_raycast: {B} lanes > {build.MAX_LANES}")
@@ -92,6 +106,7 @@ def _bitgrid_raycast_cuda(top, regions, bricks, size, start, d, distance,
     if B == 0:
         return out
     lib = build.library()
+    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.voxt_bit_dda(
@@ -100,7 +115,8 @@ def _bitgrid_raycast_cuda(top, regions, bricks, size, start, d, distance,
             distance.data_ptr(),
             None if active is None else active.data_ptr(), int(bool(skip_t0)),
             out["hit"].data_ptr(), out["t"].data_ptr(),
-            out["normal"].data_ptr(), out["voxel"].data_ptr(), B, stream)
+            out["normal"].data_ptr(), out["voxel"].data_ptr(), B,
+            counter.data_ptr(), *fetch, stream)
     build.check(err, "bitgrid_raycast")
     launches += 1
     return out

@@ -81,16 +81,19 @@ SIGNATURES = {
     "voxt_beam_resolve": (_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P,
                           _P, _I, _I, _I, _P),
     # top, top_words, regions, bricks, size, start, dir, distance, active,
-    # skip_t0, hit, t, normal, voxel, n, stream
+    # skip_t0, hit, t, normal, voxel, n, counter, static_pct, chunk,
+    # refill, stream
     "voxt_bit_dda": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                     _I, _P),
+                     _I, _P, _I, _I, _I, _P),
     # consts (host floats), n_consts, engine, tiles, tile_log, levels,
-    # row_starts, hmax_w, table, root, height, boxes, n_boxes, trgb, sun,
-    # pos, dir, light, density, state_in, p_hit, p_t, p_normal, p_rgb,
-    # color, state_out, last, max_last, work, n_work, ws, ws_words,
-    # counters, n_counters, n, max_bounces, fog_steps, extra_draws, stats,
-    # static_pct, chunk, refill, stream
+    # row_starts, hmax_w, table, root, height, boxes, n_boxes, bit_top,
+    # top_words, bit_regions, bit_bricks, bit_size, t_near, t_far, near_n,
+    # far_n, subres, pool, trgb, sun, pos, dir, light, density, state_in,
+    # p_hit, p_t, p_normal, p_rgb, color, state_out, last, max_last, work,
+    # n_work, ws, ws_words, counters, n_counters, n, max_bounces,
+    # fog_steps, extra_draws, stats, static_pct, chunk, refill, stream
     "voxt_path_trace": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _I,
+                        _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P, _I, _P, _L, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _P),

@@ -17,13 +17,17 @@
 // (a free path, K1's march, a scatter direction); the world cast capped
 // at the fog event (K4's walk on the heightfield engine, K2's on the SVO
 // engine, K4's then a slab test against the edit boxes and K2's re-cast
-// on the edited heightfield), the nearer event winning by t <= cap, or on
-// bounce 0 the given primary hit; the sun disk on bounce 0; next-event
-// estimation (sample_sun, the facing test, the planet cast toward the
-// sun, the shadow cast for live, facing lanes the planet left open); the
-// emissive rule; the cosine-hemisphere bounce; Russian roulette. The
-// walks are the device functions of fog_walk.cuh, svo_walk.cuh and
-// hf_walk.cuh, the bodies of K1, K2 and K4.
+// on the edited heightfield, K8's on the bit-grid engine with the hit's
+// albedo from one descent of the node table), the nearer event winning
+// by t <= cap, or on bounce 0 the given primary hit; the sun disk on
+// bounce 0; next-event estimation (sample_sun, the facing test, the
+// planet cast toward the sun, the shadow cast for live, facing lanes the
+// planet left open and, on the unedited heightfield with sun maps, the
+// maps do not prove lit: sunshadow.sun_clear's two reads, which take no
+// draw); the emissive rule; the cosine-hemisphere bounce; Russian
+// roulette. The walks are the device functions of fog_walk.cuh,
+// svo_walk.cuh, hf_walk.cuh and bit_walk.cuh, the bodies of K1, K2, K4
+// and K8, so every engine and option of the masked loop runs here.
 //
 // Draws: each bounce draws 11 random3 whatever the masks say (planet 3,
 // sun 2, planet 3, hemisphere 2, roulette 1). The masked loop runs N
@@ -68,14 +72,16 @@
 //   path_shade_kernel: the fixed logic up to the sun march: the two
 //       scatter-direction draws, the planet normal, the nearer event, the
 //       sun disk, the move to the hit, sample_sun, the facing test, the
-//       sun march's draw set up and tested, and the 2 unused draws; a sun
-//       march the test does not settle goes to the sun-march queue, a
-//       live, facing lane the test leaves open to the shadow queue;
+//       sun march's draw set up and tested, the sun maps' test, and the
+//       2 unused draws; a sun march the test does not settle goes to the
+//       sun-march queue, a live, facing lane the test leaves open and
+//       the maps do not prove lit to the shadow queue;
 //   path_march_kernel<true>: the sun march over its queue; the lanes it
-//       leaves open go to the shadow queue;
+//       leaves open and the maps do not prove lit go to the shadow queue;
 //   path_shadow_kernel: the shadow cast over the shadow queue (the SVO
-//       engine's two stages; on the edited engine the slab test, and
-//       path_recast_kernel<true> re-casts the rays that reach a box).
+//       engine's two stages, one uncapped walk on the others; on the
+//       edited engine the slab test, and path_recast_kernel<true>
+//       re-casts the rays that reach a box).
 // One last path_bounce_kernel ends the last bounce. Which thread runs a
 // path changes, and when; the arithmetic of a path does not. Queue
 // lengths and the lane-fetch claim counters stay on the card (a zeroed
@@ -96,6 +102,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bit_walk.cuh"
 #include "fog_walk.cuh"
 #include "hf_walk.cuh"
 #include "lanes.cuh"
@@ -108,7 +115,7 @@ constexpr int kBounceDraws = 11;
 constexpr int kBurnThreads = 256;
 constexpr int kMarchSteps = 16;  // segments between two looks (K1's)
 constexpr int kWalkSteps = 8;    // walk steps between two looks (K2's, K4's)
-constexpr int kHf = 0, kSvo = 1, kEdited = 2;  // engines
+constexpr int kHf = 0, kSvo = 1, kEdited = 2, kBit = 3;  // engines
 constexpr int kSvoMaxHeight = 15;  // traverse.MAX_HEIGHT
 
 // A bounce's counters: the lengths of its six queues and the claim
@@ -120,13 +127,14 @@ constexpr int kLive = 0, kMarch = 1, kSunMarch = 2, kShadow = 3, kRecast = 4,
 constexpr int kStageMarch = 0, kStageCast = 1, kStageSunMarch = 2,
               kStageShadow = 3, kStageRecast = 4, kStageShadowRecast = 5,
               kStages = 6;
-// The work counted (uint64, integrator.K9_WORK's order): walk steps, fog
-// segments marched, bounces; marches set up and settled by the
-// scatter-free test, of the bounce and of the sun; with stats on, each
-// lane-fetch stage's lane steps and warp steps
-constexpr int kHfSteps = 0, kSvoSteps = 1, kSegments = 2, kBounces = 3,
-              kMarches = 4, kMarchesFree = 5, kSunMarches = 6,
-              kSunMarchesFree = 7, kLaneSteps = 8,
+// The work counted (uint64, integrator.K9_WORK's order): walk steps by
+// walk, fog segments marched, bounces; marches set up and settled by the
+// scatter-free test, of the bounce and of the sun; the live, facing lanes
+// that the sun planet cast left open and the sun maps proved lit; with
+// stats on, each lane-fetch stage's lane steps and warp steps
+constexpr int kHfSteps = 0, kSvoSteps = 1, kBitSteps = 2, kSegments = 3,
+              kBounces = 4, kMarches = 5, kMarchesFree = 6, kSunMarches = 7,
+              kSunMarchesFree = 8, kSunLit = 9, kLaneSteps = 10,
               kWarpSteps = kLaneSteps + kStages,
               kWork = kWarpSteps + kStages;
 // The path state: float arrays, int arrays and queues of n entries each
@@ -142,9 +150,10 @@ constexpr int qLive = 0, qMarch = 2, qSunMarch = 3, qShadow = 4,
               qRecast = 5, qShadowRecast = 6, kQueueFields = 7;
 constexpr int kWordsPerPath = kFloatFields + kIntFields + kQueueFields;
 // a path's bounce flags: hit, facing the sun, the sun march hit,
-// occluded; the world cast's hit (for path_shade_kernel)
+// occluded; the world cast's hit (for path_shade_kernel); the sun maps
+// prove the lane lit
 constexpr unsigned kHit = 1, kFacing = 2, kSunHit = 4, kOccluded = 8,
-                   kWorldHit = 16;
+                   kWorldHit = 16, kLit = 32;
 
 // float32 constants in the order of integrator.py's _K9_CONSTS, each the
 // float the plain version rounds its Python expression to
@@ -155,9 +164,32 @@ struct PathConsts {
   float ground[4], fog[4];
 };
 
+// sunshadow.build's threshold maps of this (world, sun), for the unedited
+// heightfield engine (t_near null: no maps)
+struct SunMaps {
+  const float* t_near;  // (rn, rn), indexed by sub-column floor(x * subres)
+  const float* t_far;   // (k, k), by sub-column / (subres * pool)
+  float subres;         // a power of two, so x * subres is exact
+  int rn, k, div;       // div = subres * pool
+};
+
+// sunshadow.sun_clear: whether the maps prove that no terrain blocks any
+// sun-cone ray from p (two reads; a lane outside the map is not proved)
+__device__ __forceinline__ bool sun_clear(const SunMaps& m, const float* p) {
+  const float fx = floorf(p[0] * m.subres), fz = floorf(p[2] * m.subres);
+  const float rn = (float)m.rn;
+  if (!(fx >= 0.0f && fx < rn && fz >= 0.0f && fz < rn)) return false;
+  const int sx = (int)fx, sz = (int)fz;
+  const float tn = __ldg(m.t_near + (size_t)sx * m.rn + sz);
+  const float tf = __ldg(m.t_far + (size_t)(sx / m.div) * m.k + sz / m.div);
+  return p[1] > tn && p[1] > tf;
+}
+
 struct PathArgs {
   PathConsts c;
   voxt::HfPack hf;
+  voxt::BitGrid bit;  // the bit-grid engine's pyramid
+  SunMaps maps;
   const int* table;
   int root, height;
   const float* boxes;  // (n_boxes, 2, 3) [lo, hi) of the edited engine
@@ -501,14 +533,15 @@ __global__ void __launch_bounds__(kThreads)
 
 // K1's march over bounce b's march queue (kSun false: the planet cast
 // along d, writing (code, t)) or its sun-march queue (kSun true: a hit
-// sets kSunHit, a lane left open goes to the shadow queue).
+// sets kSunHit, a lane left open goes to the shadow queue unless the sun
+// maps prove it lit).
 template <bool kSun>
 struct MarchRay {
   const PathArgs& a;
   int b;
   voxt::FogWalk w;
   int i, open;
-  unsigned segs, lane_steps, warp_steps;
+  unsigned segs, lit, lane_steps, warp_steps;
 
   __device__ __forceinline__ void skip(int, unsigned) {}  // no masked lanes
 
@@ -518,6 +551,8 @@ struct MarchRay {
       a.F(fPt, i) = w.t;
     } else if (w.code > 0) {
       a.U(iFlags, i) |= kSunHit;
+    } else if (a.U(iFlags, i) & kLit) {
+      ++lit;
     } else {
       open = i;
     }
@@ -555,14 +590,16 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ int ring[kThreads / 32 * voxt::kQueue];
   voxt::fog_fractions(frac_a, frac_b, a.fog_steps);
   __syncthreads();
-  MarchRay<kSun> ray{a, b, fog_walker(a, frac_a, frac_b), 0, -1, 0u, 0u, 0u};
+  MarchRay<kSun> ray{
+      a, b, fog_walker(a, frac_a, frac_b), 0, -1, 0u, 0u, 0u, 0u};
   const voxt::LaneArgs lanes = a.lanes(b, kSun ? kSunMarch : kMarch);
   voxt::run_lanes<kMarchSteps, kStats>(
       lanes, ring + (threadIdx.x >> 5) * voxt::kQueue, ray);
   const int stage = kSun ? kStageSunMarch : kStageMarch;
-  const int slot[3] = {kSegments, kLaneSteps + stage, kWarpSteps + stage};
-  unsigned work[3] = {ray.segs, ray.lane_steps, ray.warp_steps};
-  add_work<3>(a, slot, work);
+  const int slot[4] = {kSegments, kSunLit, kLaneSteps + stage,
+                       kWarpSteps + stage};
+  unsigned work[4] = {ray.segs, ray.lit, ray.lane_steps, ray.warp_steps};
+  add_work<4>(a, slot, work);
 }
 
 // A walk's ray and result, in registers (the Io of svo_walk.cuh and
@@ -573,6 +610,7 @@ struct RayIo {
   float t;
   int node;
   float normal[3];
+  int vox[3];  // the bit walk's hit voxel
 
   __device__ __forceinline__ float origin(int k) const { return o[k]; }
   __device__ __forceinline__ float dir(int k) const { return dv[k]; }
@@ -590,18 +628,27 @@ struct RayIo {
                                          int, int, int) {
     finish(h, tt, -1, n, nullptr);
   }
+  __device__ __forceinline__ void finish(bool h, float tt, const float* n,
+                                         const int* v) {
+    finish(h, tt, -1, n, nullptr);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) vox[k] = v[k];
+  }
 };
 
 // The world walk of engine E for one ray at a time, stepped from a
 // lane-fetch stage: the heightfield walk (tile log TL) on the heightfield
 // engines, the SVO walk (its node stack in shared memory) on the SVO
-// engine and in the edited engine's re-casts.
+// engine and in the edited engine's re-casts, the bit walk on the
+// bit-grid engine.
 template <int E, int TL>
 struct Walker {
   static constexpr bool kSvoWalk = E == kSvo;
+  static constexpr bool kBitWalk = E == kBit;
   const PathArgs& a;
   voxt::HfWalk<TL, RayIo> hw;
   voxt::SvoWalk<RayIo> sw;
+  voxt::BitWalk<RayIo> bw;
   unsigned steps;
   // the edited engine's slab test of the ray, taken as the walk begins:
   // whether it reaches an edit box, and the least such entry max(t_en, 0)
@@ -610,7 +657,8 @@ struct Walker {
 
   __device__ __forceinline__ Walker(const PathArgs& args, const int* rows,
                                     int* stk)
-      : a(args), hw{args.hf, rows, RayIo{}}, steps(0u) {
+      : a(args), hw{args.hf, rows, RayIo{}}, bw{args.bit, RayIo{}},
+        steps(0u) {
     sw.table = args.table;
     sw.stk = stk;
     sw.stride = blockDim.x;
@@ -619,7 +667,9 @@ struct Walker {
     sw.skip_t0 = 1;
   }
 
-  __device__ __forceinline__ RayIo& io() { return kSvoWalk ? sw.io : hw.io; }
+  __device__ __forceinline__ RayIo& io() {
+    return kSvoWalk ? sw.io : (kBitWalk ? bw.io : hw.io);
+  }
 
   // starts a walk of (p, d) capped at dist; false once it has ended
   __device__ __forceinline__ bool begin(const float* p, const float* d,
@@ -632,17 +682,29 @@ struct Walker {
     }
     r.dist = dist;
     if (E == kEdited) slab(p, d);
-    return kSvoWalk ? sw.begin() : hw.begin();
+    return kSvoWalk ? sw.begin() : (kBitWalk ? bw.begin() : hw.begin());
   }
 
   __device__ __forceinline__ bool step() {
     ++steps;
-    return kSvoWalk ? sw.step() : hw.step();
+    return kSvoWalk ? sw.step() : (kBitWalk ? bw.step() : hw.step());
   }
 
   // the leaf's albedo (traverse.leaf_rgb): float bits in columns 0..2
   __device__ __forceinline__ float leaf(int node, int k) const {
     return node >= 0 ? __int_as_float(__ldg(a.table + node * 8 + k)) : 0.0f;
+  }
+
+  // bitdda.svo_color_at's node of voxel v: one descent of `height` levels
+  // through the node table (integers only; a missing child gives -1)
+  __device__ __forceinline__ int color_node(const int* v) const {
+    int node = a.root;
+    for (int l = a.height - 1; l >= 0 && node >= 0; --l) {
+      const int idx = ((v[0] >> l) & 1) | (((v[1] >> l) & 1) << 1) |
+                      (((v[2] >> l) & 1) << 2);
+      node = __ldg(a.table + node * 8 + idx);
+    }
+    return node;
   }
 
   // hf_raycast_edited's slab test against the edit boxes, for the ray
@@ -737,10 +799,15 @@ struct CastRay {
       return false;
     }
     const RayIo& r = walk.io();
+    // the albedo: the SVO leaf, the bit walk's voxel's leaf (a miss reads
+    // none: svo_color_at's mask), or the terrain colour
+    const int node = E == kSvo ? r.node
+                               : (E == kBit && r.hit ? walk.color_node(r.vox)
+                                                     : -1);
     float rgb[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k)
-      rgb[k] = E == kSvo ? walk.leaf(r.node, k) : __ldg(a.trgb + k);
+      rgb[k] = E == kSvo || E == kBit ? walk.leaf(node, k) : __ldg(a.trgb + k);
     put_world(a, i, r, rgb);
     return false;
   }
@@ -856,9 +923,10 @@ struct RecastRay {
 // its live queue, the whole warp together: the planet cast's two
 // scatter-direction draws and normal, the nearer event, the sun disk on
 // bounce 0, the move to the hit, sample_sun, the facing test, the sun
-// march's draw set up and tested, and the 2 unused draws. A sun march the
-// test does not settle goes to the sun-march queue, a live, facing lane
-// it leaves open to the shadow queue.
+// march's draw set up and tested, the sun maps' test, and the 2 unused
+// draws. A sun march the test does not settle goes to the sun-march
+// queue, a live, facing lane it leaves open to the shadow queue unless
+// the maps prove it lit.
 __global__ void __launch_bounds__(kThreads)
     path_shade_kernel(__grid_constant__ const PathArgs a, int b) {
   __shared__ float frac_a[voxt::kFogMaxSteps + 1];
@@ -869,7 +937,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const int count = *a.counter(b, kLive);
   const int* in = a.live(b);
-  unsigned work[2] = {0u, 0u};  // sun marches set up, settled
+  unsigned work[3] = {0u, 0u, 0u};  // sun marches set up, settled; lit
   for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < count;
        base += gridDim.x * blockDim.x) {
     const int j = base + lane;
@@ -976,6 +1044,10 @@ __global__ void __launch_bounds__(kThreads)
           sp_hit = w.code > 0;
         }
       }
+      // the sun maps (the unedited heightfield's option): a live, facing
+      // lane they prove lit takes no shadow cast and stays unoccluded
+      const bool lit = a.maps.t_near != nullptr && hit_any && facing &&
+                       !sp_hit && sun_clear(a.maps, pos);
       pcg3d(st);  // the sun planet cast's scatter direction (unused)
       pcg3d(st);
 #pragma unroll
@@ -988,14 +1060,15 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int k = 0; k < 4; ++k) a.F(fRgba + k, i) = rgba[k];
       a.U(iFlags, i) = (hit_any ? kHit : 0u) | (facing ? kFacing : 0u) |
-                       (sp_hit ? kSunHit : 0u);
-      shadow = !march && hit_any && facing && !sp_hit;
+                       (sp_hit ? kSunHit : 0u) | (lit ? kLit : 0u);
+      shadow = !march && hit_any && facing && !sp_hit && !lit;
+      work[2] += !march && lit;
     }
     append(a.queue(qSunMarch), a.counter(b, kSunMarch), march, i);
     append(a.queue(qShadow), a.counter(b, kShadow), shadow, i);
   }
-  const int slot[2] = {kSunMarches, kSunMarchesFree};
-  add_work<2>(a, slot, work);
+  const int slot[3] = {kSunMarches, kSunMarchesFree, kSunLit};
+  add_work<3>(a, slot, work);
 }
 
 // This thread's SVO node stack, after the warps' lane rings (the SVO
@@ -1009,18 +1082,23 @@ __device__ __forceinline__ int* svo_stack(int* smem) {
 // The pack's row starts into shared memory (heightfield engines)
 template <int E>
 __device__ __forceinline__ void load_rows(const PathArgs& a, int* s_rows) {
-  if (E != kSvo && (int)threadIdx.x < a.hf.levels)
+  if ((E == kHf || E == kEdited) && (int)threadIdx.x < a.hf.levels)
     s_rows[threadIdx.x] = __ldg(a.hf.row_start + threadIdx.x);
   __syncthreads();
 }
 
-// A walk stage's work: its walk steps (heightfield or SVO) and, with
-// stats, its lane and warp steps
+// The work slot of engine E's walk steps
+template <int E>
+__host__ __device__ constexpr int steps_slot() {
+  return E == kSvo ? kSvoSteps : (E == kBit ? kBitSteps : kHfSteps);
+}
+
+// A walk stage's work: its walk steps (in `steps`) and, with stats, its
+// lane and warp steps
 template <class Ray>
 __device__ __forceinline__ void walk_work(const PathArgs& a, Ray& ray,
-                                          bool svo, int stage) {
-  const int slot[3] = {svo ? kSvoSteps : kHfSteps, kLaneSteps + stage,
-                       kWarpSteps + stage};
+                                          int steps, int stage) {
+  const int slot[3] = {steps, kLaneSteps + stage, kWarpSteps + stage};
   unsigned work[3] = {ray.walk.steps, ray.lane_steps, ray.warp_steps};
   add_work<3>(a, slot, work);
 }
@@ -1035,7 +1113,7 @@ __global__ void __launch_bounds__(kThreads)
                      -1, 0u, 0u};
   voxt::run_lanes<kWalkSteps, kStats>(
       a.lanes(b, kLive), smem + (threadIdx.x >> 5) * voxt::kQueue, ray);
-  walk_work(a, ray, E == kSvo, kStageCast);
+  walk_work(a, ray, steps_slot<E>(), kStageCast);
 }
 
 template <int E, int TL, bool kStats>
@@ -1048,7 +1126,7 @@ __global__ void __launch_bounds__(kThreads)
                        0, -1, false, 0u, 0u};
   voxt::run_lanes<kWalkSteps, kStats>(
       a.lanes(b, kShadow), smem + (threadIdx.x >> 5) * voxt::kQueue, ray);
-  walk_work(a, ray, E == kSvo, kStageShadow);
+  walk_work(a, ray, steps_slot<E>(), kStageShadow);
 }
 
 template <bool kShadow, bool kStats>
@@ -1061,7 +1139,7 @@ __global__ void __launch_bounds__(kThreads)
   voxt::run_lanes<kWalkSteps, kStats>(
       a.lanes(b, kShadow ? kShadowRecast : kRecast),
       smem + (threadIdx.x >> 5) * voxt::kQueue, ray);
-  walk_work(a, ray, true, kShadow ? kStageShadowRecast : kStageRecast);
+  walk_work(a, ray, kSvoSteps, kShadow ? kStageShadowRecast : kStageRecast);
 }
 
 // The draws the masked loop makes after a path has ended: 11 a bounce up
@@ -1148,8 +1226,10 @@ int launch_engine(const PathArgs& a, int engine, int tile_log, int extra,
       return launch_tl<kHf, kStats>(a, tile_log, extra, s);
     case kSvo:
       return launch<kSvo, 3, kStats>(a, extra, s);
-    default:
+    case kEdited:
       return launch_tl<kEdited, kStats>(a, tile_log, extra, s);
+    default:
+      return launch<kBit, 3, kStats>(a, extra, s);
   }
 }
 
@@ -1158,11 +1238,16 @@ int launch_engine(const PathArgs& a, int engine, int tile_log, int extra,
 // ws: kWordsPerPath * n words of path state (uninitialized); counters:
 // kCounters * (max_bounces + 1) int32, zeroed; work: kWork uint64, zeroed;
 // stats: count each lane-fetch stage's lane and warp steps (slower: only
-// for measurement).
+// for measurement). bit_*: the bit-grid engine's pyramid (edge bit_size);
+// t_near, t_far: the heightfield engine's sun maps ((near_n)^2 and
+// (far_n)^2 floats; t_near null: none).
 extern "C" int voxt_path_trace(
     const void* consts, int n_consts, int engine, const void* tiles,
     int tile_log, int levels, const void* row_starts, const void* hmax_w,
     const void* table, int root, int height, const void* boxes, int n_boxes,
+    const void* bit_top, int top_words, const void* bit_regions,
+    const void* bit_bricks, int bit_size, const void* t_near,
+    const void* t_far, int near_n, int far_n, int subres, int pool,
     const void* trgb, const void* sun, const void* pos, const void* dir,
     const void* light, const void* density, const void* state_in,
     const void* p_hit, const void* p_t, const void* p_normal,
@@ -1173,16 +1258,22 @@ extern "C" int voxt_path_trace(
     void* stream) {
   if (n <= 0) return 0;
   const bool hf = engine == kHf || engine == kEdited;
+  const bool svo = engine == kSvo || engine == kEdited;
   if (n_consts * sizeof(float) != sizeof(PathConsts) || engine < kHf ||
-      engine > kEdited || !voxt::valid_fetch(static_pct, chunk, refill) ||
+      engine > kBit || !voxt::valid_fetch(static_pct, chunk, refill) ||
       height < 1 || max_bounces < 1 || fog_steps < 0 ||
       fog_steps > voxt::kFogMaxSteps || extra_draws < 0 ||
       n_work != kWork || ws_words < (long long)kWordsPerPath * n ||
       n_counters < kCounters * (max_bounces + 1) ||
-      (engine != kHf && height > kSvoMaxHeight) ||
+      (svo && height > kSvoMaxHeight) ||
       (hf && (levels < 1 || levels > voxt::kHfMaxLevels || tile_log < 1 ||
               tile_log > 3 || height > 30)) ||
-      (engine == kEdited && n_boxes < 1))
+      (engine == kEdited && n_boxes < 1) ||
+      (engine == kBit && (bit_size < 128 || (bit_size & (bit_size - 1)) ||
+                          top_words < 1 || height > 30)) ||
+      (t_near != nullptr &&
+       (engine != kHf || subres < 1 || (subres & (subres - 1)) || pool < 1 ||
+        far_n < 1 || (long long)far_n * subres * pool != near_n)))
     return (int)cudaErrorInvalidValue;
   PathArgs a;
   const float* cf = (const float*)consts;
@@ -1195,6 +1286,18 @@ extern "C" int voxt_path_trace(
   a.hf.H = height;
   a.hf.skip_t0 = 1;
   a.hf.lstart = hf ? voxt::hf_start_level(height, tile_log, 0) : 0;
+  a.bit.top = (const unsigned*)bit_top;
+  a.bit.regions = (const unsigned*)bit_regions;
+  a.bit.bricks = (const unsigned*)bit_bricks;
+  a.bit.top_words = top_words;
+  a.bit.n = bit_size;
+  a.bit.skip_t0 = 1;
+  a.maps.t_near = (const float*)t_near;
+  a.maps.t_far = (const float*)t_far;
+  a.maps.subres = (float)subres;
+  a.maps.rn = near_n;
+  a.maps.k = far_n;
+  a.maps.div = subres * pool;
   a.table = (const int*)table;
   a.root = root;
   a.height = height;

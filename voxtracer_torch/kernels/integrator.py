@@ -22,15 +22,15 @@ Every bounce draws 11 random3 values per lane, masks or not:
 raycast_planet 3 + sample_sun 2 + raycast_planet 3 + cos_hemisphere 2 +
 roulette 1 (integrator.py:548-553 of the JAX package).
 
-On the card ``trace_paths`` is kernel K9 (csrc/path_trace.cu): stage
-kernels over queues of paths on the card, a bounce at a time (the planet
-draw and the scatter-free test of the march, K1's march, the world cast
-with K2's or K4's walk, the fixed logic up to the sun march, the sun
-march, the shadow cast, the end of the bounce), and a last pass burns the draws of the bounces each path
-skipped, so radiance and RNG state are the masked loop's bit for bit.
-The masked loop, ``trace_paths_plain``, is K9's plain version: the CPU
-runs it, and so does the card for the two opt-in engines (sun maps on
-the unedited heightfield, the bit grid).
+On the card ``trace_paths`` is kernel K9 (csrc/path_trace.cu) for every
+argument combination: stage kernels over queues of paths on the card, a
+bounce at a time (the planet draw and the scatter-free test of the
+march, K1's march, the world cast with K4's, K2's or K8's walk, the
+fixed logic up to the sun march with the sun maps' test, the sun march,
+the shadow cast, the end of the bounce), and a last pass burns the draws
+of the bounces each path skipped, so radiance and RNG state are the
+masked loop's bit for bit. The masked loop, ``trace_paths_plain``, is
+K9's plain version, which the CPU runs (``route``).
 
 The masked loop is the JAX package's uncompacted loop: every
 lane runs every bounce, the ``alive`` mask gates what a finished path
@@ -106,8 +106,13 @@ launches = 0  # K9 calls since the last reset (chip_smoke reads it)
 # lane-fetch stage
 K9_STAGES = ("march", "cast", "sun_march", "shadow", "recast",
              "shadow_recast")
-K9_WORK = ("hf_steps", "svo_steps", "fog_segments", "bounces", "marches",
-           "marches_free", "sun_marches", "sun_marches_free") + tuple(
+# the counts of every build (walk steps by walk; sun_lit: the live, facing
+# lanes the sun planet cast left open that the sun maps proved lit, which
+# take no shadow walk), then the stats build's
+K9_COUNTS = ("hf_steps", "svo_steps", "bit_steps", "fog_segments", "bounces",
+             "marches", "marches_free", "sun_marches", "sun_marches_free",
+             "sun_lit")
+K9_WORK = K9_COUNTS + tuple(
     f"{s}_{k}_steps" for k in ("lane", "warp") for s in K9_STAGES)
 last_work = None
 # the per-bounce counters of K9's last call (int32 on the card): the
@@ -120,7 +125,10 @@ last_queues = None
 K9_WORDS_PER_PATH = 37  # the path state's words a path (path_trace.cu)
 # K9's lane fetch in each stage (csrc/lanes.cuh): K4's settings
 STATIC_PCT, CHUNK, REFILL = 75, 32, 4
-ENGINES = {"hf": 0, "svo": 1, "edited": 2}  # K9's engine codes
+ENGINES = {"hf": 0, "svo": 1, "edited": 2, "bit": 3}  # K9's engine codes
+# the NEE lanes the sun maps settled in the masked loop since the last
+# reset (K9 counts the same lanes as its work's sun_lit)
+plain_sun_lit = 0
 
 
 # K9's float32 constants, in csrc/path_trace.cu's PathConsts order: each
@@ -146,6 +154,31 @@ def _fuses(fuse_nee, hf_mips, hf_edit_bounds, sun_maps, bitworld,
                 and wavelength.dim() >= 1)
 
 
+def k9_engine(hf_mips=None, hf_edit_bounds=None, bitworld=None) -> str:
+    """K9's engine for these arguments, as the masked loop picks its
+    casts: the bit grid before a heightfield pack, the edited heightfield
+    with edit bounds, the SVO without a pack."""
+    if bitworld is not None:
+        return "bit"
+    if hf_mips is None:
+        return "svo"
+    return "hf" if hf_edit_bounds is None else "edited"
+
+
+def route(device) -> str:
+    """Where ``trace_paths`` sends a call whose tensors lie on ``device``:
+    "plain", the masked loop, for the CPU; "k9" for CUDA, whatever the
+    options (K9 takes every engine, ``k9_engine``; it reads the sun maps
+    on its unedited heightfield engine and, as the masked loop, uses them
+    on no other). Any other device raises."""
+    kind = torch.device(device).type
+    if kind == "cpu":
+        return "plain"
+    if kind == "cuda":
+        return "k9"
+    raise ValueError(f"trace_paths: unsupported device {device}")
+
+
 def trace_paths(table, root: int, height: int, lut, start, direction,
                 wavelength, sun, state, max_bounces: int = 24,
                 fog_steps: int = 64, primary=None, hf_mips=None,
@@ -154,41 +187,36 @@ def trace_paths(table, root: int, height: int, lut, start, direction,
                 bit_size: int = 0, fuse_nee: bool | None = None):
     """Trace one spectral path per ray; returns (state, radiance (..., 3)).
 
-    Routes by the arguments: on CUDA tensors K9 (csrc/path_trace.cu)
-    traces the SVO, heightfield and edited-heightfield engines; with sun
-    maps on the unedited heightfield, or with the bit
-    grid, the masked loop ``trace_paths_plain`` runs around K4 or K8; on
-    CPU tensors the masked loop always. Any other device raises. Both
+    On CUDA tensors K9 (csrc/path_trace.cu) traces every engine (the
+    heightfield, with or without sun maps, the edited heightfield, the
+    SVO and the bit grid); on CPU tensors the masked loop
+    ``trace_paths_plain`` runs. Any other device raises (``route``). Both
     give the same radiance and state bit for bit. ``fuse_nee``: the fused
     bounce/NEE (``_FUSE``, JAX's conditions in ``_fuses``): the same
     radiance, the returned state 3 draws ahead. Arguments as
     ``trace_paths_plain``.
     """
-    dev = direction.device
-    if dev.type == "cuda" and (hf_edit_bounds is not None or hf_mips is None):
-        sun_maps = None  # the maps prove pre-edit walks only
-    if dev.type == "cpu" or (dev.type == "cuda" and (
-            bitworld is not None or sun_maps is not None)):
+    if route(direction.device) == "plain":
         return trace_paths_plain(
             table, root, height, lut, start, direction, wavelength, sun,
             state, max_bounces, fog_steps, primary, hf_mips, hf_offsets,
             terrain_rgb, hf_edit_bounds, sun_maps, bitworld, bit_size,
             fuse_nee)
-    if dev.type != "cuda":
-        raise ValueError(f"trace_paths: unsupported device {dev}")
     fuse = _fuses(fuse_nee, hf_mips, hf_edit_bounds, sun_maps, bitworld,
                   wavelength)
     return _trace_paths_k9(table, root, height, lut, start, direction,
                            wavelength, sun, state, max_bounces, fog_steps,
                            primary, hf_mips, hf_offsets, terrain_rgb,
-                           hf_edit_bounds, PLANET_DRAWS if fuse else 0)
+                           hf_edit_bounds, sun_maps, bitworld, bit_size,
+                           PLANET_DRAWS if fuse else 0)
 
 
 def k9_launches(max_bounces: int, edited: bool = False) -> int:
     """Kernel launches of one K9 call: a bounce kernel per bounce and one
     more, the two marches, the cast, the shade and the shadow stage per
     bounce (and the two re-casts on the edited engine), and the burn
-    pass."""
+    pass; the same on the heightfield with sun maps and on the bit
+    grid."""
     return (8 if edited else 6) * max_bounces + 2
 
 
@@ -201,7 +229,8 @@ def k9_inputs(args, kw) -> tuple:
                   kw.get("bitworld"), args[6])
     return tuple(args[:11]) + (
         kw.get("primary"), kw.get("hf_mips"), kw.get("hf_offsets"),
-        kw.get("terrain_rgb"), kw.get("hf_edit_bounds"),
+        kw.get("terrain_rgb"), kw.get("hf_edit_bounds"), kw.get("sun_maps"),
+        kw.get("bitworld"), kw.get("bit_size", 0),
         PLANET_DRAWS if fuse else 0)
 
 
@@ -217,7 +246,8 @@ def _k9_input(name, x, shape, dtype, dev, move=False):
 
 def _trace_paths_k9(table, root, height, lut, start, direction, wavelength,
                     sun, state, max_bounces, fog_steps, primary, hf_mips,
-                    hf_offsets, terrain_rgb, hf_edit_bounds, extra_draws):
+                    hf_offsets, terrain_rgb, hf_edit_bounds, sun_maps,
+                    bitworld, bit_size, extra_draws):
     """K9's stages and its burn pass on the card, with ``extra_draws``
     more draws on every path's state."""
     global launches, last_work, last_queues
@@ -230,7 +260,8 @@ def _trace_paths_k9(table, root, height, lut, start, direction, wavelength,
     args, outs = k9_args(table, root, height, lut, start, direction,
                          wavelength, sun, state, max_bounces, fog_steps,
                          primary, hf_mips, hf_offsets, terrain_rgb,
-                         hf_edit_bounds, extra_draws)
+                         hf_edit_bounds, sun_maps, bitworld, bit_size,
+                         extra_draws)
     lib = build.library()
     with torch.cuda.device(dev):
         err = lib.voxt_path_trace(*args,
@@ -243,15 +274,18 @@ def _trace_paths_k9(table, root, height, lut, start, direction, wavelength,
 
 def k9_args(table, root, height, lut, start, direction, wavelength, sun,
             state, max_bounces, fog_steps, primary, hf_mips, hf_offsets,
-            terrain_rgb, hf_edit_bounds, extra_draws,
+            terrain_rgb, hf_edit_bounds, sun_maps=None, bitworld=None,
+            bit_size: int = 0, extra_draws: int = 0,
             fetch=(STATIC_PCT, CHUNK, REFILL), stats: bool = False):
     """The inputs of K9's C entry ``voxt_path_trace`` but its stream, on
     ``direction``'s device, and its outputs (color, state, batch shape,
     and a dict of what the call must keep alive: each path's last bounce
     ``last``, the ``work`` count, the per-bounce ``counters``, the
-    tensors that must be ``zeroed`` at launch) for ``k9_result``.
-    ``stats``: the stages count their lane and warp steps (a slower
-    build, for measurement). Checks what the kernel does not take."""
+    tensors that must be ``zeroed`` at launch) for ``k9_result``. The
+    engine is ``k9_engine``'s; the sun maps reach the kernel on the
+    unedited heightfield only. ``stats``: the stages count their lane and
+    warp steps (a slower build, for measurement). Checks what the kernel
+    does not take."""
     dev = direction.device
     batch = direction.shape[:-1]
     B = direction.numel() // 3
@@ -261,13 +295,8 @@ def k9_args(table, root, height, lut, start, direction, wavelength, sun,
         raise ValueError(f"trace_paths: fog_steps {fog_steps} outside "
                          f"0..{fog.MAX_STEPS}")
     f32 = torch.float32
-    if hf_mips is None:
-        engine = "svo"
-    elif hf_edit_bounds is None:
-        engine = "hf"
-    else:
-        engine = "edited"
-    if engine != "hf" and height > MAX_HEIGHT:
+    engine = k9_engine(hf_mips, hf_edit_bounds, bitworld)
+    if engine in ("svo", "edited") and height > MAX_HEIGHT:
         raise ValueError(f"trace_paths: height {height} > {MAX_HEIGHT}, the "
                          "SVO walk's node stack limit")
     if table.device != dev or table.dtype != torch.int32 \
@@ -287,7 +316,7 @@ def k9_args(table, root, height, lut, start, direction, wavelength, sun,
     sun_t = _k9_input("sun", sun, (3,), f32, dev, move=True)
     tiles = rows = hmax_w = trgb = boxes = None
     tile_log = levels = n_boxes = 0
-    if engine != "svo":
+    if engine in ("hf", "edited"):
         if hf_mips.device != dev or hf_mips.dtype != f32 \
                 or not hf_mips.is_contiguous() or hf_mips.dim() != 2 \
                 or hf_mips.shape[1] != (1 << hf_offsets[0]) ** 2:
@@ -307,6 +336,21 @@ def k9_args(table, root, height, lut, start, direction, wavelength, sun,
         boxes = torch.as_tensor(hf_edit_bounds, dtype=f32, device=dev)
         boxes = boxes.reshape(-1, 2, 3).contiguous()
         n_boxes = boxes.shape[0]
+    grid = (None,) * 3
+    if engine == "bit":
+        bitdda.check_grid(*bitworld, int(bit_size), dev, "trace_paths")
+        grid = tuple(bitworld)
+    maps = (None,) * 2
+    near_n = far_n = subres = pool = 0
+    if engine == "hf" and sun_maps is not None:
+        maps = tuple(sun_maps[k] for k in ("t_near", "t_far"))
+        for name, m in zip(("t_near", "t_far"), maps):
+            if m.device != dev or m.dtype != f32 or m.dim() != 2 \
+                    or m.shape[0] != m.shape[1] or not m.is_contiguous():
+                raise ValueError(f"trace_paths: sun map {name} must be a "
+                                 f"contiguous square float32 tensor on {dev}")
+        near_n, far_n = maps[0].shape[0], maps[1].shape[0]
+        subres, pool = int(sun_maps["subres"]), int(sun_maps["pool"])
     prim = (None,) * 4
     if primary is not None:
         prim = (_k9_input("primary hit", primary["hit"], batch, torch.bool,
@@ -326,7 +370,7 @@ def k9_args(table, root, height, lut, start, direction, wavelength, sun,
     counters = torch.zeros((K9_COUNTERS * (int(max_bounces) + 1),),
                            dtype=torch.int32, device=dev)
     keep = dict(inputs=(pos, d, density, light, state_in, sun_t, rows, hmax_w,
-                        trgb, boxes, prim, ws),
+                        trgb, boxes, grid, maps, prim, ws),
                 last=last, work=work, zeroed=(max_last, work, counters),
                 counters=counters.view(-1, K9_COUNTERS)[:int(max_bounces)])
 
@@ -336,7 +380,11 @@ def k9_args(table, root, height, lut, start, direction, wavelength, sun,
     args = (_K9_CONSTS.ctypes.data_as(ctypes.c_void_p), _K9_CONSTS.size,
             ENGINES[engine], ptr(tiles), tile_log, levels, ptr(rows),
             ptr(hmax_w), table.data_ptr(), int(root), int(height),
-            ptr(boxes), n_boxes, ptr(trgb), sun_t.data_ptr(), pos.data_ptr(),
+            ptr(boxes), n_boxes, ptr(grid[0]),
+            0 if grid[0] is None else grid[0].shape[0], ptr(grid[1]),
+            ptr(grid[2]), int(bit_size) if engine == "bit" else 0,
+            ptr(maps[0]), ptr(maps[1]), near_n, far_n, subres, pool,
+            ptr(trgb), sun_t.data_ptr(), pos.data_ptr(),
             d.data_ptr(), light.data_ptr(), density.data_ptr(),
             state_in.data_ptr(), *(ptr(x) for x in prim), color.data_ptr(),
             state_out.data_ptr(), last.data_ptr(), max_last.data_ptr(),
@@ -416,12 +464,14 @@ def trace_paths_plain(table, root: int, height: int, lut, start, direction,
                                       hmax_w=hmax_w)
 
     def nee_occluded(p, sun_dir, act):
+        global plain_sun_lit
         if bitworld is not None:
             return bitdda.bitgrid_raycast(*bitworld, bit_size, p, sun_dir,
                                           active=act)["hit"]
         if use_hf:
             if sun_maps is not None:
                 lit = sunshadow.sun_clear(sun_maps, p)
+                plain_sun_lit += int((act & lit).sum())
                 return cast(p, sun_dir, FAR, act & ~lit)["hit"] & ~lit
             return cast(p, sun_dir, FAR, act)["hit"]
         blocked = cast(p, sun_dir, NEE_NEAR, act)["hit"]

@@ -37,9 +37,10 @@ a batch-8 main-path call.
     # csrc/ with the same C entry (the stage kernels) and against variant
     # trees (copies of a csrc/ with path_trace.cu edited; K9 alone is
     # built from each), on the captured trace_paths call of one batch-8
-    # sample_batch at each of chip_smoke.phase_path_kernel's four
+    # sample_batch at each of chip_smoke.phase_path_kernel's
     # configurations (1024^3 default Renderer, SVO engine, edit session;
-    # 8192^3 main path); in turns (old, new, each variant, then the
+    # 8192^3 main path; with --configs bit, the 1024^3 bit grid's batch-8
+    # render_samples call); in turns (old, new, each variant, then the
     # reverse), radiance, state and last bounces equal by bits and the
     # work counts equal; --fetch P,C,R adds this tree's K9 under other
     # lane-fetch settings; ptxas reports of each; each side's host time
@@ -52,6 +53,17 @@ a batch-8 main-path call.
     python -m voxtracer_torch.tools.kernel_ab path_trace --old-csrc DIR \
         [--variant DIR ...] [--fetch P,C,R ...] [--reps N] \
         [--configs NAME ...]
+
+    # the bit-grid DDA (K8) of this tree (bit_walk.cuh's walker on the
+    # lane fetch) against that of a tree from before its redesign (one
+    # thread a ray, the first form's C entry) and against variant trees
+    # (copies of this tree's csrc/ with bit_dda.cu or bit_walk.cuh
+    # edited), K8 alone built from each, on chip_smoke's K8 sets at
+    # 1024^3 (camera, random, random with 10% active, batch-8 NEE); in
+    # turns (old, new, each variant, this tree's K8 under each --fetch,
+    # then the reverse), every output equal by bits; ptxas reports
+    python -m voxtracer_torch.tools.kernel_ab bit_dda --old-csrc DIR \
+        [--variant DIR ...] [--fetch P,C,R ...] [--reps N]
 
     # ms per batch-8 sample_batch call and per Renderer.preview_frame
     # (a shaded frame on the rasterizer, bins cached) at 1024^3, 853x480,
@@ -96,6 +108,11 @@ OLD_RESOLVE_FOLD = (_P, _P, _P, _P, _P, _L, _P, _F, _F, _F, _F, _F,
 # the old tree's K5 entry: E, bins, K, dir, n, bin_w, log2_d0, log2_g,
 # far, t_min, stream
 OLD_SKY_TMIN = (_P, _I, _I, _P, _I, _F, _F, _F, _F, _P, _P)
+# K8's first C entry (one thread a ray, no lane fetch): top, top_words,
+# regions, bricks, size, start, dir, distance, active, skip_t0, hit, t,
+# normal, voxel, n, stream
+OLD_BIT_DDA = (_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+               _P)
 # K9's stage kernels and its burn pass (csrc/path_trace.cu)
 K9_KERNELS = ("path_bounce_kernel", "path_march_kernel", "path_cast_kernel",
               "path_recast_kernel", "path_shade_kernel", "path_shadow_kernel",
@@ -720,13 +737,113 @@ def run_kernels(old_csrc: Path, sweep: bool, reps: int):
     _fold_ab(old, new, smi, sweep, reps)
 
 
+def _bit_library(csrc: Path):
+    """K8 alone, built from ``csrc`` into its own library: (lib, ptxas's
+    report, whether its C entry is the first form's)."""
+    from voxtracer_torch.kernels import build
+
+    first = "run_lanes" not in (csrc / "bit_dda.cu").read_text()
+    out = build.BUILD_DIR / f"ab_bit_{build._source_hash(csrc)}.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    report = build.compile_library(csrc, out, sources=("bit_dda.cu",))
+    lib = ctypes.CDLL(str(out))
+    lib.voxt_bit_dda.argtypes = list(
+        OLD_BIT_DDA if first else build.SIGNATURES["voxt_bit_dda"])
+    lib.voxt_bit_dda.restype = ctypes.c_int
+    return lib, report, first
+
+
+def run_bit(old_csrc: Path, variants, reps: int, fetches=()):
+    """K8 of this tree against a tree's from before its redesign and
+    against variant trees on chip_smoke's K8 sets, in turns, every output
+    equal by bits."""
+    sys.path.insert(0, str(Path.cwd()))
+    import torch
+
+    import chip_smoke as cs
+    from voxtracer_torch.kernels import bitdda, build
+    from voxtracer_torch.world import bitgrid, svo, worldgen
+
+    smi = card()
+    print(smi)
+    build.library()
+    trees = [old_csrc, Path(build.CSRC), *variants]
+    with ThreadPoolExecutor(len(trees)) as pool:
+        built = list(pool.map(_bit_library, trees))
+    tags = ["old", "new", *(v.name for v in variants)]
+    for tag, (_, report, _) in zip(tags, built):
+        for src, regs, props in _ptxas_lines(report):
+            if src == "bit_dda.cu":
+                print(f"ptxas {tag} {src}: {regs}; {props}")
+    # a side: (lib, first form, lane-fetch settings)
+    default = (bitdda.STATIC_PCT, bitdda.CHUNK, bitdda.REFILL)
+    sides = [(lib, first, default) for lib, _, first in built]
+    for fetch in fetches:
+        sides.append((built[1][0], False, fetch))
+        tags.append("new@" + "/".join(map(str, fetch)))
+    turns = list(range(len(sides)))
+    turns += turns[::-1]
+    dev = torch.device("cuda")
+    space = worldgen.generate(log2_size=cs.LOG2_SIZE, verbose=False,
+                              backend="native", device=dev)
+    d_svo = space.serialize()
+    world = svo.upload(d_svo.table, d_svo.root, d_svo.height, dev)
+    grid = bitgrid.from_heightmap(np.asarray(space.heights))
+    top, regions, bricks = grid.to_device(dev)
+    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
+    for name, start, d, active in cs._bit_sets(world, dev):
+        B = d.shape[0]
+        dist = torch.full((B,), 1e12, dtype=torch.float32, device=dev)
+        outs = [dict(hit=torch.empty((B,), dtype=torch.bool, device=dev),
+                     t=torch.empty((B,), dtype=torch.float32, device=dev),
+                     normal=torch.empty((B, 3), dtype=torch.float32,
+                                        device=dev),
+                     voxel=torch.empty((B, 3), dtype=torch.int32, device=dev))
+                for _ in sides]
+
+        def run(k):
+            lib, first, fetch = sides[k]
+            o = outs[k]
+            fetch = () if first else (counter.data_ptr(), *fetch)
+            err = lib.voxt_bit_dda(
+                top.data_ptr(), top.shape[0], regions.data_ptr(),
+                bricks.data_ptr(), grid.size, start.data_ptr(), d.data_ptr(),
+                dist.data_ptr(), None if active is None else active.data_ptr(),
+                1, o["hit"].data_ptr(), o["t"].data_ptr(),
+                o["normal"].data_ptr(), o["voxel"].data_ptr(), B, *fetch,
+                torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"bit_dda side {k}: CUDA error {err}")
+
+        for k in range(len(sides)):
+            counter.zero_()
+            run(k)
+        torch.cuda.synchronize()
+        for k in range(len(sides)):
+            if not all(torch.equal(outs[k][key], outs[1][key])
+                       for key in outs[1]):
+                raise AssertionError(f"bit_dda {name}: {tags[k]} differs "
+                                     "from new")
+        ms = {t: [] for t in tags}
+        for k in turns:
+            ms[tags[k]].append(cs._ms_fresh(counter.zero_,
+                                            lambda k=k: run(k), reps))
+        print(json.dumps(dict(case=f"bit_dda {name} at {grid.size}^3",
+                              card=smi, lanes=B,
+                              active=B if active is None
+                              else int(active.sum()), ms=ms,
+                              equal_by_bits=True)))
+        sys.stdout.flush()
+
+
 def _k9_library(csrc: Path):
     """K9 alone, built from ``csrc`` into its own library; returns it and
     ptxas's report. The tree must have this tree's C entry."""
     from voxtracer_torch.kernels import build
 
-    if "path_bounce_kernel" not in (csrc / "path_trace.cu").read_text():
-        raise ValueError(f"{csrc}: not K9's stage design (another C entry)")
+    if "bit_walk.cuh" not in (csrc / "path_trace.cu").read_text():
+        raise ValueError(f"{csrc}: K9 before its bit-grid engine and sun "
+                         "maps (another C entry)")
     out = build.BUILD_DIR / f"ab_k9_{build._source_hash(csrc)}.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     report = build.compile_library(csrc, out, sources=("path_trace.cu",))
@@ -872,8 +989,27 @@ def _path_configs(dev, names):
                 r = Renderer(space.serialize(), cs.WIDTH, cs.HEIGHT, seed=0,
                              device=dev, **kw)
                 r.sample_batch(cam, sun, 8)
-                yield (f"1024^3 {name}", *cs._capture_call(r, cam, sun))
+                yield (f"1024^3 {name}", *cs._capture_call(
+                    lambda: r.sample_batch(cam, sun, 8)))
                 del r
+        if "bit" in names:
+            from voxtracer_torch.core.spectra import build_wl_to_rgb_lut
+            from voxtracer_torch.kernels import integrator
+            from voxtracer_torch.world import bitgrid, svo
+
+            d_svo = space.serialize()
+            w = svo.upload(d_svo.table, d_svo.root, d_svo.height, dev)
+            grid = bitgrid.from_heightmap(np.asarray(space.heights))
+            bw = grid.to_device(dev)
+            lut = torch.from_numpy(build_wl_to_rgb_lut()).to(dev)
+            seeds = np.arange(24, dtype=np.uint32).reshape(8, 3) + 7
+            call = (w.table, w.root, w.height, lut,
+                    np.asarray(cam.pos, np.float32), cam.basis(),
+                    cs._sun(dev), seeds, cs.WIDTH, cs.HEIGHT)
+            yield ("1024^3 bit grid", *cs._capture_call(
+                lambda: integrator.render_samples(*call, bitworld=bw,
+                                                  bit_size=grid.size)))
+            del w, bw
         if "edit" in names:
             r = Renderer(space.serialize(), cs.WIDTH, cs.HEIGHT, seed=0,
                          device=dev)
@@ -887,7 +1023,8 @@ def _path_configs(dev, names):
                     r.apply_edits(space, edits=[pt for pt, _ in batch])
             if r._hf_bounds() is None:
                 raise AssertionError("the edits left no bounds box")
-            yield ("1024^3 edit session", *cs._capture_call(r, cam, sun))
+            yield ("1024^3 edit session", *cs._capture_call(
+                lambda: r.sample_batch(cam, sun, 8)))
             del r
         del space
         torch.cuda.empty_cache()
@@ -899,7 +1036,8 @@ def _path_configs(dev, names):
                      device=dev)
         del space
         r.sample_batch(cam, sun, 8)
-        yield ("8192^3 main path", *cs._capture_call(r, cam, sun))
+        yield ("8192^3 main path", *cs._capture_call(
+            lambda: r.sample_batch(cam, sun, 8)))
 
 
 def _bounce_ms(seq):
@@ -955,8 +1093,9 @@ def run_path_trace(old_csrc: Path, variants, reps: int, names, fetches=()):
             if not case.equal(k, 1):
                 raise AssertionError(f"path_trace {name}: {tags[k]} differs "
                                      "from new")
-            # a variant may count more (stats): the first 8 are the work
-            if case.work(k).tolist()[:8] != case.work(1).tolist()[:8]:
+            # a variant may count more (stats): K9_COUNTS are the work
+            n = len(integrator.K9_COUNTS)
+            if case.work(k).tolist()[:n] != case.work(1).tolist()[:n]:
                 raise AssertionError(f"path_trace {name}: {tags[k]}'s work "
                                      f"{case.work(k).tolist()} against the "
                                      f"new one's {w}")
@@ -1121,6 +1260,13 @@ def main(argv=None) -> int:
     k5.add_argument("--variant", type=Path, action="append", default=[])
     k5.add_argument("--edits", action="store_true")
     k5.add_argument("--reps", type=int, default=20)
+    b = sub.add_parser("bit_dda")
+    b.add_argument("--old-csrc", type=Path, required=True)
+    b.add_argument("--variant", type=Path, action="append", default=[])
+    b.add_argument("--fetch", action="append", default=[],
+                   type=lambda x: tuple(int(v) for v in x.split(",")),
+                   help="static percent,chunk,refill of another side")
+    b.add_argument("--reps", type=int, default=10)
     pt = sub.add_parser("path_trace")
     pt.add_argument("--old-csrc", type=Path, required=True)
     pt.add_argument("--variant", type=Path, action="append", default=[])
@@ -1129,7 +1275,7 @@ def main(argv=None) -> int:
                     help="static percent,chunk,refill of another side")
     pt.add_argument("--reps", type=int, default=3)
     pt.add_argument("--configs", nargs="+",
-                    choices=("default", "svo", "edit", "8192"),
+                    choices=("default", "svo", "bit", "edit", "8192"),
                     default=["default", "svo", "edit", "8192"])
     e = sub.add_parser("e2e")
     e.add_argument("--reps", type=int, default=3)
@@ -1145,6 +1291,8 @@ def main(argv=None) -> int:
         run_hf(a.old_csrc, a.variant, a.reps, a.log2_size)
     elif a.mode == "sky_tmin":
         run_sky(a.old_csrc, a.variant, a.edits, a.reps)
+    elif a.mode == "bit_dda":
+        run_bit(a.old_csrc, a.variant, a.reps, a.fetch)
     elif a.mode == "path_trace":
         run_path_trace(a.old_csrc, a.variant, a.reps, a.configs, a.fetch)
     elif a.mode == "fetch":
