@@ -136,12 +136,14 @@ Phases, each printing its lines; any failure exits non-zero:
 13. the JAX package's selectable engines. At 1024^3 (before 7, on the
    unedited world): the beam engine at the JAX bench's 1920x1080 (tile 8,
    K 64, 512 steps, 6 rounds; 853 is not a multiple of 8): K6 (walk) and
-   K7 (resolve) equal by bits to their plain versions on the first two
-   rounds (candidates, resumed state, all resolve outputs), the frame
-   against K2's per-ray cast (GRAZE_SHARE) with its rounds and fallback
-   tiles, the shadow frame against the per-ray one (SHADOW_SHARE), the
-   CLI's render --engine beam once, and beam_primary_frame with K6's and
-   K7's counts read around it; the bit-grid DDA on the pyramid built from
+   K7 (resolve) equal by bits to their plain versions in all 6 rounds
+   (candidates, resumed state, all resolve outputs, the resolve into the
+   running best), each round's live beams, used slots, K6 and K7 ms and
+   bounds (K7's on the used slots), ptxas's registers; the frame against
+   K2's per-ray cast (GRAZE_SHARE) with its rounds and fallback tiles,
+   the shadow frame against the per-ray one (SHADOW_SHARE), the CLI's
+   render --engine beam once, and beam_primary_frame with K6's and K7's
+   counts read around it (6 and 6); the bit-grid DDA on the pyramid built from
    the heightmap: K8 (bit_walk.cuh's walker on the lane fetch) equal by
    bits to its plain version and against K2 (hit, t at rtol 1e-5 / atol
    2e-4, voxel, normal: GRAZE_SHARE) on camera, random, masked (10%
@@ -3265,17 +3267,32 @@ def _beam_bound(K, n_c, steps, before, after, rows):
     return _bound(nbytes, steps * K6_STEP_OPS)
 
 
-def _resolve_bound(Bb, P, K):
-    """K7's bound: candidates (28 B a slot), directions (12 B a ray) in,
-    41 B a ray out; K slab tests a ray."""
-    return _bound(Bb * K * 28 + Bb * P * (12 + 41), Bb * P * K * K7_PAIR_OPS)
+def _resolve_bound(lvl, P):
+    """K7's bound on the work the function needs: 28 B of each used
+    candidate slot in (a beam's slots up to its last with lvl >= 0, of the
+    beams that have any), 12 B of direction in and 41 B out a ray, and
+    K7_PAIR_OPS a (ray, used slot) pair. Also the older count (every
+    slot of every beam, in bytes and in pairs), for comparison."""
+    import torch
+
+    Bb, K = lvl.shape
+    k = torch.arange(1, K + 1, device=lvl.device)
+    n_used = int(torch.amax(torch.where(lvl >= 0, k, 0), 1).sum()) \
+        if Bb else 0
+    return (_bound(n_used * 28 + Bb * P * (12 + 41),
+                   n_used * P * K7_PAIR_OPS),
+            _bound(Bb * K * 28 + Bb * P * (12 + 41), Bb * P * K * K7_PAIR_OPS),
+            n_used)
 
 
 def _beam_kernels(name, world, aug, cam, dev, rounds, rec=None):
-    """K6 and K7 against their plain versions, every output and the
-    resumed state by bits, on the ``rounds`` first rounds of the beam
-    frame at BEAM_WIDTH x BEAM_HEIGHT; with ``rec``, the first round's
-    times and bounds."""
+    """K6 and K7 against their plain versions on the ``rounds`` first
+    rounds of the beam frame at BEAM_WIDTH x BEAM_HEIGHT: every candidate
+    and the resumed state by bits, the five resolve outputs by bits, and
+    the resolve into the running best of the rounds before (as the frame
+    runs it) by bits against the plain version's merge. Each round's
+    line: live beams, used slots, K6's and K7's ms and bounds; ``rec``
+    takes the first round's times and bounds."""
     import torch
 
     from voxtracer_torch.core import camera as vcam
@@ -3291,7 +3308,13 @@ def _beam_kernels(name, world, aug, cam, dev, rounds, rec=None):
     init = beam._initial_state(world.root, H_, pre["incoherent"])
     st_k, st_p = _state_copy(init), _state_copy(init)
     Bb, P = dt.shape[:2]
+    for source in ("beam_walk.cu", "beam_resolve.cu"):
+        for entry, regs, props in _ptxas_regs(source):
+            print(f"ptxas {source} {entry}: {regs}; {props}")
+    best_k = best_p = None
     for r in range(rounds):
+        start = _state_copy(st_k)
+        alive = int(start["alive"].sum())
         ck = beam._beam_walk_cuda(aug, H_, pre, st_k, K, steps_max, True)
         before = beam.plain_beam_steps
         beam.plain_rows = rows = []
@@ -3302,11 +3325,11 @@ def _beam_kernels(name, world, aug, cam, dev, rounds, rec=None):
         beam.plain_rows = None
         steps = beam.plain_beam_steps - before
         for key in ("lvl", "off", "rgb", "ok", "t_safe"):
-            if not torch.equal(ck[key], cp[key]):
+            if not torch.equal(_bits(ck[key]), _bits(cp[key])):
                 raise AssertionError(f"beam_walk {name} round {r}: {key} "
                                      "differs from the plain walk")
         for key in st_k:
-            if not torch.equal(st_k[key], st_p[key]):
+            if not torch.equal(_bits(st_k[key]), _bits(st_p[key])):
                 raise AssertionError(f"beam_walk {name} round {r}: state "
                                      f"{key} differs from the plain walk")
         rk = beam._resolve_cuda(ck["lvl"], ck["off"], ck["rgb"], o, dt, H_,
@@ -3314,30 +3337,51 @@ def _beam_kernels(name, world, aug, cam, dev, rounds, rec=None):
         rp = beam.resolve_candidates_plain(cp["lvl"], cp["off"], cp["rgb"], o,
                                            dt, H_, True)
         for key in ("hit", "t", "normal", "rgb", "voxel"):
-            if not torch.equal(rk[key], rp[key]):
+            if not torch.equal(_bits(rk[key]), _bits(rp[key])):
                 bad = (rk[key] != rp[key]).reshape(Bb * P, -1).any(1).sum()
                 raise AssertionError(f"resolve_candidates {name} round {r}: "
                                      f"{key} differs in {int(bad)} rays")
-        n_c = int((ck["lvl"] >= 0).sum())
-        line = (f"beam {name} round {r} ({Bb} beams of {P} rays, K {K}): K6 "
-                f"and K7 equal to their plain versions (candidates, state, "
-                f"all five resolve outputs); {n_c} candidates, "
-                f"{int(ck['ok'].sum())} beams done, {steps} beam-steps")
+        if best_k is None:
+            best_k, best_p = _state_copy(rk), _state_copy(rp)
+        else:
+            beam._resolve_cuda(ck["lvl"], ck["off"], ck["rgb"], o, dt, H_,
+                               True, best_k)
+            beam.resolve_candidates_plain(cp["lvl"], cp["off"], cp["rgb"], o,
+                                          dt, H_, True, best_p)
+            for key in best_p:
+                if not torch.equal(_bits(best_k[key]), _bits(best_p[key])):
+                    raise AssertionError(f"resolve_candidates {name} round "
+                                         f"{r}: the running best's {key} "
+                                         "differs from the plain merge")
+        used = ck["lvl"] >= 0
+        n_c = int(used.sum())
+        st0 = _state_copy(start)
+
+        def restore():
+            for k in st0:
+                st0[k].copy_(start[k])
+
+        walk_ms = _ms_fresh(restore, lambda: beam._beam_walk_cuda(
+            aug, H_, pre, st0, K, steps_max, True), 5)
+        res_ms = _ms(lambda: beam._resolve_cuda(
+            ck["lvl"], ck["off"], ck["rgb"], o, dt, H_, True), 5)
+        wb, wby = _beam_bound(K, n_c, steps, start, st_p, rows)
+        (rb, rby), (rb_all, rby_all), n_used = _resolve_bound(ck["lvl"], P)
+        print(f"beam {name} round {r} ({Bb} beams of {P} rays, K {K}): K6 "
+              f"and K7 equal to their plain versions (candidates, state, "
+              f"all five resolve outputs{', the running best' * (r > 0)}); "
+              f"{alive} beams alive at the start, "
+              f"{int(used.any(1).sum())} with candidates, {n_c} candidate "
+              f"slots used ({n_used} up to each beam's last), "
+              f"{int(ck['ok'].sum())} beams done, {steps} beam-steps; K6 "
+              f"{walk_ms:.4f} ms, bound {wb:.4f} ms ({wby}); K7 "
+              f"{res_ms:.4f} ms, bound {rb:.4f} ms ({rby}"
+              + (f"; the older count, every slot of every beam: "
+                 f"{rb_all:.4f} ms, {rby_all}" if r == 0 else "")
+              + f"); {CARD}")
         if rec is not None and r == 0:
-            st0 = _state_copy(init)
-
-            def restore():
-                for k in st0:
-                    st0[k].copy_(init[k])
-
-            walk_ms = _ms_fresh(restore, lambda: beam._beam_walk_cuda(
-                aug, H_, pre, st0, K, steps_max, True), 5)
-            res_ms = _ms(lambda: beam._resolve_cuda(
-                ck["lvl"], ck["off"], ck["rgb"], o, dt, H_, True), 5)
             plain_res_ms = _ms(lambda: beam.resolve_candidates_plain(
                 cp["lvl"], cp["off"], cp["rgb"], o, dt, H_, True), 1)
-            wb, wby = _beam_bound(K, n_c, steps, init, st_p, rows)
-            rb, rby = _resolve_bound(Bb, P, K)
             rec["walk"].update(ms=walk_ms, plain_ms=plain_walk_ms,
                                bound_ms=wb, bound_by=wby, library_ms=None)
             rec["resolve"].update(ms=res_ms, plain_ms=plain_res_ms,
@@ -3346,10 +3390,8 @@ def _beam_kernels(name, world, aug, cam, dev, rounds, rec=None):
                 err = float((rk[key] - rp[key]).abs().max())
                 rec["resolve"]["max_abs_err"] = max(
                     rec["resolve"]["max_abs_err"], err)
-            line += (f"; K6 {walk_ms:.4f} ms (plain {plain_walk_ms:.1f} ms), "
-                     f"bound {wb:.4f} ms ({wby}); K7 {res_ms:.4f} ms (plain "
-                     f"{plain_res_ms:.1f} ms), bound {rb:.4f} ms ({rby})")
-        print(line)
+            print(f"beam {name} round 0: plain walk {plain_walk_ms:.1f} ms, "
+                  f"plain resolve {plain_res_ms:.1f} ms")
 
 
 def _beam_frames(name, world, aug, cam, dev):
@@ -3420,7 +3462,7 @@ def phase_beam(space, dev):
           f"{time.monotonic() - t0:.2f} s")
     cam = _smoke_camera(LOG2_SIZE)
     rec = dict(walk=dict(max_abs_err=0.0), resolve=dict(max_abs_err=0.0))
-    _beam_kernels("1024^3", world, aug, cam, dev, 2, rec)
+    _beam_kernels("1024^3", world, aug, cam, dev, BEAM_KW["rounds"], rec)
     _beam_frames("1024^3", world, aug, cam, dev)
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "beam.png"
@@ -3446,6 +3488,12 @@ def phase_beam(space, dev):
     print(f"beam path (beam_primary_frame, 1024^3 {BEAM_WIDTH}x"
           f"{BEAM_HEIGHT}): launches {counts}, mean {float(img.mean()):.6f}")
     _expect_launches("beam path", counts, ("beam_walk", "beam_resolve"))
+    if counts["beam_walk"] != BEAM_KW["rounds"] \
+            or counts["beam_resolve"] != BEAM_KW["rounds"]:
+        raise AssertionError(f"the beam path launched K6 and K7 "
+                             f"{counts['beam_walk']} and "
+                             f"{counts['beam_resolve']} times, not once a "
+                             "round")
     if not torch.isfinite(img).all() or not img.mean() > 0:
         raise AssertionError("the beam frame is empty")
     return rec, counts

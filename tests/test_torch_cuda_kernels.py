@@ -558,44 +558,143 @@ def beam_world(cuda):
     return w, aug.to(cuda)
 
 
-@pytest.mark.parametrize("K,steps", [(64, 512), (8, 512), (16, 30)])
-def test_beam_walk_and_resolve_match_plain(cuda, beam_world, K, steps):
+@pytest.fixture(scope="module")
+def beam_clutter(cuda):
+    """A 32^3 random fill (height 5) and its augmented rows."""
+    from voxtracer_torch.kernels import beam
+
+    rng = np.random.default_rng(5)
+    solid = rng.random((32, 32, 32)) < 0.2
+    rgb = rng.random((32, 32, 32, 3)).astype(np.float32)
+    rgb[~solid] = 0
+    dev = svo.from_dense(solid, rgb).serialize()
+    w = svo.upload(dev.table, dev.root, dev.height, cuda)
+    aug = torch.from_numpy(beam.build_aug_table(dev.table, dev.solid_leaf))
+    return w, aug.to(cuda)
+
+
+def _bits_of(x):
+    return x.contiguous().view(torch.uint8)
+
+
+# (sides of each round on the state the kernel resumes)
+BEAM_SIDES = dict(plain_then_kernel=("plain", "kernel", "kernel"),
+                  kernel_then_plain=("kernel", "plain", "plain"))
+
+
+@pytest.mark.parametrize("K,steps,case", [
+    pytest.param(64, 512, "rounds", id="64-512"),
+    pytest.param(8, 512, "rounds", id="8-512"),  # a pause every expansion
+    pytest.param(16, 30, "rounds", id="16-30"),
+    # 943 beams: groups past the last beam in a warp and a block
+    pytest.param(64, 512, "ragged", id="ragged"),
+    # the kernel resumes the plain walk's state, and the other way round
+    pytest.param(8, 24, "plain_then_kernel", id="plain-then-kernel"),
+    pytest.param(8, 24, "kernel_then_plain", id="kernel-then-plain"),
+    # a third of the beams dead before the first call
+    pytest.param(8, 24, "dead", id="dead"),
+    # K7 on beams without a candidate and on cut lists
+    pytest.param(64, 512, "truncated", id="truncated"),
+    # the 32^3 random fill (height 5)
+    pytest.param(16, 512, "height5", id="height5"),
+])
+def test_beam_walk_and_resolve_match_plain(cuda, beam_world, beam_clutter, K,
+                                           steps, case):
     """K6 and K7 against their plain versions over three resumed rounds
-    of a 1080p-shaped tile grid: candidates, state and resolve by bits."""
+    of a 1080p-shaped tile grid: candidates, state and resolve by bits,
+    the resolve also into the running best of the rounds before."""
     from voxtracer_torch.core import camera as vcam
     from voxtracer_torch.kernels import beam
 
-    w, aug = beam_world
-    cam = vcam.Camera(pos=(80.3, 70.2, 20.1), yaw=2.6, pitch=-0.25)
-    _, d = vcam.generate_rays(cam, 320, 184, device=cuda)
+    if case == "height5":
+        w, aug = beam_clutter
+        cam = vcam.Camera(pos=(5.3, 30.1, 4.2), yaw=0.8, pitch=-0.7)
+    else:
+        w, aug = beam_world
+        cam = vcam.Camera(pos=(80.3, 70.2, 20.1), yaw=2.6, pitch=-0.25)
+    _, d = vcam.generate_rays(cam, 328 if case == "ragged" else 320, 184,
+                              device=cuda)
     dt = beam._group(d, 8).contiguous()
     o = torch.tensor(cam.pos, dtype=torch.float32, device=cuda)
     ob = o.expand(dt.shape[0], 3)
     pre = beam._beam_bounds(w.height, ob, ob, torch.amin(dt, 1),
                             torch.amax(dt, 1))
     init = beam._initial_state(w.root, w.height, pre["incoherent"])
+    if case == "dead":
+        init["alive"][::3] = False
     st_k = {k: v.clone() for k, v in init.items()}
     st_p = {k: v.clone() for k, v in init.items()}
-    hits = 0
-    for _ in range(3):
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    hits = cut = 0
+    best_k = best_p = None
+    for side in BEAM_SIDES.get(case, ("kernel",) * 3):
         before = (beam.walk_launches, beam.resolve_launches)
-        ck = beam._beam_walk_cuda(aug, w.height, pre, st_k, K, steps, True)
-        rk = beam.resolve_candidates(ck["lvl"], ck["off"], ck["rgb"], o, dt,
+        if side == "kernel":
+            ck = beam._beam_walk_cuda(aug, w.height, pre, st_k, K, steps,
+                                      True)
+        else:
+            ck = beam.beam_walk_plain(aug, w.height, pre, st_k, K, steps)
+        cp = beam.beam_walk_plain(aug, w.height, pre, st_p, K, steps)
+        c = cp
+        if case == "truncated":  # each beam's used slots cut at random
+            used = (cp["lvl"] >= 0).sum(1).cpu()
+            keep = (torch.rand(used.shape, generator=gen)
+                    * (used + 1)).long()
+            keep[::3] = 0
+            gone = (torch.arange(K)[None] >= keep[:, None]).to(cuda)
+            c = dict(lvl=torch.where(gone, -1, cp["lvl"]),
+                     off=torch.where(gone[..., None], 0, cp["off"]),
+                     rgb=torch.where(gone[..., None], 0.0, cp["rgb"]))
+            cut += int(((keep > 0) & (keep < used)).sum())
+        rk = beam.resolve_candidates(c["lvl"], c["off"], c["rgb"], o, dt,
                                      w.height)
         assert (beam.walk_launches, beam.resolve_launches) == \
-            (before[0] + 1, before[1] + 1)
-        cp = beam.beam_walk_plain(aug, w.height, pre, st_p, K, steps)
-        rp = beam.resolve_candidates_plain(cp["lvl"], cp["off"], cp["rgb"],
+            (before[0] + (side == "kernel"), before[1] + 1)
+        rp = beam.resolve_candidates_plain(c["lvl"], c["off"], c["rgb"],
                                            o, dt, w.height)
         torch.cuda.synchronize()
         for key in cp:
-            assert torch.equal(ck[key], cp[key]), key
+            assert torch.equal(_bits_of(ck[key]), _bits_of(cp[key])), key
         for key in st_p:
-            assert torch.equal(st_k[key], st_p[key]), key
+            assert torch.equal(_bits_of(st_k[key]), _bits_of(st_p[key])), key
         for key in rp:
-            assert torch.equal(rk[key], rp[key]), key
+            assert torch.equal(_bits_of(rk[key]), _bits_of(rp[key])), key
+        if best_k is None:
+            best_k = {k: v.clone() for k, v in rk.items()}
+            best_p = {k: v.clone() for k, v in rp.items()}
+        else:
+            beam.resolve_candidates(c["lvl"], c["off"], c["rgb"], o, dt,
+                                    w.height, best=best_k)
+            beam.resolve_candidates_plain(c["lvl"], c["off"], c["rgb"], o,
+                                          dt, w.height, best=best_p)
+            torch.cuda.synchronize()
+            for key in best_p:
+                assert torch.equal(_bits_of(best_k[key]),
+                                   _bits_of(best_p[key])), key
         hits += int(rp["hit"].sum())
-    assert hits > 0
+    # a later round's hit at the same t does not take the ray: the same
+    # boxes in other colours leave the running best as it was
+    best = {k: v.clone() for k, v in rp.items()}
+    beam.resolve_candidates(c["lvl"], c["off"], c["rgb"] + 0.5, o, dt,
+                            w.height, best=best)
+    torch.cuda.synchronize()
+    for key in rp:
+        assert torch.equal(_bits_of(best[key]), _bits_of(rp[key])), key
+    # rays of a beam with other direction signs: each ray mirrors the
+    # candidates itself (K7's per-ray path)
+    dm = dt.clone()
+    dm[:, ::3, 0] = -dm[:, ::3, 0]
+    dm[:, 1::5, 2] = -dm[:, 1::5, 2]
+    rk = beam.resolve_candidates(c["lvl"], c["off"], c["rgb"], o, dm,
+                                 w.height)
+    rp = beam.resolve_candidates_plain(c["lvl"], c["off"], c["rgb"], o, dm,
+                                       w.height)
+    torch.cuda.synchronize()
+    for key in rp:
+        assert torch.equal(_bits_of(rk[key]), _bits_of(rp[key])), key
+    assert hits > 0 and (cut > 0 or case != "truncated")
+    if case in ("dead", "plain_then_kernel", "kernel_then_plain"):
+        assert bool(st_p["alive"].any())
 
 
 def test_beam_frame_matches_svo_cast(cuda, beam_world):

@@ -1181,6 +1181,16 @@ def _beam_tiles(pos, yaw, pitch, W=64, H=40):
         .contiguous()
 
 
+@pytest.fixture(scope="module")
+def terrain7():
+    """A 128^3 terrain (height 7) and its augmented rows."""
+    dev = worldgen.generate(log2_size=7, verbose=False,
+                            device="cpu").serialize()
+    w = svo.upload(dev.table, dev.root, dev.height, "cpu")
+    return w, torch.from_numpy(beam.build_aug_table(dev.table,
+                                                    dev.solid_leaf))
+
+
 def _walk_host(fn, aug, height, pre, state, K, max_steps):
     Bb = pre["ilo"].shape[0]
     out = dict(lvl=torch.full((Bb, K), 7, dtype=torch.int32),
@@ -1201,52 +1211,144 @@ def _walk_host(fn, aug, height, pre, state, K, max_steps):
     return out
 
 
-def _resolve_host(fn, c, origin, d, height):
+def _resolve_host(fn, c, origin, d, height, best=None):
+    """K7 under the emulation; with ``best``, into that running best."""
     Bb, P, _ = d.shape
-    out = dict(hit=torch.full((Bb, P), True), t=torch.full((Bb, P), 7.0),
-               normal=torch.full((Bb, P, 3), 7.0),
-               rgb=torch.full((Bb, P, 3), 7.0),
-               voxel=torch.full((Bb, P, 3), 7, dtype=torch.int32))
+    out = best if best is not None else dict(
+        hit=torch.full((Bb, P), True), t=torch.full((Bb, P), 7.0),
+        normal=torch.full((Bb, P, 3), 7.0), rgb=torch.full((Bb, P, 3), 7.0),
+        voxel=torch.full((Bb, P, 3), 7, dtype=torch.int32))
     err = fn(c["lvl"].data_ptr(), c["off"].data_ptr(), c["rgb"].data_ptr(),
              origin.data_ptr(), int(origin.dim() != 1), d.data_ptr(), height,
-             1, out["hit"].data_ptr(), out["t"].data_ptr(),
-             out["normal"].data_ptr(), out["rgb"].data_ptr(),
-             out["voxel"].data_ptr(), Bb, P, c["lvl"].shape[1], None)
+             1, int(best is not None), out["hit"].data_ptr(),
+             out["t"].data_ptr(), out["normal"].data_ptr(),
+             out["rgb"].data_ptr(), out["voxel"].data_ptr(), Bb, P,
+             c["lvl"].shape[1], None)
     assert err == 0
     return out
 
 
-@pytest.mark.parametrize("pos,yaw,pitch,K,steps", [
-    ((16.1234567, 16.0721311, -10.0412399), 0.0137, 0.0213, 64, 2048),
-    ((5.3, 30.1, 4.2), 0.8, -0.7, 8, 2048),    # pauses on most tiles
-    ((16.5, 16.5, 16.5), 0.3, -0.2, 16, 40),   # inside; the step budget
+def _same_bits(got, want):
+    """Every key of ``want`` equal by bits (a -0.0 for a 0.0 would show)."""
+    for key in want:
+        a, b = got[key].contiguous(), want[key].contiguous()
+        assert a.dtype == b.dtype and np.array_equal(
+            a.numpy().view(np.uint8), b.numpy().view(np.uint8)), key
+
+
+def _no_negative_zero(*xs):
+    """The walk's entries, caps and t_safe are never -0.0, so K6's shuffle
+    trees of fminf give the plain walk's sequential mins by bits."""
+    for x in xs:
+        assert not (x.contiguous().view(torch.int32) == -2**31).any()
+
+
+def _truncated(c, rng):
+    """The candidates with each beam's used slots cut at a random count
+    (0 for a third of the beams): unused slots as the walk leaves them."""
+    Bb, K = c["lvl"].shape
+    used = (c["lvl"] >= 0).sum(1)
+    keep = torch.from_numpy((rng.random(Bb) * (used.numpy() + 1))
+                            .astype(np.int64))
+    keep[::3] = 0
+    gone = torch.arange(K)[None] >= keep[:, None]
+    out = dict(lvl=torch.where(gone, -1, c["lvl"]),
+               off=torch.where(gone[..., None], 0, c["off"]),
+               rgb=torch.where(gone[..., None], 0.0, c["rgb"]))
+    assert (keep == 0).any() and ((keep > 0) & (keep < used)).any()
+    return out
+
+
+POS0 = (16.1234567, 16.0721311, -10.0412399)
+POS1 = (5.3, 30.1, 4.2)
+# (sides of each round on the state the kernel resumes)
+BEAM_SIDES = dict(plain_then_kernel=("plain", "kernel", "kernel"),
+                  kernel_then_plain=("kernel", "plain", "plain"))
+
+
+@pytest.mark.parametrize("pos,yaw,pitch,K,steps,case", [
+    pytest.param(POS0, 0.0137, 0.0213, 64, 2048, "rounds",
+                 id="pos0-0.0137-0.0213-64-2048"),
+    pytest.param(POS1, 0.8, -0.7, 8, 2048, "rounds",  # pauses on most tiles
+                 id="pos1-0.8--0.7-8-2048"),
+    pytest.param((16.5, 16.5, 16.5), 0.3, -0.2, 16, 40, "rounds",
+                 id="pos2-0.3--0.2-16-40"),  # inside; the step budget
+    # 21 beams: a warp's and a block's groups past the last beam
+    pytest.param(POS0, 0.0137, 0.0213, 64, 2048, "ragged", id="ragged"),
+    # K 8: a beam pauses after every expansion
+    pytest.param(POS0, 0.0137, 0.0213, 8, 2048, "rounds", id="k8"),
+    # the kernel resumes the plain walk's state, and the other way round
+    pytest.param(POS1, 0.8, -0.7, 8, 24, "plain_then_kernel",
+                 id="plain-then-kernel"),
+    pytest.param(POS1, 0.8, -0.7, 8, 24, "kernel_then_plain",
+                 id="kernel-then-plain"),
+    # a third of the beams dead before the first call
+    pytest.param(POS1, 0.8, -0.7, 8, 24, "dead", id="dead"),
+    # K7 on beams without a candidate and on cut lists
+    pytest.param(POS0, 0.0137, 0.0213, 64, 2048, "truncated",
+                 id="truncated"),
+    # the origin on cell planes: entries of +0.0
+    pytest.param((16.0, 8.0, 4.0), 0.5, -0.3, 16, 2048, "rounds",
+                 id="on-planes"),
+    # a terrain of height 7 from the smoke's pose
+    pytest.param(tuple(np.asarray(vcam.DEFAULT_POSE.pos) * 128 / 8192),
+                 vcam.DEFAULT_POSE.yaw, vcam.DEFAULT_POSE.pitch, 32, 512,
+                 "height7", id="height7"),
 ])
 def test_beam_walk_and_resolve_source_equal_plain(host_kernels, clutter,
-                                                  pos, yaw, pitch, K, steps):
-    w, aug = clutter
-    o, dt = _beam_tiles(pos, yaw, pitch)
+                                                  terrain7, pos, yaw, pitch,
+                                                  K, steps, case):
+    """K6 and K7 under the warp emulation against their plain versions:
+    every candidate, the resumed state and the five resolve outputs by
+    bits over three rounds, the resolve also into the running best of the
+    rounds before, then once with an origin a ray."""
+    w, aug = terrain7 if case == "height7" else clutter
+    o, dt = _beam_tiles(pos, yaw, pitch,
+                        *((56, 24) if case == "ragged" else (64, 40)))
     ob = o.expand(dt.shape[0], 3)
     pre = beam._beam_bounds(w.height, ob, ob, torch.amin(dt, 1),
                             torch.amax(dt, 1))
     init = beam._initial_state(w.root, w.height, pre["incoherent"])
+    if case == "dead":
+        init["alive"][::3] = False
     st_k = {k: v.clone() for k, v in init.items()}
     st_p = {k: v.clone() for k, v in init.items()}
-    for _ in range(3):
-        got = _walk_host(host_kernels["beam_walk"], aug, w.height, pre, st_k,
-                         K, steps)
+    rng = np.random.default_rng(3)
+    best_k = best_p = None
+    for side in BEAM_SIDES.get(case, ("kernel",) * 3):
+        if side == "kernel":
+            got = _walk_host(host_kernels["beam_walk"], aug, w.height, pre,
+                             st_k, K, steps)
+        else:
+            got = beam.beam_walk_plain(aug, w.height, pre, st_k, K, steps)
         want = beam.beam_walk_plain(aug, w.height, pre, st_p, K, steps)
-        for key in want:
-            assert np.array_equal(got[key].numpy(), want[key].numpy()), key
-        for key in st_p:
-            assert torch.equal(st_k[key], st_p[key]), key
-        res = _resolve_host(host_kernels["beam_resolve"], got, o, dt,
+        _same_bits(got, want)
+        _same_bits(st_k, st_p)
+        _no_negative_zero(st_k["entry_stk"], st_k["cap"], got["t_safe"])
+        c = _truncated(want, rng) if case == "truncated" else want
+        res = _resolve_host(host_kernels["beam_resolve"], c, o, dt,
                             w.height)
-        ref = beam.resolve_candidates_plain(want["lvl"], want["off"],
-                                            want["rgb"], o, dt, w.height)
-        for key in ref:
-            assert np.array_equal(res[key].numpy().view(np.uint8),
-                                  ref[key].numpy().view(np.uint8)), key
+        ref = beam.resolve_candidates_plain(c["lvl"], c["off"], c["rgb"], o,
+                                            dt, w.height)
+        _same_bits(res, ref)
+        if best_k is None:
+            best_k = {k: v.clone() for k, v in res.items()}
+            best_p = {k: v.clone() for k, v in ref.items()}
+        else:
+            _resolve_host(host_kernels["beam_resolve"], c, o, dt, w.height,
+                          best=best_k)
+            beam.resolve_candidates_plain(c["lvl"], c["off"], c["rgb"], o,
+                                          dt, w.height, best=best_p)
+            _same_bits(best_k, best_p)
+    # a later round's hit at the same t does not take the ray: the same
+    # boxes in other colours leave the running best as it was
+    again = dict(c, rgb=c["rgb"] + 0.5)
+    best = _resolve_host(host_kernels["beam_resolve"], again, o, dt, w.height,
+                         best={k: v.clone() for k, v in ref.items()})
+    _same_bits(best, ref)
     assert (want["lvl"] >= 0).any() or bool(st_p["alive"].any())
+    if case == "dead":
+        assert not init["alive"][::3].any() and init["alive"].any()
     # one origin a ray (the shadow pass): hit points toward a sun
     sun = torch.tensor([0.3, 0.9, 0.2])
     sun = sun / torch.linalg.norm(sun)
@@ -1254,12 +1356,19 @@ def test_beam_walk_and_resolve_source_equal_plain(host_kernels, clutter,
                                       o, dt, w.height)
     p = (o + dt * r["t"][..., None] - dt * 1e-3).contiguous()
     sd = sun.expand(p.shape).contiguous()
-    res = _resolve_host(host_kernels["beam_resolve"], got, p, sd, w.height)
+    res = _resolve_host(host_kernels["beam_resolve"], want, p, sd, w.height)
     ref = beam.resolve_candidates_plain(want["lvl"], want["off"], want["rgb"],
                                         p, sd, w.height)
-    for key in ref:
-        assert np.array_equal(res[key].numpy().view(np.uint8),
-                              ref[key].numpy().view(np.uint8)), key
+    _same_bits(res, ref)
+    # rays of a beam with other direction signs: each ray mirrors the
+    # candidates itself (K7's per-ray path)
+    dm = dt.clone()
+    dm[:, ::3, 0] = -dm[:, ::3, 0]
+    dm[:, 1::5, 2] = -dm[:, 1::5, 2]
+    res = _resolve_host(host_kernels["beam_resolve"], want, o, dm, w.height)
+    ref = beam.resolve_candidates_plain(want["lvl"], want["off"], want["rgb"],
+                                        o, dm, w.height)
+    _same_bits(res, ref)
 
 
 def _bit_host(fn, bw, size, start, d, dist, active, skip_t0, fetch):

@@ -19,16 +19,22 @@ and their plain PyTorch versions.
    ``(plane - origin) * inv`` expressions as the SVO walk, so t's are the
    walk's crossing t's by bits) and keeps the first nearest; a ray that
    starts inside a solid candidate takes its next unit-grid plane (the
-   walk's t == 0 skip).
-4. The frame (``beam_primary_frame_cast``): rounds of walk and resolve,
-   then the exact per-ray cast (K2, ``traverse.svo_raycast``) for the
-   pixels no round confirmed: tiles that overflow, run out of steps or
-   straddle a direction-sign change.
+   walk's t == 0 skip). With ``best=``, the round's result goes into a
+   running best in place, only where strictly nearer (``_merge``).
+4. The frame (``beam_primary_frame_cast``): rounds of walk and resolve
+   (the beams' bounds and state made once, each round after the first
+   resolved into the first one's result), then the exact per-ray cast
+   (K2, ``traverse.svo_raycast``) for the pixels no round confirmed:
+   tiles that overflow, run out of steps or straddle a direction-sign
+   change.
 
 The reference's one-hot stacks, ``lax.map`` bands and static fallback
-capacity (``fb_tiles``) are TPU mechanism and not ported: a thread walks a
-beam with its stacks in memory, and the fallback casts exactly the lanes
-that need it.
+capacity (``fb_tiles``) are TPU mechanism and not ported. On the card
+eight lanes walk a beam, one an octant, with the pending stack in shared
+memory for the call (K6); the resolve tests only the used candidate
+slots, staged once a block with their mirrored planes, and a beam without
+one touches no candidate (K7); the fallback casts exactly the lanes that
+need it.
 """
 
 from __future__ import annotations
@@ -135,26 +141,24 @@ def beam_walk(aug, root: int, height: int, o_lo, o_hi, d_lo, d_hi,
     (Bb,) the beam was walked to its end, t_safe (Bb,) the nearest entry
     of anything not collected (resolve hits strictly nearer are final).
     """
-    if not 1 <= height <= MAX_HEIGHT:
-        raise ValueError(f"beam_walk: height {height} outside [1, "
-                         f"{MAX_HEIGHT}]")
-    if K < 8:
-        raise ValueError("beam_walk: K must be at least 8")
     f32 = torch.float32
     o_lo, o_hi, d_lo, d_hi = (a.to(f32).reshape(-1, 3)
                               for a in (o_lo, o_hi, d_lo, d_hi))
-    pre = _beam_bounds(height, o_lo, o_hi, d_lo, d_hi)
-    if state is None:
-        state = _initial_state(root, height, pre["incoherent"])
-    if d_lo.device.type == "cpu":
-        cands = beam_walk_plain(aug, height, pre, state, K, max_steps,
-                                skip_t0)
-    elif d_lo.device.type == "cuda":
-        cands = _beam_walk_cuda(aug, height, pre, state, K, max_steps,
-                                skip_t0)
-    else:
-        raise ValueError(f"beam_walk: unsupported device {d_lo.device}")
-    return cands, state
+    pre, state = _walk_setup(root, height, o_lo, o_hi, d_lo, d_hi, K, state)
+    return _walk(aug, height, pre, state, K, max_steps, skip_t0), state
+
+
+def _walk(aug, height, pre, state, K, max_steps, skip_t0):
+    """One call of the walk on the beams' bounds ``pre``: K6 for CUDA
+    tensors, the plain version for CPU ones."""
+    dev = pre["ilo"].device
+    if dev.type == "cpu":
+        return beam_walk_plain(aug, height, pre, state, K, max_steps,
+                               skip_t0)
+    if dev.type == "cuda":
+        return _beam_walk_cuda(aug, height, pre, state, K, max_steps,
+                               skip_t0)
+    raise ValueError(f"beam_walk: unsupported device {dev}")
 
 
 def _beam_walk_cuda(aug, height, pre, state, K, max_steps, skip_t0):
@@ -346,12 +350,14 @@ def beam_walk_plain(aug, height: int, pre, state, K: int, max_steps: int,
 
 
 def resolve_candidates(cand_lvl, cand_off, cand_rgb, origin, dirs,
-                       height: int, skip_t0: bool = True):
+                       height: int, skip_t0: bool = True, best=None):
     """Nearest-candidate slab resolve (``voxtracer/kernels/beam.py:369``).
 
     cand_*: (Bb, K[, 3]) from ``beam_walk``; origin: (3,) shared by every
     ray, or (Bb, P, 3) a ray; dirs: (Bb, P, 3) unit directions grouped by
     beam. Returns a dict of (Bb, P[, 3]): hit, t, normal, rgb, voxel.
+    ``best``: such a dict of an earlier round, updated in place where this
+    round's hit is strictly nearer (``_merge``) and returned.
     """
     f32 = torch.float32
     dirs = dirs.to(f32).contiguous()
@@ -360,15 +366,20 @@ def resolve_candidates(cand_lvl, cand_off, cand_rgb, origin, dirs,
         origin = origin.expand(dirs.shape).contiguous()
     if dirs.device.type == "cpu":
         return resolve_candidates_plain(cand_lvl, cand_off, cand_rgb, origin,
-                                        dirs, height, skip_t0)
+                                        dirs, height, skip_t0, best)
     if dirs.device.type == "cuda":
         return _resolve_cuda(cand_lvl, cand_off, cand_rgb, origin, dirs,
-                             height, skip_t0)
+                             height, skip_t0, best)
     raise ValueError(f"resolve_candidates: unsupported device {dirs.device}")
 
 
+RESOLVE_KEYS = dict(hit=((), torch.bool), t=((), torch.float32),
+                    normal=((3,), torch.float32), rgb=((3,), torch.float32),
+                    voxel=((3,), torch.int32))
+
+
 def _resolve_cuda(cand_lvl, cand_off, cand_rgb, origin, dirs, height,
-                  skip_t0):
+                  skip_t0, best=None):
     global resolve_launches
     dev = dirs.device
     Bb, P, _ = dirs.shape
@@ -383,12 +394,19 @@ def _resolve_cuda(cand_lvl, cand_off, cand_rgb, origin, dirs, height,
                              f"contiguous {dtype} {shape} tensor on {dev}")
     if P > 1024:
         raise ValueError("resolve_candidates: at most 1024 rays a beam")
-    out = dict(
-        hit=torch.empty((Bb, P), dtype=torch.bool, device=dev),
-        t=torch.empty((Bb, P), dtype=torch.float32, device=dev),
-        normal=torch.empty((Bb, P, 3), dtype=torch.float32, device=dev),
-        rgb=torch.empty((Bb, P, 3), dtype=torch.float32, device=dev),
-        voxel=torch.empty((Bb, P, 3), dtype=torch.int32, device=dev))
+    if best is None:
+        out = {k: torch.empty((Bb, P, *tail), dtype=dtype, device=dev)
+               for k, (tail, dtype) in RESOLVE_KEYS.items()}
+    else:
+        for k, (tail, dtype) in RESOLVE_KEYS.items():
+            a = best[k]
+            if a.device != dev or a.dtype != dtype \
+                    or tuple(a.shape) != (Bb, P, *tail) \
+                    or not a.is_contiguous():
+                raise ValueError(f"resolve_candidates: best[{k!r}] must be "
+                                 f"a contiguous {dtype} {(Bb, P, *tail)} "
+                                 f"tensor on {dev}")
+        out = best
     if Bb == 0 or P == 0:
         return out
     lib = build.library()
@@ -397,7 +415,8 @@ def _resolve_cuda(cand_lvl, cand_off, cand_rgb, origin, dirs, height,
         err = lib.voxt_beam_resolve(
             cand_lvl.data_ptr(), cand_off.data_ptr(), cand_rgb.data_ptr(),
             origin.data_ptr(), int(origin.dim() != 1), dirs.data_ptr(),
-            int(height), int(bool(skip_t0)), out["hit"].data_ptr(),
+            int(height), int(bool(skip_t0)), int(best is not None),
+            out["hit"].data_ptr(),
             out["t"].data_ptr(), out["normal"].data_ptr(),
             out["rgb"].data_ptr(), out["voxel"].data_ptr(), Bb, P, K, stream)
     build.check(err, "resolve_candidates")
@@ -406,10 +425,11 @@ def _resolve_cuda(cand_lvl, cand_off, cand_rgb, origin, dirs, height,
 
 
 def resolve_candidates_plain(cand_lvl, cand_off, cand_rgb, origin, dirs,
-                             height: int, skip_t0: bool = True):
+                             height: int, skip_t0: bool = True, best=None):
     """Plain PyTorch version of K7: a running minimum over the K
     candidates with a strict ``<`` (the first nearest wins, as JAX's
-    argmin), then the winner's attributes."""
+    argmin), then the winner's attributes; with ``best``, merged into it
+    in place (``_merge``)."""
     f32 = torch.float32
     d = dirs
     Bb, P, _ = d.shape
@@ -461,19 +481,19 @@ def resolve_candidates_plain(cand_lvl, cand_off, cand_rgb, origin, dirs,
         return score, score2, e, near, far
 
     best_t = torch.full((Bb, P), FAR, dtype=f32, device=d.device)
-    best = torch.zeros((Bb, P), dtype=torch.int64, device=d.device)
+    arg = torch.zeros((Bb, P), dtype=torch.int64, device=d.device)
     for k in range(K):
         score, score2, _, _, _ = slab(lo[:, None, k], hi[:, None, k],
                                       present[:, None, k])
         sc = torch.minimum(score, score2)
         take = sc < best_t
         best_t = torch.where(take, sc, best_t)
-        best = torch.where(take, k, best)
+        arg = torch.where(take, k, arg)
     t = best_t
     hit = t < FAR
 
-    pick = lambda a: torch.gather(a, 1, best[..., None].expand(-1, -1, 3)) \
-        if a.dim() == 3 else torch.gather(a, 1, best)
+    pick = lambda a: torch.gather(a, 1, arg[..., None].expand(-1, -1, 3)) \
+        if a.dim() == 3 else torch.gather(a, 1, arg)
     score_b, score2_b, e_b, near_b, far_b = slab(pick(lo), pick(hi),
                                                  pick(present))
     rgb = pick(cand_rgb)
@@ -495,8 +515,27 @@ def resolve_candidates_plain(cand_lvl, cand_off, cand_rgb, origin, dirs,
     vox_m = torch.where(axis3, face, vox_m)
     vox = torch.where(flip, bound - vox_m - 1.0, vox_m).to(torch.int32)
     vox = torch.where(hit[..., None], vox, 0)
-    return dict(hit=hit, t=torch.where(hit, t, 0.0), normal=normal, rgb=rgb,
-                voxel=vox)
+    res = dict(hit=hit, t=torch.where(hit, t, 0.0), normal=normal, rgb=rgb,
+               voxel=vox)
+    if best is None:
+        return res
+    for k, v in _merge(best, res).items():
+        best[k].copy_(v)
+    return best
+
+
+def _walk_setup(root, height, o_lo, o_hi, d_lo, d_hi, K, state=None):
+    """The beams' bounds and, without a ``state`` to resume, the walk's
+    initial state; the round loops make both once a frame."""
+    if not 1 <= height <= MAX_HEIGHT:
+        raise ValueError(f"beam_walk: height {height} outside [1, "
+                         f"{MAX_HEIGHT}]")
+    if K < 8:
+        raise ValueError("beam_walk: K must be at least 8")
+    pre = _beam_bounds(height, o_lo, o_hi, d_lo, d_hi)
+    if state is None:
+        state = _initial_state(root, height, pre["incoherent"])
+    return pre, state
 
 
 def _group(a, tile: int):
@@ -551,18 +590,14 @@ def beam_primary_frame_cast(table, aug, root: int, height: int, origin,
     o = torch.as_tensor(np.asarray(origin, np.float32), device=dev) \
         if not torch.is_tensor(origin) else origin.to(dev, torch.float32)
     dt = _group(dirs.to(torch.float32), tile).contiguous()
-    d_lo = torch.amin(dt, 1)
-    d_hi = torch.amax(dt, 1)
-    ob = o.expand(d_lo.shape)
-    state = None
+    ob = o.expand(dt.shape[0], 3)
+    pre, state = _walk_setup(root, height, ob, ob, torch.amin(dt, 1),
+                             torch.amax(dt, 1), K)
     res = None
     for _ in range(max(rounds, 1)):
-        cands, state = beam_walk(aug, root, height, ob, ob, d_lo, d_hi, K=K,
-                                 max_steps=max_steps, skip_t0=skip_t0,
-                                 state=state)
-        r = resolve_candidates(cands["lvl"], cands["off"], cands["rgb"], o,
-                               dt, height, skip_t0=skip_t0)
-        res = r if res is None else _merge(res, r)
+        cands = _walk(aug, height, pre, state, K, max_steps, skip_t0)
+        res = resolve_candidates(cands["lvl"], cands["off"], cands["rgb"], o,
+                                 dt, height, skip_t0=skip_t0, best=res)
     # a pixel is final if its tile was walked to its end, or its hit is
     # strictly nearer than anything the walk left uncollected
     confirmed = cands["ok"][:, None] | (
@@ -613,10 +648,9 @@ def beam_shadow_mask(table, aug, root: int, height: int, origins, active,
     sun_p = sun.expand(origins.shape).contiguous()
     shadowed = torch.zeros(active.shape, dtype=torch.bool,
                            device=origins.device)
-    state = None
+    pre, state = _walk_setup(root, height, o_lo, o_hi, sun_b, sun_b, K)
     for _ in range(rounds):
-        cands, state = beam_walk(aug, root, height, o_lo, o_hi, sun_b, sun_b,
-                                 K=K, max_steps=max_steps, state=state)
+        cands = _walk(aug, height, pre, state, K, max_steps, True)
         res = resolve_candidates(cands["lvl"], cands["off"], cands["rgb"],
                                  origins, sun_p, height)
         shadowed = shadowed | (active & res["hit"])

@@ -76,10 +76,10 @@ SIGNATURES = {
     # cand_lvl, cand_off, cand_rgb, ok, t_safe, n, stream
     "voxt_beam_walk": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
-    # lvl, off, rgb, origin, origin_per_ray, dir, height, skip_t0, hit, t,
-    # normal, rgb_out, voxel, n_beams, P, K, stream
-    "voxt_beam_resolve": (_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P,
-                          _P, _I, _I, _I, _P),
+    # lvl, off, rgb, origin, origin_per_ray, dir, height, skip_t0, merge,
+    # hit, t, normal, rgb_out, voxel, n_beams, P, K, stream
+    "voxt_beam_resolve": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P,
+                          _P, _P, _I, _I, _I, _P),
     # top, top_words, regions, bricks, size, start, dir, distance, active,
     # skip_t0, hit, t, normal, voxel, n, counter, static_pct, chunk,
     # refill, stream

@@ -78,6 +78,28 @@ a batch-8 main-path call.
     python voxtracer_torch/tools/kernel_ab.py e2e [--reps N] \
         [--engine package|hf|svo|both] [--log2-size L]
 
+    # the beam engine's walk (K6) and resolve (K7) of this tree against
+    # another tree's csrc/ (K6 and K7 alone built from each; K7's entry
+    # with or without the running best), on every round of the 1920x1080
+    # beam frame (tile 8, K 64, 512 steps, 6 rounds) at 1024^3 and
+    # 8192^3: in turns (old, new, new, old), candidates, resumed state
+    # and the five resolve outputs equal by bits; each round's live beams
+    # and used slots; from the second round, the resolve and merge as the
+    # frame runs them (old: the kernel, then _merge; new: into the
+    # running best); ptxas reports of both
+    python -m voxtracer_torch.tools.kernel_ab beam --old-csrc DIR \
+        [--reps N] [--log2-size L ...]
+
+    # the 1920x1080 beam frame (beam_primary_frame_cast) of whichever
+    # voxtracer_torch is first on the path: ms a frame and K2's per-ray
+    # cast of the same rays, host reads a frame, each round's live beams
+    # and used slots, the fallback's tiles and pixels, and one profiled
+    # frame (K6, K7 and K2 device ms in launch order, the other device
+    # events by stretch of the frame, device-busy share); run the two
+    # trees in turns (PYTHONPATH=<other tree>, then this one, then ...)
+    python voxtracer_torch/tools/kernel_ab.py beam_frame [--reps N] \
+        [--log2-size L ...]
+
     # K4 (and K2 beside it) on the smoke's ray sets over lane-fetch
     # settings (static percent, lanes per claim, idle threads to refill;
     # csrc/lanes.cuh): a choice of schedule, the results do not change
@@ -1243,6 +1265,356 @@ def run_fetch(reps: int):
                                   pct_chunk_refill_ms=row)))
 
 
+BEAM_KERNELS = ("beam_walk_kernel", "beam_resolve_kernel", "svo_cast_kernel")
+# K7's C entry before the running best (no merge argument): lvl, off, rgb,
+# origin, origin_per_ray, dir, height, skip_t0, hit, t, normal, rgb_out,
+# voxel, n_beams, P, K, stream
+OLD_BEAM_RESOLVE = (_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I,
+                    _I, _I, _P)
+
+
+def _smoke():
+    """chip_smoke from the working directory, behind the voxtracer_torch
+    already on the path (its beam frame: BEAM_KW, BEAM_WIDTH x
+    BEAM_HEIGHT, the pose)."""
+    if str(Path.cwd()) not in sys.path:
+        sys.path.append(str(Path.cwd()))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _beam_world(log2_size: int, dev):
+    """The native terrain at 2^log2_size, its SVO on the card, the beam
+    engine's augmented rows, the smoke's pose and its beam-frame rays."""
+    import torch
+
+    from voxtracer_torch.core import camera as vcam
+    from voxtracer_torch.kernels import beam
+    from voxtracer_torch.world import svo, worldgen
+
+    cs = _smoke()
+    space = worldgen.generate(log2_size=log2_size, verbose=False,
+                              backend="native", device=dev)
+    d_svo = space.serialize()
+    world = svo.upload(d_svo.table, d_svo.root, d_svo.height, dev)
+    aug = torch.from_numpy(beam.build_aug_table(d_svo.table,
+                                                d_svo.solid_leaf)).to(dev)
+    cam = cs._smoke_camera(log2_size)
+    o, d = vcam.generate_rays(cam, cs.BEAM_WIDTH, cs.BEAM_HEIGHT, device=dev)
+    return world, aug, np.asarray(cam.pos, np.float32), o, d
+
+
+def _beam_profile(fn, rounds: int):
+    """One run of a beam frame under torch.profiler: wall and device-busy
+    ms; K6, K7 and K2's device ms in launch order; the other device
+    events by the stretch they fall in (before the first walk; between a
+    round's walk and its resolve; after a round's resolve and before the
+    next walk; after the last resolve), each as [ms, events]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.monotonic() - t0)
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    if not dev:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    busy, end = 0.0, -1.0
+    for e in dev:
+        a, b = e.time_range.start, e.time_range.end
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    kern = {k: [] for k in BEAM_KERNELS}
+    other, stretch = {}, 0
+    for e in dev:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        name = next((k for k in BEAM_KERNELS if k in e.name), None)
+        if name is not None:
+            kern[name].append(round(ms, 5))
+            if name != "svo_cast_kernel":
+                stretch += 1
+            continue
+        key = ("setup" if stretch == 0 else "end" if kern["svo_cast_kernel"]
+               or stretch == 2 * rounds else
+               f"walk {stretch // 2} to resolve" if stretch % 2 else
+               f"resolve {stretch // 2 - 1} to walk")
+        cur = other.setdefault(key, [0.0, 0])
+        cur[0] = round(cur[0] + ms, 5)
+        cur[1] += 1
+    return dict(wall_ms=wall, busy_ms=busy / 1e3, busy_share=busy / 1e3 / wall,
+                device_events=len(dev), kernels=kern, other=other)
+
+
+def _beam_rounds(world, aug, op, d):
+    """Each round of the 1080p frame through ``beam_walk``: beams alive
+    at its start, beams with a candidate, candidate slots used."""
+    import torch
+
+    from voxtracer_torch.kernels import beam
+
+    kw = _smoke().BEAM_KW
+    dt = beam._group(d, kw["tile"]).contiguous()
+    o = torch.as_tensor(op, device=d.device)
+    ob = o.expand(dt.shape[0], 3)
+    d_lo, d_hi = torch.amin(dt, 1), torch.amax(dt, 1)
+    pre = beam._beam_bounds(world.height, ob, ob, d_lo, d_hi)
+    state = beam._initial_state(world.root, world.height, pre["incoherent"])
+    rows = []
+    for _ in range(kw["rounds"]):
+        alive = int(state["alive"].sum())
+        c, state = beam.beam_walk(aug, world.root, world.height, ob, ob, d_lo,
+                                  d_hi, K=kw["K"], max_steps=kw["max_steps"],
+                                  state=state)
+        used = c["lvl"] >= 0
+        rows.append(dict(alive=alive, beams_with_candidates=int(
+            used.any(1).sum()), slots_used=int(used.sum()),
+            done=int(c["ok"].sum())))
+    return rows
+
+
+def run_beam_frame(reps: int, log2_sizes):
+    """``beam_primary_frame_cast`` at chip_smoke's beam frame for whichever
+    voxtracer_torch is first on the path: ms a frame (host clock around a
+    synchronized call), K2's per-ray cast of the same rays, the host reads
+    a frame (calls that synchronize, under torch's sync debug mode), one
+    profiled frame, each round's live beams and used slots, the fallback."""
+    import warnings
+
+    import torch
+
+    import voxtracer_torch
+    from voxtracer_torch.kernels import beam, traverse
+
+    smi = card()
+    cs = _smoke()
+    dev = torch.device("cuda")
+    for log2_size in log2_sizes:
+        world, aug, op, o, d = _beam_world(log2_size, dev)
+        w = (world.table, world.root, world.height)
+
+        def frame():
+            return beam.beam_primary_frame_cast(*w[:1], aug, *w[1:], op, d,
+                                                **cs.BEAM_KW)
+
+        def ms_of(fn):
+            fn()
+            out = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                fn()
+                torch.cuda.synchronize()
+                out.append(round(1e3 * (time.monotonic() - t0), 4))
+            return out
+
+        frame_ms = ms_of(frame)
+        k2_ms = ms_of(lambda: traverse.svo_raycast(*w, o, d))
+        stats = dict(beam.last_frame_stats)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                frame()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        reads = sum("synchroniz" in str(x.message) for x in caught)
+        print(json.dumps(dict(
+            case=f"beam frame {cs.BEAM_WIDTH}x{cs.BEAM_HEIGHT} at "
+                 f"{1 << log2_size}^3",
+            package=str(Path(voxtracer_torch.__file__).parent), card=smi,
+            kw=cs.BEAM_KW, frame_ms=frame_ms, k2_frame_ms=k2_ms,
+            host_reads=reads, fallback=stats,
+            rounds=_beam_rounds(world, aug, op, d),
+            profile=_beam_profile(frame, cs.BEAM_KW["rounds"]))))
+        sys.stdout.flush()
+        del world, aug
+        torch.cuda.empty_cache()
+
+
+def _beam_library(csrc: Path):
+    """K6 and K7 alone, built from ``csrc`` into their own library:
+    (lib, ptxas's report, whether K7's entry takes the running best)."""
+    from voxtracer_torch.kernels import build
+
+    merge = "int merge" in (csrc / "beam_resolve.cu").read_text()
+    out = build.BUILD_DIR / f"ab_beam_{build._source_hash(csrc)}.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    report = build.compile_library(
+        csrc, out, sources=("beam_walk.cu", "beam_resolve.cu"))
+    lib = ctypes.CDLL(str(out))
+    lib.voxt_beam_walk.argtypes = list(build.SIGNATURES["voxt_beam_walk"])
+    lib.voxt_beam_resolve.argtypes = list(
+        build.SIGNATURES["voxt_beam_resolve"] if merge else OLD_BEAM_RESOLVE)
+    for fn in (lib.voxt_beam_walk, lib.voxt_beam_resolve):
+        fn.restype = ctypes.c_int
+    return lib, report, merge
+
+
+def run_beam(old_csrc: Path, reps: int, log2_sizes):
+    """K6 and K7 of this tree against another tree's, in turns (old, new,
+    new, old), on every round of the 1080p beam frame: each round's walk
+    from the state the rounds before left, every candidate and the
+    resumed state equal by bits; each round's resolve on its candidates,
+    the five outputs equal by bits; and the round's resolve and merge as
+    the frame runs them: the old kernel and ``_merge``, the new kernel
+    into the running best (rounds after the first)."""
+    import torch
+
+    from voxtracer_torch.kernels import beam, build
+
+    cs = _smoke()
+    smi = card()
+    print(smi)
+    build.library()
+    built = [_beam_library(t) for t in (old_csrc, Path(build.CSRC))]
+    for tag, (_, report, _) in zip(("old", "new"), built):
+        for src, regs, props in _ptxas_lines(report):
+            print(f"ptxas {tag} {src}: {regs}; {props}")
+    dev = torch.device("cuda")
+    K, steps = cs.BEAM_KW["K"], cs.BEAM_KW["max_steps"]
+    for log2_size in log2_sizes:
+        world, aug, op, _, d = _beam_world(log2_size, dev)
+        H = world.height
+        dt = beam._group(d, cs.BEAM_KW["tile"]).contiguous()
+        o = torch.as_tensor(op, device=dev)
+        ob = o.expand(dt.shape[0], 3)
+        pre = beam._beam_bounds(H, ob, ob, torch.amin(dt, 1),
+                                torch.amax(dt, 1))
+        state = beam._initial_state(world.root, H, pre["incoherent"])
+        Bb, P = dt.shape[:2]
+        stream = torch.cuda.current_stream().cuda_stream
+        best = None
+        for r in range(cs.BEAM_KW["rounds"]):
+            start = {k: v.clone() for k, v in state.items()}
+            sts = [{k: v.clone() for k, v in start.items()} for _ in built]
+            cands = [dict(lvl=torch.empty((Bb, K), dtype=torch.int32,
+                                          device=dev),
+                          off=torch.empty((Bb, K, 3), dtype=torch.int32,
+                                          device=dev),
+                          rgb=torch.empty((Bb, K, 3), device=dev),
+                          ok=torch.empty((Bb,), dtype=torch.bool, device=dev),
+                          t_safe=torch.empty((Bb,), device=dev))
+                     for _ in built]
+
+            def walk(k):
+                st, c = sts[k], cands[k]
+                err = built[k][0].voxt_beam_walk(
+                    aug.data_ptr(), H, pre["olo"].data_ptr(),
+                    pre["ohi"].data_ptr(), pre["ilo"].data_ptr(),
+                    pre["ihi"].data_ptr(), pre["mirror"].data_ptr(),
+                    pre["incoherent"].data_ptr(), K, steps, 1,
+                    st["h"].data_ptr(), st["ids_stk"].data_ptr(),
+                    st["mask_stk"].data_ptr(), st["entry_stk"].data_ptr(),
+                    st["words"].data_ptr(), st["cap"].data_ptr(),
+                    st["alive"].data_ptr(), c["lvl"].data_ptr(),
+                    c["off"].data_ptr(), c["rgb"].data_ptr(),
+                    c["ok"].data_ptr(), c["t_safe"].data_ptr(), Bb, stream)
+                if err != 0:
+                    raise RuntimeError(f"beam_walk side {k}: CUDA error {err}")
+
+            def restore(k):
+                for key in start:
+                    sts[k][key].copy_(start[key])
+
+            for k in range(len(built)):
+                walk(k)
+            torch.cuda.synchronize()
+            for key in cands[0]:
+                if not torch.equal(cands[0][key], cands[1][key]):
+                    raise AssertionError(f"beam_walk round {r}: {key} differs")
+            for key in start:
+                if not torch.equal(sts[0][key], sts[1][key]):
+                    raise AssertionError(f"beam_walk round {r}: state {key} "
+                                         "differs")
+            state = sts[1]
+            c = cands[1]
+            outs = [{key: torch.empty_like(v) for key, v in dict(
+                hit=torch.empty((Bb, P), dtype=torch.bool, device=dev),
+                t=torch.empty((Bb, P), device=dev),
+                normal=torch.empty((Bb, P, 3), device=dev),
+                rgb=torch.empty((Bb, P, 3), device=dev),
+                voxel=torch.empty((Bb, P, 3), dtype=torch.int32,
+                                  device=dev)).items()}
+                for _ in range(3)]
+
+            def resolve(k, out, merge=0):
+                lib, takes_merge = built[k][0], built[k][2]
+                extra = (merge,) if takes_merge else ()
+                err = lib.voxt_beam_resolve(
+                    c["lvl"].data_ptr(), c["off"].data_ptr(),
+                    c["rgb"].data_ptr(), o.data_ptr(), 0, dt.data_ptr(), H, 1,
+                    *extra, out["hit"].data_ptr(), out["t"].data_ptr(),
+                    out["normal"].data_ptr(), out["rgb"].data_ptr(),
+                    out["voxel"].data_ptr(), Bb, P, K, stream)
+                if err != 0:
+                    raise RuntimeError(f"beam_resolve side {k}: CUDA error "
+                                       f"{err}")
+
+            resolve(0, outs[0])
+            resolve(1, outs[1])
+            torch.cuda.synchronize()
+            for key in outs[0]:
+                if not torch.equal(outs[0][key], outs[1][key]):
+                    raise AssertionError(f"beam_resolve round {r}: {key} "
+                                         "differs")
+            ms = dict(walk_old=[], walk_new=[], resolve_old=[],
+                      resolve_new=[], merged_old=[], merged_new=[])
+            for k in (0, 1, 1, 0):
+                tag = ("old", "new")[k]
+                ms[f"walk_{tag}"].append(cs._ms_fresh(
+                    lambda k=k: restore(k), lambda k=k: walk(k), reps))
+                ms[f"resolve_{tag}"].append(cs._ms(
+                    lambda k=k: resolve(k, outs[k]), reps))
+            merged = None
+            if best is not None:
+                # the round as the frame runs it, into the running best
+                merged = {key: v.clone() for key, v in best.items()}
+                if built[1][2]:
+                    resolve(1, merged, merge=1)
+                want = beam._merge(best, outs[1])
+                torch.cuda.synchronize()
+                if built[1][2]:
+                    for key in want:
+                        if not torch.equal(merged[key], want[key]):
+                            raise AssertionError(f"beam_resolve round {r}: "
+                                                 f"merged {key} differs")
+
+                def fold_old():
+                    resolve(0, outs[2])
+                    beam._merge(best, outs[2])
+
+                def fresh_best():
+                    for key in best:
+                        outs[2][key].copy_(best[key])
+
+                for k in (0, 1, 1, 0):
+                    if k and built[1][2]:
+                        t = cs._ms_fresh(fresh_best, lambda: resolve(
+                            1, outs[2], merge=1), reps)
+                    else:
+                        t = cs._ms_fresh(lambda: None, fold_old, reps)
+                    ms[f"merged_{('old', 'new')[k]}"].append(t)
+                best = want
+            else:
+                best = {key: v.clone() for key, v in outs[1].items()}
+            used = c["lvl"] >= 0
+            print(json.dumps(dict(
+                case=f"beam round {r} at {1 << log2_size}^3", card=smi,
+                beams=Bb, alive=int(start["alive"].sum()),
+                beams_with_candidates=int(used.any(1).sum()),
+                slots_used=int(used.sum()), ms=ms, equal_by_bits=True)))
+            sys.stdout.flush()
+        del world, aug
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="mode", required=True)
@@ -1284,6 +1656,13 @@ def main(argv=None) -> int:
     e.add_argument("--log2-size", type=int, default=10)
     f = sub.add_parser("fetch")
     f.add_argument("--reps", type=int, default=10)
+    bm = sub.add_parser("beam")
+    bm.add_argument("--old-csrc", type=Path, required=True)
+    bm.add_argument("--reps", type=int, default=10)
+    bm.add_argument("--log2-size", type=int, nargs="+", default=[10, 13])
+    bf = sub.add_parser("beam_frame")
+    bf.add_argument("--reps", type=int, default=5)
+    bf.add_argument("--log2-size", type=int, nargs="+", default=[10, 13])
     a = ap.parse_args(argv)
     if a.mode == "kernels":
         run_kernels(a.old_csrc, a.sweep, a.reps)
@@ -1297,6 +1676,10 @@ def main(argv=None) -> int:
         run_path_trace(a.old_csrc, a.variant, a.reps, a.configs, a.fetch)
     elif a.mode == "fetch":
         run_fetch(a.reps)
+    elif a.mode == "beam":
+        run_beam(a.old_csrc, a.reps, a.log2_size)
+    elif a.mode == "beam_frame":
+        run_beam_frame(a.reps, a.log2_size)
     else:
         run_e2e(a.reps, a.engine, a.log2_size)
     return 0
