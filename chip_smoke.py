@@ -187,6 +187,16 @@ Phases, each printing its lines; any failure exits non-zero:
    define, no tests). After 8, ptxas's registers and spills for each of
    K9's stage kernels and a line per configuration.
 
+15. api (after 4): the public helpers the main path does not call, on
+   the card against their own CPU results with the tolerances of
+   tests/test_torch_api.py: uniform_hemisphere (state by bits, at most
+   3% of direction components beyond 2 ulp, all within 64),
+   cos_hemisphere_pdf (2 ulp), sun_pdf (by bits off the cone edge),
+   srgb_decode (relative 1e-6), vdot (2 ulp), length (2 ulp of the
+   value), vec3 (by bits, on the card); then utils.profiling.timed
+   around one K9 call (its synchronize on CUDA), its line beside the
+   card's name and power limit.
+
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -1178,6 +1188,127 @@ def phase_golden(dev):
                 or mean_rel > GOLDEN_MEAN_REL:
             raise AssertionError(f"golden path sample not reproduced on the "
                                  f"card ({engine})")
+
+
+def _ulp_check(name, got, want, tol_ulp, share=0.0, scale=1.0):
+    """Max |card - CPU| in ulp of 1.0 (times ``scale``); fails beyond
+    ``tol_ulp``, or, with ``share``, when more than that share of the
+    values lie beyond 2 ulp."""
+    ulp1 = float(np.spacing(np.float32(1.0))) * scale
+    diff = np.abs(got.astype(np.float64) - want.astype(np.float64)) / ulp1
+    beyond = float((diff > 2).mean())
+    print(f"api {name} on the card against the CPU: max {diff.max():.2f} "
+          f"ulp (limit {tol_ulp}), {beyond:.4f} of values beyond 2 ulp"
+          + (f" (limit {share})" if share else ""))
+    if not np.isfinite(got).all() or diff.max() > tol_ulp \
+            or (share and beyond > share):
+        raise AssertionError(f"api {name}: the card's result is not the "
+                             "CPU's")
+
+
+def phase_api(dev):
+    """The public helpers that the main path does not call, on the card
+    against their own CPU results (tolerances of tests/test_torch_api.py):
+    uniform_hemisphere (state by bits; directions at most 3% of
+    components beyond 2 ulp, all within 64), cos_hemisphere_pdf (2 ulp),
+    sun_pdf (by bits off the cone edge), srgb_decode (relative 1e-6),
+    vdot (2 ulp), length (2 ulp of the value), vec3 (by bits, on the
+    card); then a timed block around one K9 call."""
+    import torch
+
+    from voxtracer_torch.core import color, rng as vrng, sampling, vecmath
+    from voxtracer_torch.core.spectra import build_wl_to_rgb_lut
+    from voxtracer_torch.kernels import integrator
+    from voxtracer_torch.utils.profiling import timed
+    from voxtracer_torch.world import svo, worldgen
+
+    gen = np.random.default_rng(16)
+    n_lanes = 1 << 16
+    unit = gen.normal(size=(2, n_lanes, 3)).astype(np.float32)
+    unit /= np.linalg.norm(unit, axis=-1, keepdims=True)
+    n_c, d_c = (torch.from_numpy(u) for u in unit)
+    n_g, d_g = n_c.to(dev), d_c.to(dev)
+    st = vrng.to_state(gen.integers(0, 2**32, (n_lanes, 3), dtype=np.uint32))
+
+    s_c, u_c = sampling.uniform_hemisphere(st, n_c)
+    s_g, u_g = sampling.uniform_hemisphere(st.to(dev), n_g)
+    if not torch.equal(s_g.cpu(), s_c):
+        raise AssertionError("api uniform_hemisphere: RNG state differs")
+    _ulp_check("uniform_hemisphere", u_g.cpu().numpy(), u_c.numpy(), 64,
+               share=0.03)
+    _ulp_check("cos_hemisphere_pdf",
+               sampling.cos_hemisphere_pdf(n_g, d_g).cpu().numpy(),
+               sampling.cos_hemisphere_pdf(n_c, d_c).numpy(), 2)
+
+    sun_c = n_c[0]
+    _, in_cone = sampling.sample_sun(st, sun_c)
+    d_sun = torch.cat([in_cone, d_c])
+    p_c = sampling.sun_pdf(d_sun, sun_c).numpy()
+    p_g = sampling.sun_pdf(d_sun.to(dev), sun_c.to(dev)).cpu().numpy()
+    cos = (d_sun.numpy().astype(np.float64) * sun_c.numpy()).sum(-1)
+    far = np.abs(cos - np.float32(sampling.COS_SUN_RADIUS)) > 2 * float(
+        np.spacing(np.float32(1.0)))
+    n_diff = int((p_c[far] != p_g[far]).sum())
+    print(f"api sun_pdf on the card against the CPU: {n_diff} of "
+          f"{int(far.sum())} lanes off the cone edge differ (limit 0), "
+          f"{int((p_g > 0).sum())} inside the cone")
+    if n_diff or not (p_g > 0).any() or (p_g > 0).all():
+        raise AssertionError("api sun_pdf: the card's result is not the CPU's")
+
+    v = torch.from_numpy(gen.random(n_lanes, np.float32))
+    dec_c = color.srgb_decode(v).numpy()
+    dec_g = color.srgb_decode(v.to(dev)).cpu().numpy()
+    rel = float((np.abs(dec_g - dec_c) / np.maximum(np.abs(dec_c),
+                                                     1e-30)).max())
+    print(f"api srgb_decode on the card against the CPU: max relative "
+          f"{rel:.3e} (limit 1e-6)")
+    if not rel <= 1e-6:
+        raise AssertionError("api srgb_decode: the card's result is not the "
+                             "CPU's")
+
+    a_c = torch.from_numpy(gen.normal(size=(n_lanes, 3)).astype(np.float32))
+    a_g = a_c.to(dev)
+    _ulp_check("vdot", vecmath.vdot(a_g, d_g).cpu().numpy(),
+               vecmath.vdot(a_c, d_c).numpy(), 2,
+               scale=float(a_c.abs().max()))
+    len_c = vecmath.length(a_c).numpy()
+    len_g = vecmath.length(a_g).cpu().numpy()
+    off = float((np.abs(len_g - len_c) / np.spacing(len_c)).max())
+    print(f"api length on the card against the CPU: max {off:.2f} ulp of "
+          f"the value (limit 2)")
+    if not off <= 2:
+        raise AssertionError("api length: the card's result is not the CPU's")
+    v3 = vecmath.vec3(a_g[:, 0], a_g[:, 1], a_g[:, 2])
+    v3n = vecmath.vec3(1.0, -2.0, 0.5, device=dev)
+    same = (v3.device.type == "cuda" and v3n.device.type == "cuda"
+            and torch.equal(v3.cpu(), a_c)
+            and torch.equal(v3n.cpu(), vecmath.vec3(1.0, -2.0, 0.5)))
+    print(f"api vec3 on the card: equal by bits to the CPU's, on the card: "
+          f"{same}")
+    if not same:
+        raise AssertionError("api vec3: the card's result is not the CPU's")
+
+    dev_svo = worldgen.generate(log2_size=6, verbose=False,
+                                device=dev).serialize()
+    w = svo.upload(dev_svo.table, dev_svo.root, dev_svo.height, dev)
+    cam = _smoke_camera(6)
+    lut = torch.as_tensor(build_wl_to_rgb_lut(256), device=dev)
+    before = integrator.launches
+    logged = []
+    with timed("api timed K9 call, 96x56, 4 bounces", log=logged.append):
+        img = integrator.render_sample(
+            w.table, w.root, w.height, lut, np.asarray(cam.pos, np.float32),
+            cam.basis(), _sun(dev), np.array([7, 8, 9], np.uint32), 96, 56,
+            max_bounces=4, fog_steps=16)
+    fine = (len(logged) == 1 and integrator.launches > before
+            and re.fullmatch(r"api timed K9 call, 96x56, 4 bounces: "
+                             r"\d+\.\d{3}s", logged[0]) is not None
+            and bool(torch.isfinite(img).all()))
+    for line in logged:
+        print(f"{line} ({CARD})")
+    if not fine:
+        raise AssertionError(f"api timed: {logged}, K9 launches "
+                             f"{integrator.launches - before}")
 
 
 def phase_shaded(soup_t, world, pack, dev):
@@ -2895,8 +3026,10 @@ def _dist_rank(rank, port, tmp, n_local, seeds_np):
               f"{dist.get_backend()}, devices "
               f"{[str(d) for d in mesh.devices]}, shards "
               f"{multihost.local_rows(mesh)}", flush=True)
+        multihost.shutdown()
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():  # a failed rank: no barrier to wait at
+            dist.destroy_process_group()
 
 
 def _free_port() -> int:
@@ -3902,6 +4035,7 @@ def main() -> int:
     del sets
     res_rec = phase_resolve(rng, soup_t, dev)
     phase_golden(dev)
+    phase_api(dev)
     phase_shaded(soup_t, world, pack, dev)
     counts, svo_counts, soup_r, svo_r, path_recs = phase_main(space, dev)
     phase_primaries(soup_r, svo_r)

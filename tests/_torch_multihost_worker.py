@@ -41,6 +41,7 @@ tstep = shard.tile_sharded_step(mesh, table, root, height, lut, 16, 12,
 tframe = tstep(SEEDS[0], *render_args())
 np.save(f"{out}.{rank}.npy", multihost.local_frame(frame))
 np.save(f"{out}.tile.{rank}.npy", multihost.local_frame(tframe))
-dist.destroy_process_group()
+multihost.shutdown()
+assert not dist.is_initialized()
 print("worker", rank, "ok", flush=True)
 assert "jax" not in sys.modules

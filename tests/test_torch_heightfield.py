@@ -420,6 +420,32 @@ def test_frame_cast_equals_svo_cast_and_jax(world):
         assert np.array_equal(np.asarray(want[k]), fr[k].numpy()), k
 
 
+def test_frame_cast_equals_jax_on_one_direction_set(world):
+    """The case above with both packages handed one direction set through
+    ``ray_dirs=`` (the pixel centres and a jittered set, made by the
+    port), so no last bit of a direction differs: every output equal by
+    bits."""
+    W, H = 48, 32
+    cam = _frame_camera(world, tcam)
+    jc = _frame_camera(world, jcam)
+    op = np.asarray(cam.pos, np.float32)
+    rgb = (0.3, 0.62, 0.24)
+    _, centres = tcam.generate_rays(cam, W, H, device="cpu")
+    jitter = torch.from_numpy(
+        np.random.default_rng(29).random((H, W, 2), np.float32))
+    _, jittered = tcam.generate_rays(cam, W, H, jitter=jitter, device="cpu")
+    flat, offs, h = world["jpack"]
+    for d in (centres, jittered):
+        got = thf.hf_frame_cast(*world["tpack"], op, cam.basis(), W, H, rgb,
+                                terrain_node=77, ray_dirs=d)
+        want = jhf.hf_frame_cast(flat, offs, h, op, jc.basis(), W, H,
+                                 terrain_rgb=rgb, terrain_node=77,
+                                 ray_dirs=jnp.asarray(d.numpy()))
+        assert got["hit"].any() and not got["hit"].all()
+        for k in ("hit", "t", "normal", "node", "rgb", "voxel"):
+            assert np.array_equal(np.asarray(want[k]), got[k].numpy()), k
+
+
 def test_frame_cast_equals_raster_cast_exact(world):
     """The two primary engines of a terrain world give one frame."""
     W, H = 48, 32

@@ -5,8 +5,10 @@ tests/test_multihost.py. Every process's frame must be equal by bits to
 the other's, and within rtol 1e-6 / atol 1e-6 of the single-process
 8-shard step (the two processes' sums meet in another order: the same
 samples, an ulp of sum jitter, as in the JAX test). The tile-sharded
-step's gathered bands equal the full frame by bits. Imports no JAX: the
-worker (tests/_torch_multihost_worker.py) imports this module."""
+step's gathered bands equal the full frame by bits. ``multihost.shutdown``
+frees the group and joins its threads while meshes and steps built on it
+live on. Imports no JAX: the worker (tests/_torch_multihost_worker.py)
+imports this module."""
 
 import os
 import socket
@@ -97,3 +99,65 @@ def test_two_process_job_matches_single_process(tmp_path):
                          16, 12, max_bounces=2, fog_steps=4).numpy()
     assert t0.shape == (16, 16, 3)  # ceil(12 / 8) = 2 rows a shard
     np.testing.assert_array_equal(t0[:12], full)
+
+
+_SHUTDOWN_PROBE = """
+import os, sys, weakref
+import numpy as np, torch
+import torch.distributed as dist
+torch.set_num_threads(2)
+from voxtracer_torch.dist import multihost, shard
+from voxtracer_torch.kernels.integrator import render_sample
+from tests.test_torch_multihost import SEEDS, build_world, render_args
+
+def n_threads():
+    return len(os.listdir("/proc/self/task"))
+
+table_np, root, height, lut_np = build_world()
+table, lut = torch.from_numpy(table_np), torch.from_numpy(lut_np)
+render_sample(table, root, height, lut, *render_args(), SEEDS[0], 16, 12,
+              max_bounces=2, fog_steps=4)  # the intra-op threads start
+multihost.shutdown()  # no group yet: a no-op
+before = n_threads()
+dist.init_process_group("gloo", init_method="tcp://127.0.0.1:" + sys.argv[1],
+                        world_size=1, rank=0)
+mesh = multihost.global_mesh(["cpu"] * 2)
+step = shard.sample_sharded_step(mesh, table, root, height, lut, 16, 12,
+                                 max_bounces=2, fog_steps=4)
+tstep = shard.tile_sharded_step(mesh, table, root, height, lut, 16, 12,
+                                max_bounces=2, fog_steps=4)
+frame = step(SEEDS[:2], *render_args())
+tframe = tstep(SEEDS[0], *render_args())
+during = n_threads()
+group = weakref.ref(dist.group.WORLD)
+multihost.shutdown()
+assert not dist.is_initialized()
+assert group() is None, "a mesh or step still holds the process group"
+after = n_threads()
+assert after <= before < during, (before, during, after)
+for use in (lambda: mesh.rank, lambda: step(SEEDS[:2], *render_args())):
+    try:
+        use()
+    except RuntimeError as e:
+        assert "destroyed" in str(e), e
+    else:
+        raise AssertionError("a mesh whose group was destroyed was used")
+print("threads", before, during, after, flush=True)
+"""
+
+
+def test_shutdown_frees_the_group_and_joins_its_threads():
+    """The cause of a teardown abort: ``destroy_process_group`` alone left
+    the gloo group alive while a mesh held it, so its worker threads ran
+    into the interpreter's exit, where one releasing its last
+    collective's tensors needed the GIL and aborted the process
+    ("terminate called without an active exception"). After
+    ``multihost.shutdown`` the group is freed, its threads are joined,
+    and the meshes and steps built on it raise. Linux (/proc)."""
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo), OMP_NUM_THREADS="2")
+    res = subprocess.run([sys.executable, "-c", _SHUTDOWN_PROBE,
+                          str(_free_port())], cwd=repo, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "threads" in res.stdout

@@ -261,6 +261,49 @@ def test_frame_equals_jax_raster_cast_exact(terrain):
     assert got["n_widen"][0] == int(np.asarray(want["n_widen"])[0])
 
 
+def _one_direction_set(cam, W, H):
+    """The port's pixel-centre directions and a jittered set, (H, W, 3)
+    each, for both packages' ``ray_dirs=``."""
+    _, centres = tcam.generate_rays(cam, W, H, device="cpu")
+    jitter = torch.from_numpy(
+        np.random.default_rng(31).random((H, W, 2), np.float32))
+    _, jittered = tcam.generate_rays(cam, W, H, jitter=jitter, device="cpu")
+    return centres, jittered
+
+
+def _equal_by_bits(got, want, counts=True):
+    """The frame's hit, t, normal and rgb equal by bits; with ``counts``,
+    the widen rounds' tile counts too (both sides ran the same rounds)."""
+    for f in ("hit", "t", "normal", "rgb"):
+        assert np.array_equal(got[f].numpy(), np.asarray(want[f])), f
+    if counts:
+        assert np.array_equal(np.asarray(got["n_widen"]),
+                              np.asarray(want["n_widen"])), "n_widen"
+
+
+def test_frame_equals_jax_raster_cast_exact_on_one_direction_set(terrain):
+    """The case above with both packages handed one direction set through
+    ``ray_dirs=``: every output equal by bits, t and the widen counts
+    included."""
+    cam = tcam.Camera(**REF_POSE)
+    op = np.asarray(cam.pos, np.float32)
+    W, H = 96, 56
+    w, soup, dev = terrain["w"], terrain["soup"], terrain["dev"]
+    for d in _one_direction_set(cam, W, H):
+        got = traster.raster_cast_exact(*terrain["args"], op, cam.basis(),
+                                        w.height, W, H, table=w.table,
+                                        root=w.root, ray_dirs=d)
+        want = jraster.raster_cast_exact(
+            jnp.asarray(soup.lo), jnp.asarray(soup.size),
+            jnp.asarray(jraster.pack_box_attr(soup)), op,
+            np.asarray(cam.basis()), dev.height, W, H,
+            table=jnp.asarray(dev.table.view(np.int32)),
+            root=np.int32(dev.root), want_voxel=False,
+            ray_dirs=jnp.asarray(d.numpy()))
+        assert got["hit"].any()
+        _equal_by_bits(got, want)
+
+
 def _reference_cast(world, op, basis, W, H, ray_dirs=None, bins=None):
     """raster_cast as it ran before the segment form: every round's
     records gathered with seg_rows beside a validity mask, the carries of
@@ -480,6 +523,43 @@ def test_heightfield_fallback_equals_jax(terrain, monkeypatch):
         assert np.array_equal(got[f].numpy(), np.asarray(want[f])), f
     assert np.allclose(got["t"].numpy(), np.asarray(want["t"]), rtol=1e-4,
                        atol=1e-3)
+
+
+def test_heightfield_fallback_equals_jax_on_one_direction_set(
+        terrain, monkeypatch):
+    """The case above with both packages handed one direction set through
+    ``ray_dirs=``: every output of the frame equal by bits (the rounds
+    differ by design, the port's starved and the JAX package's in chunks
+    of 8, so their counts are not compared)."""
+    from voxtracer.kernels import heightfield as jhf
+
+    from voxtracer_torch.kernels import heightfield as thf
+
+    _starved(monkeypatch)
+    cam = tcam.Camera(**REF_POSE)
+    op = np.asarray(cam.pos, np.float32)
+    W, H = 64, 48
+    w, soup, dev = terrain["w"], terrain["soup"], terrain["dev"]
+    heights = np.asarray(dev.space.heights)
+    tiles, offs, _ = thf.build_height_mips(heights, device="cpu")
+    flat, joffs, _ = jhf.build_height_mips(heights)
+    for d in _one_direction_set(cam, W, H):
+        bins = traster.raster_bins(*terrain["args"], op, cam.basis(),
+                                   w.height, W, H, cand_k=2, jittered=True)
+        got = traster.raster_cast_exact(*terrain["args"], op, cam.basis(),
+                                        w.height, W, H, bins=bins,
+                                        hf=(tiles, offs, soup.rgb[0]),
+                                        ray_dirs=d)
+        assert got["n_fallback"] > 4
+        want = jraster.raster_cast_exact(
+            jnp.asarray(soup.lo), jnp.asarray(soup.size),
+            jnp.asarray(jraster.pack_box_attr(soup)), op,
+            np.asarray(cam.basis()), dev.height, W, H, hf_mips=flat,
+            hf_offsets=joffs, terrain_rgb=jnp.asarray(soup.rgb[0]),
+            want_voxel=False, cand_k=8, widen_k=8, widen2_k=8, widen3_k=8,
+            ray_dirs=jnp.asarray(d.numpy()))
+        assert int(np.asarray(want["n_fallback"])) > 4
+        _equal_by_bits(got, want, counts=False)
 
 
 @pytest.mark.parametrize("which,pos,yaw,pitch", [

@@ -42,6 +42,27 @@ def cos_hemisphere(state, n):
     return state, disk + n * sqrt(torch.clamp_min(1.0 - d2, 0.0))
 
 
+def cos_hemisphere_pdf(n, d):
+    return torch.clamp_min(dot(n, d), 0.0)
+
+
+def uniform_hemisphere(state, n):
+    """Uniform hemisphere direction around n (raytrace.wgsl:222-231); the
+    default integrator does not use it, as in the reference."""
+    state, rand = vrng.random3(state)
+    z = rand[..., 0]
+    angle = rand[..., 1] * 2.0 * PI
+    s = sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    px = torch.cos(angle) * s
+    py = torch.sin(angle) * s
+    state, rand2 = vrng.random3(state)
+    bitangent = normalize(cross(rand2, n))
+    tangent = cross(bitangent, n)
+    return state, (
+        tangent * px[..., None] + bitangent * py[..., None] + n * z[..., None]
+    )
+
+
 def sample_sun(state, sun):
     """Uniform direction within the sun cone around unit vector ``sun``."""
     state, rand = vrng.random3(state)
@@ -56,6 +77,12 @@ def sample_sun(state, sun):
     return state, (
         tangent * px[..., None] + bitangent * py[..., None] + sun * z[..., None]
     )
+
+
+def sun_pdf(d, sun):
+    """PDF of sample_sun (raytrace.wgsl:254-260)."""
+    inside = dot(d, sun) > COS_SUN_RADIUS
+    return torch.where(inside, 1.0 / (1.0 - COS_SUN_RADIUS), 0.0).to(d.dtype)
 
 
 def brdf(outgoing, incoming, normal):

@@ -5,6 +5,8 @@ The LUT is built in numpy by the same knot model as
 wavelength ramp, fragment.rs:78-147), so both packages hold the same
 table bit for bit. ``sample_lut``, ``spectral_throughput`` and
 ``fog_density`` keep the JAX expression order (raytrace.wgsl:330-336).
+``build_wl_to_rgb_lut_cie`` is the colorimetric alternative from the CIE
+1931 colour matching functions (``cie_xyz``), not the reference's look.
 """
 
 from __future__ import annotations
@@ -31,6 +33,35 @@ _RAMP_KNOTS_SRGB = dict(
 )
 
 
+def _gauss(x, mu, s1, s2):
+    s = np.where(x < mu, s1, s2)
+    t = (x - mu) / s
+    return np.exp(-0.5 * t * t)
+
+
+def cie_xyz(wavelength_nm):
+    """CIE 1931 2-degree observer CMFs, the multi-lobe Gaussian fit of
+    Wyman, Sloan & Shirley (JCGT 2013)."""
+    w = np.asarray(wavelength_nm, np.float64)
+    x = (
+        1.056 * _gauss(w, 599.8, 37.9, 31.0)
+        + 0.362 * _gauss(w, 442.0, 16.0, 26.7)
+        - 0.065 * _gauss(w, 501.1, 20.4, 26.2)
+    )
+    y = 0.821 * _gauss(w, 568.8, 46.9, 40.5) + 0.286 * _gauss(w, 530.9, 16.3, 31.1)
+    z = 1.217 * _gauss(w, 437.0, 11.8, 36.0) + 0.681 * _gauss(w, 459.0, 26.0, 13.8)
+    return np.stack([x, y, z], axis=-1)
+
+
+_XYZ_TO_SRGB = np.array(
+    [
+        [3.2406, -1.5372, -0.4986],
+        [-0.9689, 1.8758, 0.0415],
+        [0.0557, -0.2040, 1.0570],
+    ]
+)
+
+
 def _srgb_decode_np(v):
     v = np.asarray(v, np.float64)
     return np.where(v <= 0.04045, v / 12.92, ((v + 0.055) / 1.055) ** 2.4)
@@ -51,6 +82,15 @@ def build_wl_to_rgb_lut(size: int = LUT_SIZE) -> np.ndarray:
         axis=-1,
     )
     return _srgb_decode_np(srgb).astype(np.float32)
+
+
+def build_wl_to_rgb_lut_cie(size: int = LUT_SIZE) -> np.ndarray:
+    """Colorimetric LUT from the CIE 1931 CMFs (not the reference's look):
+    negatives clipped, scaled so the largest channel is 1."""
+    u = (np.arange(size) + 0.5) / size
+    wl = WL_MIN_NM + u * (WL_MAX_NM - WL_MIN_NM)
+    rgb = np.clip(cie_xyz(wl) @ _XYZ_TO_SRGB.T, 0.0, None)
+    return (rgb / rgb.max()).astype(np.float32)
 
 
 def sample_lut(lut, u):

@@ -46,6 +46,11 @@ def dot(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
+def vdot(a, b):
+    """Batched dot product, keepdims=True (broadcastable against vectors)."""
+    return dot(a, b)[..., None]
+
+
 def cross(a, b):
     ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
     bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
@@ -53,8 +58,12 @@ def cross(a, b):
                         ax * by - ay * bx], dim=-1)
 
 
+def length(a):
+    return sqrt(dot(a, a))
+
+
 def normalize(a):
-    return a / sqrt(dot(a, a))[..., None]
+    return a / length(a)[..., None]
 
 
 def hmax(a):
@@ -72,3 +81,17 @@ def to_bits(v):
     bit1 = y, bit2 = z (raytrace.wgsl:64-66, svo.rs:89-91)."""
     v = v.to(torch.int32)
     return v[..., 0] | (v[..., 1] << 1) | (v[..., 2] << 2)
+
+
+def vec3(x, y, z, dtype=torch.float32, device=None):
+    """Stack three components of one shape on the trailing axis. A tensor
+    component keeps its device; numbers go to ``device``, or to the first
+    tensor component's device when ``device`` is None."""
+    comps = (x, y, z)
+    if device is None:
+        device = next((c.device for c in comps
+                       if isinstance(c, torch.Tensor)), None)
+    return torch.stack([
+        c.to(dtype) if isinstance(c, torch.Tensor)
+        else torch.as_tensor(c, dtype=dtype, device=device) for c in comps],
+        dim=-1)

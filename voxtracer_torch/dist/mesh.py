@@ -3,8 +3,10 @@
 
 A mesh is an ordered tuple of this process's devices, one entry a shard,
 and optionally the ``torch.distributed`` process group that joins it to
-the same mesh in other processes (``dist/multihost.py``). PyTorch has no
-named mesh axis, so the mesh has none. Sample sharding traces one sample
+the same mesh in other processes (``dist/multihost.py``), held by a weak
+reference: destroying the group frees it and joins its threads even
+while meshes and the steps built on them live on. PyTorch has no named
+mesh axis, so the mesh has none. Sample sharding traces one sample
 on each entry; tile sharding one band of rows (``dist/shard.py``).
 
 A device may stand in the mesh more than once: its shards then run in
@@ -15,6 +17,7 @@ runs a four-shard step (``["cuda:0"] * 4``).
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 
 import torch
@@ -23,7 +26,18 @@ import torch
 @dataclass(frozen=True)
 class Mesh:
     devices: tuple  # one torch.device per local shard, in shard order
-    group: object = None  # the process group across processes, or None
+    group_ref: object = None  # weakref to the process group, or None
+
+    @property
+    def group(self):
+        """The process group across processes, or None for one process.
+        Raises once the group has been destroyed (``multihost.shutdown``)."""
+        if self.group_ref is None:
+            return None
+        group = self.group_ref()
+        if group is None:
+            raise RuntimeError("the mesh's process group has been destroyed")
+        return group
 
     @property
     def size(self) -> int:
@@ -77,7 +91,9 @@ def make_mesh(n_devices: int | None = None, devices=None,
     """The mesh over ``devices`` (repeats allowed), or else over the first
     ``n_devices`` CUDA cards (every card when None). Raises when fewer
     cards exist than asked for: it never makes a smaller mesh. ``group``:
-    the process group joining this mesh to the other processes' meshes."""
+    the process group joining this mesh to the other processes' meshes
+    (held by a weak reference)."""
+    ref = None if group is None else weakref.ref(group)
     if devices is not None:
         devs = tuple(_device(d) for d in devices)
         if not devs:
@@ -85,11 +101,11 @@ def make_mesh(n_devices: int | None = None, devices=None,
         if n_devices is not None and n_devices != len(devs):
             raise ValueError(f"make_mesh: n_devices {n_devices} but "
                              f"{len(devs)} devices given")
-        return Mesh(devs, group)
+        return Mesh(devs, ref)
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     n = have if n_devices is None else int(n_devices)
     if have == 0 or not 1 <= n <= have:
         raise RuntimeError(f"make_mesh: {n_devices or 'every'} CUDA "
                            f"device(s) asked for, {have} present; pass "
                            "devices=['cpu'] * n for the CPU")
-    return Mesh(tuple(torch.device("cuda", i) for i in range(n)), group)
+    return Mesh(tuple(torch.device("cuda", i) for i in range(n)), ref)

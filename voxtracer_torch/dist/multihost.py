@@ -17,6 +17,7 @@ Workflow (each process runs the same):
     step = shard.sample_sharded_step(mesh, table, root, height, lut, W, H)
     seeds = global_seeds(mesh, all_seeds[local_rows(mesh)])
     frame = local_frame(step(seeds, cam_pos, cam_basis, sun))
+    shutdown()                                     # before the process exits
 
 A run on one host with torchrun: ``torchrun --nproc-per-node 1
 script.py`` (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and
@@ -108,3 +109,23 @@ def local_frame(frame) -> np.ndarray:
 def local_rows(mesh: vmesh.Mesh) -> list:
     """The global shard indices of this process's mesh entries."""
     return list(range(mesh.rank * mesh.size, (mesh.rank + 1) * mesh.size))
+
+
+def shutdown() -> None:
+    """End this process's part of the job: wait at a barrier until every
+    process has finished its collectives, then destroy the process group;
+    a no-op without one.
+
+    Meshes hold their group by a weak reference, so destroying it frees
+    the group and joins gloo's worker threads here, while the interpreter
+    is whole. A group kept alive past this point (a strong reference of
+    the caller's) keeps its threads too, and one that drops its last
+    collective's tensors once the interpreter has begun to exit needs the
+    GIL there and aborts the process ("terminate called without an active
+    exception")."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    dist.barrier()
+    dist.destroy_process_group()

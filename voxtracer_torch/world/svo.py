@@ -148,6 +148,32 @@ class SvoSpace:
     def num_nodes(self) -> int:
         return len(self._kind) - len(self._free)
 
+    def nodes(self):
+        """Iterate (node_id, cell) over live nodes (svo.rs:150-152); cell
+        is ('block', (r, g, b)) or ('children', (8 ids or None))."""
+        for nid, kind in enumerate(self._kind):
+            if kind is not None:
+                yield nid, self.get_node(nid)
+
+    def get_node(self, nid: int):
+        """Cell of a live node (svo.rs:154-156)."""
+        kind = self._kind[nid]
+        if kind is None:
+            raise ValueError(f"node {nid} is not live")
+        if kind == _BLOCK:
+            r, g, b = self._payload[nid]
+            return ("block", (_bits_f32(r), _bits_f32(g), _bits_f32(b)))
+        return ("children", self._payload[nid])
+
+    def root_node(self) -> Optional[int]:
+        return self.root
+
+    def unwrap_children(self, nid: int):
+        """Children tuple of an interior node (svo.rs:172-178)."""
+        if self._kind[nid] != _CHILDREN:
+            raise ValueError(f"node {nid} is not an interior node")
+        return self._payload[nid]
+
     def get(self, p):
         """Point query: colour of the voxel at integer coords p, or None."""
         x, y, z = int(p[0]), int(p[1]), int(p[2])
