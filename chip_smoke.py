@@ -1293,14 +1293,14 @@ def phase_api(dev):
     w = svo.upload(dev_svo.table, dev_svo.root, dev_svo.height, dev)
     cam = _smoke_camera(6)
     lut = torch.as_tensor(build_wl_to_rgb_lut(256), device=dev)
-    before = integrator.launches
+    before = _launches()['path_trace']
     logged = []
     with timed("api timed K9 call, 96x56, 4 bounces", log=logged.append):
         img = integrator.render_sample(
             w.table, w.root, w.height, lut, np.asarray(cam.pos, np.float32),
             cam.basis(), _sun(dev), np.array([7, 8, 9], np.uint32), 96, 56,
             max_bounces=4, fog_steps=16)
-    fine = (len(logged) == 1 and integrator.launches > before
+    fine = (len(logged) == 1 and _launches()['path_trace'] > before
             and re.fullmatch(r"api timed K9 call, 96x56, 4 bounces: "
                              r"\d+\.\d{3}s", logged[0]) is not None
             and bool(torch.isfinite(img).all()))
@@ -1308,7 +1308,7 @@ def phase_api(dev):
         print(f"{line} ({CARD})")
     if not fine:
         raise AssertionError(f"api timed: {logged}, K9 launches "
-                             f"{integrator.launches - before}")
+                             f"{_launches()['path_trace'] - before}")
 
 
 def phase_shaded(soup_t, world, pack, dev):
@@ -1350,11 +1350,11 @@ def phase_shaded(soup_t, world, pack, dev):
     try:
         few = raster.raster_bins(*soup_t, op, basis, LOG2_SIZE, WIDTH, HEIGHT,
                                  cand_k=4)
-        launched = heightfield.launches
+        launched = _launches()['hf_cast']
         exact = [raster.raster_cast_exact(
             *soup_t, op, basis, LOG2_SIZE, WIDTH, HEIGHT, bins=few, **kw)
             for kw in (dict(table=w[0], root=w[1]), dict(hf=hf))]
-        launched = heightfield.launches - launched
+        launched = _launches()['hf_cast'] - launched
     finally:
         raster.WIDEN_K = keep
     n_fb = exact[0]["n_fallback"]
@@ -1737,7 +1737,7 @@ def phase_path_kernel(name, renderer, cam, budget=None, batch=None):
             renderer.sample_batch(cam, sun, 8)
     args, kw = _capture_call(batch)
     B = args[5].numel() // 3
-    before = integrator.launches
+    before = _launches()['path_trace']
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1748,7 +1748,7 @@ def phase_path_kernel(name, renderer, cam, budget=None, batch=None):
     queues = integrator.last_queues.clone()
     st_p, col_p = integrator.trace_paths_plain(*args, **kw)
     torch.cuda.synchronize()
-    if integrator.launches != before + 1:
+    if _launches()['path_trace'] != before + 1:
         raise AssertionError(f"{name}: trace_paths did not launch K9")
     state_diff = int((st_k != st_p).any(-1).sum())
     lanes = (col_k.view(torch.int32) != col_p.view(torch.int32)).any(-1)
@@ -2203,10 +2203,10 @@ def phase_envelope(renderer, cam, dev):
                     return skyline.skyline_env_tmin(
                         E, dd, env["d0"], env["g"], env["K"], summary=S)
 
-                before = skyline.launches
+                before = _launches()['sky_tmin']
                 k = kernel().reshape(-1)
                 torch.cuda.synchronize()
-                if skyline.launches != before + 1:
+                if _launches()['sky_tmin'] != before + 1:
                     raise AssertionError("sky_tmin: one launch a call")
                 off = (k - p).abs() > 1e-6 * p.abs()
                 n_off = int(off.sum())
@@ -2897,27 +2897,23 @@ def phase_dense(dev):
         raise AssertionError("dense_raycast disagrees with K2")
 
 
-def _zero_launches():
-    from voxtracer_torch.kernels import (beam, bitdda, fog, heightfield,
-                                         integrator, resolve, skyline,
-                                         traverse)
+LAUNCHED = ("fog_march", "svo_cast", "resolve_fold", "hf_cast", "sky_tmin",
+            "beam_walk", "beam_resolve", "bit_dda", "path_trace")
 
-    fog.launches = traverse.launches = resolve.launches = 0
-    heightfield.launches = skyline.launches = bitdda.launches = 0
-    beam.walk_launches = beam.resolve_launches = 0
-    integrator.launches = 0
+
+def _zero_launches():
+    from voxtracer_torch.utils import profiling
+
+    profiling.reset()
 
 
 def _launches():
-    from voxtracer_torch.kernels import (beam, bitdda, fog, heightfield,
-                                         integrator, resolve, skyline,
-                                         traverse)
+    """Each kernel's launches since the last ``_zero_launches``, from the
+    port's counter registry (``launches.<kernel>``)."""
+    from voxtracer_torch.utils import profiling
 
-    return dict(fog_march=fog.launches, svo_cast=traverse.launches,
-                resolve_fold=resolve.launches, hf_cast=heightfield.launches,
-                sky_tmin=skyline.launches, beam_walk=beam.walk_launches,
-                beam_resolve=beam.resolve_launches, bit_dda=bitdda.launches,
-                path_trace=integrator.launches)
+    counts = profiling.counts()
+    return {k: counts.get(f"launches.{k}", 0) for k in LAUNCHED}
 
 
 def _nbytes(*xs) -> int:

@@ -17,9 +17,15 @@ import torch
 
 from voxtracer_torch.core.spectra import fog_density
 from voxtracer_torch.kernels import fog, heightfield, resolve, traverse
+from voxtracer_torch.utils import profiling
 from voxtracer_torch.world import svo, worldgen
 
 torch.set_num_threads(2)
+
+
+def _launched(kernel):
+    """The kernel's launches so far, from the port's counter registry."""
+    return profiling.counts().get(f"launches.{kernel}", 0)
 
 
 @pytest.fixture(scope="module")
@@ -39,9 +45,9 @@ def test_fog_march_matches_plain(cuda, B, steps):
                         device=cuda)
     dens = fog_density(torch.as_tensor(rng.random(B, np.float32), device=cuda))
     y0 = torch.as_tensor(-np.log(1 - rng.random(B, np.float32)), device=cuda)
-    before = fog.launches
+    before = _launched("fog_march")
     code_k, t_k = fog.fog_march(start, d, dens, y0, n_steps=steps)
-    assert fog.launches == before + 1
+    assert _launched("fog_march") == before + 1
     code_p, t_p = fog.fog_march_plain(start, d, dens, y0, n_steps=steps)
     torch.cuda.synchronize()
     assert torch.equal(code_k, code_p)
@@ -62,10 +68,10 @@ def test_fog_march_masked_matches_plain(cuda, B, steps, frac):
     dens = fog_density(torch.as_tensor(rng.random(B, np.float32), device=cuda))
     y0 = torch.as_tensor(-np.log(1 - rng.random(B, np.float32)), device=cuda)
     active = torch.as_tensor(rng.random(B) < frac, device=cuda)
-    before = fog.launches
+    before = _launched("fog_march")
     code_k, t_k = fog.fog_march(start, d, dens, y0, n_steps=steps,
                                 active=active)
-    assert fog.launches == before + 1
+    assert _launched("fog_march") == before + 1
     code_p, t_p = fog.fog_march_plain(start, d, dens, y0, n_steps=steps,
                                       active=active)
     torch.cuda.synchronize()
@@ -117,9 +123,9 @@ def test_svo_cast_matches_plain_bit_for_bit(cuda, world, kind):
     if kind == "active":
         active = torch.as_tensor(rng.random(B) < 0.5, device=cuda)
     w = (world.table, world.root, world.height)
-    before = traverse.launches
+    before = _launched("svo_cast")
     k = traverse.svo_raycast(*w, start, d, dist, active=active)
-    assert traverse.launches == before + 1
+    assert _launched("svo_cast") == before + 1
     p = traverse.svo_raycast_plain(*w, start, d, dist, active=active)
     torch.cuda.synchronize()
     for key in ("hit", "t", "node", "normal", "voxel"):
@@ -179,9 +185,9 @@ def test_resolve_fold_matches_plain_bit_for_bit(cuda, R, K):
             g(rng.random((N, K)) >= 0.2), g(d))
     cam = np.float32([63.5, 61.25, 64.75])
     for dist in (1.0e12, 40.0):
-        before = resolve.launches
+        before = _launched("resolve_fold")
         k = resolve.resolve_fold(*args, cam, 7, dist)
-        assert resolve.launches == before + 1
+        assert _launched("resolve_fold") == before + 1
         p = resolve.resolve_fold_plain(*args, cam, 7, dist)
         torch.cuda.synchronize()
         for a, b in zip(k, p):
@@ -281,10 +287,10 @@ def test_resolve_fold_seg_matches_plain_bit_for_bit(cuda, R, k, consumed,
     got = tuple(c.clone() for c in carry)
     want = tuple(c.clone() for c in carry)
     if (ray_tile, spans) == (0, 0) or listed == 0:
-        before = resolve.launches
+        before = _launched("resolve_fold")
         got_out = resolve.resolve_fold_seg(*got, spairs, tiles, start, k, db,
                                            0.375, g(d), ok, cam, 7, 1.0e12)
-        assert resolve.launches == before + (listed != 0)
+        assert _launched("resolve_fold") == before + (listed != 0)
     else:
         got_out = _fold_seg_forced(got, spairs, tiles, start, k, db, 0.375,
                                    g(d), ok, cam, 7, ray_tile, spans)
@@ -380,11 +386,11 @@ def test_hf_cast_matches_plain_bit_for_bit(cuda, terrain, kind, tile_log):
         t_min = torch.where(full["hit"], full["t"], n) * torch.as_tensor(
             rng.random(B, np.float32), device=cuda)
         init_desc = 2
-    before = heightfield.launches
+    before = _launched("hf_cast")
     k = heightfield.hf_raycast(*pack, start, d, dist, skip_t0=skip_t0,
                                active=active, t_min=t_min,
                                init_desc=init_desc)
-    assert heightfield.launches == before + 1
+    assert _launched("hf_cast") == before + 1
     p = heightfield.hf_raycast_plain(*pack, start, d, dist, skip_t0, active,
                                      t_min, init_desc)
     torch.cuda.synchronize()
@@ -418,7 +424,7 @@ def test_hf_cast_rejects_bad_input(cuda, terrain):
     with pytest.raises(ValueError, match="hmax_w"):
         heightfield.hf_raycast(tiles, offs, h, start, d,
                                hmax_w=torch.ones(1))
-    before = heightfield.launches
+    before = _launched("hf_cast")
     pack4 = heightfield.build_height_mips(heights, tile_log=4, device=cuda)
     with pytest.raises(ValueError, match="tile_log"):
         heightfield.hf_raycast(*pack4, start, d)
@@ -427,7 +433,7 @@ def test_hf_cast_rejects_bad_input(cuda, terrain):
         heightfield.hf_raycast(huge, offs, h, start, d,
                                hmax_w=torch.ones(1, device=cuda))
     del huge
-    assert heightfield.launches == before
+    assert _launched("hf_cast") == before
 
 
 def test_hf_cast_at_8192_matches_plain(cuda):
@@ -485,10 +491,10 @@ def _sky_orders(env, d, want):
 
     outs = []
     for dd in (d, d.reshape(-1, 3)):
-        before = skyline.launches
+        before = _launched("sky_tmin")
         got = skyline.skyline_env_tmin(env["E"], dd, env["d0"], env["g"],
                                        env["K"], summary=env["S"])
-        assert skyline.launches == before + 1
+        assert _launched("sky_tmin") == before + 1
         assert got.shape == dd.shape[:-1]
         outs.append(got.reshape(-1))
     torch.cuda.synchronize()
@@ -628,7 +634,7 @@ def test_beam_walk_and_resolve_match_plain(cuda, beam_world, beam_clutter, K,
     hits = cut = 0
     best_k = best_p = None
     for side in BEAM_SIDES.get(case, ("kernel",) * 3):
-        before = (beam.walk_launches, beam.resolve_launches)
+        before = (_launched("beam_walk"), _launched("beam_resolve"))
         if side == "kernel":
             ck = beam._beam_walk_cuda(aug, w.height, pre, st_k, K, steps,
                                       True)
@@ -648,7 +654,7 @@ def test_beam_walk_and_resolve_match_plain(cuda, beam_world, beam_clutter, K,
             cut += int(((keep > 0) & (keep < used)).sum())
         rk = beam.resolve_candidates(c["lvl"], c["off"], c["rgb"], o, dt,
                                      w.height)
-        assert (beam.walk_launches, beam.resolve_launches) == \
+        assert (_launched("beam_walk"), _launched("beam_resolve")) == \
             (before[0] + (side == "kernel"), before[1] + 1)
         rp = beam.resolve_candidates_plain(c["lvl"], c["off"], c["rgb"],
                                            o, dt, w.height)
@@ -735,14 +741,14 @@ def test_bit_dda_matches_plain(cuda, B, frac, fetch):
                                                                dist))
     active = None if frac is None else torch.as_tensor(rng.random(B) < frac,
                                                        device=cuda)
-    before = bitdda.launches
+    before = _launched("bit_dda")
     if fetch is None:
         got = bitdda.bitgrid_raycast(*bw, grid.size, start, d, distance=dist,
                                      active=active)
     else:
         got = bitdda._bitgrid_raycast_cuda(*bw, grid.size, start, d, dist,
                                            True, active, fetch)
-    assert bitdda.launches == before + 1
+    assert _launched("bit_dda") == before + 1
     want = bitdda.bitgrid_raycast_plain(*bw, grid.size, start, d, dist, True,
                                         active)
     torch.cuda.synchronize()
@@ -809,10 +815,10 @@ def test_path_trace_matches_plain_bit_for_bit(cuda, terrain, engine, primary,
         pr = heightfield.hf_raycast(tiles, offs, w.height, args[4], args[5])
         prim = dict(hit=pr["hit"], t=pr["t"], normal=pr["normal"],
                     rgb=torch.full((B, 3), 0.5, device=cuda))
-    before = integrator.launches
+    before = _launched("path_trace")
     st_k, col_k = integrator.trace_paths(*args, 8, 32, primary=prim,
                                          fuse_nee=fuse, **kw)
-    assert integrator.launches == before + 1
+    assert _launched("path_trace") == before + 1
     work = dict(zip(integrator.K9_WORK, integrator.last_work.tolist()))
     st_p, col_p = integrator.trace_paths_plain(*args, 8, 32, primary=prim,
                                                fuse_nee=fuse, **kw)

@@ -25,6 +25,7 @@ from voxtracer_torch.core import camera as tcam
 from voxtracer_torch.kernels import heightfield as thf
 from voxtracer_torch.kernels import raster as trs
 from voxtracer_torch.kernels import traverse as ttr
+from voxtracer_torch.utils import profiling
 from voxtracer_torch.world import boxes as tboxes
 from voxtracer_torch.world import svo as tsvo
 
@@ -494,7 +495,7 @@ def test_wrapper_dispatches_on_the_device_and_checks_before_launch(world):
     r = thf.hf_raycast(tiles, offs, h, torch.tensor([20.5, 60.0, 20.5]),
                        torch.tensor([[0.0, -1.0, 0.0]]))
     assert r["hit"].all() and thf.plain_lane_steps > steps
-    assert thf.launches == 0
+    assert profiling.counts().get("launches.hf_cast", 0) == 0
 
 
 @pytest.mark.parametrize("name", ["airborne", "surface bounce", "capped"])

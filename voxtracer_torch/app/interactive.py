@@ -48,6 +48,7 @@ import torch
 
 from voxtracer_torch.core import camera as vcam
 from voxtracer_torch.kernels.traverse import svo_raycast
+from voxtracer_torch.utils.profiling import spanned
 
 
 def _stdin_poller():
@@ -67,6 +68,7 @@ def _stdin_poller():
     return poll
 
 
+@spanned("vt:pick")
 def center_pick(world, pos, yaw: float, pitch: float):
     """The block under the crosshair: ``(voxel, normal)`` int64 arrays of
     the view-centre ray's first hit in ``world`` (a ``DeviceWorld``), or

@@ -45,6 +45,7 @@ import torch
 from voxtracer_torch.core.vecmath import dot, rdiv, to_bits
 from voxtracer_torch.kernels import build
 from voxtracer_torch.kernels.traverse import EPS, FAR, leaf_rgb, svo_raycast
+from voxtracer_torch.utils import profiling
 
 AUG_WIDTH = 40
 # near-to-far octant priority (by popcount) in mirrored space
@@ -53,8 +54,6 @@ ORDER = (0, 1, 2, 4, 3, 5, 6, 7)
 # address levels up to 15
 MAX_HEIGHT = 15
 
-walk_launches = 0  # K6 launches since the last reset (chip_smoke reads it)
-resolve_launches = 0  # K7 launches since the last reset
 # beam steps summed over beams by the plain walk since the last reset
 plain_beam_steps = 0
 # a list, or None: the plain walk appends the aug row ids it expands
@@ -162,7 +161,6 @@ def _walk(aug, height, pre, state, K, max_steps, skip_t0):
 
 
 def _beam_walk_cuda(aug, height, pre, state, K, max_steps, skip_t0):
-    global walk_launches
     dev = pre["ilo"].device
     if aug.device != dev or aug.dtype != torch.int32 or aug.dim() != 2 \
             or aug.shape[1] != AUG_WIDTH or not aug.is_contiguous():
@@ -205,7 +203,7 @@ def _beam_walk_cuda(aug, height, pre, state, K, max_steps, skip_t0):
             cands["rgb"].data_ptr(), cands["ok"].data_ptr(),
             cands["t_safe"].data_ptr(), Bb, stream)
     build.check(err, "beam_walk")
-    walk_launches += 1
+    profiling.count("launches.beam_walk")
     return cands
 
 
@@ -380,7 +378,6 @@ RESOLVE_KEYS = dict(hit=((), torch.bool), t=((), torch.float32),
 
 def _resolve_cuda(cand_lvl, cand_off, cand_rgb, origin, dirs, height,
                   skip_t0, best=None):
-    global resolve_launches
     dev = dirs.device
     Bb, P, _ = dirs.shape
     K = cand_lvl.shape[1]
@@ -420,7 +417,7 @@ def _resolve_cuda(cand_lvl, cand_off, cand_rgb, origin, dirs, height,
             out["t"].data_ptr(), out["normal"].data_ptr(),
             out["rgb"].data_ptr(), out["voxel"].data_ptr(), Bb, P, K, stream)
     build.check(err, "resolve_candidates")
-    resolve_launches += 1
+    profiling.count("launches.beam_resolve")
     return out
 
 

@@ -37,9 +37,9 @@ import torch
 from voxtracer_torch.core.vecmath import hmax, hmin, rdiv
 from voxtracer_torch.kernels import build
 from voxtracer_torch.kernels.traverse import EPS, FAR, _lanes
+from voxtracer_torch.utils import profiling
 from voxtracer_torch.world.bitgrid import BRICK_VOX, CELLS, REGION_VOX
 
-launches = 0  # K8 launches since the last reset (chip_smoke reads it)
 # K8's lane fetch (csrc/lanes.cuh): K2's settings
 STATIC_PCT, CHUNK, REFILL = 75, 32, 4
 # loop steps summed over lanes by the plain version since the last reset
@@ -92,7 +92,6 @@ def check_grid(top, regions, bricks, size: int, dev, what: str):
 
 def _bitgrid_raycast_cuda(top, regions, bricks, size, start, d, distance,
                           skip_t0, active, fetch=(STATIC_PCT, CHUNK, REFILL)):
-    global launches
     dev = d.device
     check_grid(top, regions, bricks, size, dev, "bitgrid_raycast")
     B = d.shape[0]
@@ -118,7 +117,7 @@ def _bitgrid_raycast_cuda(top, regions, bricks, size, start, d, distance,
             out["normal"].data_ptr(), out["voxel"].data_ptr(), B,
             counter.data_ptr(), *fetch, stream)
     build.check(err, "bitgrid_raycast")
-    launches += 1
+    profiling.count("launches.bit_dda")
     return out
 
 

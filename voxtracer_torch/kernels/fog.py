@@ -15,6 +15,7 @@ import torch
 
 from voxtracer_torch.core.vecmath import div, sqrt
 from voxtracer_torch.kernels import build
+from voxtracer_torch.utils import profiling
 
 PLANET_RADIUS = 6371000.0  # raytrace.wgsl:262
 FOG_HALFLIFE = 10400.0 / math.log(2.0)  # raytrace.wgsl:263
@@ -35,7 +36,6 @@ MAX_STEPS = 256  # the kernel's shared table of segment fractions
 # make it refill (measured on the card, PERF.md)
 STATIC_PCT, CHUNK, REFILL = 90, 32, 8
 
-launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 # the work of K1's last launch, counted on the card (an int64 tensor
 # there, read by chip_smoke for the kernel's bound): the marches the
 # scatter-free test (csrc/fog_walk.cuh) settled, and the segments marched
@@ -51,7 +51,7 @@ def fog_march(start, direction, density, y0, n_steps: int = 64,
     Returns (code (B,) int32 [0 miss / 1 planet / 2 fog], t (B,) float32);
     an inactive lane gets code 0 and t 0.
     """
-    global launches, last_work
+    global last_work
     if start.device.type == "cpu":
         return fog_march_plain(start, direction, density, y0, n_steps, active)
     if start.device.type != "cuda":
@@ -90,7 +90,7 @@ def fog_march(start, direction, density, y0, n_steps: int = 64,
             PLANET_R2_F, FOG_R2_F, FOG_FACTOR_F, zeroed.data_ptr(), STATIC_PCT,
             CHUNK, REFILL, zeroed[1:].data_ptr(), stream)
     build.check(err, "fog_march")
-    launches += 1
+    profiling.count("launches.fog_march")
     last_work = zeroed[1:]
     return code, t
 

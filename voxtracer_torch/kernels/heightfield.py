@@ -42,13 +42,13 @@ from voxtracer_torch.core.vecmath import hmax, hmin
 from voxtracer_torch.kernels import build
 from voxtracer_torch.kernels.skyline import env_tmin
 from voxtracer_torch.kernels.traverse import EPS, FAR, _lanes, svo_raycast
+from voxtracer_torch.utils import profiling
 
 MAX_LEVELS = 16  # row starts the kernel holds in shared memory
 TILE_LOGS = (1, 2, 3)  # the kernel's instantiations (3 in production)
 # lane fetch (csrc/lanes.cuh), as for K2
 STATIC_PCT, CHUNK, REFILL = 75, 32, 4
 
-launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 # walk steps summed over lanes by the plain version since the last reset:
 # the kernel takes the same steps, so this is its work for these rays
 plain_lane_steps = 0
@@ -231,7 +231,6 @@ def hf_raycast(tiles, offsets: tuple, height: int, start, d, distance=FAR,
 
 def _hf_raycast_cuda(tiles, offsets, height, start, d, distance, skip_t0,
                      active, t_min, init_desc, hmax_w):
-    global launches
     dev = d.device
     if tiles.device != dev or tiles.dtype != torch.float32 \
             or tiles.dim() != 2 or not tiles.is_contiguous() \
@@ -274,7 +273,7 @@ def _hf_raycast_cuda(tiles, offsets, height, start, d, distance, skip_t0,
             out["normal"].data_ptr(), out["voxel"].data_ptr(), B,
             counter.data_ptr(), STATIC_PCT, CHUNK, REFILL, stream)
     build.check(err, "hf_raycast")
-    launches += 1
+    profiling.count("launches.hf_cast")
     return out
 
 

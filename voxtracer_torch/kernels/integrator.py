@@ -76,6 +76,7 @@ from voxtracer_torch.kernels import (atmosphere, beam, bitdda, build, fog,
                                      heightfield, raster, sunshadow)
 from voxtracer_torch.kernels.traverse import (EPS, FAR, MAX_HEIGHT, leaf_rgb,
                                               svo_raycast)
+from voxtracer_torch.utils import profiling
 
 # most blocked shadow rays block within a few voxels (terrain self-shadow;
 # voxtracer/kernels/integrator.py:176-181), so a cast capped here settles
@@ -96,7 +97,6 @@ EMISSIVE_GAIN = 10.0
 _FUSE = os.environ.get("VOXT_PT_FUSE", "0") == "1"
 PLANET_DRAWS = 3  # random3 draws of one atmosphere.raycast_planet
 
-launches = 0  # K9 calls since the last reset (chip_smoke reads it)
 # the work of K9's last call, counted by its stages on the card (an int64
 # tensor there, read by chip_smoke for the kernel's bound): walk steps,
 # fog segments marched, bounces; the marches set up and those the
@@ -250,7 +250,7 @@ def _trace_paths_k9(table, root, height, lut, start, direction, wavelength,
                     bitworld, bit_size, extra_draws):
     """K9's stages and its burn pass on the card, with ``extra_draws``
     more draws on every path's state."""
-    global launches, last_work, last_queues
+    global last_work, last_queues
     dev = direction.device
     if max_bounces < 1 or direction.numel() == 0:  # the draws only
         for _ in range(extra_draws):
@@ -267,8 +267,11 @@ def _trace_paths_k9(table, root, height, lut, start, direction, wavelength,
         err = lib.voxt_path_trace(*args,
                                   torch.cuda.current_stream().cuda_stream)
     build.check(err, "trace_paths")
-    launches += 1
+    profiling.count("launches.path_trace")
     last_work, last_queues = outs[3]["work"], outs[3]["counters"]
+    # while the profiler records: this call's queue lengths by bounce, as
+    # k9.queued.<queue> (the counters tensor is the call's own)
+    profiling.hold("k9.queued", K9_QUEUES, last_queues[:, :len(K9_QUEUES)])
     return k9_result(outs)
 
 
@@ -724,24 +727,26 @@ def render_sample(table, root: int, height: int, lut, cam_pos, cam_basis,
     if soup is not None and rows != height_px:
         r0a, rp, off = _aligned_band(row0, rows, height_px)
         band = (r0a, rp)
-    state, d, wavelength = _primary(cam_pos, cam_basis, frame_seed, width_px,
-                                    height_px, dev, r0a, rp)
-    primary = _first_hits(table, root, height, cam_pos, cam_basis, d,
-                          width_px, height_px, soup, soup_bins, hf_mips,
-                          hf_offsets, terrain_rgb, hf_edit_bounds, hf_sky_env,
-                          band, aug)
+    with profiling.span("vt:primary"):
+        state, d, wavelength = _primary(cam_pos, cam_basis, frame_seed,
+                                        width_px, height_px, dev, r0a, rp)
+    with profiling.span("vt:first_hits"):
+        primary = _first_hits(table, root, height, cam_pos, cam_basis, d,
+                              width_px, height_px, soup, soup_bins, hf_mips,
+                              hf_offsets, terrain_rgb, hf_edit_bounds,
+                              hf_sky_env, band, aug)
     if band is not None:
         state, d, wavelength = (a[off:off + rows]
                                 for a in (state, d, wavelength))
         primary = {k: v[off:off + rows] for k, v in primary.items()}
     pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
-    _, radiance = trace_paths(table, root, height, lut, pos, d, wavelength,
-                              sun.to(dev), state, max_bounces, fog_steps,
-                              primary=primary, hf_mips=hf_mips,
-                              hf_offsets=hf_offsets, terrain_rgb=terrain_rgb,
-                              hf_edit_bounds=hf_edit_bounds,
-                              sun_maps=sun_maps, bitworld=bitworld,
-                              bit_size=bit_size)
+    with profiling.span("vt:k9"):
+        _, radiance = trace_paths(
+            table, root, height, lut, pos, d, wavelength, sun.to(dev), state,
+            max_bounces, fog_steps, primary=primary, hf_mips=hf_mips,
+            hf_offsets=hf_offsets, terrain_rgb=terrain_rgb,
+            hf_edit_bounds=hf_edit_bounds, sun_maps=sun_maps,
+            bitworld=bitworld, bit_size=bit_size)
     return radiance
 
 
@@ -759,25 +764,28 @@ def render_samples(table, root: int, height: int, lut, cam_pos, cam_basis,
     pose bins (``soup_bins``, or bins built here once for all k); with
     ``hf_sky_env`` one envelope lookup and one resumed walk for all k."""
     dev = table.device
-    parts = [_primary(cam_pos, cam_basis, s, width_px, height_px, dev)
-             for s in frame_seeds]
-    state = torch.stack([p[0] for p in parts])
-    d = torch.stack([p[1] for p in parts])
-    wavelength = torch.stack([p[2] for p in parts])
-    if soup is not None and soup_bins is None:
-        soup_bins = raster.raster_bins(*soup, cam_pos, cam_basis, height,
-                                       width_px, height_px, jittered=True)
-    primary = _first_hits(table, root, height, cam_pos, cam_basis, d,
-                          width_px, height_px, soup, soup_bins, hf_mips,
-                          hf_offsets, terrain_rgb, hf_edit_bounds, hf_sky_env,
-                          aug=aug)
+    with profiling.span("vt:primary"):
+        parts = [_primary(cam_pos, cam_basis, s, width_px, height_px, dev)
+                 for s in frame_seeds]
+        state = torch.stack([p[0] for p in parts])
+        d = torch.stack([p[1] for p in parts])
+        wavelength = torch.stack([p[2] for p in parts])
+    with profiling.span("vt:first_hits"):
+        if soup is not None and soup_bins is None:
+            soup_bins = raster.raster_bins(*soup, cam_pos, cam_basis, height,
+                                           width_px, height_px, jittered=True)
+        primary = _first_hits(table, root, height, cam_pos, cam_basis, d,
+                              width_px, height_px, soup, soup_bins, hf_mips,
+                              hf_offsets, terrain_rgb, hf_edit_bounds,
+                              hf_sky_env, aug=aug)
     pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
-    _, r = trace_paths(table, root, height, lut, pos, d, wavelength,
-                       sun.to(dev), state, max_bounces, fog_steps,
-                       primary=primary, hf_mips=hf_mips,
-                       hf_offsets=hf_offsets, terrain_rgb=terrain_rgb,
-                       hf_edit_bounds=hf_edit_bounds, sun_maps=sun_maps,
-                       bitworld=bitworld, bit_size=bit_size)
+    with profiling.span("vt:k9"):
+        _, r = trace_paths(table, root, height, lut, pos, d, wavelength,
+                           sun.to(dev), state, max_bounces, fog_steps,
+                           primary=primary, hf_mips=hf_mips,
+                           hf_offsets=hf_offsets, terrain_rgb=terrain_rgb,
+                           hf_edit_bounds=hf_edit_bounds, sun_maps=sun_maps,
+                           bitworld=bitworld, bit_size=bit_size)
     acc = r[0]
     for k in range(1, r.shape[0]):
         acc = acc + r[k]

@@ -33,13 +33,12 @@ import numpy as np
 import torch
 
 from voxtracer_torch.kernels import build
+from voxtracer_torch.utils import profiling
 
 EPS = 1.0e-6  # raytrace.wgsl:53
 # the plain version evaluates this many (tile, candidate, ray) slab tests
 # per vectorised step
 PLAIN_BLOCK = 1 << 22
-
-launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 
 
 def decode(rows):
@@ -116,7 +115,6 @@ def resolve_fold(t, pl, rgb, rows, valid, d, cam_pos, tree_height: int,
     origin, three float32 values; distance: scalar far cap (strict).
     Returns the folded carry (t, pl, rgb) as new tensors.
     """
-    global launches
     N, R, K, shared = _check(t, pl, rgb, rows, valid, d)
     if t.device.type == "cpu":
         return resolve_fold_plain(t, pl, rgb, rows, valid, d, cam_pos,
@@ -142,7 +140,7 @@ def resolve_fold(t, pl, rgb, rows, valid, d, cam_pos, tree_height: int,
             t_out.data_ptr(), pl_out.data_ptr(), rgb_out.data_ptr(), N, R, K,
             0, 0, stream)  # the launcher picks its grid
     build.check(err, "resolve_fold")
-    launches += 1
+    profiling.count("launches.resolve_fold")
     return t_out, pl_out, rgb_out
 
 
@@ -248,7 +246,6 @@ def resolve_fold_seg(t, pl, rgb, spairs, tiles, start, k: int, db: int,
     inf when it is not the tile's). A tile whose bound is not below its
     max is complete.
     """
-    global launches
     NT, R, S = _check_seg(t, pl, rgb, spairs, tiles, start, k, d, ok)
     if t.device.type == "cpu":
         return resolve_fold_seg_plain(t, pl, rgb, spairs, tiles, start, k, db,
@@ -275,7 +272,7 @@ def resolve_fold_seg(t, pl, rgb, spairs, tiles, start, k: int, db: int,
             float(1 << tree_height), float(np.float32(distance)), R,
             0, 0, stream)  # the launcher picks its grid
     build.check(err, "resolve_fold_seg")
-    launches += 1
+    profiling.count("launches.resolve_fold")
     return tile_max, next_dmin
 
 

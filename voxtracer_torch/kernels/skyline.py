@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from voxtracer_torch.kernels import build
+from voxtracer_torch.utils import profiling
 
 NUM_MARGIN = 0.5    # voxels added over every cell max (walk f32 wobble)
 REL_MARGIN = 1e-5   # relative tan slack (f32 direction/test rounding)
@@ -48,7 +49,6 @@ PATCH_COLS = 16     # patch_sky_levels rebuilds above this many columns
 PLAIN_CHUNK = 1 << 20  # lanes a chunk of the plain lookup gathers rows for
 SUMMARY_BLOCK = 16  # rungs of E that one entry of the summary stands for
 
-launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 
 _TWO_PI = float(np.float32(2.0 * np.pi))
 _PI = float(np.float32(np.pi))
@@ -354,7 +354,6 @@ def env_tmin(sky_env, d):
 
 
 def _skyline_env_tmin_cuda(E, S, d, bin_w, log2_d0, log2_g, far):
-    global launches
     dev = d.device
     if E.device != dev or E.dtype != torch.float32 or E.dim() != 2 \
             or not E.is_contiguous():
@@ -386,7 +385,7 @@ def _skyline_env_tmin_cuda(E, S, d, bin_w, log2_d0, log2_g, far):
                                 out.data_ptr(),
                                 torch.cuda.current_stream().cuda_stream)
     build.check(err, "skyline_env_tmin")
-    launches += 1
+    profiling.count("launches.sky_tmin")
     return out
 
 

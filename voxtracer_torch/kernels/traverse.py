@@ -22,6 +22,7 @@ import torch
 
 from voxtracer_torch.core.vecmath import hmax, hmin, rdiv, to_bits
 from voxtracer_torch.kernels import build
+from voxtracer_torch.utils import profiling
 
 EPS = 1.0e-6  # raytrace.wgsl:53
 FAR = 1.0e12  # "no cap" distance used by the integrator (raytrace.wgsl:343)
@@ -31,7 +32,6 @@ MAX_HEIGHT = 15  # the kernel's node stack holds height + 1 <= 16 slots
 # make it refill (measured on the card, PERF.md)
 STATIC_PCT, CHUNK, REFILL = 75, 32, 4
 
-launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 dense_host_reads = 0  # dense_raycast's alive.any() reads since the last reset
 # loop steps summed over lanes by the plain version since the last reset:
 # the kernel takes the same steps, so this is its work for these rays
@@ -85,7 +85,6 @@ def svo_raycast(table, root: int, height: int, start, d, distance=FAR,
 
 def _svo_raycast_cuda(table, root, height, start, d, distance, skip_t0,
                       active):
-    global launches
     if height > MAX_HEIGHT:
         raise ValueError(f"svo_raycast: height {height} > {MAX_HEIGHT}, the "
                          "kernel's node stack limit")
@@ -119,7 +118,7 @@ def _svo_raycast_cuda(table, root, height, start, d, distance, skip_t0,
             out["normal"].data_ptr(), out["voxel"].data_ptr(), B,
             counter.data_ptr(), STATIC_PCT, CHUNK, REFILL, stream)
     build.check(err, "svo_raycast")
-    launches += 1
+    profiling.count("launches.svo_cast")
     return out
 
 

@@ -32,6 +32,7 @@ from voxtracer_torch.kernels.integrator import render_sample, render_samples
 from voxtracer_torch.kernels.traverse import leaf_rgb
 from voxtracer_torch.render import checkpoint, film
 from voxtracer_torch.render.accumulator import Accumulator
+from voxtracer_torch.utils.profiling import span, spanned
 from voxtracer_torch.world import boxes
 from voxtracer_torch.world.svo import EMPTY, DeviceSvo, DeviceWorld, upload
 
@@ -167,6 +168,7 @@ class Renderer:
         self.soup_world = self.use_soup and _heights(device_svo) is not None
         self.acc.invalidate()
 
+    @spanned("vt:apply_edits")
     def apply_edits(self, space, edits=None):
         """Bring the device up to date after point edits already made in
         ``space``: only the rows its ``serialize_delta`` reports are
@@ -180,8 +182,9 @@ class Renderer:
         grows least merged first; past a quarter of the world edge the
         engine turns off). Without ``edits`` the soup and the engine are
         dropped until the next ``update_space``."""
-        delta = (space.serialize_delta()
-                 if hasattr(space, "serialize_delta") else None)
+        with span("vt:edits.delta"):
+            delta = (space.serialize_delta()
+                     if hasattr(space, "serialize_delta") else None)
         if delta is None:
             self.update_space(space.serialize())
             return
@@ -189,19 +192,21 @@ class Renderer:
         if height != self.world.height or self._solid_leaf is None:
             self.update_space(space.serialize())
             return
-        table = self.world.table
-        if cap > table.shape[0]:
-            grow = cap - table.shape[0]
-            table = torch.cat([table, torch.full(
-                (grow, 8), -1, dtype=torch.int32, device=self.device)])
-            self._solid_leaf = np.concatenate(
-                [self._solid_leaf, np.full(grow, -1, np.int32)])
-        if len(rows):
-            idx = torch.from_numpy(np.asarray(rows, np.int64)).to(self.device)
-            table[idx] = torch.from_numpy(
-                np.ascontiguousarray(vals, np.uint32).view(np.int32)).to(
-                self.device)
-            self._solid_leaf[np.asarray(rows, np.int64)] = solid
+        with span("vt:edits.table"):
+            table = self.world.table
+            if cap > table.shape[0]:
+                grow = cap - table.shape[0]
+                table = torch.cat([table, torch.full(
+                    (grow, 8), -1, dtype=torch.int32, device=self.device)])
+                self._solid_leaf = np.concatenate(
+                    [self._solid_leaf, np.full(grow, -1, np.int32)])
+            if len(rows):
+                idx = torch.from_numpy(np.asarray(rows, np.int64)).to(
+                    self.device)
+                table[idx] = torch.from_numpy(
+                    np.ascontiguousarray(vals, np.uint32).view(np.int32)).to(
+                    self.device)
+                self._solid_leaf[np.asarray(rows, np.int64)] = solid
         self.world = DeviceWorld(table=table,
                                  root=-1 if root == EMPTY else int(root),
                                  height=self.world.height)
@@ -210,40 +215,19 @@ class Renderer:
         if self._soup is None:
             patched = True  # the lazy extraction reads the edited world
         elif edits is not None:
-            patched = self._soup.apply(edits, space)
+            with span("vt:edits.soup"):
+                patched = self._soup.apply(edits, space)
         else:
             patched = False
         if edits is not None and len(edits) \
                 and self._apply_hf_edits(space, edits):
             pass  # still an exact heightfield: the pure walk stays valid
         elif edits is not None and len(edits):
-            # the walk on the pre-edit pack stays exact outside the boxes;
-            # a box is grown by a voxel to bury float32 slab wobble
+            # the walk on the pre-edit pack stays exact outside the boxes
             sp0 = getattr(self._dev, "space", None)
             if sp0 is not None:
                 sp0.heights_exact = False
-            e = np.asarray(edits, np.float32).reshape(-1, 3)
-            bl = list(self._edit_bounds or [])
-            bl.append(np.stack([e.min(axis=0) - 1.0, e.max(axis=0) + 2.0]))
-            while len(bl) > self.EDIT_BOXES:
-                best, bi, bj = None, 0, 1
-                for i in range(len(bl)):
-                    for j in range(i + 1, len(bl)):
-                        u = (np.maximum(bl[i][1], bl[j][1])
-                             - np.minimum(bl[i][0], bl[j][0])).prod()
-                        grow = u - (bl[i][1] - bl[i][0]).prod() \
-                            - (bl[j][1] - bl[j][0]).prod()
-                        if best is None or grow < best:
-                            best, bi, bj = grow, i, j
-                m = np.stack([np.minimum(bl[bi][0], bl[bj][0]),
-                              np.maximum(bl[bi][1], bl[bj][1])])
-                bl = [b for k, b in enumerate(bl) if k not in (bi, bj)]
-                bl.append(m)
-            self._edit_bounds = bl
-            if max((b[1] - b[0]).max() for b in bl) \
-                    > (1 << self.world.height) / 4.0:
-                self._edit_bounds = None
-                self._hf = False
+            self._add_edit_bounds(edits)
         else:
             # edits at unknown places: no pre-edit walk can be trusted
             sp0 = getattr(self._dev, "space", None)
@@ -263,6 +247,36 @@ class Renderer:
                                        self._seen_set_calls)
         self.acc.invalidate()
 
+    @spanned("vt:edits.bounds")
+    def _add_edit_bounds(self, edits):
+        """Add the box around ``edits``, grown by a voxel to bury float32
+        slab wobble, to the edit bounds, merging the pair whose union
+        grows least while there are more than ``EDIT_BOXES``; past a
+        quarter of the world edge the engine turns off."""
+        e = np.asarray(edits, np.float32).reshape(-1, 3)
+        bl = list(self._edit_bounds or [])
+        bl.append(np.stack([e.min(axis=0) - 1.0, e.max(axis=0) + 2.0]))
+        while len(bl) > self.EDIT_BOXES:
+            best, bi, bj = None, 0, 1
+            for i in range(len(bl)):
+                for j in range(i + 1, len(bl)):
+                    u = (np.maximum(bl[i][1], bl[j][1])
+                         - np.minimum(bl[i][0], bl[j][0])).prod()
+                    grow = u - (bl[i][1] - bl[i][0]).prod() \
+                        - (bl[j][1] - bl[j][0]).prod()
+                    if best is None or grow < best:
+                        best, bi, bj = grow, i, j
+            m = np.stack([np.minimum(bl[bi][0], bl[bj][0]),
+                          np.maximum(bl[bi][1], bl[bj][1])])
+            bl = [b for k, b in enumerate(bl) if k not in (bi, bj)]
+            bl.append(m)
+        self._edit_bounds = bl
+        if max((b[1] - b[0]).max() for b in bl) \
+                > (1 << self.world.height) / 4.0:
+            self._edit_bounds = None
+            self._hf = False
+
+    @spanned("vt:edits.hf")
     def _apply_hf_edits(self, space, edits) -> bool:
         """If after this batch every touched column is a contiguous
         terrain-coloured stack [0, h'), write the new heights into
@@ -386,6 +400,7 @@ class Renderer:
                 np.stack(self._edit_bounds).astype(np.float32)).to(self.device)
         return self._bounds_t
 
+    @spanned("vt:sky_env")
     def _get_sky_env(self, cam: vcam.Camera):
         """The pose's horizon envelope ``(E, d0, g, K, S)`` (S: K5's
         summary, ``skyline.env_summary``) for an hf-only world, or None.
@@ -410,14 +425,15 @@ class Renderer:
             if self._tier(uses) == tier:
                 self._sky_env = (key, args, tier, uses)
                 return args
-        if self._sky_mips is None:
-            tiles, offsets, _ = self._get_hf()
-            self._sky_mips = skyline.sky_levels_from_hf(tiles, offsets,
-                                                        self.world.height)
         tier = self._tier(uses)
-        env = skyline.build_skyline_env_device(
-            self._sky_mips, np.asarray(cam.pos, np.float64),
-            **self.SKY_TIERS[tier][0])
+        with span(f"vt:sky_env.build.t{tier}"):
+            if self._sky_mips is None:
+                tiles, offsets, _ = self._get_hf()
+                self._sky_mips = skyline.sky_levels_from_hf(
+                    tiles, offsets, self.world.height)
+            env = skyline.build_skyline_env_device(
+                self._sky_mips, np.asarray(cam.pos, np.float64),
+                **self.SKY_TIERS[tier][0])
         args = (env["E"], env["d0"], env["g"], env["K"], env["S"])
         self._sky_env = (key, args, tier, uses)
         return args
@@ -492,6 +508,7 @@ class Renderer:
             self._bins_key = key
         return self._bins
 
+    @spanned("vt:begin")
     def _begin(self, cam: vcam.Camera, sun):
         sun = np.asarray(sun, np.float64)
         sun_unit = (sun / np.linalg.norm(sun)).astype(np.float32)
@@ -504,15 +521,20 @@ class Renderer:
         return (w.table, w.root, w.height, self.lut,
                 np.asarray(cam.pos, np.float32), cam.basis())
 
+    @spanned("vt:engine_kw")
     def _engine_kw(self, cam: vcam.Camera):
-        soup = self._get_soup()
+        with span("vt:soup"):
+            soup = self._get_soup()
         hf_mips, hf_offsets, terrain_rgb = self._get_hf()
         env = self._get_sky_env(cam)
-        return dict(soup=soup, soup_bins=self._get_soup_bins(cam, soup),
-                    hf_mips=hf_mips, hf_offsets=hf_offsets,
-                    terrain_rgb=terrain_rgb, hf_edit_bounds=self._hf_bounds(),
-                    hf_sky_env=env,
-                    sun_maps=self._get_sun_maps(self._sun_unit))
+        with span("vt:bins"):
+            bins = self._get_soup_bins(cam, soup)
+        with span("vt:sun_maps"):
+            sun_maps = self._get_sun_maps(self._sun_unit)
+        return dict(soup=soup, soup_bins=bins, hf_mips=hf_mips,
+                    hf_offsets=hf_offsets, terrain_rgb=terrain_rgb,
+                    hf_edit_bounds=self._hf_bounds(), hf_sky_env=env,
+                    sun_maps=sun_maps)
 
     def _dist(self):
         """The sample-sharded step over the mesh, built on first use after
@@ -569,6 +591,7 @@ class Renderer:
             self._dist_bins_key = key
         return extra, self._dist_bins
 
+    @spanned("vt:sample")
     def sample(self, cam: vcam.Camera, sun: np.ndarray):
         """One progressive step: 1 spectral path per pixel; with
         ``devices`` one on each mesh entry, N samples a call, their frame
@@ -588,8 +611,10 @@ class Renderer:
             *self._args(cam), sun_t, seed, self.width, self.height,
             max_bounces=self.max_bounces, fog_steps=self.fog_steps,
             **self._engine_kw(cam))
-        self.acc.add(radiance)
+        with span("vt:acc_add"):
+            self.acc.add(radiance)
 
+    @spanned("vt:sample")
     def sample_batch(self, cam: vcam.Camera, sun: np.ndarray, k: int):
         """Accumulate k samples traced as one batch (on the Renderer's
         device, with or without ``devices``)."""
@@ -600,8 +625,10 @@ class Renderer:
             *self._args(cam), sun_t, seeds, self.width, self.height,
             max_bounces=self.max_bounces, fog_steps=self.fog_steps,
             **self._engine_kw(cam))
-        self.acc.add(total, k)
+        with span("vt:acc_add"):
+            self.acc.add(total, k)
 
+    @spanned("vt:preview")
     def preview_frame(self, cam: vcam.Camera, sun: np.ndarray):
         """Shaded primary-visibility frame for interactive preview
         (software.rs:260-276 shading on the rasterized first hit), on the
@@ -616,10 +643,11 @@ class Renderer:
         soup = self._get_soup()
         if soup is None:
             return self._hf_preview(cam, sun_t)
-        r = raster.raster_cast(
-            *soup, np.asarray(cam.pos, np.float32), cam.basis(),
-            self.world.height, self.width, self.height,
-            bins=self._get_soup_bins(cam, soup), want_voxel=False)
+        with span("vt:frame_cast"):
+            r = raster.raster_cast(
+                *soup, np.asarray(cam.pos, np.float32), cam.basis(),
+                self.world.height, self.width, self.height,
+                bins=self._get_soup_bins(cam, soup), want_voxel=False)
         lighting = dot(sun_t, r["normal"]) / 2.0 + 1.0
         return r["rgb"] * lighting[..., None] * r["hit"][..., None]
 
@@ -636,17 +664,20 @@ class Renderer:
         bounds = self._hf_bounds()
         env = self._get_sky_env(cam)
         if bounds is None:
-            r = heightfield.hf_frame_cast(
-                hf_mips, hf_offsets, self.world.height, pos, cam.basis(),
-                self.width, self.height, terrain_rgb, sky_env=env)
+            with span("vt:frame_cast"):
+                r = heightfield.hf_frame_cast(
+                    hf_mips, hf_offsets, self.world.height, pos,
+                    cam.basis(), self.width, self.height, terrain_rgb,
+                    sky_env=env)
             rgb = r["rgb"]
         else:
             _, d = vcam.generate_rays(cam, self.width, self.height,
                                       device=self.device)
             w = self.world
-            r = heightfield.hf_raycast_edited(
-                hf_mips, hf_offsets, w.height, w.table, w.root, bounds,
-                torch.from_numpy(pos).to(self.device), d, sky_env=env)
+            with span("vt:frame_cast"):
+                r = heightfield.hf_raycast_edited(
+                    hf_mips, hf_offsets, w.height, w.table, w.root, bounds,
+                    torch.from_numpy(pos).to(self.device), d, sky_env=env)
             rgb = torch.where((r["node"] >= 0)[..., None],
                               leaf_rgb(w.table, r["node"]),
                               terrain_rgb.expand(r["normal"].shape)) \
