@@ -238,6 +238,12 @@ K1_SETUP_OPS, K1_STEP_OPS, K2_STEP_OPS, K3_PAIR_OPS = 30, 30, 30, 27
 K4_SETUP_OPS, K4_STEP_OPS = 60, 40
 # K5 per ray (azimuth bin, slope, t_min) and per step of its row search
 K5_RAY_OPS, K5_STEP_OPS = 50, 2
+# K10 per cell of its fold (counted in sky_env.cu, libdevice's sequences
+# included): the level lookup, the window index and the ladder's gate (two
+# box distances, a hypotf each) ~60; a selected cell's height, bound,
+# five atan2f (~45 each), five fmodf, two log2f, a hypotf and four
+# divisions ~400 more
+K10_CELL_OPS, K10_SEL_OPS = 60, 400
 # K9 per bounce of a path besides its walk steps and fog segments (counted
 # in path_trace.cu): 11 random3 draws ~345 integer operations, two
 # hemisphere samples ~110, the sun sample ~50, two march setups 60, two
@@ -1879,15 +1885,15 @@ def phase_main(space, dev):
                              "heightfield engines")
     counts = _headless(renderer, cam, 2, 16, 8, "1024^3 path")
     _expect_launches("1024^3 path", counts, ("path_trace", "resolve_fold"),
-                     ("sky_tmin", "fog_march", "svo_cast"))
+                     ("sky_tmin", "env_build", "fog_march", "svo_cast"))
     path_recs = [phase_path_kernel("1024^3, default Renderer", renderer,
                                    cam)]
     svo = Renderer(space.serialize(), WIDTH, HEIGHT, seed=0, device=dev,
                    use_soup=False, use_hf=False)
     svo_counts = _headless(svo, cam, 1, 8, 8, "SVO-engine path")
     _expect_launches("SVO-engine path", svo_counts, ("path_trace",),
-                     ("resolve_fold", "hf_cast", "sky_tmin", "fog_march",
-                      "svo_cast"))
+                     ("resolve_fold", "hf_cast", "sky_tmin", "env_build",
+                      "fog_march", "svo_cast"))
     path_recs.append(phase_path_kernel("1024^3, SVO engine", svo, cam))
     return counts, svo_counts, renderer, svo, path_recs
 
@@ -2036,6 +2042,108 @@ def _sky_bound(d, E, bin_w):
                   B * (K5_RAY_OPS + steps * K5_STEP_OPS))
 
 
+def _env_selected(pack, plan) -> int:
+    """The cells of ``plan``'s levels that the ladder selects (sky_env.cu's
+    gate, replayed on the card)."""
+    import torch
+
+    f32, dev = torch.float32, pack["flat"].device
+    ox, oz = plan["ox"], plan["oz"]
+
+    def d_min(x0, x1, z0, z1):
+        return torch.hypot(
+            torch.clamp_min(torch.maximum(x0 - ox, ox - x1), 0.0),
+            torch.clamp_min(torch.maximum(z0 - oz, oz - z1), 0.0))
+
+    n = 0
+    for lvl in plan["levels"]:
+        r = torch.arange(lvl.size * lvl.size, device=dev)
+        x0 = (lvl.i0 + r // lvl.size).to(f32) * lvl.c
+        z0 = (lvl.j0 + r % lvl.size).to(f32) * lvl.c
+        sel = d_min(x0, x0 + lvl.c, z0, z0 + lvl.c) >= lvl.a_lo
+        if not lvl.is_top:
+            pc = 2.0 * lvl.c
+            px0, pz0 = torch.floor(x0 / pc) * pc, torch.floor(z0 / pc) * pc
+            sel &= d_min(px0, px0 + pc, pz0, pz0 + pc) < lvl.a_hi
+        n += int(sel.sum())
+    return n
+
+
+def _env_bound(pack, plan, bins, K, used_rows, n_sel):
+    """K10's bound: the workspace's clear, the used class rows read once,
+    the dilated rows written and read, E and S written; against every
+    cell's gate and the selected cells' fold (K10_CELL_OPS,
+    K10_SEL_OPS)."""
+    n_cls = len(plan["cls_w"])
+    cells = sum(lvl.size * lvl.size for lvl in plan["levels"])
+    nbytes = 4 * (K + n_cls * K * (bins + 1) + used_rows * bins
+                  + 2 * K * bins + bins * (K + -(-K // 16)))
+    return _bound(nbytes, cells * K10_CELL_OPS + n_sel * K10_SEL_OPS)
+
+
+def _check_env_build(pack, origin, kw, tier):
+    """K10 on one envelope tier: E and S equal to the plain build's
+    (``skyline._env_device``) by bits, one launch count a build; its host
+    ms to enqueue a build, its ms (CUDA events, a pair a build behind a
+    spin), the plain build's ms and the bound (the used class rows read
+    from its workspace)."""
+    import torch
+
+    from voxtracer_torch.kernels import build, skyline
+
+    o = np.asarray(origin, np.float64)
+    full = dict(dict(bins=4096, ratio=16, K=64, d0=4.0, cls_step=1.0), **kw)
+    bins, K = full["bins"], full["K"]
+
+    def plain():
+        return skyline._env_device(
+            pack["flat"], pack["coarse"], o, pack["offsets"], bins,
+            full["ratio"], K, full["d0"], pack["height"], full["cls_step"])
+
+    def k10():
+        return skyline.build_skyline_env_device(pack, o, **kw)
+
+    before = _launches()["env_build"]
+    env = k10()
+    if _launches()["env_build"] != before + 1:
+        raise AssertionError("env_build: one launch count a build")
+    E = plain()
+    torch.cuda.synchronize()
+    if not (torch.equal(env["E"], E)
+            and torch.equal(env["S"], skyline.env_summary(E))):
+        raise AssertionError(f"env_build tier {tier}: K10's table differs "
+                             "from the plain build's")
+    plan = skyline._env_plan(pack["offsets"], pack["height"], o, bins,
+                             full["ratio"], K, full["d0"], full["cls_step"])
+    _, _, _, ws = skyline._env_launch(
+        build.library().voxt_sky_env, pack["flat"], pack["coarse"], plan,
+        pack["offsets"], pack["height"], bins, K,
+        torch.cuda.current_stream().cuda_stream)
+    n_cls = len(plan["cls_w"])
+    used = int((ws[K:K + n_cls * K] != 0).sum())
+    n_sel = _env_selected(pack, plan)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        k10()
+        host.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    k_ms = _ms_fresh(lambda: None, k10, 10)
+    p_ms = _ms_fresh(lambda: None, plain, 3)
+    bound_ms, bound_by = _env_bound(pack, plan, bins, K, used, n_sel)
+    cells = sum(lvl.size * lvl.size for lvl in plan["levels"])
+    print(f"env_build tier {tier} {kw}: K10 equal to the plain build by "
+          f"bits; {cells} cells, {n_sel} selected, {used} of "
+          f"{n_cls * K} class rows used; K10 {k_ms:.4f} ms (host enqueue "
+          f"{min(host):.3f} ms), plain {p_ms:.2f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / k_ms:.1f}% "
+          "of the bound")
+    return dict(ms=k_ms, host_ms=min(host), plain_ms=p_ms, bound_ms=bound_ms,
+                bound_by=bound_by, cells=cells, selected=n_sel,
+                used_rows=used)
+
+
 def _k5_warps(shape, dev):
     """The warp of each lane of an (S, H, W) image set (lane order s, y,
     x) when K5 walks it in pixel tiles (sky_tmin.cu: a block of 8 columns
@@ -2133,8 +2241,9 @@ def _batch8_primaries(renderer, cam, dev):
 
 
 def phase_envelope(renderer, cam, dev):
-    """K5 on the 8192^3 world, each of the Renderer's envelope tiers:
-    the tier's build ms; K5 against its plain version at 409,440
+    """K10 and K5 on the 8192^3 world, each of the Renderer's envelope
+    tiers: K10 against the plain build (_check_env_build), the tier's
+    build ms; K5 against its plain version at 409,440
     pixel-centre camera rays and at batch-8 width (jittered primaries),
     each set in image order (pixel tiles, as the main path calls it) and
     in lane order: rung counts (a t_min off by more than 1e-6 relative)
@@ -2143,9 +2252,9 @@ def phase_envelope(renderer, cam, dev):
     search's reads in each lane order and search (_k5_search_reads)
     beside the bound's bytes in sectors; the walk K5's t_min resumes
     (init_desc 3) against the full walk, hit, t and normal by bits in
-    every lane. Returns the record of the batch-8 set at tier 1 in image
-    order, the tier and order the held pose of the main path runs
-    most."""
+    every lane. Returns K5's record of the batch-8 set at tier 1 in image
+    order, the tier and order the held pose of the main path runs most,
+    and K10's record at tier 1 (the tiers' records under "tiers")."""
     import torch
 
     from voxtracer_torch.kernels import heightfield, skyline
@@ -2164,8 +2273,9 @@ def phase_envelope(renderer, cam, dev):
              (8, HEIGHT, WIDTH)))
     origin = torch.as_tensor(pos, device=dev)
     hmax_w = heightfield.terrain_max(tiles, offs)
-    rec = None
+    rec, env_recs = None, []
     for tier, (kw, first) in enumerate(renderer.SKY_TIERS):
+        env_recs.append(_check_env_build(pack, cam.pos, kw, tier))
         builds = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -2261,7 +2371,7 @@ def phase_envelope(renderer, cam, dev):
                            ms_lane_order=out["lane order"]["ms"],
                            search_reads=reads,
                            bound_sectors_a_lane=bound_sectors)
-    return rec
+    return rec, dict(env_recs[1], tiers=env_recs)
 
 
 def phase_envelope_path(renderer, cam):
@@ -2898,7 +3008,7 @@ def phase_dense(dev):
 
 
 LAUNCHED = ("fog_march", "svo_cast", "resolve_fold", "hf_cast", "sky_tmin",
-            "beam_walk", "beam_resolve", "bit_dda", "path_trace")
+            "beam_walk", "beam_resolve", "bit_dda", "path_trace", "env_build")
 
 
 def _zero_launches():
@@ -3326,11 +3436,11 @@ def phase_full(dev):
         if name in FULL_HF_SETS:
             _check_hf(f"{name} at {n}^3", pack, renderer.world, start, d,
                       distance, active, timed=name == "camera")
-    sky_rec = phase_envelope(renderer, cam, dev)
+    sky_rec, env_rec = phase_envelope(renderer, cam, dev)
     counts = _headless(renderer, cam, 2, 16, 8, "main path",
                        log2_size=FULL_LOG2_SIZE, checkpoint_every=16)
     _expect_launches("main path", counts, ("path_trace", "hf_cast",
-                                           "sky_tmin"),
+                                           "sky_tmin", "env_build"),
                      ("svo_cast", "resolve_fold", "fog_march"))
     path_rec = phase_path_kernel(f"{n}^3 main path (hf-only)", renderer, cam)
     phase_envelope_path(renderer, cam)
@@ -3348,7 +3458,7 @@ def phase_full(dev):
     maps_rec = phase_sunmaps(renderer, cam, dev)
     phase_prefix(renderer, cam, dev)
     phase_beam_full(renderer, cam, dev)
-    return counts, sky_rec, path_rec, maps_rec
+    return counts, sky_rec, env_rec, path_rec, maps_rec
 
 
 # ---- the JAX package's selectable engines: sun maps, the beam engine
@@ -4050,7 +4160,7 @@ def main() -> int:
     phase_dense(dev)
     phase_terrain_card(dev)
     torch.cuda.empty_cache()
-    full, sky_rec, main_path, maps_path = phase_full(dev)
+    full, sky_rec, env_rec, main_path, maps_path = phase_full(dev)
     path_recs[:0] = [main_path, maps_path]
     _path_summary(path_recs)
 
@@ -4075,6 +4185,10 @@ def main() -> int:
              source="voxtracer_torch/kernels/csrc/sky_tmin.cu",
              replaces="voxtracer/kernels/skyline.py:441",
              launches=full["sky_tmin"], **sky_rec),
+        dict(name="sky_env", route="cuda",
+             source="voxtracer_torch/kernels/csrc/sky_env.cu",
+             replaces="voxtracer/kernels/skyline.py:648",
+             launches=full["env_build"], **env_rec),
         dict(name="beam_walk", route="cuda",
              source="voxtracer_torch/kernels/csrc/beam_walk.cu",
              replaces="voxtracer/kernels/beam.py:94",

@@ -1,7 +1,7 @@
 """CUDA kernels K1 (fog march), K2 (SVO cast), K3 (resolve fold), K4
 (heightfield walk), K5 (envelope lookup), K6 (beam walk), K7 (beam
-resolve), K8 (bit-grid DDA) and K9 (the bounce loop) against their plain
-PyTorch versions, and
+resolve), K8 (bit-grid DDA), K9 (the bounce loop) and K10 (the envelope
+build) against their plain PyTorch versions, and
 the terrain built on the card against the CPU's, on the card. Every test
 skips when
 torch sees no CUDA device (decided inside the fixture, not at import).
@@ -480,6 +480,107 @@ def _sky_env(cuda, tier):
         skyline.sky_levels_from_hf(*pack), np.asarray(cam.pos, np.float64),
         **Renderer.SKY_TIERS[tier][0])
     return pack, cam, env
+
+
+def _plain_env(pack, origin, bins=4096, ratio=16, K=64, d0=4.0,
+               cls_step=1.0):
+    """build_skyline_env_device with the plain build on the card."""
+    from voxtracer_torch.kernels import skyline
+
+    E = skyline._env_device(pack["flat"], pack["coarse"], origin,
+                            pack["offsets"], bins, ratio, K, float(d0),
+                            pack["height"], float(cls_step))
+    g = (4.0 * (1 << pack["height"]) / d0) ** (1.0 / (K - 1.0))
+    return dict(E=E, S=skyline.env_summary(E), d0=float(d0), g=float(g),
+                bins=bins, K=K)
+
+
+@pytest.fixture(scope="module")
+def sky_packs(cuda):
+    """The envelope pyramids of 128^3, 1024^3 and 8192^3 terrains (built
+    on the card), each with its highest column."""
+    from voxtracer_torch.kernels import skyline
+
+    out = {}
+    for lg in (7, 10, 13):
+        h = worldgen.heightmap(lg, device=cuda)
+        out[lg] = (skyline.sky_levels_from_hf(
+            *heightfield.build_height_mips(h, device=cuda)), float(h.max()))
+    return out
+
+
+@pytest.mark.parametrize("where", ["pose", "edge", "inside", "above",
+                                   "outside"])
+@pytest.mark.parametrize("log2", [7, 10, 13])
+@pytest.mark.parametrize("tier", [0, 1, 2])
+def test_sky_env_matches_plain(cuda, sky_packs, tier, log2, where):
+    """K10 against the plain build on the card at each of the Renderer's
+    envelope tiers: E and S equal (torch.equal), one launch count a
+    build; at the smoke pose, on the world's edge, inside a cell under
+    the peaks, above all terrain and outside the grid."""
+    from voxtracer_torch.core import camera as vcam
+    from voxtracer_torch.kernels import skyline
+    from voxtracer_torch.render.driver import Renderer
+
+    lv, top = sky_packs[log2]
+    n = 1 << log2
+    o = np.asarray(dict(
+        pose=np.asarray(vcam.DEFAULT_POSE.pos) * n / 8192,
+        edge=(0.0, top * 0.6, n * 0.45),
+        inside=(n * 0.37 + 0.3, top * 0.7, n * 0.61 + 0.45),
+        above=(n * 0.52, top + 9.5, n * 0.3),
+        outside=(-0.4 * n, top + 30.0, n * 1.2))[where], np.float64)
+    kw = Renderer.SKY_TIERS[tier][0]
+    before = _launched("env_build")
+    got = skyline.build_skyline_env_device(lv, o, **kw)
+    assert _launched("env_build") == before + 1
+    want = _plain_env(lv, o, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got["E"], want["E"])
+    assert torch.equal(got["S"], want["S"])
+    assert (got["d0"], got["g"], got["bins"], got["K"]) \
+        == (want["d0"], want["g"], want["bins"], want["K"])
+    assert (got["E"] > -1e38).any()
+
+
+def test_renderer_with_k10_equals_plain_build(cuda, monkeypatch):
+    """A hf-only Renderer's preview_frame and sample with K10's envelope
+    equal, bit for bit, those of a Renderer on the plain build: three
+    rounds at one pose (tiers 0, 1 and 2 by its uses), then a new pose."""
+    from voxtracer_torch.core import camera as vcam
+    from voxtracer_torch.kernels import skyline
+    from voxtracer_torch.render.driver import Renderer
+
+    monkeypatch.setattr(Renderer, "HF_FRAME_SIZE", 512)
+    space = worldgen.generate(log2_size=9, verbose=False, device=cuda)
+    p = vcam.DEFAULT_POSE
+    cam = vcam.Camera(pos=tuple(np.asarray(p.pos) * 512 / 8192), yaw=p.yaw,
+                      pitch=p.pitch)
+    cam2 = vcam.Camera(pos=(cam.pos[0] + 10.0, cam.pos[1], cam.pos[2]),
+                       yaw=p.yaw + 0.03, pitch=p.pitch)
+    sun = np.array([0.8, 10.2743, 3.7])
+
+    def run():
+        r = Renderer(space.serialize(), 160, 96, seed=0, device=cuda)
+        assert r._hf_only()
+        outs, tiers = [], []
+        for c in (cam, cam, cam, cam2):
+            outs.append(r.preview_frame(c, sun).clone())
+            r.sample(c, sun)
+            outs.append(r.acc.buffer.clone())
+            tiers.append(r._sky_env[2])
+        return outs, tiers
+
+    before = _launched("env_build")
+    k10, tiers = run()
+    assert tiers == [1, 1, 2, 1]
+    assert _launched("env_build") == before + 5
+    monkeypatch.setattr(skyline, "build_skyline_env_device", _plain_env)
+    plain, _ = run()
+    assert _launched("env_build") == before + 5
+    torch.cuda.synchronize()
+    for a, b in zip(k10, plain):
+        assert torch.equal(a, b)
 
 
 def _sky_orders(env, d, want):

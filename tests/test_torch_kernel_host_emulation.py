@@ -66,6 +66,7 @@ Needs g++ with C++20 (<barrier>); skips without it.
 """
 
 import ctypes
+import ctypes.util
 import re
 import shutil
 import subprocess
@@ -114,6 +115,12 @@ int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* v, K, int, size_t) {
   *v = 2; return 0;
 }
 inline int cudaGetLastError() { return 0; }
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class K> int cudaFuncSetAttribute(K, int, int) { return 0; }
+inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  memset(p, v, n);
+  return 0;
+}
 struct EmuWarp { std::barrier<> bar{32}; unsigned vals[32]; };
 inline thread_local EmuWarp* t_warp = nullptr;
 inline std::barrier<>* g_block_bar = nullptr;
@@ -172,6 +179,12 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 inline int atomicMax(int* p, int v) {
   std::atomic_ref<int> a(*p);
   int old = a.load();
+  while (old < v && !a.compare_exchange_weak(old, v)) {}
+  return old;
+}
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  std::atomic_ref<unsigned> a(*p);
+  unsigned old = a.load();
   while (old < v && !a.compare_exchange_weak(old, v)) {}
   return old;
 }
@@ -409,7 +422,7 @@ def host_kernels(tmp_path_factory):
     sources = {name: (build.CSRC / f"{name}.cu").read_text()
                for name in ("svo_cast", "fog_march", "hf_cast", "sky_tmin",
                             "beam_walk", "beam_resolve", "bit_dda",
-                            "path_trace")}
+                            "path_trace", "sky_env")}
     sources["resolve_fold"] = fold_src
     sources["sky_bsearch"] = BSEARCH_SKY_TMIN
     sources["fog_certify"] = FOG_CERTIFY
@@ -434,7 +447,7 @@ def host_kernels(tmp_path_factory):
         entries = [f"voxt_{name}"] \
             if name in ("svo_cast", "fog_march", "hf_cast", "sky_tmin",
                         "beam_walk", "beam_resolve", "bit_dda",
-                        "path_trace") \
+                        "path_trace", "sky_env") \
             else ["voxt_sky_tmin"] if name == "sky_bsearch" \
             else ["voxt_fog_certify"] if name == "fog_certify" \
             else ["voxt_resolve_fold", "voxt_resolve_fold_seg"]
@@ -805,6 +818,323 @@ def test_sky_tmin_source_orders_and_searches(host_kernels, shape, K):
     # every kind of lane occurs: no certificate, a rung, all-miss
     assert (want == 0).any() and (want >= 1e37).any()
     assert ((want > 0) & (want < 1e37)).float().mean() > 0.2
+
+
+# ---- K10 (csrc/sky_env.cu): the envelope build's stages in plain torch,
+# held to the plain build (skyline._env_device) on the CPU, and the
+# kernel's source held to them under the host's libm
+
+SKY_ENV_INF = float("inf")
+
+
+def _k10_enc(f):
+    """sky_env.cu's ``enc``: float32 -> its order-preserving uint32 (held
+    in int64), every float above 0, the empty entry."""
+    u = f.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 1 << 31, ~u & 0xFFFFFFFF, u | 1 << 31)
+
+
+def _k10_dec(e):
+    """sky_env.cu's ``dec``: 0 -> -inf, else the float32 ``enc`` took
+    there."""
+    u = torch.where(e >= 1 << 31, e & 0x7FFFFFFF, ~e & 0xFFFFFFFF)
+    f = torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32) \
+        .view(torch.float32)
+    return torch.where(e == 0, -SKY_ENV_INF, f)
+
+
+def _k10_dilate(rows, w: int):
+    """sky_dilate_kernel's doubling on the last axis: half-width h -> h +
+    s, s = min(h + 1, w - h), the neighbours at (b -+ s) mod bins."""
+    bins = rows.shape[-1]
+    ar = torch.arange(bins)
+    h = 0
+    while h < w:
+        s = min(h + 1, w - h)
+        rows = torch.maximum(rows, torch.maximum(rows[..., (ar - s) % bins],
+                                                 rows[..., (ar + s) % bins]))
+        h += s
+    return rows
+
+
+def _libm(name, n_args):
+    """The host libm's float function ``name`` over tensors (the one the
+    kernel's source calls when built for the host)."""
+    fn = getattr(ctypes.CDLL(ctypes.util.find_library("m")), name)
+    fn.argtypes = [ctypes.c_float] * n_args
+    fn.restype = ctypes.c_float
+    vec = np.frompyfunc(fn, n_args, 1)
+
+    def call(*xs):
+        xs = np.broadcast_arrays(*(x.numpy() for x in xs))
+        return torch.from_numpy(np.asarray(vec(*xs), np.float32))
+
+    return call
+
+
+TORCH_FNS = dict(atan2=torch.atan2, hypot=torch.hypot, log2=torch.log2)
+
+
+def _k10_emulate(lv, origin, fns=TORCH_FNS, bins=4096, ratio=16, K=64,
+                 d0=4.0, cls_step=1.0):
+    """K10's four stages in plain torch on the CPU, from the level table
+    its wrapper passes (skyline._env_plan): the fold of every level's
+    window, a fine cell's height as the max of ceil over its voxels read
+    from the pack's level-0 rows as the kernel indexes them, a coarse
+    cell's from its pyramid level; the bounds max-reduced in the
+    kernel's encoding into all_k, the used flags and the class plane;
+    each rung's used class rows dilated by the kernel's doubling over
+    all_k[k]; the cumulative max over rungs, -inf to -3e38, E transposed
+    and S. ``fns``: atan2, hypot and log2, torch's (each called on the
+    same tensors as in the plain build) or the host's libm. Returns E, S
+    and the workspace (all_k, flags, plane; int64 encodings)."""
+    from voxtracer_torch.kernels import skyline
+
+    f32 = torch.float32
+    offs, height, flat = lv["offsets"], lv["height"], lv["flat"]
+    p = skyline._env_plan(offs, height, origin, bins, ratio, K, d0, cls_step)
+    ox, oy, oz = p["ox"], p["oy"], p["oz"]
+    cls_w = p["cls_w"]
+    n_cls = len(cls_w)
+    tl = offs[0]
+    TS = 1 << tl
+    dp = max((1 << height) >> tl, 1)
+    bin_w = torch.tensor(p["bin_w"], dtype=f32)
+    log2_g = torch.tensor(p["log2_g"], dtype=f32)
+    wide_hw = float(np.float32(np.pi * (1.0 - 1e-6)))
+    pi, two_pi = skyline._PI, skyline._TWO_PI
+    all_k = torch.zeros(K, dtype=torch.int64)
+    used = torch.zeros(n_cls * K, dtype=torch.int64)
+    cls_b = torch.zeros(n_cls * K * bins, dtype=torch.int64)
+
+    def box_d(x0, x1, z0, z1):
+        dx = torch.clamp_min(torch.maximum(x0 - ox, ox - x1), 0.0)
+        dz = torch.clamp_min(torch.maximum(z0 - oz, oz - z1), 0.0)
+        fx = torch.maximum(torch.abs(x0 - ox), torch.abs(x1 - ox))
+        fz = torch.maximum(torch.abs(z0 - oz), torch.abs(z1 - oz))
+        return fns["hypot"](dx, dz), fns["hypot"](fx, fz)
+
+    for lvl in p["levels"]:
+        r = torch.arange(lvl.size * lvl.size)
+        ii, jj = lvl.i0 + r // lvl.size, lvl.j0 + r % lvl.size
+        if lvl.lf < 0:
+            hm = lv["coarse"][lvl.src].reshape(-1)[ii * lvl.dim + jj]
+        else:
+            u = torch.arange(1 << lvl.lf)
+            vx, vz = ii << lvl.lf, jj << lvl.lf
+            row = offs[1] + (vx >> tl) * dp + (vz >> tl)
+            slot = ((vx & TS - 1)[:, None, None] + u[None, :, None]) * TS \
+                + (vz & TS - 1)[:, None, None] + u[None, None, :]
+            hm = torch.ceil(flat[row[:, None, None], slot]).amax((1, 2))
+        c = lvl.c
+        x0, z0 = ii.to(f32) * c, jj.to(f32) * c
+        x1, z1 = x0 + c, z0 + c
+        d_min, d_max = box_d(x0, x1, z0, z1)
+        sel = d_min >= lvl.a_lo
+        if not lvl.is_top:
+            pc = 2.0 * c
+            px0, pz0 = torch.floor(x0 / pc) * pc, torch.floor(z0 / pc) * pc
+            sel &= box_d(px0, px0 + pc, pz0, pz0 + pc)[0] < lvl.a_hi
+        num = hm + skyline.NUM_MARGIN - oy
+        bound = torch.where(num >= 0.0, num / d_min,
+                            num / torch.clamp_min(d_max, 1e-12))
+        bound = torch.where(torch.isnan(bound), SKY_ENV_INF, bound)
+        ac = fns["atan2"](0.5 * (z0 + z1) - oz, 0.5 * (x0 + x1) - ox)
+        hw = torch.zeros_like(ac)
+        for gx, gz in ((x0, z0), (x0, z1), (x1, z0), (x1, z1)):
+            dlt = fns["atan2"](gz - oz, gx - ox) - ac
+            dlt = skyline._jmod(dlt + pi, two_pi) - pi
+            hw = torch.maximum(hw, torch.abs(dlt))
+        inside = (x0 <= ox) & (ox <= x1) & (z0 <= oz) & (oz <= z1)
+        hw = torch.where(inside, pi, hw)
+        rk = torch.ceil((fns["log2"](torch.clamp_min(d_min, 1e-6))
+                         - p["log2_d0"]) / log2_g - 1e-3)
+        rung = torch.clamp(rk, 0, K - 1).to(torch.int64)
+        wb = torch.ceil(hw / bin_w) + 1.0
+        cls = torch.ceil(fns["log2"](torch.clamp_min(wb, 1.0)) * p["inv_step"]
+                         + 1e-4).to(torch.int64).clamp(0, n_cls - 1)
+        cb = torch.floor(skyline._jmod(ac, two_pi) / bin_w).to(torch.int64) \
+            .clamp(0, bins - 1)
+        v = _k10_enc(bound)
+        wide = sel & (hw >= wide_hw)
+        narrow = sel & (hw < wide_hw)
+        all_k.scatter_reduce_(0, rung[wide], v[wide], "amax")
+        rowi = (cls * K + rung)[narrow]
+        used[rowi] = 1
+        cls_b.scatter_reduce_(0, rowi * bins + cb[narrow], v[narrow], "amax")
+
+    ed = all_k[:, None].expand(K, bins).clone()
+    plane = cls_b.reshape(n_cls, K, bins)
+    for c in range(n_cls):
+        on = used[c * K:(c + 1) * K] == 1
+        ed[on] = torch.maximum(ed[on], _k10_dilate(plane[c][on], cls_w[c]))
+    E = _k10_dec(torch.cummax(ed, dim=0).values)
+    E = torch.where(torch.isneginf(E), float(np.float32(-3e38)), E)
+    E = E.t().contiguous()
+    return E, skyline.env_summary(E), torch.cat([all_k, used, cls_b])
+
+
+@pytest.fixture(scope="module")
+def sky_worlds():
+    """Terrain packs of 64 columns (tile logs 3 and 2) and of 256."""
+    h6, h8 = (worldgen.heightmap(lg, device="cpu") for lg in (6, 8))
+    from voxtracer_torch.kernels import skyline
+
+    return {name: (skyline.sky_levels_from_hf(*heightfield.build_height_mips(
+        h, tile_log=tl, device="cpu")), float(h.max()))
+        for name, h, tl in (("64", h6, 3), ("64/tl2", h6, 2),
+                            ("256", h8, 3))}
+
+
+def _sky_env_origins(n, top):
+    """An origin on the world's edge (x = 0), one inside a cell (off every
+    cell boundary, under the peaks), one above all terrain, and one
+    outside the grid."""
+    return {"edge": (0.0, top * 0.6, n * 0.45),
+            "inside": (n * 0.37 + 0.3, top * 0.7, n * 0.61 + 0.45),
+            "above": (n * 0.52, top + 9.5, n * 0.3),
+            "outside": (-0.4 * n, top + 30.0, n * 1.2)}
+
+
+def test_sky_env_encoding_round_trips_and_orders():
+    """The kernel's encoding: decodes back to the same bits (0 to -inf),
+    every float encodes above 0, and the order of the encodings is the
+    order of the floats, -0 just below +0; so a max over encodings is the
+    float max."""
+    special = [0.0, -0.0, SKY_ENV_INF, -SKY_ENV_INF, 1.4e-45, -1.4e-45,
+               1.1754942e-38, -1.1754942e-38, 1.17549435e-38, 3.4028235e38,
+               -3.4028235e38, 1.0, -1.0, 3e38, -3e38]
+    rng = np.random.default_rng(5)
+    bits = rng.integers(0, 1 << 32, 20000, dtype=np.uint64).astype(np.uint32)
+    rand = bits.view(np.float32)
+    rand = rand[~np.isnan(rand)]
+    f = torch.from_numpy(np.concatenate([np.float32(special), rand]))
+    e = _k10_enc(f)
+    assert (e > 0).all() and (e < 1 << 32).all()
+    back = _k10_dec(e)
+    assert torch.equal(back.view(torch.int32), f.view(torch.int32))
+    assert _k10_dec(torch.zeros(1, dtype=torch.int64)).item() == -SKY_ENV_INF
+    order = torch.argsort(e)
+    fs = f[order]
+    assert (fs[1:] >= fs[:-1]).all()
+    zero = _k10_enc(torch.tensor([-0.0, 0.0]))
+    assert zero[0] + 1 == zero[1]
+    assert _k10_enc(torch.tensor([-SKY_ENV_INF])).item() > 0
+
+
+@pytest.mark.parametrize("bins", [2, 37, 64, 100])
+def test_sky_env_dilate_equals_dilate_max(bins):
+    """The kernel's doubling (modular neighbours) equals _dilate_max's
+    rolls for every half-width from 1 to bins / 2, on rows with ties,
+    empty (-inf) runs and an inf."""
+    from voxtracer_torch.kernels import skyline
+
+    rng = np.random.default_rng(bins)
+    rows = rng.normal(size=(6, bins)).astype(np.float32)
+    rows[rng.random((6, bins)) < 0.6] = -np.inf
+    rows[1] = np.round(rows[1])
+    rows[2, bins // 3] = np.inf
+    rows[3] = -np.inf
+    t = torch.from_numpy(rows)
+    for w in range(1, bins // 2 + 1):
+        assert torch.equal(_k10_dilate(t, w), skyline._dilate_max(t, w)), w
+
+
+def test_sky_env_dilate_equals_dilate_max_at_the_tiers_widths():
+    """At 8192 bins, the width classes' half-widths (2^c up to 4096) and
+    odd ones between."""
+    from voxtracer_torch.kernels import skyline
+
+    rng = np.random.default_rng(8192)
+    rows = rng.normal(size=(2, 8192)).astype(np.float32)
+    rows[rng.random((2, 8192)) < 0.99] = -np.inf
+    t = torch.from_numpy(rows)
+    for w in [1 << c for c in range(13)] + [3, 1000, 4095]:
+        assert torch.equal(_k10_dilate(t, w), skyline._dilate_max(t, w)), w
+
+
+def _renderer_tiers():
+    from voxtracer_torch.render.driver import Renderer
+
+    return [kw for kw, _ in Renderer.SKY_TIERS]
+
+
+@pytest.mark.parametrize("where", ["edge", "inside", "above"])
+@pytest.mark.parametrize("tier", [0, 1, 2])
+def test_sky_env_stages_equal_plain_at_the_tiers(sky_worlds, tier, where):
+    """K10's stages (level table, encoded accumulators, the kernel's
+    dilation, the scan) equal the plain build bit for bit at each of the
+    Renderer's envelope tiers (8192 bins, K 256 and 512, ratio 32, 128,
+    256) on a 256^3 world."""
+    from voxtracer_torch.kernels import skyline
+
+    lv, top = sky_worlds["256"]
+    kw = _renderer_tiers()[tier]
+    o = np.asarray(_sky_env_origins(256, top)[where])
+    E, S, _ = _k10_emulate(lv, o, **kw)
+    want = skyline.build_skyline_env_device(lv, o, **kw)
+    assert torch.equal(E, want["E"]) and torch.equal(S, want["S"])
+    assert (E > -1e38).any() and (E < E.max()).any()
+
+
+@pytest.mark.parametrize("where", ["edge", "inside", "above", "outside"])
+@pytest.mark.parametrize("world,kw", [
+    ("256", dict(bins=1024, K=64, ratio=4)),
+    ("256", dict(bins=512, K=37, ratio=2, cls_step=0.7)),
+    ("64/tl2", dict(bins=256, K=40, ratio=3))])
+def test_sky_env_stages_equal_plain_windowed(sky_worlds, world, kw, where):
+    """The same where the windows clip: the fine window and the first
+    coarse levels smaller than the grid (a small ratio), shifted inward
+    at the world's edge; a cls_step of 0.7 and K off the scan's tiles;
+    the pack at tile log 2."""
+    from voxtracer_torch.kernels import skyline
+
+    lv, top = sky_worlds[world]
+    n = 1 << lv["height"]
+    o = np.asarray(_sky_env_origins(n, top)[where])
+    plan = skyline._env_plan(lv["offsets"], lv["height"], o, kw["bins"],
+                             kw["ratio"], kw["K"], 4.0,
+                             kw.get("cls_step", 1.0))
+    assert plan["WG"] < n >> lv["offsets"][0]
+    E, S, _ = _k10_emulate(lv, o, **kw)
+    want = skyline.build_skyline_env_device(lv, o, **kw)
+    assert torch.equal(E, want["E"]) and torch.equal(S, want["S"])
+
+
+@pytest.mark.parametrize("where", ["edge", "inside", "above", "outside"])
+@pytest.mark.parametrize("world,kw", [
+    ("64", dict(bins=256, K=16, ratio=4)),
+    ("64", dict(bins=128, K=37, ratio=2, cls_step=0.7)),
+    ("64/tl2", dict(bins=200, K=33, ratio=3))])
+def test_sky_env_source_equals_emulation(host_kernels, sky_worlds, world, kw,
+                                         where):
+    """K10 from its source, run through skyline._env_launch as the
+    wrapper runs it: its workspace (all_k, the used flags, the class
+    plane), E and S equal the stages' emulation under the host's libm
+    (the one the host build calls) by bits; against the plain build
+    (torch's atan2, hypot and log2) a cell on a bin, class or rung
+    boundary may land one over, so E may differ in a few entries."""
+    from voxtracer_torch.kernels import skyline
+
+    lv, top = sky_worlds[world]
+    n = 1 << lv["height"]
+    o = np.asarray(_sky_env_origins(n, top)[where])
+    full = dict(dict(d0=4.0, cls_step=1.0), **kw)
+    plan = skyline._env_plan(lv["offsets"], lv["height"], o, full["bins"],
+                             full["ratio"], full["K"], full["d0"],
+                             full["cls_step"])
+    err, E, S, ws = skyline._env_launch(
+        host_kernels["sky_env"], lv["flat"], lv["coarse"], plan,
+        lv["offsets"], lv["height"], full["bins"], full["K"])
+    assert err == 0
+    libm = dict(atan2=_libm("atan2f", 2), hypot=_libm("hypotf", 2),
+                log2=_libm("log2f", 1))
+    Ee, Se, wse = _k10_emulate(lv, o, fns=libm, **kw)
+    assert torch.equal(ws.to(torch.int64) & 0xFFFFFFFF, wse)
+    assert torch.equal(E, Ee) and torch.equal(S, Se)
+    assert torch.equal(S, skyline.env_summary(E))
+    want = skyline.build_skyline_env_device(lv, o, **kw)["E"]
+    assert int((E != want).sum()) <= E.numel() // 100
 
 
 def _fog_host(fn, args, active, n_steps, fetch, work=None):

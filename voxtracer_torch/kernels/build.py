@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("fog_march.cu", "svo_cast.cu", "resolve_fold.cu", "hf_cast.cu",
            "sky_tmin.cu", "beam_walk.cu", "beam_resolve.cu", "bit_dda.cu",
-           "path_trace.cu")
+           "path_trace.cu", "sky_env.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
@@ -71,6 +71,11 @@ SIGNATURES = {
     # log2_g, far, t_min, stream
     "voxt_sky_tmin": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _F, _F,
                       _F, _P, _P),
+    # flat, row0, dp, tile_log, level_ints, level_floats, level_src,
+    # n_levels, n_cells, cls_w, n_cls, consts, bins, K, sw, ws, ed, E, S,
+    # stream
+    "voxt_sky_env": (_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I,
+                     _I, _P, _P, _P, _P, _P),
     # aug, height, olo, ohi, ilo, ihi, mirror, incoherent, K, max_steps,
     # skip_t0, h, ids_stk, mask_stk, entry_stk, words, cap, alive,
     # cand_lvl, cand_off, cand_rgb, ok, t_safe, n, stream

@@ -21,6 +21,10 @@ pyramid that ``sky_levels_from_hf`` derives from the heightfield pack:
 fine levels from a local tile window of the pack, coarse levels from the
 pyramid, each cell's bound scatter-maxed into its azimuth-width class and
 rung, dilated over the class's width, then a cumulative max over rungs.
+CUDA kernel K10 (csrc/sky_env.cu) builds it on the card; its plain
+PyTorch version is ``_env_device``, which the CPU runs. Both take their
+windows, levels and constants from one host plan (``_env_plan``), and
+their tables are equal by bits.
 All in float32 with the reference's margins: ``NUM_MARGIN`` over every
 cell top, ``REL_MARGIN``/``ABS_MARGIN`` on the ray's slope, one bin of
 azimuth padding, the rung rounded down by 1e-3 (a boundary cell lands a
@@ -32,7 +36,9 @@ as the walk from the start (``heightfield.hf_raycast``'s t_min contract).
 
 from __future__ import annotations
 
+import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,6 +54,7 @@ FAR = 3e38          # t_min of a ray that provably misses all terrain
 PATCH_COLS = 16     # patch_sky_levels rebuilds above this many columns
 PLAIN_CHUNK = 1 << 20  # lanes a chunk of the plain lookup gathers rows for
 SUMMARY_BLOCK = 16  # rungs of E that one entry of the summary stands for
+MAX_ENV_BINS = 16384  # K10 dilates a row of bins x 3 uint32 in shared memory
 
 
 _TWO_PI = float(np.float32(2.0 * np.pi))
@@ -138,33 +145,115 @@ def _dilate_max(b, w: int):
     return out
 
 
-def _env_device(flat, coarse, origin, offsets: tuple, bins: int, ratio: int,
-                K: int, d0: float, height: int, cls_step: float):
-    """The envelope table (bins, K) for one origin (``voxtracer/kernels/
-    skyline.py:648`` ``_env_device``, op for op in float32)."""
-    dev = flat.device
-    f32, i64 = torch.float32, torch.int64
+class _EnvLevel(NamedTuple):
+    """One level of the envelope build's fold: cells of ``c`` voxels, the
+    window's first cell (``i0``, ``j0``) and its edge ``size``; ``lf`` the
+    level's log2 c below the pack's tile (a fine level, read from the
+    pack's level-0 rows) or -1, then ``src`` the index of its pyramid
+    level in the pack's ``coarse`` (edge ``dim``); ``is_top`` the top
+    level, which has no parent gate; the ladder selects the cells from
+    ``a_lo`` (nearest distance) whose parent is nearer than ``a_hi``."""
+    c: float
+    i0: int
+    j0: int
+    size: int
+    lf: int
+    src: int
+    dim: int
+    is_top: bool
+    a_lo: float
+    a_hi: float
+
+
+def _env_plan(offsets: tuple, height: int, origin, bins: int, ratio: int,
+              K: int, d0: float, cls_step: float):
+    """The host's numbers of one envelope build, shared by the plain build
+    and K10: the origin and the ladder's and classes' float32 constants,
+    each width class's dilation half-width, and the fold's levels
+    (``_EnvLevel``) in its order: the fine window levels 0..tile_log-1,
+    then the coarse windows tile_log..top."""
     o = np.asarray(origin, np.float32)
-    ox, oy, oz = float(o[0]), float(o[1]), float(o[2])
+    ox, oz = float(o[0]), float(o[2])
     tl = offsets[0]
     TS = 1 << tl
     n = 1 << height
     dp = max(n >> tl, 1)
-    top = height
-    bin_w = float(np.float32(2.0 * np.pi / bins))
-    log2_g = float(np.float32(math.log2((4.0 * n / d0) ** (1.0 / (K - 1.0)))))
-    log2_d0 = float(np.float32(math.log2(d0)))
     # width class c dilates by ceil(2^(c * cls_step)) bins
     n_cls = max(1, int(math.ceil(math.log2(max(bins, 2)) / cls_step)))
-    cls_w = [min(int(math.ceil(2.0 ** (c * cls_step))), bins // 2)
-             for c in range(n_cls)]
-    inv_step = float(np.float32(1.0 / cls_step))
+    plan = dict(
+        ox=ox, oy=float(o[1]), oz=oz,
+        bin_w=float(np.float32(2.0 * np.pi / bins)),
+        log2_g=float(np.float32(
+            math.log2((4.0 * n / d0) ** (1.0 / (K - 1.0))))),
+        log2_d0=float(np.float32(math.log2(d0))),
+        inv_step=float(np.float32(1.0 / cls_step)),
+        cls_w=[min(int(math.ceil(2.0 ** (c * cls_step))), bins // 2)
+               for c in range(n_cls)])
+
+    # fine levels 0..tl-1 from a local window of WG x WG tiles: a selected
+    # fine cell lies within (ratio + 1) * 2^tl voxels of the origin, and
+    # the window reaches (ratio + 2) * 2^tl each side of the origin's tile
+    # (shifted inward at the grid's edges, where it still covers the
+    # in-grid side)
+    span_half = (ratio + 2) * (1 << tl)
+    WG = min(2 * (-(-span_half // TS)) + 2, dp)
+    tx0 = tz0 = 0
+    if dp > WG:
+        tx0 = min(max(int(np.floor(np.float32(ox) / np.float32(TS)))
+                      - WG // 2, 0), dp - WG)
+        tz0 = min(max(int(np.floor(np.float32(oz) / np.float32(TS)))
+                      - WG // 2, 0), dp - WG)
+    levels = [_EnvLevel(float(1 << lf), (tx0 * TS) >> lf, (tz0 * TS) >> lf,
+                        (WG * TS) >> lf, lf, -1, 0, False,
+                        float(ratio << lf) if lf else 0.0,
+                        float(ratio << lf) * 2.0)
+              for lf in range(min(tl, height))]
+
+    # coarse levels tl..top from the pyramid, windowed like the host build
+    ext = 2 * ratio + 4  # ceil(a_hi / c) + 4 at every level
+    WSZ = 2 * ext + 1
+    for idx in range(dp.bit_length()):
+        L = tl + idx
+        c = float(1 << L)
+        dim = max(dp >> idx, 1)
+        ci0 = cj0 = 0
+        size = dim
+        if dim > WSZ:
+            size = WSZ
+            ci0 = min(max(int(np.floor(np.float32(ox) / np.float32(c))) - ext,
+                          0), dim - WSZ)
+            cj0 = min(max(int(np.floor(np.float32(oz) / np.float32(c))) - ext,
+                          0), dim - WSZ)
+        levels.append(_EnvLevel(c, ci0, cj0, size, -1, idx, dim,
+                                L == height, ratio * c if c > 1.0 else 0.0,
+                                ratio * c * 2.0))
+    plan.update(levels=levels, WG=WG, tx0=tx0, tz0=tz0)
+    return plan
+
+
+def _env_device(flat, coarse, origin, offsets: tuple, bins: int, ratio: int,
+                K: int, d0: float, height: int, cls_step: float):
+    """The envelope table (bins, K) for one origin (``voxtracer/kernels/
+    skyline.py:648`` ``_env_device``, op for op in float32): K10's plain
+    version, on any device."""
+    dev = flat.device
+    f32, i64 = torch.float32, torch.int64
+    p = _env_plan(offsets, height, origin, bins, ratio, K, d0, cls_step)
+    ox, oy, oz = p["ox"], p["oy"], p["oz"]
+    tl = offsets[0]
+    TS = 1 << tl
+    dp = max((1 << height) >> tl, 1)
+    log2_d0, inv_step, cls_w = p["log2_d0"], p["inv_step"], p["cls_w"]
+    n_cls = len(cls_w)
+    # the divisors as tensors on the device: CUDA divides by a Python
+    # float as a product with its reciprocal, a rounding off the IEEE
+    # quotient that the CPU and K10 take
+    bin_w = torch.tensor(p["bin_w"], dtype=f32, device=dev)
+    log2_g = torch.tensor(p["log2_g"], dtype=f32, device=dev)
+    wide_hw = float(np.float32(np.pi * (1.0 - 1e-6)))
     cls_b = torch.full((n_cls * K * bins,), -math.inf, dtype=f32, device=dev)
     all_k = torch.full((K,), -math.inf, dtype=f32, device=dev)
     ninf = torch.tensor(-math.inf, dtype=f32, device=dev)
-
-    ext = 2 * ratio + 4  # ceil(a_hi / c) + 4 at every level
-    WSZ = 2 * ext + 1
 
     def box_d(bx0, bx1, bz0, bz1):
         dx = torch.clamp_min(torch.maximum(bx0 - ox, ox - bx1), 0.0)
@@ -173,23 +262,26 @@ def _env_device(flat, coarse, origin, offsets: tuple, bins: int, ratio: int,
         fz = torch.maximum(torch.abs(bz0 - oz), torch.abs(bz1 - oz))
         return torch.hypot(dx, dz), torch.hypot(fx, fz)
 
-    def fold(hm, ii, jj, c: float, is_top: bool):
-        """Scatter one level's cells (maxima hm, integer coords ii, jj in
-        cells of c) into the accumulators."""
-        x0 = ii.to(f32) * c
-        z0 = jj.to(f32) * c
+    def fold(hm, lvl: _EnvLevel):
+        """Scatter one level's cells (maxima hm over the level's window)
+        into the accumulators."""
+        c = lvl.c
+        iig, jjg = torch.meshgrid(
+            lvl.i0 + torch.arange(lvl.size, dtype=i64, device=dev),
+            lvl.j0 + torch.arange(lvl.size, dtype=i64, device=dev),
+            indexing="ij")
+        x0 = iig.reshape(-1).to(f32) * c
+        z0 = jjg.reshape(-1).to(f32) * c
         x1, z1 = x0 + c, z0 + c
         d_min, d_max = box_d(x0, x1, z0, z1)
-        a_lo = ratio * c if c > 1.0 else 0.0
-        a_hi = ratio * c * 2.0
-        if is_top:
-            sel = d_min >= a_lo
+        if lvl.is_top:
+            sel = d_min >= lvl.a_lo
         else:
             pc = 2.0 * c
-            px0 = torch.floor(x0 / pc) * pc
+            px0 = torch.floor(x0 / pc) * pc  # exact: pc a power of two
             pz0 = torch.floor(z0 / pc) * pc
             pd_min, _ = box_d(px0, px0 + pc, pz0, pz0 + pc)
-            sel = (d_min >= a_lo) & (pd_min < a_hi)
+            sel = (d_min >= lvl.a_lo) & (pd_min < lvl.a_hi)
         num = hm + NUM_MARGIN - oy
         # a cell above the origin divides by its true nearest distance:
         # one that touches or holds the origin blocks its bins (inf)
@@ -211,7 +303,7 @@ def _env_device(flat, coarse, origin, offsets: tuple, bins: int, ratio: int,
         rk = torch.ceil((torch.log2(torch.clamp_min(d_min, 1e-6)) - log2_d0)
                         / log2_g - 1e-3)
         rung = torch.clamp(rk, 0, K - 1).to(i64)
-        wide = hw >= float(np.float32(np.pi * (1.0 - 1e-6)))
+        wide = hw >= wide_hw
         wb = torch.ceil(hw / bin_w) + 1.0
         cls = torch.ceil(torch.log2(torch.clamp_min(wb, 1.0)) * inv_step
                          + 1e-4).to(i64)
@@ -222,53 +314,21 @@ def _env_device(flat, coarse, origin, offsets: tuple, bins: int, ratio: int,
         cls_b.scatter_reduce_(0, (cls * K + rung) * bins + cb,
                               torch.where(wide, ninf, bound), "amax")
 
-    # fine levels 0..tl-1 from a local window of WG x WG tiles: a selected
-    # fine cell lies within (ratio + 1) * 2^tl voxels of the origin, and
-    # the window reaches (ratio + 2) * 2^tl each side of the origin's tile
-    # (shifted inward at the grid's edges, where it still covers the
-    # in-grid side)
-    span_half = (ratio + 2) * (1 << tl)
-    WG = min(2 * (-(-span_half // TS)) + 2, dp)
-    tx0 = tz0 = 0
-    if dp > WG:
-        tx0 = min(max(int(np.floor(np.float32(ox) / np.float32(TS)))
-                      - WG // 2, 0), dp - WG)
-        tz0 = min(max(int(np.floor(np.float32(oz) / np.float32(TS)))
-                      - WG // 2, 0), dp - WG)
+    # the fine levels' maxima from the window's tiles, 2x2 max a level
+    WG, tx0, tz0 = p["WG"], p["tx0"], p["tz0"]
     ar = torch.arange(WG, dtype=i64, device=dev)
     ridx = offsets[1] + (tx0 + ar)[:, None] * dp + (tz0 + ar)[None, :]
     rows = flat[ridx.reshape(-1)]
     lv = torch.ceil(rows).reshape(WG, WG, TS, TS).permute(0, 2, 1, 3) \
         .reshape(WG * TS, WG * TS)
-    for lf in range(min(tl, top)):
-        dim = (WG * TS) >> lf
-        ci = ((tx0 * TS) >> lf) + torch.arange(dim, dtype=i64, device=dev)
-        cj = ((tz0 * TS) >> lf) + torch.arange(dim, dtype=i64, device=dev)
-        iig, jjg = torch.meshgrid(ci, cj, indexing="ij")
-        fold(lv.reshape(-1), iig.reshape(-1), jjg.reshape(-1),
-             float(1 << lf), is_top=False)
-        if lf + 1 < tl:
-            lv = _strided_max2(lv)
-
-    # coarse levels tl..top from the pyramid, windowed like the host build
-    for idx, hm_l in enumerate(coarse):
-        L = tl + idx
-        c = float(1 << L)
-        dim = max(dp >> idx, 1)
-        ci0 = cj0 = 0
-        size = dim
-        if dim > WSZ:
-            size = WSZ
-            ci0 = min(max(int(np.floor(np.float32(ox) / np.float32(c))) - ext,
-                          0), dim - WSZ)
-            cj0 = min(max(int(np.floor(np.float32(oz) / np.float32(c))) - ext,
-                          0), dim - WSZ)
-        hm = hm_l[ci0:ci0 + size, cj0:cj0 + size]
-        iig, jjg = torch.meshgrid(
-            ci0 + torch.arange(size, dtype=i64, device=dev),
-            cj0 + torch.arange(size, dtype=i64, device=dev), indexing="ij")
-        fold(hm.reshape(-1), iig.reshape(-1), jjg.reshape(-1), c,
-             is_top=L == top)
+    for lvl in p["levels"]:
+        if lvl.lf >= 0:
+            fold(lv.reshape(-1), lvl)
+            if lvl.lf + 1 < tl:
+                lv = _strided_max2(lv)
+        else:
+            fold(coarse[lvl.src][lvl.i0:lvl.i0 + lvl.size,
+                                 lvl.j0:lvl.j0 + lvl.size].reshape(-1), lvl)
 
     # per-class dilation, the all-bins floor, the cumulative max over rungs
     E = all_k[:, None].expand(K, bins)
@@ -280,20 +340,90 @@ def _env_device(flat, coarse, origin, offsets: tuple, bins: int, ratio: int,
     return E.t().contiguous()
 
 
+def _env_launch(fn, flat, coarse, plan, offsets: tuple, height: int,
+                bins: int, K: int, stream=None):
+    """Call K10's C entry ``fn`` (``voxt_sky_env``) for ``_env_plan``'s
+    ``plan``, with its outputs and scratch allocated on the pack's device:
+    returns (error code, E (bins, K), S (bins, ceil(K / 16)), the
+    workspace: all_k (K), the class rows' used flags (n_cls * K) and the
+    class plane (n_cls * K * bins), int32 holding csrc/sky_env.cu's
+    encoding)."""
+    dev = flat.device
+    for t in (flat, *coarse):
+        if t.device != dev or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError("build_skyline_env_device: the pack must be "
+                             f"contiguous float32 tensors on {dev}")
+    n_cls = len(plan["cls_w"])
+    sw = -(-K // SUMMARY_BLOCK)
+    if not 2 <= bins <= MAX_ENV_BINS or n_cls * K * bins >= 1 << 31:
+        raise ValueError(f"build_skyline_env_device: bins {bins} x K {K} "
+                         "outside K10's limits")
+    ints, floats, srcs, start = [], [], [], 0
+    for lvl in plan["levels"]:
+        ints += [lvl.i0, lvl.j0, lvl.size, lvl.dim, lvl.lf, int(lvl.is_top),
+                 start]
+        floats += [lvl.c, lvl.a_lo, lvl.a_hi]
+        srcs.append(coarse[lvl.src].data_ptr() if lvl.src >= 0 else None)
+        start += lvl.size * lvl.size
+    if start >= 1 << 31:
+        raise ValueError("build_skyline_env_device: too many cells for "
+                         "K10's 32-bit indices")
+    # every constant rounded to float32 from the plain version's Python
+    # float, as torch rounds a Python scalar
+    consts = [plan["ox"], plan["oy"], plan["oz"], plan["bin_w"],
+              plan["log2_d0"], plan["log2_g"], plan["inv_step"], _PI,
+              _TWO_PI, *(float(np.float32(x)) for x in (
+                  np.pi * (1.0 - 1e-6), NUM_MARGIN, 1e-6, 1e-3, 1e-4, 1e-12,
+                  -3e38))]
+    tl = offsets[0]
+    ws = torch.empty((K + n_cls * K * (bins + 1),), dtype=torch.int32,
+                     device=dev)
+    ed = torch.empty((K * bins,), dtype=torch.int32, device=dev)
+    E = torch.empty((bins, K), dtype=torch.float32, device=dev)
+    S = torch.empty((bins, sw), dtype=torch.float32, device=dev)
+    err = fn(flat.data_ptr(), offsets[1], max((1 << height) >> tl, 1), tl,
+             (ctypes.c_int * len(ints))(*ints),
+             (ctypes.c_float * len(floats))(*floats),
+             (ctypes.c_void_p * len(srcs))(*srcs), len(srcs), start,
+             (ctypes.c_int * n_cls)(*plan["cls_w"]), n_cls,
+             (ctypes.c_float * len(consts))(*consts), bins, K, sw,
+             ws.data_ptr(), ed.data_ptr(), E.data_ptr(), S.data_ptr(),
+             stream)
+    return err, E, S, ws
+
+
 def build_skyline_env_device(pack, origin, bins: int = 4096, ratio: int = 16,
                              K: int = 64, d0: float = 4.0,
                              cls_step: float = 1.0):
     """The envelope for rays from ``origin`` (host (3,)), built on the
     pack's device from ``sky_levels_from_hf``'s pack: ``dict(E (bins, K)
-    float32, d0, g, bins, K)``, the JAX package's layout."""
+    float32, S (K5's summary, ``env_summary(E)``), d0, g, bins, K)``, the
+    JAX package's layout. K10 on a CUDA pack, ``_env_device`` on a CPU
+    pack."""
     height = pack["height"]
     if pack["offsets"][0] > height:
         raise ValueError("build_skyline_env_device: world smaller than a tile")
-    E = _env_device(pack["flat"], pack["coarse"], origin, pack["offsets"],
-                    bins, ratio, K, float(d0), height, float(cls_step))
+    flat = pack["flat"]
+    if flat.device.type == "cpu":
+        E = _env_device(flat, pack["coarse"], origin, pack["offsets"], bins,
+                        ratio, K, float(d0), height, float(cls_step))
+        S = env_summary(E)
+    elif flat.device.type == "cuda":
+        plan = _env_plan(pack["offsets"], height, origin, bins, ratio, K,
+                         float(d0), float(cls_step))
+        lib = build.library()
+        with torch.cuda.device(flat.device):
+            err, E, S, _ = _env_launch(
+                lib.voxt_sky_env, flat, pack["coarse"], plan, pack["offsets"],
+                height, bins, K, torch.cuda.current_stream().cuda_stream)
+        build.check(err, "build_skyline_env_device")
+        profiling.count("launches.env_build")
+    else:
+        raise ValueError(f"build_skyline_env_device: unsupported device "
+                         f"{flat.device}")
     g = (4.0 * (1 << height) / d0) ** (1.0 / (K - 1.0))
-    return dict(E=E, S=env_summary(E), d0=float(d0), g=float(g), bins=bins,
-                K=K)
+    return dict(E=E, S=S, d0=float(d0), g=float(g), bins=bins, K=K)
 
 
 def env_summary(E):

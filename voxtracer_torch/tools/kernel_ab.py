@@ -100,6 +100,12 @@ a batch-8 main-path call.
     python voxtracer_torch/tools/kernel_ab.py beam_frame [--reps N] \
         [--log2-size L ...]
 
+    # the envelope build (K10) against its plain version on the 8192^3
+    # world at the smoke pose, tiers 0 and 1, in turns (plain, K10, K10,
+    # plain), E and S equal by bits: wall and host ms a build, K10's
+    # device ms, one profiled build of each (device ms, device events)
+    python -m voxtracer_torch.tools.kernel_ab env_build [--reps N]
+
     # K4 (and K2 beside it) on the smoke's ray sets over lane-fetch
     # settings (static percent, lanes per claim, idle threads to refill;
     # csrc/lanes.cuh): a choice of schedule, the results do not change
@@ -743,6 +749,75 @@ def run_sky(old_csrc: Path, variants, edits: bool, reps: int):
                 diagnostic_not_held_equal=[
                     n for n, _, _ in runs if n in SKY_DIAGNOSTIC])))
             sys.stdout.flush()
+
+
+def run_env_build(reps: int):
+    """K10 against the plain envelope build (skyline._env_device) on the
+    8192^3 world at the smoke pose, the Renderer's tiers 0 and 1, in
+    turns (plain, K10, K10, plain): E and S equal by bits; each side's
+    wall ms of a synchronised build and host ms to enqueue one (host
+    clock, medians of ``reps``), K10's ms on CUDA events (a pair a build
+    behind a spin), and one profiled build of each side (device busy ms,
+    device events). One JSON line a tier."""
+    sys.path.insert(0, str(Path.cwd()))
+    import statistics
+
+    import torch
+
+    import chip_smoke as cs
+    from voxtracer_torch.kernels import heightfield as hf
+    from voxtracer_torch.kernels import skyline
+    from voxtracer_torch.render.driver import Renderer
+    from voxtracer_torch.world import worldgen
+
+    smi = card()
+    print(smi)
+    dev = torch.device("cuda")
+    L = cs.FULL_LOG2_SIZE
+    levels = skyline.sky_levels_from_hf(*hf.build_height_mips(
+        worldgen.heightmap(L, device=dev), device=dev))
+    origin = np.asarray(cs._smoke_camera(L).pos, np.float64)
+    for tier in (0, 1):
+        kw = Renderer.SKY_TIERS[tier][0]
+
+        def plain(kw=kw):
+            E = skyline._env_device(
+                levels["flat"], levels["coarse"], origin, levels["offsets"],
+                kw["bins"], kw["ratio"], kw["K"], 4.0, L, 1.0)
+            return E, skyline.env_summary(E)
+
+        def k10(kw=kw):
+            env = skyline.build_skyline_env_device(levels, origin, **kw)
+            return env["E"], env["S"]
+
+        sides = dict(plain=plain, K10=k10)
+        (Ep, Sp), (Ek, Sk) = plain(), k10()
+        torch.cuda.synchronize()
+        if not (torch.equal(Ep, Ek) and torch.equal(Sp, Sk)):
+            raise AssertionError(f"env_build tier {tier}: K10's table "
+                                 "differs from the plain build's")
+        wall = {k: [] for k in sides}
+        host = {k: [] for k in sides}
+        for name in ("plain", "K10", "K10", "plain"):
+            w, h = [], []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sides[name]()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                w.append(1e3 * (time.perf_counter() - t0))
+                h.append(1e3 * (t1 - t0))
+            wall[name].append(statistics.median(w))
+            host[name].append(statistics.median(h))
+        prof = {k: profile_call(fn) for k, fn in sides.items()}
+        print(json.dumps(dict(
+            case=f"env_build tier {tier} at {1 << L}^3", card=smi, kw=kw,
+            equal_by_bits=True, wall_ms=wall, host_ms=host,
+            k10_event_ms=cs._ms_fresh(lambda: None, k10, reps),
+            device_busy_ms={k: p["busy_ms"] for k, p in prof.items()},
+            device_events={k: p["device_events"] for k, p in prof.items()})))
+        sys.stdout.flush()
 
 
 def run_kernels(old_csrc: Path, sweep: bool, reps: int):
@@ -1660,6 +1735,8 @@ def main(argv=None) -> int:
     bm.add_argument("--old-csrc", type=Path, required=True)
     bm.add_argument("--reps", type=int, default=10)
     bm.add_argument("--log2-size", type=int, nargs="+", default=[10, 13])
+    eb = sub.add_parser("env_build")
+    eb.add_argument("--reps", type=int, default=10)
     bf = sub.add_parser("beam_frame")
     bf.add_argument("--reps", type=int, default=5)
     bf.add_argument("--log2-size", type=int, nargs="+", default=[10, 13])
@@ -1680,6 +1757,8 @@ def main(argv=None) -> int:
         run_beam(a.old_csrc, a.reps, a.log2_size)
     elif a.mode == "beam_frame":
         run_beam_frame(a.reps, a.log2_size)
+    elif a.mode == "env_build":
+        run_env_build(a.reps)
     else:
         run_e2e(a.reps, a.engine, a.log2_size)
     return 0
