@@ -29,20 +29,35 @@ of the opt-in engines once a bounce), so one thread launching the cards'
 shards in turn would run the cards in turn. The results are
 combined only after every thread has joined, in mesh order, so the sum
 does not depend on which thread finishes first. On one device the
-shards run in turn in the caller's thread. (The kernels' launch counters
-are plain module integers: shards running on several cards at once can
-lose an increment.)
+shards run in turn in the caller's thread. The kernels' launch counters
+are counts of the port's registry (``utils/profiling.py``), kept under
+its lock, so shards running on several cards at once lose no increment.
+
+What sharding adds is named in the port's trace, on the caller's
+thread: ``vt:shards`` from starting the shards to the last join, and
+``vt:shard_sum`` around the cross-card sum (the copies onto the first
+device, the mesh-order adds, the ``all_reduce``). A shard thread does
+not see the caller's profiler (``torch.autograd._profiler_enabled()``
+reads False there), so ``run_shards`` reads it once and hands it on:
+while the caller profiles, the shards of the k-th distinct device count
+``shard.calls.<k>`` and ``shard.host_us.<k>`` (the host microseconds of
+each shard's call) in the registry, and each call runs in ``vt:shard``,
+which a profiler started over every thread records. Untraced, a shard
+reads no clock and takes no lock.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from voxtracer_torch.kernels.integrator import render_sample
+from voxtracer_torch.utils import profiling
+from voxtracer_torch.utils.profiling import span
 
 
 class Replicated:
@@ -92,26 +107,42 @@ def _device_ctx(dev):
         else contextlib.nullcontext()
 
 
+def _traced_call(fn, i, dev, k):
+    """``fn(i, dev)`` in ``vt:shard``, its host time counted as the k-th
+    distinct device's (while the caller profiles)."""
+    with torch.autograd.profiler.record_function("vt:shard"):
+        t = time.perf_counter_ns()
+        r = fn(i, dev)
+        us = (time.perf_counter_ns() - t) // 1000
+    profiling.count(f"shard.host_us.{k}", us)
+    profiling.count(f"shard.calls.{k}")
+    return r
+
+
 def run_shards(mesh, fn):
     """``[fn(i, device) for each mesh entry i]``: each distinct device's
     entries in order from a host thread of its own (the caller's thread
     when the mesh has one distinct device). Returns the results in mesh
-    order, after every thread has joined."""
+    order, after every thread has joined. While the caller profiles,
+    each call is counted as its distinct device's (module doc)."""
     by_dev: dict = {}
     for i, d in enumerate(mesh.devices):
         by_dev.setdefault(d, []).append(i)
     out = [None] * mesh.size
+    traced = torch.autograd._profiler_enabled()
 
-    def work(dev, idx):
+    def work(k, dev, idx):
         with _device_ctx(dev):
             for i in idx:
-                out[i] = fn(i, dev)
+                out[i] = _traced_call(fn, i, dev, k) if traced \
+                    else fn(i, dev)
 
     if len(by_dev) == 1:
-        work(*next(iter(by_dev.items())))
+        work(0, *next(iter(by_dev.items())))
         return out
     with ThreadPoolExecutor(len(by_dev)) as ex:
-        futures = [ex.submit(work, d, idx) for d, idx in by_dev.items()]
+        futures = [ex.submit(work, k, d, idx)
+                   for k, (d, idx) in enumerate(by_dev.items())]
         for f in futures:
             f.result()  # re-raises a shard's error
     return out
@@ -206,17 +237,20 @@ def sample_sharded_step(mesh, table, root: int, height: int, lut,
         dyn, env = _call_args(mesh, extra, dynamic_soup)
         bins = None if soup_bins is None else replicate(mesh, soup_bins)
         sun_r = replicate(mesh, sun)
-        parts = run_shards(mesh, lambda i, dev: render_sample(
-            frame_seed=seeds[i],
-            **world.kw(dev, cam_pos, cam_basis, sun_r, dyn, env, bins)))
-        first = mesh.devices[0]
-        total = parts[0]
-        for p in parts[1:]:
-            total = total + p.to(first)
-        if mesh.group is not None:
-            import torch.distributed as dist
+        with span("vt:shards"):
+            parts = run_shards(mesh, lambda i, dev: render_sample(
+                frame_seed=seeds[i],
+                **world.kw(dev, cam_pos, cam_basis, sun_r, dyn, env, bins)))
+        with span("vt:shard_sum"):
+            first = mesh.devices[0]
+            total = parts[0]
+            for p in parts[1:]:
+                total = total + p.to(first)
+            if mesh.group is not None:
+                import torch.distributed as dist
 
-            dist.all_reduce(total, op=dist.ReduceOp.SUM, group=mesh.group)
+                dist.all_reduce(total, op=dist.ReduceOp.SUM,
+                                group=mesh.group)
         return total
 
     return step
@@ -261,9 +295,10 @@ def tile_sharded_step(mesh, table, root: int, height: int, lut,
         bins = None if soup_bins is None else replicate(mesh, soup_bins)
         sun_r = replicate(mesh, sun)
         base = mesh.rank * mesh.size
-        parts = run_shards(mesh, lambda i, dev: render_sample(
-            frame_seed=seed, row0=(base + i) * rows, rows=rows,
-            **world.kw(dev, cam_pos, cam_basis, sun_r, dyn, env, bins)))
+        with span("vt:shards"):
+            parts = run_shards(mesh, lambda i, dev: render_sample(
+                frame_seed=seed, row0=(base + i) * rows, rows=rows,
+                **world.kw(dev, cam_pos, cam_basis, sun_r, dyn, env, bins)))
         first = mesh.devices[0]
         frame = torch.cat([p.to(first) for p in parts])
         if mesh.group is not None:
