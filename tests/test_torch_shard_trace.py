@@ -10,8 +10,9 @@ reported, and not correct with one shard's radiance left out of the sum.
 i)``, whose tensors live on the CPU) takes the thread path, and its threads count ``shard.calls.<k>`` and
 ``shard.host_us.<k>`` only while the caller profiles. The spans
 ``vt:shards`` and ``vt:shard_sum`` sit under the span open around the
-step. The readers of the cell's three metrics read hand-built traces and
-registries, and give None where the program has none of it."""
+step. The readers of the cell's host metrics read hand-built traces and
+registries, and give None where the program has none of it
+(``shard_graph_share.x4``'s: tests/test_torch_shard_graph.py)."""
 
 import json
 import subprocess
@@ -37,6 +38,7 @@ from voxtracer_torch.world import svo
 ROOT = Path(__file__).resolve().parents[1]
 CELL = "daycycle_8192_x4"
 METRICS = ("shard_host_ms.x4", "step_host_ms.x4", "sum_ms.x4")
+SHARE = "shard_graph_share.x4"  # replays over shard calls
 CPU4 = [torch.device("cpu", i) for i in range(4)]  # four distinct devices
 W, H = 32, 16
 KW = dict(max_bounces=2, fog_steps=8)
@@ -74,7 +76,7 @@ def test_the_x4_cell_is_found_through_the_benchmark():
     e2e = {m["name"] for m in bench.cell_metrics(b, CELL, "end_to_end")}
     assert e2e == {"paths_px_s", "setup_s"}
     layer = {m["name"]: m for m in bench.cell_metrics(b, CELL, "per_layer")}
-    assert set(layer) == set(METRICS)
+    assert set(layer) == {*METRICS, SHARE}
     for m in layer.values():
         assert m["workloads"] == [CELL] and m["moves"] == "paths_px_s"
         assert bench.metric_reader(m["name"]) is not None
@@ -119,10 +121,12 @@ def test_a_traced_tiny_x4_run_reports_the_shard_metrics():
     # skips and profiles on a loaded host too
     rc, out = _tiny(trace=1, seconds=8.0)
     assert rc == 0 and out["correct"] is True, out["check"]
-    assert set(out["metrics"]) == set(METRICS)
+    assert set(out["metrics"]) == {*METRICS, SHARE}
     for name in METRICS:
         assert out["metrics"][name]["value"] > 0, name
         assert out["metrics"][name]["unit"] == "ms"
+    # CPU shards replay no CUDA graph
+    assert out["metrics"][SHARE] == dict(value=0.0, unit="replays/call")
 
 
 def test_a_tiny_x4_run_missing_one_shard_is_not_correct():
@@ -141,8 +145,12 @@ def _shard_counts():
 def test_run_shards_threads_count_only_while_the_caller_profiles():
     mesh = vmesh.make_mesh(devices=CPU4)
     caller = threading.get_ident()
+    # the four calls meet here: four shards in flight at once, whatever
+    # the clock (a worker that had finished could take a later call)
+    met = threading.Barrier(4, timeout=60)
 
     def fn(i, dev):
+        met.wait()
         time.sleep(0.002)
         return i, dev, threading.get_ident()
 
@@ -158,7 +166,8 @@ def test_run_shards_threads_count_only_while_the_caller_profiles():
     c = _shard_counts()
     assert {c[f"shard.calls.{k}"] for k in range(4)} == {2}  # one a step
     assert all(c[f"shard.host_us.{k}"] >= 2 * 2000 for k in range(4))
-    assert len(c) == 8
+    assert {c[f"shard.graph_replays.{k}"] for k in range(4)} == {0}
+    assert len(c) == 12
     shard.run_shards(mesh, fn)
     assert _shard_counts() == c  # no profiler: no count
     profiling.reset()
@@ -172,8 +181,9 @@ def test_run_shards_on_one_device_counts_its_calls_in_the_caller():
         out = shard.run_shards(mesh, lambda i, dev: threading.get_ident())
     assert out == [caller] * 3
     c = _shard_counts()
-    assert c["shard.calls.0"] == 3 and set(c) == {"shard.calls.0",
-                                                  "shard.host_us.0"}
+    assert c["shard.calls.0"] == 3 and set(c) == {
+        "shard.calls.0", "shard.host_us.0", "shard.graph_replays.0"}
+    assert c["shard.graph_replays.0"] == 0  # eager calls
     profiling.reset()
 
 

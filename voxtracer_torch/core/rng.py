@@ -42,10 +42,17 @@ def random3(state: torch.Tensor):
 
 def seed_pixels(frame_seed, px: torch.Tensor, py: torch.Tensor):
     """Per-pixel state: the (3,) frame seed XOR the bit patterns of the
-    pixel-centre floats (x + 0.5, y + 0.5, 0.0)."""
+    pixel-centre floats (x + 0.5, y + 0.5, 0.0). ``frame_seed``: three
+    uint32 values, or their int64 tensor already on the pixels' device
+    (read there, nothing copied from the host)."""
     fx = (px.to(torch.float32) + 0.5).view(torch.int32).to(torch.int64) & MASK
     fy = (py.to(torch.float32) + 0.5).view(torch.int32).to(torch.int64) & MASK
     pix = torch.stack([fx, fy, torch.zeros_like(fx)], dim=-1)
+    if isinstance(frame_seed, torch.Tensor):
+        if frame_seed.device != px.device or frame_seed.dtype != torch.int64:
+            raise ValueError("seed_pixels: a tensor seed must be int64 on "
+                             f"{px.device}")
+        return frame_seed ^ pix
     seed = torch.as_tensor(np.asarray(frame_seed, np.uint32).astype(np.int64),
                            device=px.device)
     return seed ^ pix

@@ -33,6 +33,28 @@ shards run in turn in the caller's thread. The kernels' launch counters
 are counts of the port's registry (``utils/profiling.py``), kept under
 its lock, so shards running on several cards at once lose no increment.
 
+**CUDA graphs.** A sample-sharded step whose shards read nothing from the
+host (every device a card, no soup: closed over, dynamic or its bins)
+runs each mesh entry's ``render_sample`` as a CUDA graph of its own,
+replayed in mesh order from the caller's thread: no threads, no Python
+around the ~290 launches of a sample, no pageable upload. A graph bakes
+in the step's world and what the capture key holds (``_pose_key``): the
+pose's bytes and the per-pose call args (the envelope) by identity. The
+first call with a key runs the threads; a second call in a row with the
+same key captures (an eager warm call first, then the capture into a
+memory pool a card) and replays, and so does every later one; a new key
+drops the graphs. A pose that changes every call (an interactive session
+on several cards) therefore never pays for a capture. What changes from
+call to call lives in fixed device buffers: each entry's frame seed and
+each card's sun, written before the replays by non-blocking copies (the
+seeds from pinned host memory, whose caching allocator hands a block
+out again only once the copies that read it have run; the sun from the
+caller's tensor, which the Renderer hands over on the first card).
+Before a card's buffers and graph outputs are written again, its stream
+waits for an event recorded after the last call's sum read them. The sum
+stays in mesh order, so a graphed step equals the threads' step, and
+the serial sum, by bits.
+
 What sharding adds is named in the port's trace, on the caller's
 thread: ``vt:shards`` from starting the shards to the last join, and
 ``vt:shard_sum`` around the cross-card sum (the copies onto the first
@@ -42,8 +64,13 @@ reads False there), so ``run_shards`` reads it once and hands it on:
 while the caller profiles, the shards of the k-th distinct device count
 ``shard.calls.<k>`` and ``shard.host_us.<k>`` (the host microseconds of
 each shard's call) in the registry, and each call runs in ``vt:shard``,
-which a profiler started over every thread records. Untraced, a shard
-reads no clock and takes no lock.
+which a profiler started over every thread records. A graphed step
+counts the same for each replay (its seed's copy and the launch), and
+besides ``shard.graph_replays.<k>`` (0 for a call that ran eagerly) and
+``shard.graph_captures.<k>``. A replay adds to ``launches.<kernel>``
+what its capture launched; K9's per-bounce queue lengths
+(``k9.queued``) are held for eager calls only. Untraced, a shard reads
+no clock and takes no lock.
 """
 
 from __future__ import annotations
@@ -107,15 +134,17 @@ def _device_ctx(dev):
         else contextlib.nullcontext()
 
 
-def _traced_call(fn, i, dev, k):
+def _traced_call(fn, i, dev, k, graphed: bool = False):
     """``fn(i, dev)`` in ``vt:shard``, its host time counted as the k-th
-    distinct device's (while the caller profiles)."""
+    distinct device's (while the caller profiles); ``graphed``: a
+    replay."""
     with torch.autograd.profiler.record_function("vt:shard"):
         t = time.perf_counter_ns()
         r = fn(i, dev)
         us = (time.perf_counter_ns() - t) // 1000
     profiling.count(f"shard.host_us.{k}", us)
     profiling.count(f"shard.calls.{k}")
+    profiling.count(f"shard.graph_replays.{k}", int(graphed))
     return r
 
 
@@ -200,6 +229,140 @@ class _World:
         return kw
 
 
+def _graphable(mesh, world, dynamic_soup: bool, soup_bins) -> bool:
+    """Whether a sample-sharded call may run as CUDA graphs: every device
+    of the mesh is a card and no soup is in it (module doc)."""
+    return (world.soup is None and not dynamic_soup and soup_bins is None
+            and all(d.type == "cuda" for d in mesh.distinct))
+
+
+def _pose_key(cam_pos, cam_basis, extra) -> tuple:
+    """What a call's graphs bake in besides the step's world: the pose's
+    float32 bytes and the call args (the envelope), these by identity
+    (``_same_key``)."""
+    def raw(x):
+        return torch.as_tensor(x, dtype=torch.float32).cpu().numpy().tobytes()
+
+    return raw(cam_pos), raw(cam_basis), tuple(extra)
+
+
+def _same_key(a, b) -> bool:
+    if a is None or b is None or a[:2] != b[:2] or len(a[2]) != len(b[2]):
+        return False
+    return all(x is y or (not isinstance(x, (torch.Tensor, Replicated))
+                          and type(x) is type(y) and x == y)
+               for x, y in zip(a[2], b[2]))
+
+
+class _GraphCache:
+    """A sample-sharded step's graphs and the key they were captured for:
+    graphs on the second call in a row with one key, none on the first
+    (module doc)."""
+
+    def __init__(self):
+        self.key = self.graphs = None
+
+    def get(self, key, capture):
+        """The graphs for ``key`` (``capture()`` makes them on its second
+        call in a row), or None: run eagerly. A new key (None: not
+        graphable) drops the old graphs."""
+        if not _same_key(key, self.key):
+            if self.graphs is not None:
+                self.graphs.close()
+            self.key, self.graphs = key, None
+            return None
+        if self.graphs is None:
+            self.graphs = capture()
+        return self.graphs
+
+
+class _CardGraphs:
+    """Each mesh entry's ``render_sample`` on its card as a CUDA graph of
+    its own, captured for one pose (module doc); entries on one card share
+    its memory pool, its sun and its pose."""
+
+    def __init__(self, mesh, world, cam_pos, cam_basis, env, seeds, sun):
+        self.mesh = mesh
+        self.card = {d: k for k, d in enumerate(mesh.distinct)}
+        f32 = torch.float32
+        # kw: each card's arguments, kept, since the graphs read their
+        # tensors (the pose made here, the envelope's replicas)
+        self.sun, self.read, self.kw = {}, {}, {}
+        kw = self.kw
+        pool, side = {}, {}
+        for d in mesh.distinct:
+            with torch.cuda.device(d):
+                self.sun[d] = torch.zeros(3, dtype=f32, device=d)
+                self.read[d] = torch.cuda.Event()
+                pool[d] = torch.cuda.graph_pool_handle()
+                side[d] = torch.cuda.Stream(d)
+                # the pose on the card, made before any capture
+                kw[d] = world.kw(
+                    d, torch.as_tensor(cam_pos, dtype=f32).to(d),
+                    torch.as_tensor(cam_basis, dtype=f32).to(d), self.sun[d],
+                    None, env, None)
+        self.seed = [torch.zeros(3, dtype=torch.int64, device=d)
+                     for d in mesh.devices]
+        host = self._stage(seeds, sun)
+        traced = torch.autograd._profiler_enabled()
+        self.graph, self.out, self.launched = [], [], []
+        for i, d in enumerate(mesh.devices):
+            self.seed[i].copy_(host[i], non_blocking=True)
+            with torch.cuda.device(d):
+                # warm: the per-card caches (row starts, the kernel
+                # library) fill outside the capture
+                render_sample(frame_seed=self.seed[i], **kw[d])
+                g = torch.cuda.CUDAGraph()
+                with profiling.recording() as launched, \
+                        torch.cuda.graph(g, pool=pool[d], stream=side[d]):
+                    out = render_sample(frame_seed=self.seed[i], **kw[d])
+            self.graph.append(g)
+            self.out.append(out)
+            self.launched.append(launched)
+            if traced:
+                profiling.count(f"shard.graph_captures.{self.card[d]}")
+
+    def _stage(self, seeds, sun):
+        """Write each card's sun, after its stream has waited for the last
+        call's sum; the seeds in pinned host memory for ``_replay``."""
+        for d in self.mesh.distinct:
+            with torch.cuda.device(d):
+                torch.cuda.current_stream().wait_event(self.read[d])
+                self.sun[d].copy_(sun, non_blocking=True)
+        return torch.from_numpy(seeds.astype(np.int64)).pin_memory()
+
+    def _replay(self, i, dev, host):
+        with torch.cuda.device(dev):
+            self.seed[i].copy_(host[i], non_blocking=True)
+            self.graph[i].replay()
+        for name, n in self.launched[i].items():
+            profiling.count(name, n)
+        return self.out[i]
+
+    def replay(self, seeds, sun):
+        """The entries' radiance for this call's seeds and sun, in mesh
+        order: each graph's own output, valid until the next call."""
+        host = self._stage(seeds, sun)
+        if not torch.autograd._profiler_enabled():
+            return [self._replay(i, d, host)
+                    for i, d in enumerate(self.mesh.devices)]
+        return [_traced_call(lambda i, d: self._replay(i, d, host), i, d,
+                             self.card[d], graphed=True)
+                for i, d in enumerate(self.mesh.devices)]
+
+    def read_done(self):
+        """Mark each card's stream after the sum's reads of the outputs."""
+        for d in self.mesh.distinct:
+            with torch.cuda.device(d):
+                self.read[d].record()
+
+    def close(self):
+        """Wait for every card before the graphs and their pools go."""
+        for d in self.mesh.distinct:
+            torch.cuda.synchronize(d)
+        self.graph = self.out = None
+
+
 def _check_soup(soup, dynamic_soup: bool):
     if dynamic_soup and soup is not None:
         raise ValueError("dynamic_soup replaces the closed-over soup")
@@ -223,29 +386,45 @@ def sample_sharded_step(mesh, table, root: int, height: int, lut,
     pose's culled view); the remaining call args are the envelope, taken
     by the hf-only primaries. ``soup_bins``: the pose's jittered
     ``raster_bins`` of the soup the shards rasterize (a ``Replicated``,
-    or one device's, copied per call)."""
+    or one device's, copied per call). On cards without a soup the step
+    replays CUDA graphs once a key repeats (module doc); ``step.graphs``
+    holds them."""
     _check_soup(soup, dynamic_soup)
     world = _World(mesh, table, root, height, lut, width_px, height_px,
                    max_bounces, fog_steps, soup, hf_mips, hf_offsets,
                    terrain_rgb)
+    graphs = _GraphCache()
 
     def step(seeds, cam_pos, cam_basis, sun, *extra, soup_bins=None):
         seeds = np.asarray(seeds, np.uint32).reshape(-1, 3)
         if seeds.shape[0] != mesh.size:
             raise ValueError(f"sample_sharded_step: {seeds.shape[0]} seed "
                              f"rows for {mesh.size} shards")
-        dyn, env = _call_args(mesh, extra, dynamic_soup)
-        bins = None if soup_bins is None else replicate(mesh, soup_bins)
-        sun_r = replicate(mesh, sun)
+        key = _pose_key(cam_pos, cam_basis, extra) if _graphable(
+            mesh, world, dynamic_soup, soup_bins) else None
         with span("vt:shards"):
-            parts = run_shards(mesh, lambda i, dev: render_sample(
-                frame_seed=seeds[i],
-                **world.kw(dev, cam_pos, cam_basis, sun_r, dyn, env, bins)))
+            g = graphs.get(key, lambda: _CardGraphs(
+                mesh, world, cam_pos, cam_basis,
+                _call_args(mesh, extra, False)[1], seeds, sun))
+            if g is not None:
+                parts = g.replay(seeds, sun)
+            else:
+                dyn, env = _call_args(mesh, extra, dynamic_soup)
+                bins = None if soup_bins is None \
+                    else replicate(mesh, soup_bins)
+                sun_r = replicate(mesh, sun)
+                parts = run_shards(mesh, lambda i, dev: render_sample(
+                    frame_seed=seeds[i], **world.kw(
+                        dev, cam_pos, cam_basis, sun_r, dyn, env, bins)))
         with span("vt:shard_sum"):
             first = mesh.devices[0]
-            total = parts[0]
+            # a graph's output is its own: the caller gets a new tensor
+            total = parts[0] if g is None or len(parts) > 1 \
+                else parts[0].clone()
             for p in parts[1:]:
                 total = total + p.to(first)
+            if g is not None:
+                g.read_done()
             if mesh.group is not None:
                 import torch.distributed as dist
 
@@ -253,6 +432,7 @@ def sample_sharded_step(mesh, table, root: int, height: int, lut,
                                 group=mesh.group)
         return total
 
+    step.graphs = graphs
     return step
 
 

@@ -716,9 +716,13 @@ def render_sample(table, root: int, height: int, lut, cam_pos, cam_basis,
     rasterizes its TILE-aligned run of rows (``_aligned_band``).
     ``aug``: the beam engine's rows (``beam.build_aug_table``) for the
     primaries when there is no soup (8-aligned frames and bands);
-    ``sun_maps``, ``bitworld``/``bit_size``: as ``trace_paths``. Returns
-    the (rows, W, 3) radiance on the table's device ((H, W, 3) for the
-    whole frame)."""
+    ``sun_maps``, ``bitworld``/``bit_size``: as ``trace_paths``.
+    ``frame_seed``: three uint32 values, or their int64 tensor on the
+    table's device; ``cam_pos``, ``cam_basis``, ``terrain_rgb`` and the
+    sun may lie there too (float32), and then nothing of the call is
+    copied from the host, as a CUDA graph's capture needs
+    (``dist/shard.py``). Returns the (rows, W, 3) radiance on the table's
+    device ((H, W, 3) for the whole frame)."""
     dev = table.device
     if rows is None:
         rows = height_px

@@ -48,6 +48,8 @@ def _lanes(start, d, distance, active):
     start = torch.as_tensor(start, dtype=torch.float32, device=dev)
     start = start.expand(d.shape).reshape(B, 3).contiguous()
     d = d.to(torch.float32).reshape(B, 3).contiguous()
+    if isinstance(distance, (int, float)):  # filled there: no host copy
+        distance = torch.full((), distance, dtype=torch.float32, device=dev)
     distance = torch.as_tensor(distance, dtype=torch.float32, device=dev)
     distance = distance.expand(batch_shape).reshape(B).contiguous()
     if active is not None:

@@ -19,7 +19,10 @@ the port's counts under one lock, so threads that launch kernels
 (``dist/shard.py:run_shards``) lose no increment: every kernel launch
 counts ``launches.<kernel>``, and while the profiler records K9 holds
 each call's per-bounce queue lengths, summed on the host only when the
-registry is read.
+registry is read. Inside ``recording()`` a thread's counts go to a dict
+of its own instead, and its holds are dropped: a CUDA graph's capture
+launches nothing, and each replay counts what the capture recorded
+(``dist/shard.py``).
 """
 
 from __future__ import annotations
@@ -62,8 +65,13 @@ class Counters:
         self._lock = threading.Lock()
         self._counts: dict[str, int] = {}
         self._held: list[tuple[str, tuple, torch.Tensor]] = []
+        self._local = threading.local()  # .sink: recording()'s dict
 
     def count(self, name: str, n: int = 1):
+        sink = getattr(self._local, "sink", None)
+        if sink is not None:
+            sink[name] = sink.get(name, 0) + n
+            return
         with self._lock:
             self._counts[name] = self._counts.get(name, 0) + n
 
@@ -71,10 +79,21 @@ class Counters:
         """While the profiler records: count ``values`` (..., len(names))
         at the next read as ``<prefix>.<name>``, each column summed over
         the other axes, and one ``<prefix>.calls``. Otherwise nothing."""
-        if not torch.autograd._profiler_enabled():
+        if not torch.autograd._profiler_enabled() \
+                or getattr(self._local, "sink", None) is not None:
             return
         with self._lock:
             self._held.append((prefix, tuple(names), values))
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Divert this thread's counts into the yielded dict, and drop its
+        holds, until the block ends."""
+        self._local.sink = sink = {}
+        try:
+            yield sink
+        finally:
+            self._local.sink = None
 
     def counts(self) -> dict:
         """A snapshot of every count; the held tensors are read to the
@@ -101,6 +120,7 @@ count = COUNTERS.count
 hold = COUNTERS.hold
 counts = COUNTERS.counts
 reset = COUNTERS.reset
+recording = COUNTERS.recording
 
 
 class FrameTimer:
