@@ -1,12 +1,14 @@
 """The sample-sharded step's CUDA graphs (``dist/shard.py``).
 
 On the CPU: the policy. A mesh that is not all cards, or a step with a
-soup, never captures and keeps its threads; the capture key changes with
-the pose and the envelope, and a new step object starts with no graphs;
-the first call with a key runs eagerly, the second captures, a new key
-drops the graphs. The step's wiring runs with a stand-in for the graphs
-(``_FakeGraphs``: each entry's ``render_sample`` from the tensor seed it
-is handed), against the same Renderer run eagerly, by bits. The
+soup, never captures and runs eagerly; the capture key changes with the
+pose and the envelope, and a new step object starts with no graphs; the
+first call with a key runs eagerly, the second captures, a new key drops
+the graphs. The step's wiring runs with a stand-in for the graphs
+(``_FakeGraphs``: ``_CardGraphs.replay`` over graphs that run each
+entry's ``render_sample`` from its int64 seed buffer), against the same
+Renderer run eagerly, by bits; a traced replayed step counts its calls
+and replays through ``run_shards``, an eager one its calls only. The
 registry's ``recording`` diverts a thread's counts; the metric
 ``shard_graph_share.x4`` and ``shard_host_ms.x4`` read the registry as a
 graphed step leaves it, and give None without their counts.
@@ -21,6 +23,7 @@ Run there from the repository root:
     python -m pytest tests/test_torch_shard_graph.py -q --noconftest
 """
 
+import functools
 import sys
 import threading
 import types
@@ -147,7 +150,7 @@ def test_the_first_call_with_a_new_key_runs_eagerly():
     assert cache.get(None, capture) is None and len(made) == 2
 
 
-def test_a_cpu_mesh_never_captures_and_keeps_its_threads(monkeypatch):
+def test_a_cpu_mesh_never_captures_and_runs_eagerly(monkeypatch):
     r = _renderer([torch.device("cpu", i) for i in range(4)])
     calls = []
     run = shard.run_shards
@@ -160,25 +163,34 @@ def test_a_cpu_mesh_never_captures_and_keeps_its_threads(monkeypatch):
     assert step.graphs.key is None
 
 
-class _FakeGraphs:
-    """``_CardGraphs``' interface without a card: each replay runs every
-    entry's ``render_sample`` eagerly from an int64 seed tensor and the
-    pose the capture was handed."""
+class _FakeGraphs(shard._CardGraphs):
+    """``_CardGraphs`` without a card: its own ``replay`` over stand-in
+    graphs, each of which runs its entry's ``render_sample`` eagerly
+    from the entry's int64 seed buffer, the sun buffer and the pose the
+    capture was handed."""
 
     made = []
 
     def __init__(self, mesh, world, cam_pos, cam_basis, env, seeds, sun):
-        self.args = mesh, world, cam_pos, cam_basis, env
+        self.mesh = mesh
+        self.sun = torch.zeros(3)
+        self.seed = [torch.zeros(3, dtype=torch.int64) for _ in mesh.devices]
+        self.out = [None] * mesh.size
+        self.launched = [{} for _ in mesh.devices]
+        self.graph = [types.SimpleNamespace(replay=functools.partial(
+            self._sample, i, world.kw(d, torch.as_tensor(cam_pos), cam_basis,
+                                      self.sun, None, env, None)))
+            for i, d in enumerate(mesh.devices)]
         self.replays, self.reads, self.closed = 0, 0, False
         _FakeGraphs.made.append(self)
 
-    def replay(self, seeds, sun):
-        mesh, world, pos, basis, env = self.args
+    def _sample(self, i, kw):
+        self.out[i] = integrator.render_sample(frame_seed=self.seed[i], **kw)
+
+    def _stage(self, seeds, sun):
         self.replays += 1
-        return [integrator.render_sample(
-            frame_seed=torch.from_numpy(seeds[i].astype(np.int64)),
-            **world.kw(d, torch.as_tensor(pos), basis, sun, None, env, None))
-            for i, d in enumerate(mesh.devices)]
+        self.sun.copy_(sun)
+        return torch.from_numpy(seeds.astype(np.int64))
 
     def read_done(self):
         self.reads += 1
@@ -187,23 +199,31 @@ class _FakeGraphs:
         self.closed = True
 
 
+def _fake_graphs(monkeypatch, mesh):
+    """Stand-in graphs for ``mesh``'s steps; returns the flags of every
+    ``run_shards`` call on ``mesh``: True for a replay."""
+    graphable = shard._graphable
+    monkeypatch.setattr(shard, "_graphable",
+                        lambda m, *a: m is mesh or graphable(m, *a))
+    monkeypatch.setattr(shard, "_CardGraphs", _FakeGraphs)
+    _FakeGraphs.made = []
+    runs = []
+    run = shard.run_shards
+    monkeypatch.setattr(shard, "run_shards", lambda m, fn: (
+        m is mesh and runs.append(getattr(fn, "graphed", False))
+        or run(m, fn)))
+    return runs
+
+
 def test_graphed_steps_follow_the_key_and_equal_eager_steps(monkeypatch):
     """With a stand-in for the graphs on a CPU mesh: the first step of a
-    pose runs the threads, the second captures and replays, and so on;
-    a new pose, and the new step object after ``apply_edits``, start
-    again; every step equals the same Renderer run eagerly, by bits."""
+    pose runs eagerly, the second captures and replays, and so on; a new
+    pose, and the new step object after ``apply_edits``, start again;
+    every step equals the same Renderer run eagerly, by bits."""
     spaces = [_space(), _space()]
     r = _renderer(["cpu"] * 3, space=spaces[0])
     eager = _renderer(["cpu"] * 3, space=spaces[1])
-    graphable = shard._graphable
-    monkeypatch.setattr(shard, "_graphable",
-                        lambda mesh, *a: mesh is r.mesh or graphable(mesh, *a))
-    monkeypatch.setattr(shard, "_CardGraphs", _FakeGraphs)
-    _FakeGraphs.made = []
-    eager_calls = []
-    run = shard.run_shards
-    monkeypatch.setattr(shard, "run_shards", lambda mesh, fn: (
-        eager_calls.append(mesh is r.mesh) or run(mesh, fn)))
+    runs = _fake_graphs(monkeypatch, r.mesh)
 
     def both(cam, sun=SUN):
         r.sample(cam, sun)
@@ -212,7 +232,7 @@ def test_graphed_steps_follow_the_key_and_equal_eager_steps(monkeypatch):
 
     def seen():  # (eager steps of r, graphs made, replays of the last)
         made = _FakeGraphs.made
-        return (sum(eager_calls), len(made),
+        return (runs.count(False), len(made),
                 made[-1].replays if made else 0)
 
     both(CAM_A)
@@ -235,6 +255,35 @@ def test_graphed_steps_follow_the_key_and_equal_eager_steps(monkeypatch):
     both(CAM_B)
     assert seen() == (3, 3, 1)
     assert r.acc.samples == 6
+
+
+def test_a_traced_replayed_step_counts_its_replays_through_run_shards(
+        monkeypatch):
+    """With the stand-in graphs on four distinct CPU devices: while
+    profiling, an eager step counts each card's call and no replay, a
+    replayed step a call and a replay a card, each in ``vt:shard`` under
+    ``vt:shards``, through ``run_shards``."""
+    r = _renderer([torch.device("cpu", i) for i in range(4)])
+    runs = _fake_graphs(monkeypatch, r.mesh)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        r.sample(CAM_A, SUN)  # eager
+    c = _shard_counts()
+    assert runs == [False]
+    assert {c[f"shard.calls.{k}"] for k in range(4)} == {1}
+    assert {c[f"shard.graph_replays.{k}"] for k in range(4)} == {0}
+    r.sample(CAM_A, SUN)  # captured and replayed, not profiled
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        r.sample(CAM_A, SUN)  # replayed
+    c = _shard_counts()
+    assert runs == [False, True, True] and _FakeGraphs.made[0].replays == 2
+    assert len(c) == 12
+    assert {c[f"shard.calls.{k}"] for k in range(4)} == {1}
+    assert {c[f"shard.graph_replays.{k}"] for k in range(4)} == {1}
+    assert sorted(e.cpu_parent.name for e in prof.events()
+                  if e.name == "vt:shard") == ["vt:shards"] * 4
+    profiling.reset()
 
 
 def test_a_tensor_seed_and_pose_give_the_numpy_forms_sample():

@@ -6,9 +6,11 @@ through the benchmark's test path (``vtbench.bench.main(..., test=...)``),
 each run in a fresh interpreter (a run refuses a process that loaded the
 JAX package, as other test files of a worker do): correct, its metrics
 reported, and not correct with one shard's radiance left out of the sum.
-``run_shards`` over four distinct CPU devices (``torch.device("cpu",
-i)``, whose tensors live on the CPU) takes the thread path, and its threads count ``shard.calls.<k>`` and
-``shard.host_us.<k>`` only while the caller profiles. The spans
+``run_shards`` runs every call in mesh order on the caller's thread,
+over four distinct CPU devices (``torch.device("cpu", i)``, whose tensors
+live on the CPU) as over one, and counts ``shard.calls.<k>``,
+``shard.host_us.<k>`` and ``shard.graph_replays.<k>`` for each distinct
+device only while the caller profiles. The spans
 ``vt:shards`` and ``vt:shard_sum`` sit under the span open around the
 step. The readers of the cell's host metrics read hand-built traces and
 registries, and give None where the program has none of it
@@ -117,9 +119,11 @@ def test_a_tiny_x4_run_is_correct_and_reports_its_metrics():
 
 
 def test_a_traced_tiny_x4_run_reports_the_shard_metrics():
-    # a frame is one step here: the window holds the two that the trace
-    # skips and profiles on a loaded host too
-    rc, out = _tiny(trace=1, seconds=8.0)
+    # a frame is one step here, and the trace profiles from the window's
+    # second: the window must outlast the first on a loaded host too (a
+    # step took 1.3 s alone, 15-19 s beside the whole suite's six workers;
+    # the profiler's stop, ~10 s, comes after the window either way)
+    rc, out = _tiny(trace=1, seconds=30.0)
     assert rc == 0 and out["correct"] is True, out["check"]
     assert set(out["metrics"]) == {*METRICS, SHARE}
     for name in METRICS:
@@ -135,55 +139,43 @@ def test_a_tiny_x4_run_missing_one_shard_is_not_correct():
     assert out["correct"] is False, out["check"]
 
 
-# -- run_shards' threads and counters --
+# -- run_shards' loop and counters --
 
 def _shard_counts():
     return {k: v for k, v in profiling.counts().items()
             if k.startswith("shard.")}
 
 
-def test_run_shards_threads_count_only_while_the_caller_profiles():
-    mesh = vmesh.make_mesh(devices=CPU4)
+@pytest.mark.parametrize("devices", [CPU4, ["cpu"] * 3],
+                         ids=["distinct-devices", "one-device"])
+def test_run_shards_runs_in_turn_and_counts_only_while_profiling(devices):
+    mesh = vmesh.make_mesh(devices=devices)
+    cards = len(mesh.distinct)
     caller = threading.get_ident()
-    # the four calls meet here: four shards in flight at once, whatever
-    # the clock (a worker that had finished could take a later call)
-    met = threading.Barrier(4, timeout=60)
+    ran = []
 
     def fn(i, dev):
-        met.wait()
+        ran.append(i)
         time.sleep(0.002)
         return i, dev, threading.get_ident()
 
     profiling.reset()
     out = shard.run_shards(mesh, fn)
-    assert [(i, d) for i, d, _ in out] == list(enumerate(CPU4))
-    assert caller not in {t for _, _, t in out}  # the thread path
-    assert len({t for _, _, t in out}) == 4
+    assert [(i, d) for i, d, _ in out] == list(enumerate(mesh.devices))
+    assert ran == list(range(mesh.size))  # in mesh order
+    assert {t for _, _, t in out} == {caller}
     assert _shard_counts() == {}  # nothing counted, nothing profiled
     with profile(activities=[ProfilerActivity.CPU]):
         for _ in range(2):
             shard.run_shards(mesh, fn)
     c = _shard_counts()
-    assert {c[f"shard.calls.{k}"] for k in range(4)} == {2}  # one a step
-    assert all(c[f"shard.host_us.{k}"] >= 2 * 2000 for k in range(4))
-    assert {c[f"shard.graph_replays.{k}"] for k in range(4)} == {0}
-    assert len(c) == 12
+    calls = 2 * mesh.size // cards  # each distinct device's, two steps
+    assert {c[f"shard.calls.{k}"] for k in range(cards)} == {calls}
+    assert all(c[f"shard.host_us.{k}"] >= calls * 2000 for k in range(cards))
+    assert {c[f"shard.graph_replays.{k}"] for k in range(cards)} == {0}
+    assert len(c) == 3 * cards
     shard.run_shards(mesh, fn)
     assert _shard_counts() == c  # no profiler: no count
-    profiling.reset()
-
-
-def test_run_shards_on_one_device_counts_its_calls_in_the_caller():
-    mesh = vmesh.make_mesh(devices=["cpu"] * 3)
-    caller = threading.get_ident()
-    profiling.reset()
-    with profile(activities=[ProfilerActivity.CPU]):
-        out = shard.run_shards(mesh, lambda i, dev: threading.get_ident())
-    assert out == [caller] * 3
-    c = _shard_counts()
-    assert c["shard.calls.0"] == 3 and set(c) == {
-        "shard.calls.0", "shard.host_us.0", "shard.graph_replays.0"}
-    assert c["shard.graph_replays.0"] == 0  # eager calls
     profiling.reset()
 
 
@@ -198,8 +190,8 @@ def test_untraced_shards_take_no_lock_and_read_no_clock(monkeypatch):
 
 
 def test_renderer_on_distinct_devices_equals_one_device_by_bits():
-    """Four shard threads give the same step, by bits, as the same four
-    shards run in turn on one device."""
+    """Four shards on four distinct devices give the same step, by bits,
+    as the same four shards on one device."""
     dev = _world()
     r4 = Renderer(dev, W, H, seed=11, devices=CPU4, **KW)
     r1 = Renderer(dev, W, H, seed=11, devices=["cpu"] * 4, **KW)
@@ -219,7 +211,7 @@ def _parents(prof, names):
 
 
 @pytest.mark.parametrize("devices", [CPU4, ["cpu"] * 4],
-                         ids=["threads", "one-device"])
+                         ids=["distinct-devices", "one-device"])
 def test_sample_step_spans_sit_under_the_renderers_sample(devices):
     r = Renderer(_world(), W, H, seed=5, devices=devices, **KW)
     r.sample(_cam(), SUN)
@@ -287,7 +279,7 @@ def test_span_readers_read_the_steps(capsys):
 
 
 def _profiled(calls):
-    """The registry as the shard threads leave it: ``calls`` is
+    """The registry as traced steps leave it: ``calls`` is
     ``{card: [host us of each call]}``."""
     profiling.reset()
     for k, us in calls.items():

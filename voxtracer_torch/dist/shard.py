@@ -23,61 +23,53 @@ pose's jittered raster bins (``soup_bins=``). A call arg given as a
 ``Replicated`` is used as it is; a tensor is copied to each distinct
 device on every call, so the Renderer replicates them once per pose.
 
-Each distinct device's shards run from a host thread of their own: a
-sample reads the host (the rasterized primaries; the masked bounce loop
-of the opt-in engines once a bounce), so one thread launching the cards'
-shards in turn would run the cards in turn. The results are
-combined only after every thread has joined, in mesh order, so the sum
-does not depend on which thread finishes first. On one device the
-shards run in turn in the caller's thread. The kernels' launch counters
-are counts of the port's registry (``utils/profiling.py``), kept under
-its lock, so shards running on several cards at once lose no increment.
+Every shard call of both steps, eager or a graph replay, runs in one
+loop (``run_shards``): in mesh order from the caller's thread, a card's
+call under its device context. On four H100s at 8192^3 a step's eager
+calls took 13.70-14.41 ms so, against 50.29-59.36 ms from a host thread
+a card.
 
 **CUDA graphs.** A sample-sharded step whose shards read nothing from the
 host (every device a card, no soup: closed over, dynamic or its bins)
 runs each mesh entry's ``render_sample`` as a CUDA graph of its own,
-replayed in mesh order from the caller's thread: no threads, no Python
-around the ~290 launches of a sample, no pageable upload. A graph bakes
-in the step's world and what the capture key holds (``_pose_key``): the
-pose's bytes and the per-pose call args (the envelope) by identity. The
-first call with a key runs the threads; a second call in a row with the
-same key captures (an eager warm call first, then the capture into a
-memory pool a card) and replays, and so does every later one; a new key
-drops the graphs. A pose that changes every call (an interactive session
-on several cards) therefore never pays for a capture. What changes from
-call to call lives in fixed device buffers: each entry's frame seed and
-each card's sun, written before the replays by non-blocking copies (the
-seeds from pinned host memory, whose caching allocator hands a block
-out again only once the copies that read it have run; the sun from the
-caller's tensor, which the Renderer hands over on the first card).
-Before a card's buffers and graph outputs are written again, its stream
-waits for an event recorded after the last call's sum read them. The sum
-stays in mesh order, so a graphed step equals the threads' step, and
-the serial sum, by bits.
+replayed through that loop: no Python around the ~290 launches of a
+sample, no pageable upload. A graph bakes in the step's world and what
+the capture key holds (``_pose_key``): the pose's bytes and the per-pose
+call args (the envelope) by identity. The first call with a key runs
+eagerly; a second call in a row with the same key captures (an eager
+warm call first, then the capture into a memory pool a card) and
+replays, and so does every later one; a new key drops the graphs. A
+pose that changes every call (an interactive session on several cards)
+therefore never pays for a capture. What changes from call to call
+lives in fixed device buffers: each entry's frame seed and each card's
+sun, written before the replays by non-blocking copies (the seeds from
+pinned host memory, whose caching allocator hands a block out again
+only once the copies that read it have run; the sun from the caller's
+tensor, which the Renderer hands over on the first card). Before a
+card's buffers and graph outputs are written again, its stream waits
+for an event recorded after the last call's sum read them. The sum
+stays in mesh order, so a graphed step equals the eager step, and the
+serial sum, by bits.
 
-What sharding adds is named in the port's trace, on the caller's
-thread: ``vt:shards`` from starting the shards to the last join, and
-``vt:shard_sum`` around the cross-card sum (the copies onto the first
-device, the mesh-order adds, the ``all_reduce``). A shard thread does
-not see the caller's profiler (``torch.autograd._profiler_enabled()``
-reads False there), so ``run_shards`` reads it once and hands it on:
-while the caller profiles, the shards of the k-th distinct device count
-``shard.calls.<k>`` and ``shard.host_us.<k>`` (the host microseconds of
-each shard's call) in the registry, and each call runs in ``vt:shard``,
-which a profiler started over every thread records. A graphed step
-counts the same for each replay (its seed's copy and the launch), and
-besides ``shard.graph_replays.<k>`` (0 for a call that ran eagerly) and
-``shard.graph_captures.<k>``. A replay adds to ``launches.<kernel>``
-what its capture launched; K9's per-bounce queue lengths
-(``k9.queued``) are held for eager calls only. Untraced, a shard reads
-no clock and takes no lock.
+What sharding adds is named in the port's trace: ``vt:shards`` around
+the shard calls and ``vt:shard_sum`` around the cross-card sum (the
+copies onto the first device, the mesh-order adds, the ``all_reduce``).
+``run_shards`` reads once a call whether the profiler records
+(``torch.autograd._profiler_enabled()``). While it does, each shard call
+runs in ``vt:shard`` and counts for the k-th distinct device
+``shard.calls.<k>``, ``shard.host_us.<k>`` (the call's host
+microseconds: a replay's are its seed's copy and the launch) and
+``shard.graph_replays.<k>`` (1 for a replay, 0 for an eager call); a
+capture counts ``shard.graph_captures.<k>``. A replay adds to
+``launches.<kernel>`` what its capture launched; K9's per-bounce queue
+lengths (``k9.queued``) are held for eager calls only. Untraced, the
+loop reads no clock and takes no lock.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -134,46 +126,30 @@ def _device_ctx(dev):
         else contextlib.nullcontext()
 
 
-def _traced_call(fn, i, dev, k, graphed: bool = False):
-    """``fn(i, dev)`` in ``vt:shard``, its host time counted as the k-th
-    distinct device's (while the caller profiles); ``graphed``: a
-    replay."""
-    with torch.autograd.profiler.record_function("vt:shard"):
-        t = time.perf_counter_ns()
-        r = fn(i, dev)
-        us = (time.perf_counter_ns() - t) // 1000
-    profiling.count(f"shard.host_us.{k}", us)
-    profiling.count(f"shard.calls.{k}")
-    profiling.count(f"shard.graph_replays.{k}", int(graphed))
-    return r
-
-
 def run_shards(mesh, fn):
-    """``[fn(i, device) for each mesh entry i]``: each distinct device's
-    entries in order from a host thread of its own (the caller's thread
-    when the mesh has one distinct device). Returns the results in mesh
-    order, after every thread has joined. While the caller profiles,
-    each call is counted as its distinct device's (module doc)."""
-    by_dev: dict = {}
-    for i, d in enumerate(mesh.devices):
-        by_dev.setdefault(d, []).append(i)
-    out = [None] * mesh.size
+    """``[fn(i, device) for each mesh entry i]`` in mesh order, from the
+    caller's thread, a card's call under its device context. While the
+    profiler records, each call runs in ``vt:shard`` and is counted as
+    its distinct device's; ``fn.graphed`` marks the calls as graph
+    replays (module doc)."""
     traced = torch.autograd._profiler_enabled()
-
-    def work(k, dev, idx):
+    if traced:
+        card = {d: k for k, d in enumerate(mesh.distinct)}
+        graphed = int(getattr(fn, "graphed", False))
+    out = []
+    for i, dev in enumerate(mesh.devices):
         with _device_ctx(dev):
-            for i in idx:
-                out[i] = _traced_call(fn, i, dev, k) if traced \
-                    else fn(i, dev)
-
-    if len(by_dev) == 1:
-        work(0, *next(iter(by_dev.items())))
-        return out
-    with ThreadPoolExecutor(len(by_dev)) as ex:
-        futures = [ex.submit(work, k, d, idx)
-                   for k, (d, idx) in enumerate(by_dev.items())]
-        for f in futures:
-            f.result()  # re-raises a shard's error
+            if not traced:
+                out.append(fn(i, dev))
+                continue
+            with torch.autograd.profiler.record_function("vt:shard"):
+                t = time.perf_counter_ns()
+                out.append(fn(i, dev))
+                us = (time.perf_counter_ns() - t) // 1000
+        k = card[dev]
+        profiling.count(f"shard.host_us.{k}", us)
+        profiling.count(f"shard.calls.{k}")
+        profiling.count(f"shard.graph_replays.{k}", graphed)
     return out
 
 
@@ -324,31 +300,27 @@ class _CardGraphs:
 
     def _stage(self, seeds, sun):
         """Write each card's sun, after its stream has waited for the last
-        call's sum; the seeds in pinned host memory for ``_replay``."""
+        call's sum; the seeds in pinned host memory for ``replay``."""
         for d in self.mesh.distinct:
             with torch.cuda.device(d):
                 torch.cuda.current_stream().wait_event(self.read[d])
                 self.sun[d].copy_(sun, non_blocking=True)
         return torch.from_numpy(seeds.astype(np.int64)).pin_memory()
 
-    def _replay(self, i, dev, host):
-        with torch.cuda.device(dev):
-            self.seed[i].copy_(host[i], non_blocking=True)
-            self.graph[i].replay()
-        for name, n in self.launched[i].items():
-            profiling.count(name, n)
-        return self.out[i]
-
     def replay(self, seeds, sun):
         """The entries' radiance for this call's seeds and sun, in mesh
         order: each graph's own output, valid until the next call."""
         host = self._stage(seeds, sun)
-        if not torch.autograd._profiler_enabled():
-            return [self._replay(i, d, host)
-                    for i, d in enumerate(self.mesh.devices)]
-        return [_traced_call(lambda i, d: self._replay(i, d, host), i, d,
-                             self.card[d], graphed=True)
-                for i, d in enumerate(self.mesh.devices)]
+
+        def call(i, dev):
+            self.seed[i].copy_(host[i], non_blocking=True)
+            self.graph[i].replay()
+            for name, n in self.launched[i].items():
+                profiling.count(name, n)
+            return self.out[i]
+
+        call.graphed = True
+        return run_shards(self.mesh, call)
 
     def read_done(self):
         """Mark each card's stream after the sum's reads of the outputs."""

@@ -15,14 +15,13 @@ otherwise it is one shared null context. The port's spans are named
 ``vt:<layer>``.
 
 The counter registry (``count``, ``hold``, ``counts``, ``reset``) keeps
-the port's counts under one lock, so threads that launch kernels
-(``dist/shard.py:run_shards``) lose no increment: every kernel launch
-counts ``launches.<kernel>``, and while the profiler records K9 holds
-each call's per-bounce queue lengths, summed on the host only when the
-registry is read. Inside ``recording()`` a thread's counts go to a dict
-of its own instead, and its holds are dropped: a CUDA graph's capture
-launches nothing, and each replay counts what the capture recorded
-(``dist/shard.py``).
+the port's counts under one lock, so no thread loses an increment:
+every kernel launch counts ``launches.<kernel>``, and while the profiler
+records K9 holds each call's per-bounce queue lengths, summed on the host
+only when the registry is read. Inside ``recording()`` a thread's counts
+go to a dict of its own instead, and its holds are dropped: a CUDA
+graph's capture launches nothing, and each replay counts what the
+capture recorded (``dist/shard.py``).
 """
 
 from __future__ import annotations
