@@ -3961,7 +3961,7 @@ def phase_sunmaps(renderer, cam, dev):
     seeds = np.arange(24, dtype=np.uint32).reshape(8, 3) + 101
     kw = renderer._engine_kw(cam)
     kw.pop("sun_maps", None)
-    args = (*renderer._args(cam), sun, seeds, WIDTH, HEIGHT)
+    args = (*renderer._args(cam, kw["soup"]), sun, seeds, WIDTH, HEIGHT)
     ms = {}
     for turn, m in enumerate((None, maps, maps, None)):
         w, img = _wall_ms_sync(lambda: integrator.render_samples(

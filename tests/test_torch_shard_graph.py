@@ -17,8 +17,10 @@ On a card (every test below ``cuda`` skips without one): a graphed step
 equals the serial mesh-order sum of the same eager ``render_sample``
 calls by bits, on one card repeated four times and on four cards, over
 steps with new seeds, a sun changed between two replays and a new pose
-(a new capture); the step after ``Renderer.apply_edits`` is a new object
-and captures again; a soup step stays eager; the counters read what ran.
+(a new capture); a Renderer's graphed steps run with no host sync
+between them under ``set_sync_debug_mode("error")``, a sun change among
+them, and still equal that sum; the step after ``Renderer.apply_edits``
+is a new object and captures again; a soup step stays eager; the counters read what ran.
 Run there from the repository root:
     python -m pytest tests/test_torch_shard_graph.py -q --noconftest
 """
@@ -459,6 +461,66 @@ def test_graphed_step_equals_the_serial_sum_by_bits(cuda, layout):
             assert g is graphs[-1]
     assert len(graphs) == 2 and graphs[0] is not graphs[1]
     assert len({id(o) for o in graphs[1].out}) == 4  # an output an entry
+
+
+@pytest.mark.parametrize("layout", ["one-card", "four-cards"])
+def test_graphed_steps_without_a_host_sync_equal_the_serial_sum(cuda,
+                                                                layout):
+    """A Renderer's steps at a held pose, warmed past the envelope's last
+    tier and captured, then four replays under sync-debug "error" with
+    the sun changed after the second: nothing on the host waits for the
+    cards, and each step equals the serial mesh-order sum of eager
+    ``render_sample`` calls with its seeds, synchronised, by bits, and the
+    accumulation the sum of the steps since the sun changed."""
+    devices = _cards(cuda, layout)
+    mesh = vmesh.make_mesh(devices=devices)
+    r = _renderer(devices, hf_only=True)
+    for _ in range(7):  # tiers 0, 1, 2 (first uses 0, 1, 4), each captured
+        r.sample(CAM_A, SUN * [1.0, 0.7, 1.0])
+    step = r._dist_step
+    graphs = step.graphs.graphs
+    assert graphs is not None
+    calls = []
+
+    def spy(seeds, *a, **k):
+        total = step(seeds, *a, **k)
+        calls.append((seeds.copy(), total))
+        return total
+
+    r._dist_step = spy
+    plan = [SUN, SUN, SUN * [1.0, 0.4, 1.2], SUN * [1.0, 0.4, 1.2]]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for sun in plan:
+            r.sample(CAM_A, sun)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert step.graphs.graphs is graphs and len(calls) == 4
+    tiles, offs, trgb = r._get_hf()
+    w = r.world
+    env = r._sky_env[1]
+    pos, basis = np.asarray(CAM_A.pos, np.float32), CAM_A.basis()
+    totals = []
+    for (seeds, got), sun in zip(calls, plan):
+        want = None
+        for i, d in enumerate(devices):
+            table, lut, t, rgb = (shard.replicate(mesh, x).on(d)
+                                  for x in (w.table, r.lut, tiles, trgb))
+            part = integrator.render_sample(
+                table, w.root, w.height, lut, pos, basis, _unit(sun).to(d),
+                seeds[i], W, H, hf_mips=t, hf_offsets=offs, terrain_rgb=rgb,
+                hf_sky_env=tuple(shard.replicate(mesh, a).on(d)
+                                 if torch.is_tensor(a) else a for a in env),
+                **KW)
+            torch.cuda.synchronize()
+            want = part if want is None else want + part.to(devices[0])
+        assert torch.equal(got, want)
+        totals.append(want)
+    acc = totals[2].clone()
+    acc += totals[3]
+    assert r.acc.samples == 8 and torch.equal(r.acc.buffer, acc)
 
 
 def test_the_step_after_apply_edits_captures_again(cuda, monkeypatch):

@@ -766,7 +766,9 @@ def render_samples(table, root: int, height: int, lut, cam_pos, cam_basis,
     render_sample calls summed in sequence, bit for bit. With a ``soup``
     the k samples' primaries are ONE k-batched resolve against one set of
     pose bins (``soup_bins``, or bins built here once for all k); with
-    ``hf_sky_env`` one envelope lookup and one resumed walk for all k."""
+    ``hf_sky_env`` one envelope lookup and one resumed walk for all k.
+    ``frame_seeds``: (k, 3) uint32 values, or their int64 tensor on the
+    table's device; the other inputs as ``render_sample``'s."""
     dev = table.device
     with profiling.span("vt:primary"):
         parts = [_primary(cam_pos, cam_basis, s, width_px, height_px, dev)

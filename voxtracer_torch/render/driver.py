@@ -32,6 +32,7 @@ from voxtracer_torch.kernels.integrator import render_sample, render_samples
 from voxtracer_torch.kernels.traverse import leaf_rgb
 from voxtracer_torch.render import checkpoint, film
 from voxtracer_torch.render.accumulator import Accumulator
+from voxtracer_torch.utils import profiling
 from voxtracer_torch.utils.profiling import span, spanned
 from voxtracer_torch.world import boxes
 from voxtracer_torch.world.svo import EMPTY, DeviceSvo, DeviceWorld, upload
@@ -62,6 +63,25 @@ def rotate_sun(sun: np.ndarray, step: float = DAY_STEP) -> np.ndarray:
             + k * np.dot(k, v) * (1 - np.cos(th)))
 
 
+def _staged(x, device: torch.device) -> torch.Tensor:
+    """A new tensor on ``device`` holding the host array or CPU tensor
+    ``x``. On a card it is copied from pinned memory by a copy that does
+    not wait for the stream (PyTorch's caching host allocator keeps the
+    pinned block until the copy has run); on the CPU it is a copy."""
+    t = torch.as_tensor(x)
+    if device.type != "cuda":
+        return t.clone()
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _note(name: str, staged: bool):
+    """While the profiler records: count a sample input ``name`` copied
+    from the host (``inputs.staged.<name>``) or its device copy reused
+    (``inputs.reused.<name>``)."""
+    if torch.autograd._profiler_enabled():
+        profiling.count(f"inputs.{'staged' if staged else 'reused'}.{name}")
+
+
 def _heights(dev):
     """The heightmap worldgen left on ``dev.space`` (exact, or stale after
     edits), or None."""
@@ -85,8 +105,11 @@ class Renderer:
     heightmap (``from_dense``, resumed from a checkpoint), or both
     switches off, cast everything on the SVO. All engines give the
     traversal's first hit, so the radiance is the same. The world table
-    and LUT are uploaded once; per sample only the frame seed crosses
-    from the host.
+    and LUT are uploaded once. A sample's small inputs reach the device
+    without blocking the host (``_staged``): the sun once a sun value,
+    the pose once a pose (a soup's rasterizer reads it on the host
+    instead), the frame seed every sample; so on a card the host enqueues
+    the next sample while the last one runs.
 
     Point edits go through ``apply_edits``: the changed table rows are
     written in place, the soup is patched, and the heightfield engine
@@ -141,6 +164,8 @@ class Renderer:
         self.acc = Accumulator(width, height, self.device)
         self.host_rng = random.Random(seed)
         self._sun_unit = None  # the sun of the current sample (_begin)
+        self._sun_t = None  # (sun key, the unit sun on the device)
+        self._pose_t = None  # (pose key, cam_pos, cam_basis on the device)
         self.update_space(device_svo)
 
     def update_space(self, device_svo):
@@ -508,18 +533,56 @@ class Renderer:
             self._bins_key = key
         return self._bins
 
-    @spanned("vt:begin")
-    def _begin(self, cam: vcam.Camera, sun):
+    def _sun(self, sun):
+        """The unit sun (normalised in float64, then float32) and its
+        (3,) tensor on the device, made once a sun value: a new tensor
+        when the sun changes, never one written in place, since a sample
+        still queued on the card may read the last."""
         sun = np.asarray(sun, np.float64)
         sun_unit = (sun / np.linalg.norm(sun)).astype(np.float32)
+        key = sun_unit.tobytes()
+        staged = self._sun_t is None or self._sun_t[0] != key
+        if staged:
+            self._sun_t = (key, _staged(sun_unit, self.device))
+        _note("sun", staged)
+        return sun_unit, self._sun_t[1]
+
+    @spanned("vt:begin")
+    def _begin(self, cam: vcam.Camera, sun):
+        sun_unit, sun_t = self._sun(sun)
         self.acc.begin_sample(cam.pos, cam.yaw, cam.pitch, sun_unit)
         self._sun_unit = sun_unit
-        return torch.from_numpy(sun_unit).to(self.device)
+        return sun_t
 
-    def _args(self, cam: vcam.Camera):
+    def _seeds(self, k: int | None = None):
+        """The next frame seed drawn from ``host_rng`` (``k`` of them,
+        stacked, when ``k`` is given) as int64 on the device."""
+        if k is None:
+            seeds = vrng.host_frame_seed(self.host_rng)
+        else:
+            seeds = np.stack([vrng.host_frame_seed(self.host_rng)
+                              for _ in range(k)])
+        _note("seed", True)
+        return _staged(seeds.astype(np.int64), self.device)
+
+    def _args(self, cam: vcam.Camera, soup):
+        """``render_sample``'s leading arguments. The pose: with a soup,
+        the host's (the rasterizer reads it there); else ``cam_pos`` and
+        the basis ``camera_basis`` computes on the CPU, on the device,
+        made once a pose (``_pose_key``)."""
         w = self.world
-        return (w.table, w.root, w.height, self.lut,
-                np.asarray(cam.pos, np.float32), cam.basis())
+        if soup is not None:
+            pose = (np.asarray(cam.pos, np.float32), cam.basis())
+        else:
+            key = self._pose_key(cam)
+            staged = self._pose_t is None or self._pose_t[0] != key
+            if staged:
+                self._pose_t = (
+                    key, _staged(np.asarray(cam.pos, np.float32), self.device),
+                    _staged(cam.basis(), self.device))
+            _note("pose", staged)
+            pose = self._pose_t[1:]
+        return (w.table, w.root, w.height, self.lut, *pose)
 
     @spanned("vt:engine_kw")
     def _engine_kw(self, cam: vcam.Camera):
@@ -606,11 +669,12 @@ class Renderer:
                          sun_t, *extra, soup_bins=bins)
             self.acc.add(total, self.mesh.global_size)
             return
-        seed = vrng.host_frame_seed(self.host_rng)
+        seed = self._seeds()
+        kw = self._engine_kw(cam)
         radiance = render_sample(
-            *self._args(cam), sun_t, seed, self.width, self.height,
-            max_bounces=self.max_bounces, fog_steps=self.fog_steps,
-            **self._engine_kw(cam))
+            *self._args(cam, kw["soup"]), sun_t, seed, self.width,
+            self.height, max_bounces=self.max_bounces,
+            fog_steps=self.fog_steps, **kw)
         with span("vt:acc_add"):
             self.acc.add(radiance)
 
@@ -619,12 +683,12 @@ class Renderer:
         """Accumulate k samples traced as one batch (on the Renderer's
         device, with or without ``devices``)."""
         sun_t = self._begin(cam, sun)
-        seeds = np.stack([vrng.host_frame_seed(self.host_rng)
-                          for _ in range(k)])
+        seeds = self._seeds(k)
+        kw = self._engine_kw(cam)
         total = render_samples(
-            *self._args(cam), sun_t, seeds, self.width, self.height,
-            max_bounces=self.max_bounces, fog_steps=self.fog_steps,
-            **self._engine_kw(cam))
+            *self._args(cam, kw["soup"]), sun_t, seeds, self.width,
+            self.height, max_bounces=self.max_bounces,
+            fog_steps=self.fog_steps, **kw)
         with span("vt:acc_add"):
             self.acc.add(total, k)
 
@@ -637,9 +701,7 @@ class Renderer:
         exact). Without a soup (hf-only mode) the frame is the exact
         ``hf_frame_cast``. Returns (H, W, 3) linear radiance, or None when
         the world has neither."""
-        sun = np.asarray(sun, np.float64)
-        sun_t = torch.from_numpy(
-            (sun / np.linalg.norm(sun)).astype(np.float32)).to(self.device)
+        _, sun_t = self._sun(sun)
         soup = self._get_soup()
         if soup is None:
             return self._hf_preview(cam, sun_t)
